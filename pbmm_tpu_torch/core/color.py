@@ -1,0 +1,42 @@
+"""RGB <-> YIQ color constants and the unit-float frame convention.
+
+Counterpart of `pbmm_tpu/core/color.py`: the NTSC matrices of the
+reference fragment shaders (`RGBToYIQ.shader:46-50`,
+`YIQToRGB.shader:51-55`), as float32 numpy constants so both packages
+fold the same scalars into their kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def unit_float(x: torch.Tensor) -> torch.Tensor:
+    """Frames to f32 in [0, 1]: uint8 inputs are scaled by 1/255, other
+    dtypes are cast as-is (the original [0, 1] f32 contract)."""
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) * np.float32(1.0 / 255.0)
+    return x.to(torch.float32)
+
+
+# Rows: Y, I, Q.  `RGBToYIQ.shader:46-50`.
+RGB_TO_YIQ = np.array(
+    [
+        [0.299, 0.587, 0.114],
+        [0.596, -0.274, -0.322],
+        [0.211, -0.523, 0.312],
+    ],
+    dtype=np.float32,
+)
+
+# Rows: R, G, B.  `YIQToRGB.shader:51-55`.  (Not the exact inverse of the
+# above — the reference hardcodes both matrices; both are reproduced.)
+YIQ_TO_RGB = np.array(
+    [
+        [1.0, 0.956, 0.621],
+        [1.0, -0.272, -0.647],
+        [1.0, -1.106, 1.703],
+    ],
+    dtype=np.float32,
+)

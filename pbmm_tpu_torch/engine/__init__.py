@@ -1,0 +1,1 @@
+"""Subpackage of pbmm_tpu_torch (see the package docstring)."""

@@ -1,0 +1,117 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under `pbmm_tpu_torch/csrc/` have a plain C interface; `nvcc`
+compiles them for Hopper (`sm_90a`) into one shared library under
+`build/pbmm_tpu_torch/` at the repository root (git-ignored), at first use
+and again whenever a source is newer than the library.  The library is
+loaded with `ctypes`; each kernel's wrapper passes `data_ptr()`s and the
+current stream and raises on the `cudaError_t` the C function returns.
+
+There is no fallback: a missing `nvcc` or a failed build raises with the
+compiler's output.  No `--use_fast_math` / `-ftz=true`: the phase pass's
+1e-38 guard is subnormal in f32 and must not flush to zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbmm_tpu_torch"
+LIB_NAME = "libpbmm_tpu_torch.so"
+SOURCES = ("row_fft.cu", "colspec_chunk.cu", "rowifft_post.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes.  Every pointer and the stream are
+# c_void_p (a bare Python int would be passed as a 32-bit int).
+SIGNATURES = {
+    # y, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host), n_kept,
+    # batch, hc, w, stream
+    "pbmm_row_fft": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # rows_re, rows_im, prev_re, prev_im, total, m_amp, fs_tw_re, fs_tw_im,
+    # comb_re, comb_im, dft_tw_fwd_re, dft_tw_fwd_im, dft_tw_inv_re,
+    # dft_tw_inv_im, out_re, out_im, new_prev_re, new_prev_im,
+    # t, hc, h, wk, row0, r0, r1, tau2, power, stream
+    "pbmm_colspec_chunk": [_P] * 18 + [_I] * 7 + [_F, _I, _P],
+    # rre, rim, i_plane, q_plane, win, tw_re, tw_im, out_r, out_g, out_b,
+    # plan_src(host), plan_rev(host), n_tiles, taps(host), radius,
+    # yiq_to_rgb(host), t, hr, wk, w, in_h, in_w, yrow0, x0, scale, stream
+    "pbmm_rowifft_post": [_P] * 10 + [_P, _P, _I, _P, _I, _P]
+    + [_I] * 8 + [_F, _P],
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: `nvcc` on PATH, else the toolkit's default
+    location; raises when neither exists."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor at /usr/local/cuda/bin): the "
+        "CUDA kernels of pbmm_tpu_torch cannot be built")
+
+
+def _stale(lib: Path) -> bool:
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in CSRC.glob("*.cu*"))
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if the library is missing or older than a
+    source; returns the library path.  `verbose` adds `-Xptxas -v` (each
+    kernel's registers, shared memory and spills) and prints nvcc's
+    output."""
+    lib = BUILD_DIR / LIB_NAME
+    if not _stale(lib) and not verbose:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC)]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    if verbose:
+        print(f"nvcc build {time.perf_counter() - t0:.1f} s: {' '.join(cmd)}")
+        print(proc.stdout + proc.stderr)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with argtypes
+    and restype set on every entry point."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on a nonzero `cudaError_t` from a launch."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
