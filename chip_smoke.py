@@ -9,21 +9,38 @@ non-zero without the final line:
   0. device: the card's name and power limit (exits without a CUDA card);
   1. build: nvcc compiles the kernels of pbmm_tpu_torch/csrc for sm_90a;
   2. each kernel against its plain PyTorch version on the card, at the
-     1080p main-path shapes, from inputs made with numpy from a seed
-     (spectra: max error / max magnitude < 1e-4; images: max abs < 1e-4);
-  3. end to end on the bench clip (1080p, chunks of 16, shifted noise):
-     magnify_video with no state, then again with the returned state, as
-     a streaming caller does; every kernel's launch count must rise, outputs
-     must be finite in [0, 1], chunks of 8 + 8 must equal one chunk of 16
-     bit for bit, and the first 4 frames must score > 100 dB PSNR against
-     the fp64 numpy oracle;
+     shapes its path gives it, from inputs made with numpy from a seed
+     (spectra: max error / max magnitude < 1e-4; images: max abs < 1e-4;
+     uint8 images: 1 code): kernels 1-3 at 1080p, kernel 4 on (16, 3,
+     1080, 1920) uint8 frames (also bit for bit against the pre stage +
+     kernel 1), kernel 3's u8-chroma / planar_u8 and f32 / planar
+     variants, kernel 7 at the 1080p and 960x540 region shapes;
+  3. end to end, each path run as two chunks with the state threaded,
+     every launch count set to 0 just before the path and read just
+     after (each of its kernels must have launched, and kernel 1 must not
+     on the u8 path):
+     - f32 1080p, the bench clip (chunks of 16, shifted noise): outputs
+       finite in [0, 1], chunks of 8 + 8 equal one chunk of 16 bit for
+       bit, frames 0-3 > 100 dB PSNR against the fp64 numpy oracle;
+     - u8 1080p: planar uint8 in, planar and planar_u8 out (kernels 4,
+       2, 3): 8 + 8 equals 16 bit for bit, planar_u8 equals
+       round(255 planar), planar frames 0-3 > 100 dB against the oracle;
+     - 540p: 960x540 interleaved f32 and planar uint8 in, the two-kernel
+       tail (kernels 1, 2, 7): > 100 dB against the oracle;
+     - stream: a 32-frame 1080p 420jpeg y4m through `stream_magnify`
+       with ingest="u8" (kernels 4, 2, 3), equal to `magnify_video` on
+       the device-decoded chunks;
   4. timing with CUDA events after warm-up (medians): steady-state chunk
-     frames/s, and each kernel beside its plain version;
-  5. with --profile only: torch.profiler over a few steady-state chunks,
-     printing where the device time of a chunk goes (each kernel's share)
-     and the device's idle share with the profiler on.
+     frames/s of each path, each kernel (and kernel 3's new variants)
+     beside its plain version, and the y4m stream's frames/s with the
+     host's parse share;
+  5. with --profile only: torch.profiler over a few steady-state chunks
+     of the f32 1080p, u8 1080p and 540p paths, printing where the device
+     time of a chunk goes (each kernel's share) and the device's idle
+     share with the profiler on.
 
-The line before the last is one JSON object with the kernels' records;
+The line before the last is one JSON object with the kernels' records
+(each kernel's launches are those of the path named beside it);
 the last line is {"ok": true, "device": {...}}.  The script imports
 neither jax nor the JAX package; the oracle modules (numpy only) are
 loaded by file path.
@@ -32,9 +49,12 @@ loaded by file path.
 import argparse
 import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,6 +62,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 H, W, T = 1080, 1920, 16
+H540, W540 = 540, 960  # a frame size outside post_pallas_ok
 SPEC_TOL = 1e-4  # max error / max magnitude, spectra
 IMG_TOL = 1e-4  # max abs error, images in [0, 1]
 
@@ -91,7 +112,12 @@ def spec_err(got, want):
     return num, num / den
 
 
-def profile_chunks(torch, chunk, card, n=5, top=12):
+def psnr_db(got, want):
+    mse = float(np.mean((np.asarray(got, np.float64) - want) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def profile_chunks(torch, chunk, card, what, n=5, top=12):
     """Phase 5: device time per chunk by kernel, and the idle share, from
     torch.profiler over `n` chunks (wall time from CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
@@ -119,10 +145,10 @@ def profile_chunks(torch, chunk, card, n=5, top=12):
         key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
     if busy_ms == 0:
-        log("[5] torch.profiler recorded no device time: shares not "
-            "measured")
+        log(f"[5] {what}: torch.profiler recorded no device time: shares "
+            "not measured")
         return
-    log(f"[5] {card}: per chunk of {T} 1080p frames, mean of {n}: wall "
+    log(f"[5] {card}: {what}, per chunk of {T} frames, mean of {n}: wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
         f"{100 * (1 - busy_ms / wall_ms):.1f} % (profiler on)")
     for e in kernels[:top]:
@@ -144,9 +170,12 @@ def main():
                          "on the card")
     sys.path.insert(0, str(ROOT))
     import pbmm_tpu_torch
+    from pbmm_tpu_torch.core.color import RGB_TO_YIQ
     from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
     from pbmm_tpu_torch.engine import post_fused
-    from pbmm_tpu_torch.engine.pipeline import blur_row_window
+    from pbmm_tpu_torch.engine.pipeline import blur_row_window, preprocess_cl
+    from pbmm_tpu_torch.io import stream, y4m
+    from pbmm_tpu_torch.io.device_decode import ycbcr_planes_to_rgb_planar_u8
     from pbmm_tpu_torch.kernels.build import build, library
     from pbmm_tpu_torch.spectral import fused
     from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
@@ -168,7 +197,7 @@ def main():
     library()
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    # -- 2. kernels vs plain versions at 1080p shapes ----------------------
+    # -- 2. kernels vs plain versions at their paths' shapes ---------------
     cfg = pbmm_tpu_torch.MagnifyConfig().tuned_for_tpu().replace(
         pad_mode="tight")
     geom = geometry_for(H, W, "tight")
@@ -179,6 +208,10 @@ def main():
 
     def dev_t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def dev_u8(shape):
+        return torch.from_numpy(
+            rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
 
     y = dev_t(rng.random((T, geom.pad_h, geom.pad_w)))
     rows_re = dev_t(rng.standard_normal((T, geom.pad_h, wk)))
@@ -191,71 +224,168 @@ def main():
     i_pl = dev_t(rng.uniform(-0.6, 0.6, (T, H, W)))
     q_pl = dev_t(rng.uniform(-0.5, 0.5, (T, H, W)))
     win = hann2d_region(geom, device=dev)
+    u8_frames = dev_u8((T, 3, H, W))
+    luma = tuple(float(c) for c in RGB_TO_YIQ[0])
+    r0, _ = fused.aligned_row_window(geom.y0, geom.y0 + H, geom.pad_h)
+    u8_args = (u8_frames, luma, geom.pad_h, geom.pad_w, geom.y0, geom.x0,
+               r0, True)
+    g540 = geometry_for(H540, W540, "tight")
+    rows540 = blur_row_window(g540, cfg)
+    hr540, wk540 = rows540[1] - rows540[0], hermitian_kept_width(g540.pad_w)
+    s540 = 0.3 * g540.pad_h * g540.pad_w / np.sqrt(g540.pad_w)
+    rre540 = dev_t(s540 * rng.standard_normal((T, hr540, wk540)))
+    rim540 = dev_t(s540 * rng.standard_normal((T, hr540, wk540)))
+    post_args = (rre, rim, i_pl, q_pl, win, cfg, rows[0], H, W, "tight")
+    post_u8_args = (rre, rim, None, None, win, cfg, rows[0], H, W, "tight")
+
+    def both(fn, *a, **k):
+        """(kernel call, plain-version call) of one wrapper."""
+        ref = getattr(fused, fn.__name__ + "_ref", None) or getattr(
+            post_fused, fn.__name__ + "_ref")
+        return (lambda: fn(*a, **k)), (lambda: ref(*a, **k))
 
     calls = {
-        "windowed_row_fft": (
-            lambda: fused.windowed_row_fft(y, geom.pad_h, 0, True),
-            lambda: fused.windowed_row_fft_ref(y, geom.pad_h, 0, True)),
-        "colspec_chunk": (
-            lambda: fused.colspec_chunk(
-                rows_re, rows_im, prev_re, prev_im, cfg, geom.pad_h, 0,
-                out_rows=rows, full_w=geom.pad_w),
-            lambda: fused.colspec_chunk_ref(
-                rows_re, rows_im, prev_re, prev_im, cfg, geom.pad_h, 0,
-                out_rows=rows, full_w=geom.pad_w)),
-        "rowifft_post_fused": (
-            lambda: post_fused.rowifft_post_fused(
-                rre, rim, i_pl, q_pl, win, cfg, rows[0], H, W, "tight",
-                full_w=geom.pad_w),
-            lambda: post_fused.rowifft_post_fused_ref(
-                rre, rim, i_pl, q_pl, win, cfg, rows[0], H, W, "tight",
-                full_w=geom.pad_w)),
+        "windowed_row_fft": both(fused.windowed_row_fft, y, geom.pad_h, 0,
+                                 True),
+        "colspec_chunk": both(fused.colspec_chunk, rows_re, rows_im, prev_re,
+                              prev_im, cfg, geom.pad_h, 0, out_rows=rows,
+                              full_w=geom.pad_w),
+        "rowifft_post_fused": both(post_fused.rowifft_post_fused, *post_args,
+                                   full_w=geom.pad_w),
+        "windowed_row_fft_u8planar": both(fused.windowed_row_fft_u8planar,
+                                          *u8_args),
+        "row_ifft_magnitude": both(fused.row_ifft_magnitude, rre, rim,
+                                   pad_h=geom.pad_h, full_w=geom.pad_w),
+    }
+    variants = {  # kernel 3's new variants and kernel 7 at 540p shapes
+        "rowifft_post_fused[u8, planar_u8]": both(
+            post_fused.rowifft_post_fused, *post_u8_args, full_w=geom.pad_w,
+            rgb_u8=u8_frames, out_layout="planar_u8"),
+        "rowifft_post_fused[f32, planar]": both(
+            post_fused.rowifft_post_fused, *post_args, full_w=geom.pad_w,
+            out_layout="planar"),
+        "row_ifft_magnitude[540p]": both(
+            fused.row_ifft_magnitude, rre540, rim540, pad_h=g540.pad_h,
+            full_w=g540.pad_w),
     }
     records = {}
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain) in {**calls, **variants}.items():
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         torch.cuda.synchronize()
-        if name == "rowifft_post_fused":
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        if got[0].dtype == torch.uint8:
+            err = max(int((g.int() - w.int()).abs().max())
+                      for g, w in zip(got, want))
+            rel, tol, what = err, 1, "max code difference"
+            ok = rel <= tol
+        elif name.startswith("rowifft_post_fused"):
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             rel, tol, what = err, IMG_TOL, "max abs"
+            ok = np.isfinite(rel) and rel < tol
         else:
-            pairs = [(got[k], got[k + 1]) for k in range(0, len(got), 2)]
-            refs = [(want[k], want[k + 1]) for k in range(0, len(want), 2)]
+            if len(got) == 1:  # |z| planes: one real spectrum-scale image
+                pairs, refs = [(got[0], None)], [(want[0], None)]
+            else:
+                pairs = [(got[k], got[k + 1]) for k in range(0, len(got), 2)]
+                refs = [(want[k], want[k + 1])
+                        for k in range(0, len(want), 2)]
             err, rel = 0.0, 0.0
             for (gr, gi), (wr, wi) in zip(pairs, refs):
-                e, r = spec_err([torch.complex(gr, gi)],
-                                [torch.complex(wr, wi)])
+                gz = gr if gi is None else torch.complex(gr, gi)
+                wz = wr if wi is None else torch.complex(wr, wi)
+                e, r = spec_err([gz], [wz])
                 err, rel = max(err, e), max(rel, r)
             tol, what = SPEC_TOL, "max err / max magnitude"
-        ok = np.isfinite(rel) and rel < tol
+            ok = np.isfinite(rel) and rel < tol
         log(f"[2] {name}: {what} {rel:.3e} (bound {tol:g}), max abs "
             f"{err:.3e}, shapes {[tuple(g.shape) for g in got]} "
             f"-> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{rel} >= {tol}")
-        records[name] = {"max_abs_err": err}
+                                 f"{rel} > {tol}")
+        records[name] = {"max_abs_err": float(err)}
+    # Kernel 4's contract: the torch pre stage + kernel 1, bit for bit.
+    k4 = fused.windowed_row_fft_u8planar(*u8_args)
+    pre = preprocess_cl(u8_frames, cfg, want_iq=True)
+    same = torch.equal(k4[0], pre[0]) and torch.equal(k4[1], pre[1])
+    log(f"[2] windowed_row_fft_u8planar == pre stage + windowed_row_fft on "
+        f"the same (16, 3, 1080, 1920) u8 frames: {same}")
+    if not same:
+        raise AssertionError("kernel 4 differs from the pre stage + kernel 1")
+    del k4, pre
 
-    # -- 3. end to end -----------------------------------------------------
+    # -- 3. end to end, path by path -----------------------------------------
+    wrappers = {"windowed_row_fft": fused.windowed_row_fft,
+                "colspec_chunk": fused.colspec_chunk,
+                "rowifft_post_fused": post_fused.rowifft_post_fused,
+                "windowed_row_fft_u8planar": fused.windowed_row_fft_u8planar,
+                "row_ifft_magnitude": fused.row_ifft_magnitude}
+    path_launches = {}
+
+    def run_path(name, must, must_not, fn):
+        """Run fn() with every count at 0; check and record the counts."""
+        for f in wrappers.values():
+            f.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in wrappers.items()}
+        path_launches[name] = got
+        log(f"[3] {name}: launches {got}")
+        if not all(got[k] >= 1 for k in must) or any(got[k] for k in
+                                                    must_not):
+            raise AssertionError(f"{name}: expected launches of {must} and "
+                                 f"none of {must_not}, got {got}")
+        return res
+
+    def two_chunks(frames_d, c):
+        o1, s1 = pbmm_tpu_torch.magnify_video(frames_d, c)
+        o2, s2 = pbmm_tpu_torch.magnify_video(frames_d, c, s1)
+        return o1, s1, o2, s2
+
+    def check_split(frames_d, c, out1, s1, what):
+        oa, sa = pbmm_tpu_torch.magnify_video(frames_d[:8], c)
+        ob, sb = pbmm_tpu_torch.magnify_video(frames_d[8:], c, sa)
+        if not (torch.equal(torch.cat([oa, ob]), out1)
+                and torch.equal(sb.prev_spec_re, s1.prev_spec_re)
+                and torch.equal(sb.prev_spec_im, s1.prev_spec_im)):
+            raise AssertionError(f"{what}: chunks of 8 + 8 differ from one "
+                                 "chunk of 16")
+        log(f"[3] {what}: chunks 8 + 8 equal one chunk of 16 bit for bit "
+            "(frames and state)")
+
+    oracle = load_by_path("_pbmm_oracle_reference",
+                          "pbmm_tpu/oracle/reference.py")
+
+    def vs_oracle(outs, frames01):
+        """PSNR of frames 0-3 of each (name, interleaved output) against
+        the fp64 oracle on `frames01` (interleaved, in [0, 1])."""
+        t0 = time.perf_counter()
+        want = oracle.oracle_magnify_video(frames01[:4], cfg)
+        secs = time.perf_counter() - t0
+        dbs = []
+        for name, got in outs:
+            db = psnr_db(got[:4].double().cpu().numpy(), want)
+            log(f"[3] {name}: PSNR vs the fp64 oracle, frames 0-3: "
+                f"{db:.2f} dB (bound > 100; oracle {secs:.1f} s on the "
+                "host)")
+            if not db > 100:
+                raise AssertionError(f"{name}: PSNR {db} dB <= 100")
+            dbs.append(db)
+        return dbs
+
+    # f32 1080p, the bench clip (the JAX bench's main path)
     base = np.random.default_rng(0).random((H, W, 3)).astype(np.float32)
     frames = np.stack([np.roll(base, shift=i, axis=1) * (0.95 + 0.01 * i)
                        for i in range(T)]).astype(np.float32)
     frames_d = torch.from_numpy(frames).to(dev)
-    wrappers = {"windowed_row_fft": fused.windowed_row_fft,
-                "colspec_chunk": fused.colspec_chunk,
-                "rowifft_post_fused": post_fused.rowifft_post_fused}
-    for fn in wrappers.values():
-        fn.launches = 0
-    out1, s1 = pbmm_tpu_torch.magnify_video(frames_d, cfg)
-    out2, s2 = pbmm_tpu_torch.magnify_video(frames_d, cfg, s1)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    log(f"[3] launches during the two main-path chunks: {launches}")
-    if not all(n >= 1 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never ran: "
-                             f"{launches}")
+    out1, s1, out2, s2 = run_path(
+        "f32 1080p", ("windowed_row_fft", "colspec_chunk",
+                      "rowifft_post_fused"), (),
+        lambda: two_chunks(frames_d, cfg))
+    launches = path_launches["f32 1080p"]
     for name, o in (("chunk 1", out1), ("chunk 2", out2)):
         if tuple(o.shape) != (T, H, W, 3) or o.dtype != torch.float32:
             raise AssertionError(f"{name}: shape {tuple(o.shape)} {o.dtype}")
@@ -266,66 +396,187 @@ def main():
         raise AssertionError(f"state shape {tuple(s2.prev_spec_re.shape)}")
     log(f"[3] outputs {tuple(out1.shape)} finite in [0, 1]; state "
         f"{tuple(s2.prev_spec_re.shape)}, frame_idx {s2.frame_idx}")
-    oa, sa = pbmm_tpu_torch.magnify_video(frames_d[:8], cfg)
-    ob, sb = pbmm_tpu_torch.magnify_video(frames_d[8:], cfg, sa)
-    if not (torch.equal(torch.cat([oa, ob]), out1)
-            and torch.equal(sb.prev_spec_re, s1.prev_spec_re)
-            and torch.equal(sb.prev_spec_im, s1.prev_spec_im)):
-        raise AssertionError("chunks of 8 + 8 differ from one chunk of 16")
-    log("[3] chunks 8 + 8 equal one chunk of 16 bit for bit (frames and "
-        "state)")
-    oracle = load_by_path("_pbmm_oracle_reference",
-                          "pbmm_tpu/oracle/reference.py")
-    t0 = time.perf_counter()
-    want = oracle.oracle_magnify_video(frames[:4], cfg)
-    got = out1[:4].double().cpu().numpy()
-    mse = float(np.mean((got - want) ** 2))
-    psnr = float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
-    log(f"[3] PSNR vs the fp64 oracle, frames 0-3: {psnr:.2f} dB "
-        f"(bound > 100; oracle {time.perf_counter() - t0:.1f} s on the host)")
-    if not psnr > 100:
-        raise AssertionError(f"PSNR {psnr} dB <= 100")
+    check_split(frames_d, cfg, out1, s1, "f32 1080p")
+    psnr, = vs_oracle([("f32 1080p", out1)], frames)
 
-    # -- 4. timing -----------------------------------------------------------
-    state = [s2]
+    # u8 1080p: planar uint8 in, planar and planar_u8 out
+    frames_u8 = np.ascontiguousarray(np.moveaxis(
+        np.round(frames * 255.0).astype(np.uint8), -1, 1))
+    u8_d = torch.from_numpy(frames_u8).to(dev)
+    cfg_pl = cfg.replace(output_layout="planar")
+    cfg_u8 = cfg.replace(output_layout="planar_u8")
+    u8_kernels = ("windowed_row_fft_u8planar", "colspec_chunk",
+                  "rowifft_post_fused")
+    pl1, pls1, pl2, _ = run_path("u8 1080p -> planar", u8_kernels,
+                                 ("windowed_row_fft",),
+                                 lambda: two_chunks(u8_d, cfg_pl))
+    q1, _, q2, _ = run_path("u8 1080p -> planar_u8", u8_kernels,
+                            ("windowed_row_fft",),
+                            lambda: two_chunks(u8_d, cfg_u8))
+    for name, o, dt in (("planar", pl1, torch.float32),
+                        ("planar_u8", q1, torch.uint8)):
+        if tuple(o.shape) != (T, 3, H, W) or o.dtype != dt:
+            raise AssertionError(f"u8 -> {name}: {tuple(o.shape)} {o.dtype}")
+    if not all(torch.equal(q, torch.round(p * 255.0).to(torch.uint8))
+               for q, p in ((q1, pl1), (q2, pl2))):
+        raise AssertionError("planar_u8 differs from round(255 planar)")
+    log("[3] u8 1080p: planar_u8 equals round(255 planar) exactly, both "
+        "chunks")
+    check_split(u8_d, cfg_pl, pl1, pls1, "u8 1080p -> planar")
+    psnr_u8, = vs_oracle([("u8 1080p -> planar", torch.movedim(pl1, 1, -1))],
+                         np.moveaxis(frames_u8, 1, -1) / 255.0)
 
-    def chunk():
-        out, state[0] = pbmm_tpu_torch.magnify_video(frames_d, cfg, state[0])
-        return out
+    # 540p: the two-kernel tail, interleaved f32 and planar u8 in
+    b540 = np.random.default_rng(1).integers(0, 256, (H540, W540, 3),
+                                             dtype=np.uint8)
+    f540_u8 = np.stack([np.roll(b540, shift=i, axis=1) for i in range(T)])
+    f540 = (f540_u8 / 255.0).astype(np.float32)
+    f540_d = torch.from_numpy(f540).to(dev)
+    p540_d = torch.from_numpy(
+        np.ascontiguousarray(np.moveaxis(f540_u8, -1, 1))).to(dev)
+    tail_kernels = ("windowed_row_fft", "colspec_chunk", "row_ifft_magnitude")
+    o540, *_ = run_path("540p f32", tail_kernels, ("rowifft_post_fused",),
+                        lambda: two_chunks(f540_d, cfg))
+    ou540, *_ = run_path("540p u8", tail_kernels, ("rowifft_post_fused",),
+                         lambda: two_chunks(p540_d, cfg))
+    if tuple(o540.shape) != (T, H540, W540, 3):
+        raise AssertionError(f"540p: shape {tuple(o540.shape)}")
+    # f540 is the u8 frames / 255 (to an f32 ulp): one oracle run holds
+    # both inputs.
+    psnr_540, psnr_540u8 = vs_oracle(
+        [("540p f32", o540), ("540p u8", ou540)], f540)
 
-    chunk_ms = time_ms(torch, chunk, reps=10, warmup=2)
-    fps = T / (chunk_ms / 1e3)
-    log(f"[4] {card}: steady-state chunk of {T} 1080p frames "
-        f"{chunk_ms:.3f} ms median of 10 -> {fps:.2f} frames/s, "
-        f"{chunk_ms / T:.4f} ms/frame")
-    for name, (kern, plain) in calls.items():
-        k_ms = time_ms(torch, kern)
-        p_ms = time_ms(torch, plain)
-        records[name].update(ms=k_ms, plain_ms=p_ms)
-        log(f"[4] {card}: {name} {k_ms:.4f} ms, plain PyTorch version "
-            f"{p_ms:.4f} ms (median of 10, chunk of {T} frames)")
+    # stream: a 1080p 420jpeg y4m through stream_magnify(ingest="u8")
+    tmp = tempfile.mkdtemp(prefix="pbmm_smoke_")
+    try:
+        clip = os.path.join(tmp, "clip.y4m")
+        t0 = time.perf_counter()
+        y4m.save_y4m(clip, np.concatenate([frames, frames[::-1]]),
+                     colorspace="420jpeg")
+        log(f"[3] stream: wrote a 32-frame 1080p 420jpeg y4m in "
+            f"{time.perf_counter() - t0:.1f} s")
+        got = run_path("stream u8", u8_kernels, ("windowed_row_fft",),
+                       lambda: list(stream.stream_magnify(
+                           clip, cfg_u8, chunk_frames=T, ingest="u8",
+                           device=dev)))
+        with open(clip, "rb") as f:
+            planes = list(y4m.read_y4m_planes(f, clip))
+        want, st = [], None
+        for i in range(0, len(planes), T):
+            yy, cb, cr = (torch.from_numpy(np.stack(
+                [p[k] for p in planes[i:i + T]])).to(dev) for k in range(3))
+            o, st = pbmm_tpu_torch.magnify_video(
+                ycbcr_planes_to_rgb_planar_u8(yy, cb, cr, H, W), cfg_u8, st)
+            want.append(o.cpu().numpy())
+        if not (len(got) == len(want) == 2 and all(
+                np.array_equal(a, b) for a, b in zip(got, want))):
+            raise AssertionError("stream_magnify differs from magnify_video "
+                                 "on the device-decoded chunks")
+        log("[3] stream: 2 chunks of (16, 3, 1080, 1920) uint8, equal to "
+            "magnify_video on the device-decoded chunks")
+
+        # -- 4. timing -------------------------------------------------------
+        def steady(frames_d, c, what, reps=10):
+            state = [pbmm_tpu_torch.magnify_video(frames_d, c)[1]]
+
+            def chunk():
+                out, state[0] = pbmm_tpu_torch.magnify_video(frames_d, c,
+                                                             state[0])
+                return out
+
+            ms = time_ms(torch, chunk, reps=reps, warmup=2)
+            fps_ = T / (ms / 1e3)
+            log(f"[4] {card}: {what}: steady-state chunk of {T} frames "
+                f"{ms:.3f} ms median of {reps} -> {fps_:.2f} frames/s, "
+                f"{ms / T:.4f} ms/frame")
+            return chunk, ms, fps_
+
+        chunk, chunk_ms, fps = steady(frames_d, cfg, "f32 1080p")
+        chunk_u8, ms_u8, fps_u8 = steady(u8_d, cfg_u8,
+                                         "u8 1080p -> planar_u8")
+        _, ms_pl, fps_pl = steady(u8_d, cfg_pl, "u8 1080p -> planar")
+        chunk_540, ms_540, fps_540 = steady(f540_d, cfg, "540p f32")
+        for name, (kern, plain) in {**calls, **variants}.items():
+            k_ms = time_ms(torch, kern)
+            p_ms = time_ms(torch, plain, reps=5, warmup=1)
+            records[name].update(ms=k_ms, plain_ms=p_ms)
+            log(f"[4] {card}: {name} {k_ms:.4f} ms, plain PyTorch version "
+                f"{p_ms:.4f} ms (medians, chunk of {T} frames)")
+        # The y4m stream end to end, and the host's parse alone.
+        list(stream.stream_magnify(clip, cfg_u8, chunk_frames=T,
+                                   ingest="u8", device=dev))
+        t0 = time.perf_counter()
+        n = sum(c.shape[0] for c in stream.stream_magnify(
+            clip, cfg_u8, chunk_frames=T, ingest="u8", device=dev))
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(clip, "rb") as f:
+            for _ in y4m.read_y4m_planes(f, clip):
+                pass
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in stream._open_chunk_source(clip, T, planar_u8=True,
+                                           device=dev):
+            pass
+        torch.cuda.synchronize()
+        source_s = time.perf_counter() - t0
+        fps_stream = n / stream_s
+        log(f"[4] {card}: y4m stream (32 1080p 420jpeg frames, u8 ingest, "
+            f"planar_u8 out, host clock): {stream_s:.3f} s -> "
+            f"{fps_stream:.2f} frames/s; the host's y4m parse alone "
+            f"{parse_s:.3f} s, {100 * parse_s / stream_s:.1f} % of it; the "
+            f"chunk source (parse, batching, host -> device, decode) "
+            f"{source_s:.3f} s, {100 * source_s / stream_s:.1f} %; "
+            "magnify and device -> host the rest")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # -- 5. where the time goes (opt-in) -------------------------------------
     if args.profile:
-        profile_chunks(torch, chunk, card)
+        profile_chunks(torch, chunk, card, "f32 1080p")
+        profile_chunks(torch, chunk_u8, card, "u8 1080p -> planar_u8")
+        profile_chunks(torch, chunk_540, card, "540p f32")
 
     sources = {
         "windowed_row_fft": ("pbmm_tpu_torch/csrc/row_fft.cu",
-                             "pbmm_tpu/spectral/fused.py:79"),
+                             "pbmm_tpu/spectral/fused.py:79", "f32 1080p"),
         "colspec_chunk": ("pbmm_tpu_torch/csrc/colspec_chunk.cu",
-                          "pbmm_tpu/spectral/fused.py:1310"),
+                          "pbmm_tpu/spectral/fused.py:1310", "f32 1080p"),
         "rowifft_post_fused": ("pbmm_tpu_torch/csrc/rowifft_post.cu",
-                               "pbmm_tpu/engine/post_pallas.py:198"),
+                               "pbmm_tpu/engine/post_pallas.py:198",
+                               "f32 1080p"),
+        "windowed_row_fft_u8planar": ("pbmm_tpu_torch/csrc/row_fft.cu",
+                                      "pbmm_tpu/spectral/fused.py:168",
+                                      "u8 1080p -> planar_u8"),
+        "row_ifft_magnitude": ("pbmm_tpu_torch/csrc/row_ifft.cu",
+                               "pbmm_tpu/spectral/fused.py:1236",
+                               "540p f32"),
     }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": records[name]["max_abs_err"],
-         "ms": records[name]["ms"], "plain_ms": records[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()
-    ]
-    log(json.dumps({"kernels": kernels, "fps_1080p": fps,
-                    "chunk_ms": chunk_ms, "psnr_vs_oracle_db": psnr}))
+    kernels = []
+    for name, (src, rep, path) in sources.items():
+        rec = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+               "launches": path_launches[path][name], "path": path,
+               **records[name]}
+        extra = {k: records[k] for k in variants if k.startswith(name + "[")}
+        if extra:
+            rec["variants"] = extra
+        kernels.append(rec)
+    log(json.dumps({
+        "kernels": kernels, "fps_1080p": fps, "chunk_ms": chunk_ms,
+        "psnr_vs_oracle_db": psnr,
+        "paths": {
+            "u8 1080p -> planar_u8": {"fps": fps_u8, "chunk_ms": ms_u8},
+            "u8 1080p -> planar": {"fps": fps_pl, "chunk_ms": ms_pl,
+                                   "psnr_vs_oracle_db": psnr_u8},
+            "540p f32": {"fps": fps_540, "chunk_ms": ms_540,
+                         "psnr_vs_oracle_db": psnr_540},
+            "540p u8": {"psnr_vs_oracle_db": psnr_540u8},
+            "stream u8": {"fps": fps_stream, "seconds": stream_s,
+                          "host_parse_share": parse_s / stream_s,
+                          "chunk_source_share": source_s / stream_s},
+        },
+        "launches_by_path": path_launches}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

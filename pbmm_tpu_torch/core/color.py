@@ -40,3 +40,29 @@ YIQ_TO_RGB = np.array(
     ],
     dtype=np.float32,
 )
+
+
+def channel_mix(c0: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                row) -> torch.Tensor:
+    """row[0] c0 + row[1] c1 + row[2] c2 as f32 multiplies and adds in
+    that order: the JAX package's order for every colour-matrix row,
+    which the CUDA kernels reproduce bit for bit."""
+    return c0 * float(row[0]) + c1 * float(row[1]) + c2 * float(row[2])
+
+
+def _apply_3x3(x: torch.Tensor, m: np.ndarray, axis: int = -1
+               ) -> torch.Tensor:
+    """A 3x3 channel transform along `axis`, one `channel_mix` per row."""
+    chans = [x.select(axis, k) for k in range(3)]
+    rows = [channel_mix(*chans, m[d]) for d in range(3)]
+    return torch.stack(rows, dim=axis if axis >= 0 else x.ndim + axis)
+
+
+def yiq_to_rgb(yiq: torch.Tensor, saturate: bool = True,
+               axis: int = -1) -> torch.Tensor:
+    """YIQ -> RGB along the channel `axis`; `saturate` applies the
+    reference's [0, 1] clamp after the matrix (`YIQToRGB.shader:76`)."""
+    rgb = _apply_3x3(yiq, YIQ_TO_RGB, axis)
+    if saturate:
+        rgb = torch.clamp(rgb, 0.0, 1.0)
+    return rgb

@@ -2,9 +2,10 @@
 
 Counterpart of `pbmm_tpu/core/window.py` for what the main path uses:
 `Geometry`/`geometry_for` (pad sizes and centre offsets), `blur_taps`
-(the reference's bilinear 5-tap blur as discrete taps) and
-`hann2d_region` (the padded-frame Hann window on the crop region, which
-windows the original chroma in the post kernel).
+(the reference's bilinear 5-tap blur as discrete taps), `hann2d_region`
+(the padded-frame Hann window on the crop region, which windows the
+original chroma in the post stage) and the blur of the two-kernel tail
+(`gaussian_blur5`, `blur_then_crop`, torch ops).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 class Geometry(NamedTuple):
@@ -85,3 +87,45 @@ def blur_taps(blur_size: float = 0.5) -> Tuple[float, ...]:
             taps[radius + sign * lo] += w * (1.0 - frac)
             taps[radius + sign * (lo + 1)] += w * frac
     return tuple(float(t) for t in taps)
+
+
+def _blur_axis(img: torch.Tensor, taps: Tuple[float, ...],
+               axis: int) -> torch.Tensor:
+    """A symmetric 1D kernel along `axis` (-1 or -2) with edge-replicate
+    padding (the clamp wrap mode of the reference's render textures)."""
+    radius = (len(taps) - 1) // 2
+    pad = (radius, radius, 0, 0) if axis == -1 else (0, 0, radius, radius)
+    padded = F.pad(img.reshape((-1,) + tuple(img.shape[-2:])), pad,
+                   mode="replicate")
+    padded = padded.reshape(tuple(img.shape[:-2]) + tuple(padded.shape[1:]))
+    n = img.shape[axis]
+    out = None
+    for k, t in enumerate(taps):
+        term = padded.narrow(axis, k, n) * t
+        out = term if out is None else out + term
+    return out
+
+
+def gaussian_blur5(img: torch.Tensor, blur_size: float = 0.5
+                   ) -> torch.Tensor:
+    """Separable blur over the last two axes, horizontal then vertical
+    like the reference (`MotionMagnificationProcessor.cs:423-433`)."""
+    taps = blur_taps(blur_size)
+    return _blur_axis(_blur_axis(img, taps, -1), taps, -2)
+
+
+def blur_then_crop(img: torch.Tensor, geom: Geometry,
+                   blur_size: float = 0.5) -> torch.Tensor:
+    """`crop(gaussian_blur5(img))` computed on the crop region plus its
+    blur halo only: bit-identical, since each kept pixel reads at most
+    `radius` texels away, and where the halo is clipped the sub-region's
+    edge is the padded image's edge, which edge-replicate reproduces."""
+    radius = (len(blur_taps(blur_size)) - 1) // 2
+    hy0 = min(radius, geom.y0)
+    hx0 = min(radius, geom.x0)
+    hy1 = min(radius, geom.pad_h - geom.y0 - geom.in_h)
+    hx1 = min(radius, geom.pad_w - geom.x0 - geom.in_w)
+    sub = img[..., geom.y0 - hy0:geom.y0 + geom.in_h + hy1,
+              geom.x0 - hx0:geom.x0 + geom.in_w + hx1]
+    sub = gaussian_blur5(sub, blur_size)
+    return sub[..., hy0:hy0 + geom.in_h, hx0:hx0 + geom.in_w]

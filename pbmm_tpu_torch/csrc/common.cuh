@@ -49,19 +49,21 @@ __device__ __forceinline__ void pbmm_radix2_stage(
     const float ti = __ldg(tw_im + i1);
     const float xr = re[a0], xi = im[a0];
     const float ur = re[a1], ui = im[a1];
+    // Products and sums round separately (no contraction into FMA), so
+    // every kernel that inlines this stage computes the same bits.
     if (!inverse) {
-      const float br = xr - ur, bi = xi - ui;
-      re[a0] = xr + ur;
-      im[a0] = xi + ui;
-      re[a1] = br * tr - bi * ti;
-      im[a1] = br * ti + bi * tr;
+      const float br = __fsub_rn(xr, ur), bi = __fsub_rn(xi, ui);
+      re[a0] = __fadd_rn(xr, ur);
+      im[a0] = __fadd_rn(xi, ui);
+      re[a1] = __fsub_rn(__fmul_rn(br, tr), __fmul_rn(bi, ti));
+      im[a1] = __fadd_rn(__fmul_rn(br, ti), __fmul_rn(bi, tr));
     } else {
-      const float zr = ur * tr - ui * ti;
-      const float zi = ur * ti + ui * tr;
-      re[a0] = xr + zr;
-      im[a0] = xi + zi;
-      re[a1] = xr - zr;
-      im[a1] = xi - zi;
+      const float zr = __fsub_rn(__fmul_rn(ur, tr), __fmul_rn(ui, ti));
+      const float zi = __fadd_rn(__fmul_rn(ur, ti), __fmul_rn(ui, tr));
+      re[a0] = __fadd_rn(xr, zr);
+      im[a0] = __fadd_rn(xi, zi);
+      re[a1] = __fsub_rn(xr, zr);
+      im[a1] = __fsub_rn(xi, zi);
     }
   }
 }
@@ -81,4 +83,70 @@ __device__ __forceinline__ void pbmm_radix2(
                       tw_re + s * n, tw_im + s * n, inverse);
     __syncthreads();
   }
+}
+
+// Full-layout tile index of each kept 128-lane tile (passed by value).
+struct PbmmKeptTiles {
+  int tile[PBMM_MAX_TILES];
+};
+
+// Static Hermitian rebuild plan, per full 128-lane tile: the kept tile
+// position feeding it, and 1 where it is conj(lane reversal) of that
+// tile (spectral/hermitian.py::reconstruction_plan; identity when the
+// lanes are not the kept half).  Passed by value.
+struct PbmmLanePlan {
+  int src[PBMM_MAX_TILES];
+  int rev[PBMM_MAX_TILES];
+};
+
+// The row FFT and kept-tile store shared by kernels 1 and 4: the caller
+// has written one windowed real row of w values into re (and zeros into
+// im) in shared memory; the forward DIF leaves it bit-reversed, and only
+// the n_kept kept tiles go to dst_re/dst_im (n_kept * 128 values each).
+__device__ __forceinline__ void pbmm_row_fft_store(
+    float* re, float* im, int w, const float* __restrict__ tw_re,
+    const float* __restrict__ tw_im, const PbmmKeptTiles& kept, int n_kept,
+    float* __restrict__ dst_re, float* __restrict__ dst_im) {
+  __syncthreads();
+  pbmm_radix2(re, im, w, 1, 1, 0, 0, 1, tw_re, tw_im, false);
+  const int wk = n_kept * PBMM_LANE;
+  for (int k = threadIdx.x; k < wk; k += blockDim.x) {
+    const int p = kept.tile[k / PBMM_LANE] * PBMM_LANE + (k % PBMM_LANE);
+    dst_re[k] = re[p];
+    dst_im[k] = im[p];
+  }
+}
+
+// The load -> rebuild -> row IFFT -> |z| step shared by kernels 3 and 7:
+// one row of wk bit-reversed kept lanes (src_re/src_im) is rebuilt to w
+// lanes in xre/xim (shared memory, w floats each) by the plan, taken to
+// natural order by the DIT inverse, and |z| * scale is written to out (w
+// values, shared or device memory).  Ends synchronised, so xre/xim can
+// take the next row.
+__device__ __forceinline__ void pbmm_row_ifft_mag(
+    const float* __restrict__ src_re, const float* __restrict__ src_im,
+    const PbmmLanePlan& plan, int w, const float* __restrict__ tw_re,
+    const float* __restrict__ tw_im, float* xre, float* xim, float* out,
+    float scale) {
+  for (int p = threadIdx.x; p < w; p += blockDim.x) {
+    const int tile = p / PBMM_LANE, l = p % PBMM_LANE;
+    const int kp = plan.src[tile];
+    if (plan.rev[tile]) {
+      const int g = kp * PBMM_LANE + (PBMM_LANE - 1 - l);
+      xre[p] = src_re[g];
+      xim[p] = -src_im[g];
+    } else {
+      const int g = kp * PBMM_LANE + l;
+      xre[p] = src_re[g];
+      xim[p] = src_im[g];
+    }
+  }
+  __syncthreads();
+  pbmm_radix2(xre, xim, w, 1, 1, 0, 0, 1, tw_re, tw_im, true);
+  for (int p = threadIdx.x; p < w; p += blockDim.x) {
+    const float a = xre[p], b = xim[p];
+    out[p] = __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b))),
+                       scale);
+  }
+  __syncthreads();
 }

@@ -1,21 +1,33 @@
-// Kernel 3 of the main path: Hermitian rebuild + row IFFT + |z| + blur +
-// crop + chroma combine + YIQ->RGB, straight to three RGB planes.
+// Kernel 3: Hermitian rebuild + row IFFT + |z| + blur + crop + chroma
+// combine + YIQ->RGB, straight to the output layout.
 //
 // Replaces pbmm_tpu/engine/post_pallas.py:198 rowifft_post_fused (the
 // Pallas kernel launched at :382, with the row transform of
 // spectral/fused.py:1532 make_row_ifft_block and the rebuild of :1182
-// _rebuild_kept_lanes), out_layout "tuple3", f32 I/Q planes, magnitude
-// reconstruction, no window compensation or YIQ gains.
+// _rebuild_kept_lanes), with magnitude reconstruction and no window
+// compensation or YIQ gains.  Both chroma sources and all three output
+// layouts of the JAX kernel are served, as template parameters:
+//   U8 = false: the original I/Q come as (T, H, W) f32 planes;
+//   U8 = true:  they are formed here from the (T, 3, H, W) uint8 source
+//               frames, (r c0 + g c1 + b c2) * window with the 1/255
+//               folded into c (post_pallas.py:319-331);
+//   LAYOUT 0 "tuple3":    three (T, H, W) f32 planes;
+//   LAYOUT 1 "planar":    one (T, 3, H, W) f32 array;
+//   LAYOUT 2 "planar_u8": one (T, 3, H, W) uint8 array, rint(255 x)
+//                         (round half to even, as jnp.round and
+//                         torch.round; the value is clipped to [0, 1]).
 //
-// Per region row: the missing 128-lane tiles are rebuilt from the kept
-// ones (tile t = conj(lane reversal of its source tile), the static plan
-// of spectral/hermitian.py::reconstruction_plan), a radix-2 DIT inverse
-// takes the bit-reversed lanes to natural order, and |z| / (pad_h * W) is
-// kept.  The blur is the reference's 5-tap kernel, horizontal taps first
-// (wrapping around the padded width exactly as pltpu.roll does; the crop
-// offset x0 exceeds the radius, so the wrap never reaches the output),
-// then vertical; the crop, the windowed original I/Q and the RGB matrix
-// with its [0, 1] clip follow.
+// Per region row: pbmm_row_ifft_mag (common.cuh, shared with kernel 7)
+// rebuilds the missing 128-lane tiles by the static plan, takes the
+// bit-reversed lanes to natural order with a radix-2 DIT inverse, and
+// keeps |z| / (pad_h * W).  The blur is the reference's 5-tap kernel,
+// horizontal taps first (wrapping around the padded width exactly as
+// pltpu.roll does; the crop offset x0 exceeds the radius, so the wrap
+// never reaches the output), then vertical; the crop, the windowed
+// original I/Q and the RGB matrix with its [0, 1] clip follow.  The
+// epilogue rounds every product and sum separately (__fmul_rn /
+// __fadd_rn) in the plain version's order, so each layout computes the
+// same value: "planar_u8" is exactly rint(255 * "planar").
 //
 // The TPU kernel's two-block halo and rolling scratch exist for Mosaic's
 // (8, 128) tiling.  Here one block owns 8 output rows of one frame and
@@ -24,9 +36,11 @@
 //
 // What bounds it on an H100: each output row reads ~1.5 region rows of
 // 2 x Wk f32 (the halo is read and transformed again by the neighbouring
-// block) and I/Q/window rows, and writes 3 RGB rows: ~28 KB per output
-// row at 1080p; the transform costs 5 W log2(W) flops per region row.
-// Simple and right first: rows are transformed one at a time.
+// block) and the chroma (8 bytes of f32 I/Q or 3 bytes of u8 per pixel),
+// and writes 12 (f32) or 3 (u8) bytes per pixel: ~28 KB per output row
+// at 1080p with f32 I/Q in and out; the transform costs 5 W log2(W)
+// flops per region row.  Simple and right first: rows are transformed one
+// at a time.
 
 #include "common.cuh"
 
@@ -34,20 +48,21 @@
 #define PP_MAXR 4      // largest blur radius (9 taps)
 
 struct PostParams {
-  int src[PBMM_MAX_TILES];  // kept tile position feeding each full tile
-  int rev[PBMM_MAX_TILES];  // 1: conj(lane reversal) of that tile
+  PbmmLanePlan plan;
   float taps[2 * PP_MAXR + 1];
-  float m[9];  // YIQ -> RGB, row-major
+  float m[9];    // YIQ -> RGB, row-major
+  float iq[6];   // I and Q rows of RGB -> YIQ times 1/255 (u8 chroma)
 };
 
+template <bool U8, int LAYOUT>
 __global__ void rowifft_post_kernel(
     const float* __restrict__ rre, const float* __restrict__ rim,
     const float* __restrict__ i_plane, const float* __restrict__ q_plane,
-    const float* __restrict__ win, const float* __restrict__ tw_re,
-    const float* __restrict__ tw_im, float* __restrict__ out_r,
-    float* __restrict__ out_g, float* __restrict__ out_b, PostParams prm,
-    int radius, int hr, int wk, int w, int in_h, int in_w, int yrow0,
-    int x0, float scale) {
+    const unsigned char* __restrict__ rgb_u8, const float* __restrict__ win,
+    const float* __restrict__ tw_re, const float* __restrict__ tw_im,
+    void* __restrict__ out0, void* __restrict__ out1,
+    void* __restrict__ out2, PostParams prm, int radius, int hr, int wk,
+    int w, int in_h, int in_w, int yrow0, int x0, float scale) {
   extern __shared__ float smem[];
   float* xre = smem;
   float* xim = smem + w;
@@ -60,81 +75,132 @@ __global__ void rowifft_post_kernel(
 
   for (int lr = 0; lr < nrows; ++lr) {
     const size_t rbase = ((size_t)f * hr + reg0 + lr) * wk;
-    for (int p = threadIdx.x; p < w; p += blockDim.x) {
-      const int tile = p / PBMM_LANE, l = p % PBMM_LANE;
-      const int kp = prm.src[tile];
-      if (prm.rev[tile]) {
-        const size_t g = rbase + kp * PBMM_LANE + (PBMM_LANE - 1 - l);
-        xre[p] = rre[g];
-        xim[p] = -rim[g];
-      } else {
-        const size_t g = rbase + kp * PBMM_LANE + l;
-        xre[p] = rre[g];
-        xim[p] = rim[g];
-      }
-    }
-    __syncthreads();
-    pbmm_radix2(xre, xim, w, 1, 1, 0, 0, 1, tw_re, tw_im, true);
-    for (int p = threadIdx.x; p < w; p += blockDim.x) {
-      const float a = xre[p], b = xim[p];
-      mag[lr * w + p] = sqrtf(a * a + b * b) * scale;
-    }
-    __syncthreads();
+    pbmm_row_ifft_mag(rre + rbase, rim + rbase, prm.plan, w, tw_re, tw_im,
+                      xre, xim, mag + lr * w, scale);
   }
 
+  const size_t plane = (size_t)in_h * in_w;
   for (int e = threadIdx.x; e < ny * in_w; e += blockDim.x) {
     const int yl = e / in_w, x = e % in_w;
     const int c = x0 + x;
     float vb = 0.0f;
     for (int ky = 0; ky <= 2 * radius; ++ky) {
       const float* row = mag + (yl + ky) * w;
-      float hb = row[c] * prm.taps[radius];
+      float hb = __fmul_rn(row[c], prm.taps[radius]);
       for (int k = 1; k <= radius; ++k) {
-        hb = hb + (row[(c - k + w) % w] * prm.taps[radius - k] +
-                   row[(c + k) % w] * prm.taps[radius + k]);
+        hb = __fadd_rn(hb, __fadd_rn(
+                               __fmul_rn(row[(c - k + w) % w],
+                                         prm.taps[radius - k]),
+                               __fmul_rn(row[(c + k) % w],
+                                         prm.taps[radius + k])));
       }
-      vb = ky == 0 ? hb * prm.taps[0] : vb + hb * prm.taps[ky];
+      const float t = __fmul_rn(hb, prm.taps[ky]);
+      vb = ky == 0 ? t : __fadd_rn(vb, t);
     }
-    const size_t o = ((size_t)f * in_h + y_first + yl) * in_w + x;
-    const float wn = win[(size_t)(y_first + yl) * in_w + x];
-    const float iw = i_plane[o] * wn;
-    const float qw = q_plane[o] * wn;
-    float* outs[3] = {out_r, out_g, out_b};
+    const size_t pix = (size_t)(y_first + yl) * in_w + x;
+    const size_t o = (size_t)f * plane + pix;
+    const float wn = win[pix];
+    float iw, qw;
+    if (U8) {
+      const unsigned char* src = rgb_u8 + (size_t)f * 3 * plane + pix;
+      const float ru = (float)src[0];
+      const float gu = (float)src[plane];
+      const float bu = (float)src[2 * plane];
+      iw = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(ru, prm.iq[0]),
+                                         __fmul_rn(gu, prm.iq[1])),
+                               __fmul_rn(bu, prm.iq[2])),
+                     wn);
+      qw = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(ru, prm.iq[3]),
+                                         __fmul_rn(gu, prm.iq[4])),
+                               __fmul_rn(bu, prm.iq[5])),
+                     wn);
+    } else {
+      iw = __fmul_rn(i_plane[o], wn);
+      qw = __fmul_rn(q_plane[o], wn);
+    }
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const float v = vb * prm.m[3 * d] + iw * prm.m[3 * d + 1] +
-                      qw * prm.m[3 * d + 2];
-      outs[d][o] = fminf(fmaxf(v, 0.0f), 1.0f);
+      const float v = __fadd_rn(__fadd_rn(__fmul_rn(vb, prm.m[3 * d]),
+                                          __fmul_rn(iw, prm.m[3 * d + 1])),
+                                __fmul_rn(qw, prm.m[3 * d + 2]));
+      const float cl = fminf(fmaxf(v, 0.0f), 1.0f);
+      if (LAYOUT == 0) {
+        float* outs[3] = {(float*)out0, (float*)out1, (float*)out2};
+        outs[d][o] = cl;
+      } else {
+        const size_t po = ((size_t)f * 3 + d) * plane + pix;
+        if (LAYOUT == 1)
+          ((float*)out0)[po] = cl;
+        else
+          ((unsigned char*)out0)[po] =
+              (unsigned char)rintf(__fmul_rn(cl, 255.0f));
+      }
     }
   }
 }
 
+template <bool U8, int LAYOUT>
+static cudaError_t launch_post(dim3 grid, size_t smem, cudaStream_t stream,
+                               const float* rre, const float* rim,
+                               const float* i_plane, const float* q_plane,
+                               const unsigned char* rgb_u8, const float* win,
+                               const float* tw_re, const float* tw_im,
+                               void* out0, void* out1, void* out2,
+                               const PostParams& prm, int radius, int hr,
+                               int wk, int w, int in_h, int in_w, int yrow0,
+                               int x0, float scale) {
+  cudaError_t err = pbmm_smem_opt_in(rowifft_post_kernel<U8, LAYOUT>, smem);
+  if (err != cudaSuccess) return err;
+  rowifft_post_kernel<U8, LAYOUT><<<grid, 512, smem, stream>>>(
+      rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
+      out2, prm, radius, hr, wk, w, in_h, in_w, yrow0, x0, scale);
+  return cudaGetLastError();
+}
+
+// layout: 0 tuple3 (out0..2 = R, G, B planes), 1 planar f32, 2 planar
+// uint8 (out0 only).  rgb_u8 non-null selects the u8 chroma source
+// (i_plane/q_plane are then unused).
 extern "C" int pbmm_rowifft_post(
     const float* rre, const float* rim, const float* i_plane,
-    const float* q_plane, const float* win, const float* tw_re,
-    const float* tw_im, float* out_r, float* out_g, float* out_b,
-    const int* plan_src, const int* plan_rev, int n_tiles, const float* taps,
-    int radius, const float* yiq_to_rgb, int t, int hr, int wk, int w,
-    int in_h, int in_w, int yrow0, int x0, float scale, void* stream) {
+    const float* q_plane, const unsigned char* rgb_u8, const float* win,
+    const float* tw_re, const float* tw_im, void* out0, void* out1,
+    void* out2, const int* plan_src, const int* plan_rev, int n_tiles,
+    const float* taps, int radius, const float* yiq_to_rgb,
+    const float* iq_u8, int layout, int t, int hr, int wk, int w, int in_h,
+    int in_w, int yrow0, int x0, float scale, void* stream) {
+  const bool u8 = rgb_u8 != nullptr;
   if (t < 1 || n_tiles < 1 || n_tiles > PBMM_MAX_TILES ||
       n_tiles * PBMM_LANE != w || radius < 0 || radius > PP_MAXR ||
       yrow0 - radius < 0 || yrow0 + in_h + radius > hr || x0 < radius ||
-      x0 + in_w + radius > w)
+      x0 + in_w + radius > w || layout < 0 || layout > 2 ||
+      (!u8 && (i_plane == nullptr || q_plane == nullptr)) ||
+      out0 == nullptr || (layout == 0 && (out1 == nullptr || out2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   PostParams prm;
   for (int i = 0; i < n_tiles; ++i) {
-    prm.src[i] = plan_src[i];
-    prm.rev[i] = plan_rev[i];
+    prm.plan.src[i] = plan_src[i];
+    prm.plan.rev[i] = plan_rev[i];
   }
   for (int i = 0; i <= 2 * radius; ++i) prm.taps[i] = taps[i];
   for (int i = 0; i < 9; ++i) prm.m[i] = yiq_to_rgb[i];
+  for (int i = 0; i < 6; ++i) prm.iq[i] = iq_u8[i];
   const size_t smem =
       (2 + PP_OB + 2 * (size_t)radius) * (size_t)w * sizeof(float);
-  cudaError_t err = pbmm_smem_opt_in(rowifft_post_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((in_h + PP_OB - 1) / PP_OB, t);
-  rowifft_post_kernel<<<grid, 512, smem, (cudaStream_t)stream>>>(
-      rre, rim, i_plane, q_plane, win, tw_re, tw_im, out_r, out_g, out_b,
-      prm, radius, hr, wk, w, in_h, in_w, yrow0, x0, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define PP_LAUNCH(U, L)                                                     \
+  launch_post<U, L>(grid, smem, s, rre, rim, i_plane, q_plane, rgb_u8, win, \
+                    tw_re, tw_im, out0, out1, out2, prm, radius, hr, wk, w, \
+                    in_h, in_w, yrow0, x0, scale)
+  cudaError_t err;
+  switch (layout + 3 * (int)u8) {
+    case 0: err = PP_LAUNCH(false, 0); break;
+    case 1: err = PP_LAUNCH(false, 1); break;
+    case 2: err = PP_LAUNCH(false, 2); break;
+    case 3: err = PP_LAUNCH(true, 0); break;
+    case 4: err = PP_LAUNCH(true, 1); break;
+    default: err = PP_LAUNCH(true, 2); break;
+  }
+#undef PP_LAUNCH
+  return (int)err;
 }

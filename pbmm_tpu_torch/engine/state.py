@@ -6,10 +6,14 @@ leaves in the same layout and shapes — four-step rows x kept bit-reversed
 lanes, `prev_spec_*` (1, 1152, 1152) at 1080p tight — so a stream started
 by one package resumes in the other, and states compare element by
 element.  The numpy side uses the keys of the JAX package's checkpoint
-files (`pbmm_tpu/engine/state.py::save_state`).
+files, and `save_state` / `load_state` read and write those .npz files
+(`pbmm_tpu/engine/state.py`), so a checkpoint written by either package
+resumes in the other.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -58,3 +62,19 @@ def state_from_numpy(state, device=None) -> VideoState:
         TemporalState(ten("lp_fast"), ten("lp_slow")),
         int(np.asarray(leaves["frame_idx"])),
     )
+
+
+def save_state(state: VideoState, path: str) -> None:
+    """Write the state as a checkpoint .npz, atomically: a kill mid-save
+    leaves the previous complete checkpoint in place (the resume loop
+    depends on this)."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **state_to_numpy(state))
+    os.replace(tmp, path)
+
+
+def load_state(path: str, device=None) -> VideoState:
+    """A checkpoint .npz (of either package) as a `VideoState` on
+    `device`."""
+    with np.load(path) as z:
+        return state_from_numpy({k: z[k] for k in z.files}, device)

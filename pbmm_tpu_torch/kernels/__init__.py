@@ -34,16 +34,17 @@ def c_floats(values) -> ctypes.Array:
     return (ctypes.c_float * len(values))(*values)
 
 
-def check_cuda_f32(name: str, shape, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous f32 CUDA tensor of
+def check_cuda(name: str, shape, *tensors: torch.Tensor,
+               dtype=torch.float32) -> None:
+    """Raise unless every tensor is a contiguous `dtype` CUDA tensor of
     `shape` (None entries match any size) on one device."""
     dev = tensors[0].device
     for x in tensors:
         if x.device.type != "cuda" or x.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on one device, "
                              f"got {x.device}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
         if len(x.shape) != len(shape) or any(

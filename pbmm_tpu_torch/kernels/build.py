@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources under `pbmm_tpu_torch/csrc/` have a plain C interface; `nvcc`
-compiles them for Hopper (`sm_90a`) into one shared library under
+compiles them for Hopper (`sm_90a`), one process per source started
+together, and links them into one shared library under
 `build/pbmm_tpu_torch/` at the repository root (git-ignored), at first use
 and again whenever a source is newer than the library.  The library is
 loaded with `ctypes`; each kernel's wrapper passes `data_ptr()`s and the
@@ -20,14 +21,16 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbmm_tpu_torch"
 LIB_NAME = "libpbmm_tpu_torch.so"
-SOURCES = ("row_fft.cu", "colspec_chunk.cu", "rowifft_post.cu")
+SOURCES = ("row_fft.cu", "colspec_chunk.cu", "rowifft_post.cu",
+           "row_ifft.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,16 +41,23 @@ SIGNATURES = {
     # y, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host), n_kept,
     # batch, hc, w, stream
     "pbmm_row_fft": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # frames_u8, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host),
+    # n_kept, t, hc, h_in, w_in, w, off, x0, coeffs(host), scale, stream
+    "pbmm_row_fft_u8": [_P] * 8 + [_I] * 8 + [_P, _F, _P],
     # rows_re, rows_im, prev_re, prev_im, total, m_amp, fs_tw_re, fs_tw_im,
     # comb_re, comb_im, dft_tw_fwd_re, dft_tw_fwd_im, dft_tw_inv_re,
     # dft_tw_inv_im, out_re, out_im, new_prev_re, new_prev_im,
     # t, hc, h, wk, row0, r0, r1, tau2, power, stream
     "pbmm_colspec_chunk": [_P] * 18 + [_I] * 7 + [_F, _I, _P],
-    # rre, rim, i_plane, q_plane, win, tw_re, tw_im, out_r, out_g, out_b,
-    # plan_src(host), plan_rev(host), n_tiles, taps(host), radius,
-    # yiq_to_rgb(host), t, hr, wk, w, in_h, in_w, yrow0, x0, scale, stream
-    "pbmm_rowifft_post": [_P] * 10 + [_P, _P, _I, _P, _I, _P]
-    + [_I] * 8 + [_F, _P],
+    # rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
+    # out2, plan_src(host), plan_rev(host), n_tiles, taps(host), radius,
+    # yiq_to_rgb(host), iq_u8(host), layout, t, hr, wk, w, in_h, in_w,
+    # yrow0, x0, scale, stream
+    "pbmm_rowifft_post": [_P] * 13 + [_I, _P, _I, _P, _P] + [_I] * 9
+    + [_F, _P],
+    # re, im, tw_re, tw_im, out, plan_src(host), plan_rev(host), n_tiles,
+    # batch, hb, wk, w, scale, stream
+    "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -72,30 +82,47 @@ def _stale(lib: Path) -> bool:
     return any(p.stat().st_mtime > built for p in CSRC.glob("*.cu*"))
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if the library is missing or older than a
-    source; returns the library path.  `verbose` adds `-Xptxas -v` (each
-    kernel's registers, shared memory and spills) and prints nvcc's
-    output."""
-    lib = BUILD_DIR / LIB_NAME
-    if not _stale(lib) and not verbose:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC)]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
-    t0 = time.perf_counter()
+def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if the library is missing or older than a
+    source; returns the library path.  Each source compiles in its own
+    nvcc process, all at once, and one more links the objects.
+    `verbose` adds `-Xptxas -v` (each kernel's registers, shared memory
+    and spills) and prints nvcc's output."""
+    lib = BUILD_DIR / LIB_NAME
+    if not _stale(lib) and not verbose:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = os.getpid()
+    nvcc = nvcc_path()
+    flags = [nvcc, *NVCC_FLAGS, "-I", str(CSRC)]
+    if verbose:
+        flags += ["-Xptxas", "-v"]
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = list(pool.map(
+            _run, [flags + ["-c", "-o", str(o), str(CSRC / s)]
+                   for s, o in zip(SOURCES, objs)]))
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp)] + [
+        str(o) for o in objs]
+    logs.append(_run(link))
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)
     if verbose:
-        print(f"nvcc build {time.perf_counter() - t0:.1f} s: {' '.join(cmd)}")
-        print(proc.stdout + proc.stderr)
+        print(f"nvcc build {time.perf_counter() - t0:.1f} s "
+              f"({len(SOURCES)} sources in parallel, then the link)")
+        print("".join(logs))
     return lib
 
 

@@ -1,15 +1,20 @@
-"""The fused spectral stages of the main path: kernels 1 and 2.
+"""The fused spectral stages of the chunk engine: kernels 1, 4, 2 and 7.
 
 Counterpart of `pbmm_tpu/spectral/fused.py` for the tight-height chunk
 engine:
 
-  `windowed_row_fft`  Hann window x row FFT, Hermitian kept tiles out
-                      (CUDA: `csrc/row_fft.cu`);
-  `colspec_chunk`     column FFT + band/phase pass + column IFFT for a
-                      whole chunk, previous spectrum carried on chip
-                      (CUDA: `csrc/colspec_chunk.cu`);
+  `windowed_row_fft`           Hann window x row FFT, Hermitian kept
+                               tiles out (CUDA: `csrc/row_fft.cu`);
+  `windowed_row_fft_u8planar`  the same from (T, 3, H, W) uint8 frames:
+                               luma, pad and window inside the kernel
+                               (CUDA: `csrc/row_fft.cu`, second entry);
+  `colspec_chunk`              column FFT + band/phase pass + column IFFT
+                               for a whole chunk, previous spectrum
+                               carried on chip (CUDA: `csrc/colspec_chunk.cu`);
+  `row_ifft_magnitude`         Hermitian rebuild + row IFFT + |z| of the
+                               two-kernel tail (CUDA: `csrc/row_ifft.cu`);
 
-plus the host tables both need.  Spectra keep the JAX package's working
+plus the host tables they need.  Spectra keep the JAX package's working
 layout: row (lane) axis bit-reversed and cut to the kept Hermitian tiles,
 column axis in the four-step order of `col_freq_axis`.
 
@@ -24,10 +29,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from pbmm_tpu_torch.core.color import channel_mix, unit_float
 from pbmm_tpu_torch.kernels import (
+    c_floats,
     c_ints,
-    check_cuda_f32,
+    check_cuda,
     device_arrays,
     stream_handle,
 )
@@ -35,6 +43,7 @@ from pbmm_tpu_torch.spectral.hermitian import (
     hermitian_kept_width,
     kept_lane_indices,
     kept_tiles,
+    reconstruction_plan,
 )
 from pbmm_tpu_torch.spectral.radix2 import (
     _dif_twiddles,
@@ -275,7 +284,7 @@ def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
     if w > _MAX_TILES * _LANE:
         raise ValueError(f"the CUDA row kernel takes rows up to "
                          f"{_MAX_TILES * _LANE} lanes, got {w}")
-    check_cuda_f32("windowed_row_fft", (b, h, w), y)
+    check_cuda("windowed_row_fft", (b, h, w), y)
     wy, wx = device_arrays(_hann_pair, (pad_h, w), y.device)
     twr, twi = device_arrays(_dif_twiddles, (w, False), y.device)
     out_re = torch.empty((b, h, wk), dtype=torch.float32, device=y.device)
@@ -290,6 +299,91 @@ def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
 
 
 windowed_row_fft.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 4: windowed row FFT straight from planar uint8 frames
+# ---------------------------------------------------------------------------
+
+
+def _u8_args(frames, pad_h: int, pad_w: int, y0: int, x0: int, row0: int):
+    """Validate a u8 row-FFT call; returns (Hc, off): the content-row
+    window [row0, row0 + Hc) of the padded frame and the row offset
+    off = y0 - row0 of frame row 0 inside it (the JAX kernel's
+    geometry)."""
+    t, nch, h_in, w_in = frames.shape
+    if nch != 3 or frames.dtype != torch.uint8:
+        raise ValueError(f"expected (T, 3, H, W) uint8 frames, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    r1 = min(pad_h, -(-(y0 + h_in) // _ROW_BLOCK) * _ROW_BLOCK)
+    hc, off = r1 - row0, y0 - row0
+    if not (0 <= off < _ROW_BLOCK and hc % _ROW_BLOCK == 0
+            and 0 <= x0 <= pad_w - w_in):
+        raise ValueError(f"frames of {h_in}x{w_in} do not sit at "
+                         f"({y0}, {x0}) of the rows from {row0} of a "
+                         f"{pad_h}x{pad_w} pad")
+    return hc, off
+
+
+def windowed_row_fft_u8planar_ref(frames, coeffs, pad_h: int, pad_w: int,
+                                  y0: int, x0: int, row0: int,
+                                  keep_half: bool = False):
+    """Plain PyTorch version of `windowed_row_fft_u8planar`: the pre
+    stage's `unit_float` and luma FMA, the centre pad, then
+    `windowed_row_fft_ref` (bit-identical to the f32 path by
+    construction)."""
+    hc, off = _u8_args(frames, pad_h, pad_w, y0, x0, row0)
+    _, _, h_in, w_in = frames.shape
+    f = unit_float(frames)
+    y = channel_mix(f[:, 0], f[:, 1], f[:, 2], coeffs)
+    slab = F.pad(y, (x0, pad_w - w_in - x0, off, hc - off - h_in))
+    return windowed_row_fft_ref(slab, pad_h, row0, keep_half)
+
+
+def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
+                              y0: int, x0: int, row0: int,
+                              keep_half: bool = False):
+    """(T, 3, H, W) planar uint8 frames -> row FFT of the windowed luma
+    slab: Y = coeffs . (rgb / 255) in the pre stage's op order, the
+    centre pad at (y0, x0) of the pad_h x pad_w frame, the content rows
+    [row0, row0 + Hc) of `aligned_row_window`, the Hann window and
+    kernel 1's row FFT.  Returns (re, im) each (T, Hc, Wk) f32; equal bit
+    for bit to the pre stage + `windowed_row_fft` on the same frames.
+
+    CPU tensors take `windowed_row_fft_u8planar_ref`; CUDA tensors launch
+    `csrc/row_fft.cu::pbmm_row_fft_u8`."""
+    if frames.device.type == "cpu":
+        return windowed_row_fft_u8planar_ref(frames, coeffs, pad_h, pad_w,
+                                             y0, x0, row0, keep_half)
+    from pbmm_tpu_torch.kernels.build import check_launch, library
+
+    hc, off = _u8_args(frames, pad_h, pad_w, y0, x0, row0)
+    t, _, h_in, w_in = frames.shape
+    check_pow2(pad_w, "row FFT length")
+    if pad_w % _LANE or pad_w > _MAX_TILES * _LANE:
+        raise ValueError(f"the CUDA row kernel takes multiples of 128 up "
+                         f"to {_MAX_TILES * _LANE} lanes, got {pad_w}")
+    check_cuda("windowed_row_fft_u8planar", (t, 3, h_in, w_in), frames,
+               dtype=torch.uint8)
+    tiles = kept_tiles(pad_w) if keep_half else list(range(pad_w // _LANE))
+    wk = len(tiles) * _LANE
+    dev = frames.device
+    wy, wx = device_arrays(_hann_pair, (pad_h, pad_w), dev)
+    twr, twi = device_arrays(_dif_twiddles, (pad_w, False), dev)
+    out_re = torch.empty((t, hc, wk), dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    err = library().pbmm_row_fft_u8(
+        frames.data_ptr(), wy[row0:row0 + hc].data_ptr(), wx.data_ptr(),
+        twr.data_ptr(), twi.data_ptr(), out_re.data_ptr(),
+        out_im.data_ptr(), c_ints(tiles), len(tiles), t, hc, h_in, w_in,
+        pad_w, off, x0, c_floats(coeffs), float(np.float32(1.0 / 255.0)),
+        stream_handle(dev))
+    check_launch(err, "windowed_row_fft_u8planar")
+    windowed_row_fft_u8planar.launches += 1
+    return out_re, out_im
+
+
+windowed_row_fft_u8planar.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -430,8 +524,8 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     n, hc, w = rows_re.shape
     if n < 1:
         raise ValueError("colspec_chunk needs at least one frame")
-    check_cuda_f32("colspec_chunk", (n, hc, w), rows_re, rows_im)
-    check_cuda_f32("colspec_chunk", (1, pad_h, w), prev_re, prev_im)
+    check_cuda("colspec_chunk", (n, hc, w), rows_re, rows_im)
+    check_cuda("colspec_chunk", (1, pad_h, w), prev_re, prev_im)
     dev = rows_re.device
     m = _check_fourstep(pad_h)
     if m > _COLSPEC_MAX_M:
@@ -462,3 +556,100 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
 
 
 colspec_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: Hermitian rebuild + row IFFT + |z| (the two-kernel tail)
+# ---------------------------------------------------------------------------
+
+
+def lane_plan(wk: int, w: int):
+    """(source kept tile, conj-reversed flag) per full 128-lane tile: the
+    Hermitian `reconstruction_plan` when the lanes are the kept half,
+    else the identity."""
+    if w == wk:
+        return tuple((t, 0) for t in range(w // _LANE))
+    return reconstruction_plan(w)
+
+
+def _row_ifft_args(re, magnitude: bool, pad_h: int, full_w):
+    """Validate a row-IFFT call; returns (full width, |z| scale)."""
+    if not magnitude:
+        raise NotImplementedError(
+            "reconstruct='real' is not ported yet (ROADMAP item 6)")
+    _, h, w = re.shape
+    fw = full_w if full_w is not None else w
+    check_pow2(fw, "row IFFT length")
+    if fw % _LANE or w % _LANE:
+        raise ValueError(f"widths must be multiples of 128: {w}, {fw}")
+    return fw, 1.0 / ((pad_h or h) * fw)
+
+
+def rebuilt_row_magnitude(re, im, fw: int, scale: float) -> torch.Tensor:
+    """|row IFFT| * scale of (B, Hb, Wk) bit-reversed kept lanes, full
+    width: lane gathers for the rebuild and the bit reversal, then
+    `torch.fft` one frame at a time (the plain arithmetic behind kernels
+    3 and 7)."""
+    b, hb, wk = re.shape
+    dev = re.device
+    src, flip = [], []
+    for kp, rev in lane_plan(wk, fw):
+        lanes = np.arange(_LANE)
+        src.append(kp * _LANE + (_LANE - 1 - lanes if rev else lanes))
+        flip.append(np.full(_LANE, bool(rev)))
+    # Natural lane k holds bit-reversed position rev(k).
+    perm = bit_reverse_permutation(fw)
+    gather = torch.as_tensor(np.concatenate(src)[perm], device=dev)
+    flip = torch.as_tensor(np.concatenate(flip)[perm], device=dev)
+    mag = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
+    for f in range(b):
+        x = torch.complex(re[f], im[f])[:, gather]
+        x = torch.where(flip, x.conj(), x)
+        z = torch.fft.ifft(x, dim=-1, norm="forward")
+        mag[f] = torch.sqrt(z.real * z.real + z.imag * z.imag) * scale
+    return mag
+
+
+def row_ifft_magnitude_ref(re, im, magnitude: bool = True, pad_h: int = 0,
+                           full_w=None):
+    """Plain PyTorch version of `row_ifft_magnitude`."""
+    fw, scale = _row_ifft_args(re, magnitude, pad_h, full_w)
+    return rebuilt_row_magnitude(re, im, fw, scale)
+
+
+def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
+                       full_w=None):
+    """(B, Hb, Wk) bit-reversed kept-lane rows -> (B, Hb, W) f32 |row
+    IFFT| / (pad_h * W), full width: the missing tiles are rebuilt as
+    conj(lane reversal) of kept ones (`reconstruction_plan`) when
+    `full_w` exceeds Wk.  `pad_h` (default Hb) is the padded height of
+    the normalisation.  Only `magnitude=True` (the reference's |z|) is
+    served.
+
+    CPU tensors take `row_ifft_magnitude_ref`; CUDA tensors launch
+    `csrc/row_ifft.cu`."""
+    if re.device.type == "cpu":
+        return row_ifft_magnitude_ref(re, im, magnitude, pad_h, full_w)
+    from pbmm_tpu_torch.kernels.build import check_launch, library
+
+    fw, scale = _row_ifft_args(re, magnitude, pad_h, full_w)
+    b, hb, wk = re.shape
+    if fw > _MAX_TILES * _LANE:
+        raise ValueError(f"the CUDA row kernel takes rows up to "
+                         f"{_MAX_TILES * _LANE} lanes, got {fw}")
+    check_cuda("row_ifft_magnitude", (b, hb, wk), re, im)
+    dev = re.device
+    twr, twi = device_arrays(_dif_twiddles, (fw, True), dev)
+    plan = lane_plan(wk, fw)
+    out = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
+    err = library().pbmm_row_ifft(
+        re.data_ptr(), im.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+        out.data_ptr(), c_ints(kp for kp, _ in plan),
+        c_ints(rev for _, rev in plan), len(plan), b, hb, wk, fw,
+        float(scale), stream_handle(dev))
+    check_launch(err, "row_ifft_magnitude")
+    row_ifft_magnitude.launches += 1
+    return out
+
+
+row_ifft_magnitude.launches = 0

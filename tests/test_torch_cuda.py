@@ -4,7 +4,12 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
 - 720p's column height (m = 6);
 - the full-width lane layout (keep_half=False, no Hermitian rebuild);
 - a content slab offset inside the padded column;
-- the whole main path on the card against the CPU path.
+- kernel 4 (u8 row FFT) at offset content rows, against its plain
+  version and bit for bit against the pre stage + kernel 1;
+- kernel 3 in all six chroma x layout variants;
+- kernel 7 (row IFFT + |z|) at W = 512 to 4096;
+- the whole main path on the card against the CPU path, interleaved f32
+  and planar uint8 in, on both tails.
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
@@ -21,7 +26,8 @@ import torch
 from pbmm_tpu_torch import MagnifyConfig, magnify_video
 from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
 from pbmm_tpu_torch.engine import post_fused
-from pbmm_tpu_torch.engine.pipeline import blur_row_window
+from pbmm_tpu_torch.core.color import RGB_TO_YIQ
+from pbmm_tpu_torch.engine.pipeline import blur_row_window, preprocess_cl
 from pbmm_tpu_torch.spectral import fused
 from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
 
@@ -119,4 +125,100 @@ def test_main_path_on_card_matches_cpu(dev):
     assert _rel([st_d.prev_spec_re.cpu()], [st_c.prev_spec_re]) < 1e-4
     o1, s1 = magnify_video(torch.from_numpy(clip[:2]).to(dev), _cfg())
     o2, _ = magnify_video(torch.from_numpy(clip[2:]).to(dev), _cfg(), s1)
+    assert torch.equal(torch.cat([o1, o2]), out_d)
+
+
+@pytest.mark.parametrize("in_h,in_w", [(300, 384), (320, 384), (540, 960),
+                                       (1080, 1920)])
+def test_u8_row_fft_kernel(dev, in_h, in_w):
+    g = geometry_for(in_h, in_w, "tight")
+    r0, _ = fused.aligned_row_window(g.y0, g.y0 + in_h, g.pad_h)
+    rng = np.random.default_rng(in_h)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev)
+    luma = tuple(float(c) for c in RGB_TO_YIQ[0])
+    n = fused.windowed_row_fft_u8planar.launches
+    args = (frames, luma, g.pad_h, g.pad_w, g.y0, g.x0, r0, True)
+    got = fused.windowed_row_fft_u8planar(*args)
+    assert fused.windowed_row_fft_u8planar.launches == n + 1
+    want = fused.windowed_row_fft_u8planar_ref(*args)
+    assert _rel(got, want) < 1e-4
+    # The torch pre stage + kernel 1 on the same frames, bit for bit.
+    re, im, _, _ = preprocess_cl(frames, _cfg(), want_iq=True)
+    assert torch.equal(got[0], re) and torch.equal(got[1], im)
+
+
+@pytest.mark.parametrize("src", ["f32", "u8"])
+@pytest.mark.parametrize("layout", ["tuple3", "planar", "planar_u8"])
+def test_post_kernel_variants(dev, src, layout):
+    in_h, in_w = 320, 384
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, _cfg())
+    wk, hr = hermitian_kept_width(g.pad_w), rows[1] - rows[0]
+    rng = np.random.default_rng(6)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    rre, rim = (_rand(rng, (2, hr, wk), dev, scale) for _ in range(2))
+    if src == "f32":
+        chroma = (_rand(rng, (2, in_h, in_w), dev, 0.3),
+                  _rand(rng, (2, in_h, in_w), dev, 0.3), None)
+    else:
+        chroma = (None, None, torch.from_numpy(rng.integers(
+            0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev))
+    args = (rre, rim, chroma[0], chroma[1], hann2d_region(g, device=dev),
+            _cfg(), rows[0], in_h, in_w, "tight")
+    kw = dict(full_w=g.pad_w, rgb_u8=chroma[2])
+    got = post_fused.rowifft_post_fused(*args, out_layout=layout, **kw)
+    want = post_fused.rowifft_post_fused_ref(*args, out_layout=layout, **kw)
+    if layout == "tuple3":
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) < 1e-4
+    elif layout == "planar":
+        assert got.shape == (2, 3, in_h, in_w)
+        assert float((got - want).abs().max()) < 1e-4
+    else:
+        assert got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+        planar = post_fused.rowifft_post_fused(*args, out_layout="planar",
+                                               **kw)
+        assert torch.equal(got, torch.round(planar * 255.0).to(torch.uint8))
+
+
+@pytest.mark.parametrize("hb,w,keep", [(384, 512, True), (384, 512, False),
+                                       (640, 1024, True), (64, 2048, True),
+                                       (32, 4096, True)])
+def test_row_ifft_kernel(dev, hb, w, keep):
+    wk = hermitian_kept_width(w) if keep else w
+    rng = np.random.default_rng(8)
+    scale = 0.3 * hb * np.sqrt(w)
+    re, im = (_rand(rng, (3, hb, wk), dev, scale) for _ in range(2))
+    n = fused.row_ifft_magnitude.launches
+    got = fused.row_ifft_magnitude(re, im, pad_h=hb, full_w=w)
+    assert fused.row_ifft_magnitude.launches == n + 1
+    want = fused.row_ifft_magnitude_ref(re, im, pad_h=hb, full_w=w)
+    assert got.shape == (3, hb, w)
+    assert _rel([got], [want]) < 1e-4
+
+
+@pytest.mark.parametrize("in_h,layout", [(320, "planar_u8"), (320, "planar"),
+                                         (300, "planar_u8"),
+                                         (300, "interleaved")])
+def test_u8_path_on_card_matches_cpu(dev, in_h, layout):
+    rng = np.random.default_rng(10)
+    base = rng.integers(0, 256, (3, in_h, 384), dtype=np.uint8)
+    clip = np.stack([np.roll(base, i, axis=-1) for i in range(5)])
+    cfg = _cfg().replace(output_layout=layout)
+    kernels = ((fused.windowed_row_fft_u8planar, post_fused.rowifft_post_fused)
+               if in_h == 320 else
+               (fused.windowed_row_fft, fused.row_ifft_magnitude))
+    counts = {f: f.launches for f in kernels}
+    out_d, _ = magnify_video(torch.from_numpy(clip).to(dev), cfg)
+    assert all(f.launches > n for f, n in counts.items())
+    out_c, _ = magnify_video(torch.from_numpy(clip), cfg)
+    if layout == "planar_u8":
+        assert int((out_d.cpu().int() - out_c.int()).abs().max()) <= 1
+    else:
+        mse = float(((out_d.cpu().double() - out_c.double()) ** 2).mean())
+        assert mse == 0 or 10 * np.log10(1 / mse) > 100
+    o1, s1 = magnify_video(torch.from_numpy(clip[:2]).to(dev), cfg)
+    o2, _ = magnify_video(torch.from_numpy(clip[2:]).to(dev), cfg, s1)
     assert torch.equal(torch.cat([o1, o2]), out_d)

@@ -55,7 +55,8 @@ def test_config_presets_and_validation_match():
 def test_import_leaves_jax_out():
     code = (
         "import sys, pbmm_tpu_torch, pbmm_tpu_torch.engine.state, "
-        "pbmm_tpu_torch.kernels.build\n"
+        "pbmm_tpu_torch.kernels.build, pbmm_tpu_torch.io.stream, "
+        "pbmm_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pbmm_tpu' or m.startswith('pbmm_tpu.')]\n"
         "assert not bad, bad\n"

@@ -148,7 +148,7 @@ def test_state_to_jax(clip, port):
     dict(pad_mode="square_pow2"),
     dict(engine="scan"),
     dict(cache_prev_spectrum=False),
-    dict(output_layout="planar"),
+    dict(compensate_window=True),
     dict(phase_scale=2.5),
     dict(apply_motion_magnification=False),
     dict(reconstruct="real"),
@@ -161,16 +161,20 @@ def test_unsupported_config_raises(clip, change):
 
 
 def test_unsupported_frames_raise(clip):
-    planar = np.moveaxis(clip[:2], -1, 1).copy()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        magnify_video(torch.from_numpy(planar), _tcfg())
-    # 256-row frames pad to a pow-2 height (radix-2 column layout).
+    """Planar frames and frame sizes outside `post_pallas_ok` are served
+    now (tests/test_torch_planar.py); what stays unserved still raises."""
+    # Neither (T, H, W, 3) nor (T, 3, H, W): malformed, not unported.
+    with pytest.raises(ValueError, match="frames"):
+        magnify_video(torch.from_numpy(clip[:2, :, :, :2].copy()), _tcfg())
+    # 256-row frames pad to a pow-2 height (radix-2 column layout), in
+    # either layout.
     small = oscillating_bar(size=256, frames=2, bar_width=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        magnify_video(torch.from_numpy(small), _tcfg())
-    # 300 rows have no 8-multiple divisor: the JAX package takes the
-    # two-kernel tail there (`post_pallas_ok` False).
+    for frames in (small, np.moveaxis(small, -1, 1).copy()):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+            magnify_video(torch.from_numpy(frames), _tcfg())
+    # 300 rows have no 8-multiple divisor: the two-kernel tail serves
+    # them, as in the JAX package (`post_pallas_ok` False).
     odd = np.ascontiguousarray(
         oscillating_bar(size=300, frames=2, bar_width=2)[:, :, :256])
-    with pytest.raises(NotImplementedError, match="two-kernel tail"):
-        magnify_video(torch.from_numpy(odd), _tcfg())
+    out, _ = magnify_video(torch.from_numpy(odd), _tcfg())
+    assert out.shape == odd.shape and torch.isfinite(out).all()
