@@ -14,7 +14,12 @@ non-zero without the final line:
      uint8 images: 1 code): kernels 1-3 at 1080p, kernel 4 on (16, 3,
      1080, 1920) uint8 frames (also bit for bit against the pre stage +
      kernel 1), kernel 3's u8-chroma / planar_u8 and f32 / planar
-     variants, kernel 7 at the 1080p and 960x540 region shapes;
+     variants, kernel 7 at the 1080p and 960x540 region shapes; and the
+     config matrix's: kernel 5 at 1080p square_pow2, kernel 11 at 1080p
+     rgb, kernel 2's branches (pow-2, 3 planes with the IIR taps,
+     standard mode at 2.5 on 720p rect_pow2, steerable overlapping bands,
+     a non-integer pyramid scale), kernel 7's Re z and kernel 3's real /
+     compensate / gains variant;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -30,14 +35,28 @@ non-zero without the final line:
      - stream: a 32-frame 1080p 420jpeg y4m through `stream_magnify`
        with ingest="u8" (kernels 4, 2, 3), equal to `magnify_video` on
        the device-decoded chunks;
+     - (a) 1080p square_pow2 (the CLI's `--fast` default), interleaved
+       f32, the bench clip: kernels 5, 1, 2, 3; the state kernel 5 gives
+       frame 0 equals bit for bit the one kernel 2 carries out of a
+       zero-prev start (planar frames), and so do both streams after 16;
+     - (b) 1080p tight, chroma="rgb", IIR, planar uint8 in and planar_u8
+       out (a 1080p oscillating bar): kernels 1, 2, 7, 11;
+     - (c) 1280x720 rect_pow2 (1024x2048), mode="standard",
+       phase_scale=2.5 (a 720p oscillating bar): kernels 5, 1, 2, 3;
+     - (d) 1080p tight, orientations=4, pyramid_levels=6 (overlapping
+       bands), reconstruct="real", compensate_window, YIQ gains (1.0,
+       1.2, 0.8), the bench clip: kernels 1, 2, 3 (no oracle covers it);
+     each finite in [0, 1], 8 + 8 equal to 16 bit for bit, (a)-(c) > 100
+       dB against the oracle on frames 0-3 (the oracle runs on host
+       threads while the card works);
   4. timing with CUDA events after warm-up (medians): steady-state chunk
-     frames/s of each path, each kernel (and kernel 3's new variants)
-     beside its plain version, and the y4m stream's frames/s with the
-     host's parse share;
+     frames/s of each path, each kernel and each variant or branch beside
+     its plain version, and the y4m stream's frames/s with the host's
+     parse share;
   5. with --profile only: torch.profiler over a few steady-state chunks
-     of the f32 1080p, u8 1080p and 540p paths, printing where the device
-     time of a chunk goes (each kernel's share) and the device's idle
-     share with the profiler on.
+     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(d), printing
+     where the device time of a chunk goes (each kernel's share) and the
+     device's idle share with the profiler on.
 
 The line before the last is one JSON object with the kernels' records
 (each kernel's launches are those of the path named beside it);
@@ -48,6 +67,7 @@ loaded by file path.
 
 import argparse
 import importlib.util
+from concurrent.futures import ThreadPoolExecutor
 import json
 import os
 import shutil
@@ -63,6 +83,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 H, W, T = 1080, 1920, 16
 H540, W540 = 540, 960  # a frame size outside post_pallas_ok
+H720, W720 = 720, 1280  # rect_pow2 pads it to 1024 x 2048
 SPEC_TOL = 1e-4  # max error / max magnitude, spectra
 IMG_TOL = 1e-4  # max abs error, images in [0, 1]
 
@@ -170,6 +191,7 @@ def main():
                          "on the card")
     sys.path.insert(0, str(ROOT))
     import pbmm_tpu_torch
+    from pbmm_tpu_torch import TemporalConfig
     from pbmm_tpu_torch.core.color import RGB_TO_YIQ
     from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
     from pbmm_tpu_torch.engine import post_fused
@@ -238,6 +260,56 @@ def main():
     post_args = (rre, rim, i_pl, q_pl, win, cfg, rows[0], H, W, "tight")
     post_u8_args = (rre, rim, None, None, win, cfg, rows[0], H, W, "tight")
 
+    # The config matrix's paths (a)-(d) and their shapes.
+    cfg_sq = cfg.replace(pad_mode="square_pow2")
+    cfg_rgb = cfg.replace(chroma="rgb", output_layout="planar_u8",
+                          temporal=TemporalConfig(mode="iir_bandpass"))
+    cfg_std = cfg.replace(pad_mode="rect_pow2", mode="standard",
+                          phase_scale=2.5)
+    cfg_str = cfg.replace(orientations=4, pyramid_levels=6,
+                          reconstruct="real", compensate_window=True,
+                          apply_yiq_gains=True, yiq_gains=(1.0, 1.2, 0.8))
+    g_sq = geometry_for(H, W, "square_pow2")
+    r0_sq, r1_sq = fused.aligned_row_window(g_sq.y0, g_sq.y0 + H, g_sq.pad_h)
+    rows_sq = blur_row_window(g_sq, cfg_sq)
+    sq_re, sq_im = (dev_t(rng.standard_normal((T, r1_sq - r0_sq, wk)))
+                    for _ in range(2))
+    sq_prev = [dev_t(rng.standard_normal((1, g_sq.pad_h, wk)))
+               for _ in range(2)]
+    g720 = geometry_for(H720, W720, "rect_pow2")
+    r0_720, r1_720 = fused.aligned_row_window(g720.y0, g720.y0 + H720,
+                                              g720.pad_h)
+    rows720 = blur_row_window(g720, cfg_std)
+    # The branches that rotate by atan2 (IIR, standard, a non-integer
+    # scale) take row spectra of an oscillating bar, the motion the method
+    # targets: on random spectra some bins sit at atan2's branch cut
+    # (Re < 0, Im ~ 0), where two FFTs that differ in the last bit pick
+    # opposite sides and the rotation differs by 2 pi s.  Paths (b) and (c)
+    # run the same clips, for the same reason against the fp64 oracle.
+    synthetic = load_by_path("_pbmm_oracle_synthetic",
+                             "pbmm_tpu/oracle/synthetic.py")
+    bar_u8 = np.ascontiguousarray(np.moveaxis(np.round(
+        synthetic.oscillating_bar(size=W, frames=T, bar_width=2)[:, :H]
+        * 255.0).astype(np.uint8), -1, 1))
+    bar720 = np.ascontiguousarray(synthetic.oscillating_bar(
+        size=W720, frames=T, bar_width=2)[:, :H720])
+    bar_f01 = np.moveaxis(bar_u8, 1, -1) / 255.0
+    bar_d = torch.from_numpy(bar_u8).to(dev)
+    bar720_d = torch.from_numpy(bar720).to(dev)
+    rgb_rows = preprocess_cl(bar_d, cfg_rgb)[:2]
+    rgb_state = [torch.zeros((3, geom.pad_h, wk), device=dev)
+                 for _ in range(4)]
+    std_re, std_im = preprocess_cl(bar720_d, cfg_std)[:2]
+    std_prev = [torch.zeros((1, g720.pad_h, wk), device=dev)
+                for _ in range(2)]
+    bar_rows = preprocess_cl(dev_t(bar_f01), cfg)[:2]
+    rec3 = dev_t(rng.uniform(-0.2, 0.9, (3 * T, hr, geom.pad_w)))
+    rre3, rim3 = (dev_t(scale * rng.standard_normal((3 * T, hr, wk)))
+                  for _ in range(2))
+    rgb_post_args = (rec3, win, cfg_rgb, rows[0], H, W, "tight")
+    quirk_post_args = (rre, rim, i_pl, q_pl, win, cfg_str, rows[0], H, W,
+                       "tight")
+
     def both(fn, *a, **k):
         """(kernel call, plain-version call) of one wrapper."""
         ref = getattr(fused, fn.__name__ + "_ref", None) or getattr(
@@ -256,6 +328,10 @@ def main():
                                           *u8_args),
         "row_ifft_magnitude": both(fused.row_ifft_magnitude, rre, rim,
                                    pad_h=geom.pad_h, full_w=geom.pad_w),
+        "col_fft_zero_padded": both(fused.col_fft_zero_padded, sq_re[:1],
+                                    sq_im[:1], g_sq.pad_h, r0_sq),
+        "post_fused_rgb": both(post_fused.post_fused_rgb, *rgb_post_args,
+                               out_layout="planar_u8"),
     }
     variants = {  # kernel 3's new variants and kernel 7 at 540p shapes
         "rowifft_post_fused[u8, planar_u8]": both(
@@ -267,6 +343,34 @@ def main():
         "row_ifft_magnitude[540p]": both(
             fused.row_ifft_magnitude, rre540, rim540, pad_h=g540.pad_h,
             full_w=g540.pad_w),
+        # The config matrix's branches, at their paths' shapes.
+        "colspec_chunk[pow-2, square_pow2 1080p]": both(
+            fused.colspec_chunk, sq_re, sq_im, *sq_prev, cfg_sq, g_sq.pad_h,
+            r0_sq, out_rows=rows_sq, full_w=g_sq.pad_w),
+        "colspec_chunk[rgb 3 planes, IIR]": both(
+            fused.colspec_chunk, *rgb_rows, *rgb_state[:2], cfg_rgb,
+            geom.pad_h, 0, *rgb_state[2:], out_rows=rows, full_w=geom.pad_w,
+            planes=3),
+        "colspec_chunk[standard, 2.5, rect_pow2 720p]": both(
+            fused.colspec_chunk, std_re, std_im, *std_prev, cfg_std,
+            g720.pad_h, r0_720, out_rows=rows720, full_w=g720.pad_w),
+        "colspec_chunk[steerable 4, overlapping bands]": both(
+            fused.colspec_chunk, rows_re, rows_im, prev_re, prev_im, cfg_str,
+            geom.pad_h, 0, out_rows=rows, full_w=geom.pad_w),
+        "colspec_chunk[pyramid, 2.5]": both(
+            fused.colspec_chunk, *bar_rows, rgb_state[0][:1],
+            rgb_state[1][:1],
+            cfg.replace(phase_scale=2.5), geom.pad_h, 0, out_rows=rows,
+            full_w=geom.pad_w),
+        "row_ifft_magnitude[Re z, 1080p rgb]": both(
+            fused.row_ifft_magnitude, rre3, rim3, magnitude=False,
+            pad_h=geom.pad_h, full_w=geom.pad_w),
+        "rowifft_post_fused[real, compensate, gains]": both(
+            post_fused.rowifft_post_fused, *quirk_post_args,
+            full_w=geom.pad_w),
+        "post_fused_rgb[tuple3, compensate, gains]": both(
+            post_fused.post_fused_rgb, rec3, win, cfg_str.replace(
+                chroma="rgb"), rows[0], H, W, "tight"),
     }
     records = {}
     for name, (kern, plain) in {**calls, **variants}.items():
@@ -281,7 +385,7 @@ def main():
                       for g, w in zip(got, want))
             rel, tol, what = err, 1, "max code difference"
             ok = rel <= tol
-        elif name.startswith("rowifft_post_fused"):
+        elif name.startswith(("rowifft_post_fused", "post_fused_rgb")):
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             rel, tol, what = err, IMG_TOL, "max abs"
             ok = np.isfinite(rel) and rel < tol
@@ -292,6 +396,21 @@ def main():
                 pairs = [(got[k], got[k + 1]) for k in range(0, len(got), 2)]
                 refs = [(want[k], want[k + 1])
                         for k in range(0, len(want), 2)]
+            if len(got) == 6:
+                # The IIR taps, weighted by the magnitude of the bin each
+                # rotates: at bins at the FFTs' rounding floor (~1e-7 of
+                # the maximum) the phase delta is noise in both versions
+                # and the taps differ; there they rotate nothing.
+                mag = torch.complex(want[2], want[3]).abs()
+                pairs, refs = pairs[:2], refs[:2]
+                for g, w in zip(got[4:], want[4:]):
+                    e = float(((g - w).abs() * mag).max())
+                    r = e / float((w.abs() * mag).max())
+                    log(f"[2] {name}: IIR tap weighted by |S|: max err / max "
+                        f"{r:.3e}, unweighted max abs "
+                        f"{float((g - w).abs().max()):.3e}")
+                    if not r < SPEC_TOL:
+                        raise AssertionError(f"{name}: IIR taps {r}")
             err, rel = 0.0, 0.0
             for (gr, gi), (wr, wi) in zip(pairs, refs):
                 gz = gr if gi is None else torch.complex(gr, gi)
@@ -322,7 +441,9 @@ def main():
                 "colspec_chunk": fused.colspec_chunk,
                 "rowifft_post_fused": post_fused.rowifft_post_fused,
                 "windowed_row_fft_u8planar": fused.windowed_row_fft_u8planar,
-                "row_ifft_magnitude": fused.row_ifft_magnitude}
+                "row_ifft_magnitude": fused.row_ifft_magnitude,
+                "col_fft_zero_padded": fused.col_fft_zero_padded,
+                "post_fused_rgb": post_fused.post_fused_rgb}
     path_launches = {}
 
     def run_path(name, must, must_not, fn):
@@ -349,38 +470,77 @@ def main():
         oa, sa = pbmm_tpu_torch.magnify_video(frames_d[:8], c)
         ob, sb = pbmm_tpu_torch.magnify_video(frames_d[8:], c, sa)
         if not (torch.equal(torch.cat([oa, ob]), out1)
-                and torch.equal(sb.prev_spec_re, s1.prev_spec_re)
-                and torch.equal(sb.prev_spec_im, s1.prev_spec_im)):
+                and all(torch.equal(a, b) for a, b in zip(
+                    sb[:2] + tuple(sb.temporal),
+                    s1[:2] + tuple(s1.temporal)))):
             raise AssertionError(f"{what}: chunks of 8 + 8 differ from one "
                                  "chunk of 16")
         log(f"[3] {what}: chunks 8 + 8 equal one chunk of 16 bit for bit "
             "(frames and state)")
 
+    def check_frames(what, outs, shape, dtype):
+        for o in outs:
+            if tuple(o.shape) != shape or o.dtype != dtype:
+                raise AssertionError(f"{what}: {tuple(o.shape)} {o.dtype}")
+            if dtype == torch.float32 and not (
+                    torch.isfinite(o).all() and o.min() >= 0 and o.max() <= 1):
+                raise AssertionError(f"{what}: values outside [0, 1] or not "
+                                     "finite")
+        log(f"[3] {what}: outputs {shape} {dtype}, finite in [0, 1]")
+
     oracle = load_by_path("_pbmm_oracle_reference",
                           "pbmm_tpu/oracle/reference.py")
+    # The fp64 oracle of every path runs on host threads (numpy releases
+    # the GIL in its loops) while the card works; all of them end before
+    # phase 4 times anything.
+    pool = ThreadPoolExecutor(4)
 
-    def vs_oracle(outs, frames01):
+    def oracle_job(frames01, c):
+        """The oracle on frames 0-3 of `frames01` (interleaved, in [0, 1])
+        under config c, started on a host thread."""
+        fn = (oracle.oracle_magnify_video_iir
+              if c.temporal.mode == "iir_bandpass"
+              else oracle.oracle_magnify_video)
+
+        def run():
+            t0 = time.perf_counter()
+            return fn(frames01[:4], c), time.perf_counter() - t0
+        return pool.submit(run)
+
+    def vs_oracle(outs, job):
         """PSNR of frames 0-3 of each (name, interleaved output) against
-        the fp64 oracle on `frames01` (interleaved, in [0, 1])."""
-        t0 = time.perf_counter()
-        want = oracle.oracle_magnify_video(frames01[:4], cfg)
-        secs = time.perf_counter() - t0
+        the oracle's result of `job`."""
+        want, secs = job.result()
         dbs = []
         for name, got in outs:
             db = psnr_db(got[:4].double().cpu().numpy(), want)
             log(f"[3] {name}: PSNR vs the fp64 oracle, frames 0-3: "
-                f"{db:.2f} dB (bound > 100; oracle {secs:.1f} s on the "
-                "host)")
+                f"{db:.2f} dB (bound > 100; oracle {secs:.1f} s on a host "
+                "thread)")
             if not db > 100:
                 raise AssertionError(f"{name}: PSNR {db} dB <= 100")
             dbs.append(db)
         return dbs
 
+    # The clips, and their oracles started at once.
     # f32 1080p, the bench clip (the JAX bench's main path)
     base = np.random.default_rng(0).random((H, W, 3)).astype(np.float32)
     frames = np.stack([np.roll(base, shift=i, axis=1) * (0.95 + 0.01 * i)
                        for i in range(T)]).astype(np.float32)
     frames_d = torch.from_numpy(frames).to(dev)
+    frames_u8 = np.ascontiguousarray(np.moveaxis(
+        np.round(frames * 255.0).astype(np.uint8), -1, 1))
+    b540 = np.random.default_rng(1).integers(0, 256, (H540, W540, 3),
+                                             dtype=np.uint8)
+    f540_u8 = np.stack([np.roll(b540, shift=i, axis=1) for i in range(T)])
+    f540 = (f540_u8 / 255.0).astype(np.float32)
+    jobs = {"f32": oracle_job(frames, cfg),
+            "u8": oracle_job(np.moveaxis(frames_u8, 1, -1) / 255.0, cfg),
+            "540p": oracle_job(f540, cfg),
+            "a": oracle_job(frames, cfg_sq),
+            "b": oracle_job(bar_f01, cfg_rgb),
+            "c": oracle_job(bar720, cfg_std)}
+
     out1, s1, out2, s2 = run_path(
         "f32 1080p", ("windowed_row_fft", "colspec_chunk",
                       "rowifft_post_fused"), (),
@@ -397,11 +557,9 @@ def main():
     log(f"[3] outputs {tuple(out1.shape)} finite in [0, 1]; state "
         f"{tuple(s2.prev_spec_re.shape)}, frame_idx {s2.frame_idx}")
     check_split(frames_d, cfg, out1, s1, "f32 1080p")
-    psnr, = vs_oracle([("f32 1080p", out1)], frames)
+    psnr, = vs_oracle([("f32 1080p", out1)], jobs["f32"])
 
     # u8 1080p: planar uint8 in, planar and planar_u8 out
-    frames_u8 = np.ascontiguousarray(np.moveaxis(
-        np.round(frames * 255.0).astype(np.uint8), -1, 1))
     u8_d = torch.from_numpy(frames_u8).to(dev)
     cfg_pl = cfg.replace(output_layout="planar")
     cfg_u8 = cfg.replace(output_layout="planar_u8")
@@ -424,13 +582,9 @@ def main():
         "chunks")
     check_split(u8_d, cfg_pl, pl1, pls1, "u8 1080p -> planar")
     psnr_u8, = vs_oracle([("u8 1080p -> planar", torch.movedim(pl1, 1, -1))],
-                         np.moveaxis(frames_u8, 1, -1) / 255.0)
+                         jobs["u8"])
 
     # 540p: the two-kernel tail, interleaved f32 and planar u8 in
-    b540 = np.random.default_rng(1).integers(0, 256, (H540, W540, 3),
-                                             dtype=np.uint8)
-    f540_u8 = np.stack([np.roll(b540, shift=i, axis=1) for i in range(T)])
-    f540 = (f540_u8 / 255.0).astype(np.float32)
     f540_d = torch.from_numpy(f540).to(dev)
     p540_d = torch.from_numpy(
         np.ascontiguousarray(np.moveaxis(f540_u8, -1, 1))).to(dev)
@@ -444,7 +598,84 @@ def main():
     # f540 is the u8 frames / 255 (to an f32 ulp): one oracle run holds
     # both inputs.
     psnr_540, psnr_540u8 = vs_oracle(
-        [("540p f32", o540), ("540p u8", ou540)], f540)
+        [("540p f32", o540), ("540p u8", ou540)], jobs["540p"])
+
+    # The config matrix.  (a) 1080p square_pow2, interleaved f32: the
+    # stream starts from kernel 5's spectrum of frame 0.
+    path_a = "(a) 1080p square_pow2"
+    sq_kernels = ("col_fft_zero_padded", "windowed_row_fft", "colspec_chunk",
+                  "rowifft_post_fused")
+    a1, sa1, a2, _ = run_path(
+        path_a, sq_kernels, ("windowed_row_fft_u8planar",
+                             "row_ifft_magnitude", "post_fused_rgb"),
+        lambda: two_chunks(frames_d, cfg_sq))
+    check_frames(path_a, (a1, a2), (T, H, W, 3), torch.float32)
+    check_split(frames_d, cfg_sq, a1, sa1, path_a)
+    # Planar frames start through kernel 2 against a zero spectrum: the
+    # two starts must carry the same bits, after frame 0 and after 16.
+    planar_d = frames_d.permute(0, 3, 1, 2).contiguous()
+    k5 = pbmm_tpu_torch.magnify_video(frames_d[:1], cfg_sq)[1]
+    k2 = pbmm_tpu_torch.magnify_video(planar_d[:1], cfg_sq)[1]
+    pa1, psa1 = pbmm_tpu_torch.magnify_video(
+        planar_d, cfg_sq.replace(output_layout="planar"))
+    same = (all(torch.equal(x, y) for x, y in zip(k5[:2], k2[:2]))
+            and all(torch.equal(x, y) for x, y in zip(psa1[:2], sa1[:2]))
+            and torch.equal(pa1.permute(0, 2, 3, 1), a1))
+    log(f"[3] {path_a}: the kernel-5 start (interleaved) equals the "
+        f"kernel-2 zero-prev start (planar) bit for bit, state after frame "
+        f"0 and after 16, and the 16 frames: {same}")
+    if not same:
+        raise AssertionError("kernel 5's bootstrap differs from kernel 2's")
+    del planar_d, pa1
+    psnr_a, = vs_oracle([(path_a, a1)], jobs["a"])
+
+    # (b) 1080p tight, rgb, IIR, planar uint8 in, planar_u8 out.
+    path_b = "(b) 1080p rgb IIR u8 -> planar_u8"
+    b1, sb1, b2, sb2 = run_path(
+        path_b, ("windowed_row_fft", "colspec_chunk", "row_ifft_magnitude",
+                 "post_fused_rgb"),
+        ("windowed_row_fft_u8planar", "rowifft_post_fused",
+         "col_fft_zero_padded"),
+        lambda: two_chunks(bar_d, cfg_rgb))
+    check_frames(path_b, (b1, b2), (T, 3, H, W), torch.uint8)
+    taps = sb2.temporal
+    if not (tuple(taps.lp_fast.shape) == (3, geom.pad_h, wk)
+            and all(torch.isfinite(x).all() for x in taps)
+            and taps.lp_fast.any()):
+        raise AssertionError(f"{path_b}: IIR taps {tuple(taps.lp_fast.shape)}"
+                             " not finite or all zero")
+    check_split(bar_d, cfg_rgb, b1, sb1, path_b)
+    bf = pbmm_tpu_torch.magnify_video(
+        bar_d[:4], cfg_rgb.replace(output_layout="planar"))[0]
+    if not torch.equal(b1[:4], torch.round(bf * 255.0).to(torch.uint8)):
+        raise AssertionError(f"{path_b}: planar_u8 differs from round(255 "
+                             "planar)")
+    log(f"[3] {path_b}: IIR taps (3, {geom.pad_h}, {wk}) finite; planar_u8 "
+        "equals round(255 planar) on frames 0-3")
+    psnr_b, = vs_oracle([(path_b + " (planar f32)", bf.movedim(1, -1))],
+                        jobs["b"])
+
+    # (c) 1280x720 rect_pow2 (1024 x 2048), standard mode, phase_scale 2.5.
+    path_c = "(c) 720p rect_pow2 standard 2.5"
+    c1, sc1, c2, _ = run_path(
+        path_c, sq_kernels, ("windowed_row_fft_u8planar",
+                             "row_ifft_magnitude", "post_fused_rgb"),
+        lambda: two_chunks(bar720_d, cfg_std))
+    check_frames(path_c, (c1, c2), (T, H720, W720, 3), torch.float32)
+    check_split(bar720_d, cfg_std, c1, sc1, path_c)
+    psnr_c, = vs_oracle([(path_c, c1)], jobs["c"])
+
+    # (d) 1080p tight: steerable sectors over overlapping bands, Re z,
+    # window compensation, YIQ gains (no oracle covers the last two).
+    path_d = "(d) 1080p steerable real compensate gains"
+    d1, sd1, d2, _ = run_path(
+        path_d, ("windowed_row_fft", "colspec_chunk", "rowifft_post_fused"),
+        ("col_fft_zero_padded", "row_ifft_magnitude", "post_fused_rgb",
+         "windowed_row_fft_u8planar"),
+        lambda: two_chunks(frames_d, cfg_str))
+    check_frames(path_d, (d1, d2), (T, H, W, 3), torch.float32)
+    check_split(frames_d, cfg_str, d1, sd1, path_d)
+    pool.shutdown(wait=True)
 
     # stream: a 1080p 420jpeg y4m through stream_magnify(ingest="u8")
     tmp = tempfile.mkdtemp(prefix="pbmm_smoke_")
@@ -496,6 +727,12 @@ def main():
                                          "u8 1080p -> planar_u8")
         _, ms_pl, fps_pl = steady(u8_d, cfg_pl, "u8 1080p -> planar")
         chunk_540, ms_540, fps_540 = steady(f540_d, cfg, "540p f32")
+        matrix = {}
+        for what, fd, c in ((path_a, frames_d, cfg_sq),
+                            (path_b, bar_d, cfg_rgb),
+                            (path_c, bar720_d, cfg_std),
+                            (path_d, frames_d, cfg_str)):
+            matrix[what] = steady(fd, c, what)
         for name, (kern, plain) in {**calls, **variants}.items():
             k_ms = time_ms(torch, kern)
             p_ms = time_ms(torch, plain, reps=5, warmup=1)
@@ -537,6 +774,8 @@ def main():
         profile_chunks(torch, chunk, card, "f32 1080p")
         profile_chunks(torch, chunk_u8, card, "u8 1080p -> planar_u8")
         profile_chunks(torch, chunk_540, card, "540p f32")
+        for what, (fn, _, _) in matrix.items():
+            profile_chunks(torch, fn, card, what)
 
     sources = {
         "windowed_row_fft": ("pbmm_tpu_torch/csrc/row_fft.cu",
@@ -552,6 +791,10 @@ def main():
         "row_ifft_magnitude": ("pbmm_tpu_torch/csrc/row_ifft.cu",
                                "pbmm_tpu/spectral/fused.py:1236",
                                "540p f32"),
+        "col_fft_zero_padded": ("pbmm_tpu_torch/csrc/col_fft.cu",
+                                "pbmm_tpu/spectral/fused.py:303", path_a),
+        "post_fused_rgb": ("pbmm_tpu_torch/csrc/post_rgb.cu",
+                           "pbmm_tpu/engine/post_pallas.py:398", path_b),
     }
     kernels = []
     for name, (src, rep, path) in sources.items():
@@ -575,6 +818,10 @@ def main():
             "stream u8": {"fps": fps_stream, "seconds": stream_s,
                           "host_parse_share": parse_s / stream_s,
                           "chunk_source_share": source_s / stream_s},
+            **{what: {"fps": f, "chunk_ms": m, **(
+                {"psnr_vs_oracle_db": db} if db is not None else {})}
+               for (what, (_, m, f)), db in zip(
+                   matrix.items(), (psnr_a, psnr_b, psnr_c, None))},
         },
         "launches_by_path": path_launches}))
     log(card)

@@ -9,11 +9,15 @@
 The parser and `config_from_args` are those of `pbmm_tpu/cli.py`, so one
 command line configures either package.  Served: the whole-file mode and
 the three `--stream` modes (the resumable `--checkpoint` loop, the
-`--output -` y4m pipe loop and whole output).  `--debug-view`,
-`--trace` and `--demo` exit 2 (ROADMAP item 9); configurations the port
-does not serve exit 2 with the `NotImplementedError` naming their
-ROADMAP item.  It runs on the first CUDA card and exits with an error
-when there is none.
+`--output -` y4m pipe loop and whole output), with every `--fast`
+configuration of the batched engine: any `--pad-mode`, `--chroma`,
+`--temporal`, `--mode`, `--orientations`, `--levels`, `--phase-scale`,
+`--reconstruct`, `--compensate-window`, `--yiq-gains` and
+`--no-magnify`.  `--engine scan`, `--no-cache-prev-spectrum`,
+`--apply-magnitude-scale` and the backends without `--fast` exit 2
+naming ROADMAP items 8 and 10; `--debug-view`, `--trace` and `--demo`
+exit 2 naming item 9.  It runs on the first CUDA card and exits with an
+error when there is none.
 """
 
 from __future__ import annotations

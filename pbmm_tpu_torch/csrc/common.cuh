@@ -7,6 +7,8 @@
 // Widest padded row the kernels take: 64 tiles of 128 lanes (W = 8192).
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
+// Columns a block of the column kernels (2 and 5) holds in shared memory.
+#define PBMM_COL_S 4
 
 // Dynamic shared memory above 48 KB must be opted into per kernel; the
 // H100 allows at most 227 KB (232,448 bytes) per block.
@@ -117,17 +119,18 @@ __device__ __forceinline__ void pbmm_row_fft_store(
   }
 }
 
-// The load -> rebuild -> row IFFT -> |z| step shared by kernels 3 and 7:
-// one row of wk bit-reversed kept lanes (src_re/src_im) is rebuilt to w
-// lanes in xre/xim (shared memory, w floats each) by the plan, taken to
-// natural order by the DIT inverse, and |z| * scale is written to out (w
-// values, shared or device memory).  Ends synchronised, so xre/xim can
-// take the next row.
+// The load -> rebuild -> row IFFT -> |z| (or Re z) step shared by kernels
+// 3 and 7: one row of wk bit-reversed kept lanes (src_re/src_im) is
+// rebuilt to w lanes in xre/xim (shared memory, w floats each) by the
+// plan, taken to natural order by the DIT inverse, and |z| * scale (or,
+// with magnitude false, Re z * scale: reconstruct="real") is written to
+// out (w values, shared or device memory).  Ends synchronised, so
+// xre/xim can take the next row.
 __device__ __forceinline__ void pbmm_row_ifft_mag(
     const float* __restrict__ src_re, const float* __restrict__ src_im,
     const PbmmLanePlan& plan, int w, const float* __restrict__ tw_re,
     const float* __restrict__ tw_im, float* xre, float* xim, float* out,
-    float scale) {
+    float scale, bool magnitude) {
   for (int p = threadIdx.x; p < w; p += blockDim.x) {
     const int tile = p / PBMM_LANE, l = p % PBMM_LANE;
     const int kp = plan.src[tile];
@@ -145,8 +148,46 @@ __device__ __forceinline__ void pbmm_row_ifft_mag(
   pbmm_radix2(xre, xim, w, 1, 1, 0, 0, 1, tw_re, tw_im, true);
   for (int p = threadIdx.x; p < w; p += blockDim.x) {
     const float a = xre[p], b = xim[p];
-    out[p] = __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b))),
-                       scale);
+    out[p] = magnitude
+                 ? __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b))),
+                             scale)
+                 : __fmul_rn(a, scale);
   }
   __syncthreads();
+}
+
+// Zero-embed of a strip of PBMM_COL_S columns from col0 of an h-row
+// column: rows [row0, row0 + hc) take the content rows' spectra (src,
+// row stride wk), the others zeros; element (row p, column c) lands at
+// p * PBMM_COL_S + c.  Ends synchronised.
+__device__ __forceinline__ void pbmm_col_embed(
+    const float* __restrict__ src_re, const float* __restrict__ src_im,
+    int hc, int wk, int col0, int row0, int h, float* re, float* im) {
+  for (int e = threadIdx.x; e < h * PBMM_COL_S; e += blockDim.x) {
+    const int p = e / PBMM_COL_S, c = e % PBMM_COL_S;
+    const int r = p - row0;
+    float vr = 0.0f, vi = 0.0f;
+    if (r >= 0 && r < hc) {
+      const size_t g = (size_t)r * wk + col0 + c;
+      vr = src_re[g];
+      vi = src_im[g];
+    }
+    re[e] = vr;
+    im[e] = vi;
+  }
+  __syncthreads();
+}
+
+// The forward column FFT at pow-2 heights h, the one op sequence of
+// kernels 2 and 5: the zero-embed, then a radix-2 DIF over the whole
+// column (natural rows in, bit-reversed rows out: JAX's layout), every
+// product and sum rounded separately, so both kernels compute the same
+// bits.  tw_re/tw_im: _dif_twiddles(h, forward).  Ends synchronised.
+__device__ __forceinline__ void pbmm_col_fft_pow2(
+    const float* __restrict__ src_re, const float* __restrict__ src_im,
+    int hc, int wk, int col0, int row0, int h, const float* __restrict__ tw_re,
+    const float* __restrict__ tw_im, float* re, float* im) {
+  pbmm_col_embed(src_re, src_im, hc, wk, col0, row0, h, re, im);
+  pbmm_radix2(re, im, h, PBMM_COL_S, PBMM_COL_S, 0, 1, PBMM_COL_S, tw_re,
+              tw_im, false);
 }

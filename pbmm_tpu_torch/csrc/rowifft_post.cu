@@ -4,9 +4,8 @@
 // Replaces pbmm_tpu/engine/post_pallas.py:198 rowifft_post_fused (the
 // Pallas kernel launched at :382, with the row transform of
 // spectral/fused.py:1532 make_row_ifft_block and the rebuild of :1182
-// _rebuild_kept_lanes), with magnitude reconstruction and no window
-// compensation or YIQ gains.  Both chroma sources and all three output
-// layouts of the JAX kernel are served, as template parameters:
+// _rebuild_kept_lanes).  Both chroma sources and all three output
+// layouts of the JAX kernel are template parameters:
 //   U8 = false: the original I/Q come as (T, H, W) f32 planes;
 //   U8 = true:  they are formed here from the (T, 3, H, W) uint8 source
 //               frames, (r c0 + g c1 + b c2) * window with the 1/255
@@ -17,10 +16,15 @@
 //                         (round half to even, as jnp.round and
 //                         torch.round; the value is clipped to [0, 1]).
 //
+// The reference's quirk switches are runtime flags: Re z in place of |z|
+// (reconstruct="real"), the window compensation (multiply by
+// 1 / max(win, 1e-3)) and the YIQ gains, in the JAX kernel's order
+// (post_pallas.py:335-342).
+//
 // Per region row: pbmm_row_ifft_mag (common.cuh, shared with kernel 7)
 // rebuilds the missing 128-lane tiles by the static plan, takes the
 // bit-reversed lanes to natural order with a radix-2 DIT inverse, and
-// keeps |z| / (pad_h * W).  The blur is the reference's 5-tap kernel,
+// keeps |z| / (pad_h * W) (or Re z / (pad_h * W)).  The blur is the reference's 5-tap kernel,
 // horizontal taps first (wrapping around the padded width exactly as
 // pltpu.roll does; the crop offset x0 exceeds the radius, so the wrap
 // never reaches the output), then vertical; the crop, the windowed
@@ -52,6 +56,10 @@ struct PostParams {
   float taps[2 * PP_MAXR + 1];
   float m[9];    // YIQ -> RGB, row-major
   float iq[6];   // I and Q rows of RGB -> YIQ times 1/255 (u8 chroma)
+  float gains[3];  // YIQ gains
+  int magnitude;   // |z| (1) or Re z (0)
+  int comp;        // divide the Hann window back out
+  int gain;        // apply the gains
 };
 
 template <bool U8, int LAYOUT>
@@ -76,7 +84,7 @@ __global__ void rowifft_post_kernel(
   for (int lr = 0; lr < nrows; ++lr) {
     const size_t rbase = ((size_t)f * hr + reg0 + lr) * wk;
     pbmm_row_ifft_mag(rre + rbase, rim + rbase, prm.plan, w, tw_re, tw_im,
-                      xre, xim, mag + lr * w, scale);
+                      xre, xim, mag + lr * w, scale, prm.magnitude != 0);
   }
 
   const size_t plane = (size_t)in_h * in_w;
@@ -117,6 +125,17 @@ __global__ void rowifft_post_kernel(
     } else {
       iw = __fmul_rn(i_plane[o], wn);
       qw = __fmul_rn(q_plane[o], wn);
+    }
+    if (prm.comp) {
+      const float inv = __fdiv_rn(1.0f, fmaxf(wn, 1e-3f));
+      vb = __fmul_rn(vb, inv);
+      iw = __fmul_rn(iw, inv);
+      qw = __fmul_rn(qw, inv);
+    }
+    if (prm.gain) {
+      vb = __fmul_rn(vb, prm.gains[0]);
+      iw = __fmul_rn(iw, prm.gains[1]);
+      qw = __fmul_rn(qw, prm.gains[2]);
     }
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
@@ -167,7 +186,8 @@ extern "C" int pbmm_rowifft_post(
     void* out2, const int* plan_src, const int* plan_rev, int n_tiles,
     const float* taps, int radius, const float* yiq_to_rgb,
     const float* iq_u8, int layout, int t, int hr, int wk, int w, int in_h,
-    int in_w, int yrow0, int x0, float scale, void* stream) {
+    int in_w, int yrow0, int x0, float scale, int magnitude, int comp,
+    int gain, float g_y, float g_i, float g_q, void* stream) {
   const bool u8 = rgb_u8 != nullptr;
   if (t < 1 || n_tiles < 1 || n_tiles > PBMM_MAX_TILES ||
       n_tiles * PBMM_LANE != w || radius < 0 || radius > PP_MAXR ||
@@ -184,6 +204,12 @@ extern "C" int pbmm_rowifft_post(
   for (int i = 0; i <= 2 * radius; ++i) prm.taps[i] = taps[i];
   for (int i = 0; i < 9; ++i) prm.m[i] = yiq_to_rgb[i];
   for (int i = 0; i < 6; ++i) prm.iq[i] = iq_u8[i];
+  prm.gains[0] = g_y;
+  prm.gains[1] = g_i;
+  prm.gains[2] = g_q;
+  prm.magnitude = magnitude;
+  prm.comp = comp;
+  prm.gain = gain;
   const size_t smem =
       (2 + PP_OB + 2 * (size_t)radius) * (size_t)w * sizeof(float);
   dim3 grid((in_h + PP_OB - 1) / PP_OB, t);

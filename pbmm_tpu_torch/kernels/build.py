@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbmm_tpu_torch"
 LIB_NAME = "libpbmm_tpu_torch.so"
 SOURCES = ("row_fft.cu", "colspec_chunk.cu", "rowifft_post.cu",
-           "row_ifft.cu")
+           "row_ifft.cu", "col_fft.cu", "post_rgb.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,20 +44,27 @@ SIGNATURES = {
     # frames_u8, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host),
     # n_kept, t, hc, h_in, w_in, w, off, x0, coeffs(host), scale, stream
     "pbmm_row_fft_u8": [_P] * 8 + [_I] * 8 + [_P, _F, _P],
-    # rows_re, rows_im, prev_re, prev_im, total, m_amp, fs_tw_re, fs_tw_im,
-    # comb_re, comb_im, dft_tw_fwd_re, dft_tw_fwd_im, dft_tw_inv_re,
-    # dft_tw_inv_im, out_re, out_im, new_prev_re, new_prev_im,
-    # t, hc, h, wk, row0, r0, r1, tau2, power, stream
-    "pbmm_colspec_chunk": [_P] * 18 + [_I] * 7 + [_F, _I, _P],
+    # rows_re, rows_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
+    # fy, fx, fs_tw_re, fs_tw_im, comb_re, comb_im, tw_fwd_re, tw_fwd_im,
+    # tw_inv_re, tw_inv_im, out_re, out_im, new_prev_re, new_prev_im,
+    # new_lpf, new_lps, phase ints(host), phase floats(host),
+    # t, planes, hc, h, wk, row0, r0, r1, stream
+    "pbmm_colspec_chunk": [_P] * 26 + [_I] * 8 + [_P],
+    # re, im, tw_re, tw_im, out_re, out_im, batch, hc, h, wk, row0, stream
+    "pbmm_col_fft": [_P] * 6 + [_I] * 5 + [_P],
     # rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
     # out2, plan_src(host), plan_rev(host), n_tiles, taps(host), radius,
     # yiq_to_rgb(host), iq_u8(host), layout, t, hr, wk, w, in_h, in_w,
-    # yrow0, x0, scale, stream
+    # yrow0, x0, scale, magnitude, comp, gain, g_y, g_i, g_q, stream
     "pbmm_rowifft_post": [_P] * 13 + [_I, _P, _I, _P, _P] + [_I] * 9
-    + [_F, _P],
+    + [_F, _I, _I, _I, _F, _F, _F, _P],
     # re, im, tw_re, tw_im, out, plan_src(host), plan_rev(host), n_tiles,
-    # batch, hb, wk, w, scale, stream
-    "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # batch, hb, wk, w, scale, magnitude, stream
+    "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    # chans3, win, out0, out1, out2, taps(host), radius, yiq_to_rgb(host),
+    # layout, t, hr, w, in_h, in_w, yrow0, x0, comp, gain, g_y, g_i, g_q,
+    # stream
+    "pbmm_post_rgb": [_P] * 6 + [_I, _P] + [_I] * 10 + [_F] * 3 + [_P],
 }
 
 

@@ -1,9 +1,11 @@
 """Temporal-filter state of the phase-delta stream.
 
 Counterpart of `pbmm_tpu/phase/temporal.py`'s `TemporalState` and
-`temporal_init`.  The two-frame mode the port serves carries zero-size
-taps; the streaming IIR band-pass (ROADMAP item 6) will carry
-delta-plane-shaped low-pass taps here.
+`temporal_init`.  The two-frame mode carries zero-size taps; the
+streaming IIR band-pass carries the two low-pass taps, (C, Hp, Wk) f32
+each in the spectra's working layout, which kernel 2
+(`spectral.fused.colspec_chunk`) updates on chip frame by frame
+(lp += r (delta - lp); the rotation uses lp_fast - lp_slow).
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
-"""The fused spectral stages of the chunk engine: kernels 1, 4, 2 and 7.
+"""The fused spectral stages of the chunk engine: kernels 1, 4, 2, 5 and 7.
 
-Counterpart of `pbmm_tpu/spectral/fused.py` for the tight-height chunk
-engine:
+Counterpart of `pbmm_tpu/spectral/fused.py` for the chunk engine:
 
   `windowed_row_fft`           Hann window x row FFT, Hermitian kept
                                tiles out (CUDA: `csrc/row_fft.cu`);
@@ -9,14 +8,20 @@ engine:
                                luma, pad and window inside the kernel
                                (CUDA: `csrc/row_fft.cu`, second entry);
   `colspec_chunk`              column FFT + band/phase pass + column IFFT
-                               for a whole chunk, previous spectrum
-                               carried on chip (CUDA: `csrc/colspec_chunk.cu`);
-  `row_ifft_magnitude`         Hermitian rebuild + row IFFT + |z| of the
-                               two-kernel tail (CUDA: `csrc/row_ifft.cu`);
+                               for a whole chunk, previous spectrum and
+                               IIR taps carried on chip, every branch of
+                               the JAX kernel (CUDA: `csrc/colspec_chunk.cu`);
+  `col_fft_zero_padded`        the radix-2 column FFT of one frame at
+                               pow-2 heights, for the bootstrap state
+                               (CUDA: `csrc/col_fft.cu`);
+  `row_ifft_magnitude`         Hermitian rebuild + row IFFT + |z| or Re z
+                               of the two-kernel tail (CUDA:
+                               `csrc/row_ifft.cu`);
 
 plus the host tables they need.  Spectra keep the JAX package's working
 layout: row (lane) axis bit-reversed and cut to the kept Hermitian tiles,
-column axis in the four-step order of `col_freq_axis`.
+column axis in the order of `col_freq_axis` (bit-reversed at pow-2
+heights, four-step at tight heights).
 
 Each public function takes its plain PyTorch version (`*_ref`) when the
 tensors lie on the CPU and launches its CUDA kernel when they lie on the
@@ -26,6 +31,8 @@ card; there is no other switch and no fallback.
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,7 +62,6 @@ from pbmm_tpu_torch.spectral.radix2 import (
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
 _MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
-_COLSPEC_MAX_M = 16  # tallest four-step column of csrc/colspec_chunk.cu
 
 
 def _hann_vec(n: int) -> np.ndarray:
@@ -83,8 +89,8 @@ def _is_pow2(n: int) -> bool:
 
 
 def _check_fourstep(n: int) -> int:
-    """m for a four-step column length n = m * 128 (not a power of two:
-    those heights take the radix-2 layout, ROADMAP item 6)."""
+    """m for a four-step column length n = m * 128 (powers of two take
+    the radix-2 layout instead)."""
     m = n // _LANE
     if n <= 0 or m * _LANE != n:
         raise ValueError(
@@ -98,6 +104,16 @@ def _fourstep_order(n: int) -> np.ndarray:
     m = _check_fourstep(n)
     p = np.arange(n)
     return (p // _LANE) + m * (p % _LANE)
+
+
+@functools.lru_cache(maxsize=16)
+def _col_order(n: int) -> np.ndarray:
+    """Frequency index held at each position of the working column
+    layout: bit-reversed at pow-2 heights (the radix-2 DIF output),
+    four-step otherwise."""
+    if _is_pow2(n):
+        return bit_reverse_permutation(n)
+    return _fourstep_order(n)
 
 
 def col_freq_axis(n: int) -> np.ndarray:
@@ -161,23 +177,61 @@ def _disjoint_bands(params):
     return bands
 
 
+def lane_freq_axis(wk: int, full_w=None) -> np.ndarray:
+    """Centred normalized frequency of each lane of the working layout:
+    bit-reversed lanes, cut to the kept Hermitian tiles when `full_w`
+    exceeds wk."""
+    if full_w is not None and full_w != wk:
+        return bitrev_freq_axis(full_w)[kept_lane_indices(full_w)]
+    return bitrev_freq_axis(wk)
+
+
+@functools.lru_cache(maxsize=16)
+def _freq_tables(h: int, wk: int, full_w):
+    """(fy (h, 1), fx (1, wk)) f32: the frequency of each column position
+    and each lane, the axes the in-kernel masks and sector weights read."""
+    return col_freq_axis(h)[:, None], lane_freq_axis(wk, full_w)[None, :]
+
+
 @functools.lru_cache(maxsize=8)
 def _static_phase_planes(cfg, h: int, wk: int, full_w: int):
-    """Host-precomputed per-bin (total, m_amp) f32 planes (h, wk) of the
-    pyramid mode with disjoint bands, in the working (four-step x kept
-    bitrev) layout, evaluated in f64 from `radial_level_params`; None when
-    the bands overlap (in-kernel mask evaluation, ROADMAP item 6).  The
-    standard mode's weight plane is ROADMAP item 6 too."""
-    if cfg.mode != "pyramid":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet (ROADMAP item 6)")
+    """Host-precomputed per-bin f32 planes (h, wk) in the working layout,
+    evaluated in f64: the standard mode's weight plane (w,); the pyramid
+    mode's (total, m_amp) when the amplified bands are disjoint; None when
+    they overlap (the masks are then evaluated per bin in the phase pass).
+    The JAX package's function, verbatim."""
     fy = col_freq_axis(h).astype(np.float64)[:, None]
-    if full_w is not None and full_w != wk:
-        fx = bitrev_freq_axis(full_w)[kept_lane_indices(full_w)]
-    else:
-        fx = bitrev_freq_axis(wk)
-    fx = fx.astype(np.float64)[None, :]
+    fx = lane_freq_axis(wk, full_w).astype(np.float64)[None, :]
     freq = np.sqrt(fy * fy + fx * fx)
+    if cfg.mode == "standard":
+        # The standard mode's radial phase-delta weight w(f)
+        # (`PhaseDifferenceComputeShader.compute:74-122`).
+        f = np.minimum(freq / 0.707, 1.0)
+        if not cfg.apply_bandpass:
+            w_pl = np.ones_like(f)
+        else:
+            lo = max(float(cfg.low_freq_cutoff), 1e-3)
+            hi_div = max(1.0 - float(cfg.high_freq_cutoff), 1e-3)
+            steep = float(cfg.filter_steepness)
+            w_pl = np.ones_like(f)
+            w_pl = np.where(f < cfg.low_freq_cutoff, (f / lo) ** steep,
+                            w_pl)
+            w_pl = np.where(f > cfg.high_freq_cutoff,
+                            ((1.0 - f) / hi_div) ** steep, w_pl)
+            w_pl = w_pl * float(cfg.motion_sensitivity)
+            edge = (float(cfg.edge_enhancement) if cfg.enhance_edges
+                    else 0.0)
+            if edge:
+                t = (f - cfg.low_freq_cutoff) / (
+                    cfg.high_freq_cutoff - cfg.low_freq_cutoff)
+                mid = (f > cfg.low_freq_cutoff) & (f < cfg.high_freq_cutoff)
+                w_pl = np.where(
+                    mid, w_pl * (1.0 + edge * np.sin(
+                        np.pi * np.clip(t, 0.0, 1.0))), w_pl)
+            w_pl = np.maximum(w_pl, 0.0)
+        return (w_pl.astype(np.float32),)
+    if cfg.mode != "pyramid":
+        return None
     params = _mask_params(cfg)
     if _disjoint_bands(params) is None:
         return None
@@ -390,172 +444,431 @@ windowed_row_fft_u8planar.launches = 0
 # Kernel 2: column FFT + band/phase + column IFFT over a chunk
 # ---------------------------------------------------------------------------
 
+_COLSPEC_MAX_H = 2048  # tallest column csrc/colspec_chunk.cu holds on chip
+_MAX_ORIENTATIONS = 16  # sector count of the CUDA phase pass (CS_MAXK)
+_MAX_LEVELS = 16  # radial levels of the CUDA phase pass (CS_MAXB)
+_MASK_KINDS = ("zero", "high", "low", "band")
 
-def _integer_power(cfg) -> int:
-    """The slice's phase rotation: pyramid mode, radial bands, two-frame
-    temporal mode and an integer phase_scale in [0, 64] (exact
-    square-and-multiply of the unit rotation)."""
-    if cfg.mode != "pyramid":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet (ROADMAP item 6)")
-    if cfg.orientations > 1 and cfg.pyramid_levels >= 3:
-        raise NotImplementedError(
-            "steerable bands (orientations > 1) are not ported yet "
-            "(ROADMAP item 6)")
-    if cfg.temporal.mode != "two_frame":
-        raise NotImplementedError(
-            f"temporal mode {cfg.temporal.mode!r} is not ported yet "
-            "(ROADMAP item 6)")
+
+def _check_col_height(pad_h: int) -> None:
+    if pad_h > _COLSPEC_MAX_H:
+        raise ValueError(
+            f"the CUDA column kernels hold columns up to {_COLSPEC_MAX_H} "
+            f"rows in shared memory, got {pad_h}")
+
+
+class _PhasePlan(NamedTuple):
+    """The branch of the band/phase pass a config takes (JAX
+    `_phase_block`, `fused.py:865-1016`)."""
+
+    iir: bool  # streaming IIR taps filter the phase delta
+    standard: bool  # whole-spectrum weighted rotation (`mode="standard"`)
+    steer: int  # K sector windows per amplified band (0: radial only)
+    power: int  # integer rotation power, or -1 for atan2 + sin/cos
+    params: tuple  # (kind, lo, hi, amplified) per radial level
+    tau2: np.float32  # magnitude gate, squared
+    scale: np.float32  # phase_scale
+    r_hi: np.float32  # IIR smoothing factors
+    r_lo: np.float32
+
+
+@functools.lru_cache(maxsize=32)
+def _phase_plan(cfg) -> _PhasePlan:
+    iir = cfg.temporal.mode == "iir_bandpass"
+    standard = cfg.mode == "standard"
+    steer = (cfg.orientations if not standard and cfg.orientations > 1
+             and cfg.pyramid_levels >= 3 else 0)
+    if steer > _MAX_ORIENTATIONS or cfg.pyramid_levels > _MAX_LEVELS:
+        raise ValueError(
+            f"the CUDA phase pass takes up to {_MAX_ORIENTATIONS} "
+            f"orientations and {_MAX_LEVELS} pyramid levels, got "
+            f"{cfg.orientations} and {cfg.pyramid_levels}")
     s = float(cfg.phase_scale)
-    if not (s.is_integer() and 0 <= s <= 64):
-        raise NotImplementedError(
-            f"non-integer phase_scale={s} (polynomial atan2/sincos rotation) "
-            "is not ported yet (ROADMAP item 6)")
-    return int(s)
+    power = (int(s) if not (iir or standard) and s.is_integer()
+             and 0 <= s <= 64 else -1)
+    r_hi, r_lo = (cfg.temporal.smoothing_factors() if iir else (0.0, 0.0))
+    return _PhasePlan(iir, standard, steer, power, _mask_params(cfg),
+                      np.float32(cfg.magnitude_threshold) ** 2,
+                      np.float32(s), np.float32(r_hi), np.float32(r_lo))
 
 
-def _colspec_args(rows_re, cfg, pad_h, row0, out_rows, full_w, planes):
-    """Validate a colspec call; returns (power, r0, r1, tau2)."""
+def _atan2z(y, x):
+    """atan2 with the JAX kernel's zero convention (`_atan2_poly`): -0
+    counts as +0 and (0, 0) gives 0.  IEEE atan2 gives pi for (+0, -0)
+    and -pi for (-0, x < 0), which would turn the zero previous spectrum
+    of the bootstrap into a delta of pi in the IIR taps."""
+    return torch.atan2(y + 0.0, x + 0.0)
+
+
+def _pow_int(x, n: int):
+    """x**n for an integer 0 <= n <= 16 by square-and-multiply, in the
+    JAX kernel's product order (`_pow_static`)."""
+    acc, base = None, x
+    while n > 0:
+        if n & 1:
+            acc = base if acc is None else acc * base
+        base = base * base
+        n >>= 1
+    return acc if acc is not None else torch.ones_like(x)
+
+
+def _sector_consts(k: int):
+    """(normaliser, [cos 2 phi_i], [sin 2 phi_i]) of the K sector
+    windows, phi_i = pi i / K."""
+    m = k - 1
+    phi2 = [2.0 * np.pi * i / k for i in range(k)]
+    return (4.0**m / (k * math.comb(2 * m, m)), [np.cos(p) for p in phi2],
+            [np.sin(p) for p in phi2])
+
+
+def _sector_weights(fy, fx, k: int):
+    """The K partition-of-unity angular windows of the steerable
+    extension, trig-free (JAX `_sector_weights`, `fused.py:725-763`):
+    cos^2(theta - phi_k) from the double angle of (fx, fy), raised to the
+    K - 1, times the constant normaliser."""
+    fy, fx = torch.broadcast_tensors(fy, fx)
+    r2 = fx * fx + fy * fy
+    inv_r2 = torch.where(r2 > 0, 1.0 / torch.clamp_min(r2, 1e-38), 0.0)
+    cos2t = torch.where(r2 > 0, (fx * fx - fy * fy) * inv_r2, 1.0)
+    sin2t = 2.0 * fx * fy * inv_r2
+    norm, cos2p, sin2p = _sector_consts(k)
+    out = []
+    for c, s in zip(cos2p, sin2p):
+        c2 = 0.5 * (1.0 + cos2t * np.float32(c) + sin2t * np.float32(s))
+        out.append(_pow_int(torch.clamp_min(c2, 0.0), k - 1)
+                   * np.float32(norm))
+    return out
+
+
+def _eval_mask(kind: str, lo: float, hi: float, freq):
+    """One radial level's mask at each bin (JAX `_eval_mask`)."""
+    if kind == "zero":
+        return torch.zeros_like(freq)
+    t = torch.clamp((freq - lo) / np.float32(hi - lo), 0.0, 1.0)
+    if kind == "high":
+        return torch.where(freq > hi, 1.0,
+                           torch.where(freq > lo, t * t * (3.0 - 2.0 * t),
+                                       0.0))
+    if kind == "low":
+        return torch.where(freq < lo, 1.0, torch.where(
+            freq < hi, 1.0 - t * t * (3.0 - 2.0 * t), 0.0))
+    band = 0.5 * (1.0 + torch.cos(2.0 * np.pi * (t - 0.5)))
+    return torch.where((freq >= lo) & (freq <= hi), band, 0.0)
+
+
+def _phase_block_ref(cr, ci, pr, pi_, fy, fx, cfg, lpf=None, lps=None,
+                     static_planes=None):
+    """The band/phase pass on one frame's spectrum, every branch of the
+    JAX kernel's `_phase_block` (`fused.py:865-1016`) as plain torch:
+
+    - standard mode: rotate by delta * w * s, the weight w from the host
+      plane, bins under the magnitude gate passed through;
+    - pyramid mode: out = cur * ((total - amped) + amped * e^{i s delta}),
+      amped the gated sum of the amplified masks (host planes, or every
+      level's mask evaluated per bin when `static_planes` is None), each
+      split into K sector windows when steerable;
+    - the rotation by square-and-multiply of the unit rotation for an
+      integer scale, else atan2 and sin/cos (IEEE functions in place of
+      the TPU's polynomials; the same functions to their ~1e-8 error);
+    - with the IIR taps, delta is band-passed first (lp += r (delta -
+      lp), delta' = lp_fast - lp_slow) and the new taps are returned.
+
+    fy (H, 1) and fx (1, Wk) are the bins' frequencies.  Returns (out_re,
+    out_im), plus (new_lpf, new_lps) with the IIR taps."""
+    plan = _phase_plan(cfg)
+    tau2 = plan.tau2
+    r_re = pr * cr + pi_ * ci  # prev * conj(cur)
+    r_im = pi_ * cr - pr * ci
+    taps = ()
+    if plan.iir:
+        delta = _atan2z(r_im, r_re)
+        lpf = lpf + plan.r_hi * (delta - lpf)
+        lps = lps + plan.r_lo * (delta - lps)
+        delta_iir = lpf - lps
+        taps = (lpf, lps)
+    if plan.standard:
+        delta = delta_iir if plan.iir else _atan2z(r_im, r_re)
+        theta = delta * static_planes[0] * plan.scale
+        rot_re, rot_im = torch.cos(theta), torch.sin(theta)
+        gate_pass = ((cr * cr + ci * ci) < tau2) | ((pr * pr + pi_ * pi_)
+                                                    < tau2)
+        return (torch.where(gate_pass, cr, cr * rot_re - ci * rot_im),
+                torch.where(gate_pass, ci, cr * rot_im + ci * rot_re)) + taps
+
+    min_mag2 = torch.minimum(cr * cr + ci * ci, pr * pr + pi_ * pi_)
+    sect = _sector_weights(fy, fx, plan.steer) if plan.steer else None
+
+    def gated(m):
+        if sect is None:
+            return torch.where(min_mag2 * (m * m) >= tau2, m, 0.0)
+        amped = torch.zeros_like(min_mag2)
+        for a in sect:
+            mk = m * a
+            amped = amped + torch.where(min_mag2 * (mk * mk) >= tau2, mk,
+                                        0.0)
+        return amped
+
+    if static_planes is not None:
+        total, m = static_planes
+        amped = gated(m)
+    else:
+        freq = torch.sqrt(fy * fy + fx * fx)
+        total = torch.zeros_like(freq)
+        amped = torch.zeros_like(min_mag2)
+        for kind, lo, hi, amp in plan.params:
+            m = _eval_mask(kind, lo, hi, freq)
+            total = total + m
+            if amp:
+                amped = amped + gated(m)
+
+    if plan.power >= 0:
+        m2 = r_re * r_re + r_im * r_im
+        inv = torch.where(m2 > 0, torch.rsqrt(torch.clamp_min(m2, 1e-38)),
+                          0.0)
+        br, bi = r_re * inv, r_im * inv
+        rot_re, rot_im = torch.ones_like(br), torch.zeros_like(bi)
+        n = plan.power
+        while n > 0:
+            if n & 1:
+                rot_re, rot_im = (rot_re * br - rot_im * bi,
+                                  rot_re * bi + rot_im * br)
+            br, bi = br * br - bi * bi, 2.0 * br * bi
+            n >>= 1
+    else:
+        theta = plan.scale * (delta_iir if plan.iir
+                              else _atan2z(r_im, r_re))
+        rot_re, rot_im = torch.cos(theta), torch.sin(theta)
+    p = total - amped
+    g_re = p + amped * rot_re
+    g_im = amped * rot_im
+    return (cr * g_re - ci * g_im, cr * g_im + ci * g_re) + taps
+
+
+def _colspec_args(rows_re, cfg, pad_h, row0, out_rows, planes, lp_fast,
+                  lp_slow):
+    """Validate a colspec call; returns (r0, r1)."""
     n, hc, w = rows_re.shape
-    if planes != 1:
-        raise NotImplementedError(
-            "chroma='rgb' (planes=3) is not ported yet (ROADMAP item 6)")
+    if planes < 1 or n % planes:
+        raise ValueError(f"{n} rows do not hold whole frames of {planes} "
+                         "planes")
     if _is_pow2(pad_h):
-        raise NotImplementedError(
-            f"pow-2 column height {pad_h} (radix-2 column layout) is not "
-            "ported yet (ROADMAP item 6)")
-    _check_fourstep(pad_h)
-    power = _integer_power(cfg)
-    if _static_phase_planes(cfg, pad_h, w, full_w) is None:
-        raise NotImplementedError(
-            "overlapping pyramid bands (in-kernel mask evaluation) are not "
-            "ported yet (ROADMAP item 6)")
+        check_pow2(pad_h, "radix-2 column height")
+    else:
+        _check_fourstep(pad_h)
+    if (cfg.temporal.mode == "iir_bandpass") != (lp_fast is not None
+                                                 and lp_slow is not None):
+        raise ValueError("lp_fast/lp_slow carry planes go with, and only "
+                         "with, temporal mode iir_bandpass")
+    _phase_plan(cfg)
     if not 0 <= row0 <= pad_h - hc:
         raise ValueError(f"rows [{row0}, {row0 + hc}) outside pad_h={pad_h}")
     r0, r1 = out_rows if out_rows is not None else (0, pad_h)
     if not 0 <= r0 < r1 <= pad_h:
         raise ValueError(f"bad out_rows {out_rows} for pad_h={pad_h}")
-    tau2 = np.float32(cfg.magnitude_threshold) ** 2
-    return power, r0, r1, tau2
+    return r0, r1
 
 
-def _phase_block_ref(cr, ci, pr, pi_, total, m, tau2, power):
-    """The band/phase pass on one frame (plain torch, the JAX kernel's
-    `_phase_block` branch for host planes and an integer rotation):
-    out = cur * ((total - amped) + amped * unit(prev * conj(cur))**power),
-    amped = m where min(|cur|^2, |prev|^2) * m^2 >= tau^2."""
-    r_re = pr * cr + pi_ * ci  # prev * conj(cur)
-    r_im = pi_ * cr - pr * ci
-    min_mag2 = torch.minimum(cr * cr + ci * ci, pr * pr + pi_ * pi_)
-    amped = torch.where(min_mag2 * (m * m) >= tau2, m, 0.0)
-    m2 = r_re * r_re + r_im * r_im
-    inv = torch.where(m2 > 0, torch.rsqrt(torch.clamp_min(m2, 1e-38)), 0.0)
-    br, bi = r_re * inv, r_im * inv
-    rr, ri = torch.ones_like(br), torch.zeros_like(bi)
-    n = power
-    while n > 0:
-        if n & 1:
-            rr, ri = rr * br - ri * bi, rr * bi + ri * br
-        br, bi = br * br - bi * bi, 2.0 * br * bi
-        n >>= 1
-    p = total - amped
-    g_re = p + amped * rr
-    g_im = amped * ri
-    return cr * g_re - ci * g_im, cr * g_im + ci * g_re
+def _col_fft_ref(re, im, pad_h: int, row0: int, order):
+    """One frame's (Hc, W) content rows, zero-embedded at row0 of a
+    pad_h column, through `torch.fft` and into the working row order:
+    the forward half of kernels 2 and 5, one op sequence for both."""
+    x = torch.zeros((pad_h, re.shape[-1]), dtype=torch.complex64,
+                    device=re.device)
+    x[row0:row0 + re.shape[0]] = torch.complex(re, im)
+    return torch.fft.fft(x, dim=0)[order]
 
 
 def colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
-                      row0: int, out_rows=None, full_w=None,
-                      planes: int = 1):
-    """Plain PyTorch version of `colspec_chunk`: per frame, zero-embed,
-    `torch.fft` down the columns, the four-step index map, the phase pass
-    against the previous frame, the inverse map and an unnormalised
-    inverse FFT."""
-    power, r0, r1, tau2 = _colspec_args(rows_re, cfg, pad_h, row0,
-                                        out_rows, full_w, planes)
+                      row0: int, lp_fast=None, lp_slow=None, out_rows=None,
+                      full_w=None, planes: int = 1):
+    """Plain PyTorch version of `colspec_chunk`: per plane and frame,
+    zero-embed, `torch.fft` down the columns, the working-layout index
+    map, `_phase_block_ref` against the previous frame, the inverse map
+    and an unnormalised inverse FFT."""
+    r0, r1 = _colspec_args(rows_re, cfg, pad_h, row0, out_rows, planes,
+                           lp_fast, lp_slow)
     n, hc, w = rows_re.shape
     dev = rows_re.device
-    total, m_amp = device_arrays(_static_phase_planes,
-                                 (cfg, pad_h, w, full_w), dev)
-    order = torch.as_tensor(_fourstep_order(pad_h), device=dev)
+    host = _static_phase_planes(cfg, pad_h, w, full_w)
+    if host is not None:
+        host = device_arrays(_static_phase_planes, (cfg, pad_h, w, full_w),
+                             dev)
+    fy, fx = device_arrays(_freq_tables, (pad_h, w, full_w), dev)
+    order = torch.as_tensor(_col_order(pad_h), device=dev)
     out_re = torch.empty((n, r1 - r0, w), dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
-    pr, pi_ = prev_re[0], prev_im[0]
-    for f in range(n):
-        x = torch.zeros((pad_h, w), dtype=torch.complex64, device=dev)
-        x[row0:row0 + hc] = torch.complex(rows_re[f], rows_im[f])
-        cur = torch.fft.fft(x, dim=0)[order]
-        cr, ci = cur.real, cur.imag
-        mr, mi = _phase_block_ref(cr, ci, pr, pi_, total, m_amp, tau2, power)
-        nat = torch.empty_like(cur)
-        nat[order] = torch.complex(mr, mi)
-        z = torch.fft.ifft(nat, dim=0, norm="forward")[r0:r1]
-        out_re[f] = z.real
-        out_im[f] = z.imag
-        pr, pi_ = cr, ci
-    return (out_re, out_im, pr[None].contiguous(), pi_[None].contiguous())
+    state = []
+    for c in range(planes):
+        pr, pi_ = prev_re[c], prev_im[c]
+        taps = (lp_fast[c], lp_slow[c]) if lp_fast is not None else ()
+        for f in range(c, n, planes):
+            cur = _col_fft_ref(rows_re[f], rows_im[f], pad_h, row0, order)
+            cr, ci = cur.real, cur.imag
+            res = _phase_block_ref(cr, ci, pr, pi_, fy, fx, cfg, *taps,
+                                   static_planes=host)
+            taps = res[2:]
+            nat = torch.empty_like(cur)
+            nat[order] = torch.complex(res[0], res[1])
+            z = torch.fft.ifft(nat, dim=0, norm="forward")[r0:r1]
+            out_re[f] = z.real
+            out_im[f] = z.imag
+            pr, pi_ = cr, ci
+        state.append((pr, pi_) + tuple(taps))
+    return (out_re, out_im) + tuple(torch.stack(s) for s in zip(*state))
+
+
+def _phase_args(plan: _PhasePlan, host_planes: bool):
+    """(ints, floats) of csrc/colspec_chunk.cu's PhaseArgs, in its field
+    order."""
+    bands = () if host_planes or plan.standard else plan.params
+    pad = _MAX_LEVELS - len(bands)
+    ints = [int(plan.iir), int(plan.standard), int(host_planes), plan.steer,
+            plan.power, len(bands)]
+    ints += [_MASK_KINDS.index(b[0]) for b in bands] + [0] * pad
+    ints += [int(b[3]) for b in bands] + [0] * pad
+    k = max(plan.steer, 1)
+    norm, cos2p, sin2p = _sector_consts(k)
+    floats = [plan.tau2, plan.scale, plan.r_hi, plan.r_lo, norm]
+    floats += cos2p + [0.0] * (_MAX_ORIENTATIONS - k)
+    floats += sin2p + [0.0] * (_MAX_ORIENTATIONS - k)
+    for col in (1, 2):
+        floats += [b[col] for b in bands] + [0.0] * pad
+    floats += [b[2] - b[1] for b in bands] + [0.0] * pad
+    return ints, floats
 
 
 def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
-                  row0: int, out_rows=None, full_w=None, planes: int = 1):
+                  row0: int, lp_fast=None, lp_slow=None, out_rows=None,
+                  full_w=None, planes: int = 1):
     """Column FFT + band/phase amplification + column IFFT for a whole
-    chunk, the previous frame's spectrum carried on chip.
+    chunk, the previous frame's spectrum (and the IIR taps) carried on
+    chip.
 
     Args:
-      rows_re/rows_im: (T, Hc, Wk) kernel-1 output, the row spectra of
-        the windowed content rows.
-      prev_re/prev_im: (1, H, Wk) carried previous-frame spectrum (the
-        `VideoState` contract: four-step rows x kept bitrev lanes).
+      rows_re/rows_im: (T * planes, Hc, Wk) kernel-1 output, the row
+        spectra of the windowed content rows, plane-minor frame-major
+        ([Y0 I0 Q0 Y1 ...] for chroma="rgb").
+      prev_re/prev_im: (planes, H, Wk) carried previous-frame spectrum
+        (the `VideoState` contract: bit-reversed rows at pow-2 heights,
+        four-step rows otherwise, x kept bitrev lanes).
       pad_h/row0: the content slab sits at rows [row0, row0 + Hc) of the
         H = pad_h padded column.
+      lp_fast/lp_slow: (planes, H, Wk) IIR taps (iir_bandpass only).
       out_rows: (r0, r1) spatial rows of the inverse to write back.
       full_w: the padded width when the lanes are the kept Hermitian half.
-    Returns (rre, rim (T, r1-r0, Wk), new_prev_re, new_prev_im (1, H, Wk)).
+    Returns (rre, rim (T * planes, r1 - r0, Wk), new_prev_re, new_prev_im
+    (planes, H, Wk)[, new_lp_fast, new_lp_slow]).
 
     CPU tensors take `colspec_chunk_ref`; CUDA tensors launch
     `csrc/colspec_chunk.cu`."""
     if rows_re.device.type == "cpu":
         return colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg,
-                                 pad_h, row0, out_rows, full_w, planes)
+                                 pad_h, row0, lp_fast, lp_slow, out_rows,
+                                 full_w, planes)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
-    power, r0, r1, tau2 = _colspec_args(rows_re, cfg, pad_h, row0,
-                                        out_rows, full_w, planes)
+    r0, r1 = _colspec_args(rows_re, cfg, pad_h, row0, out_rows, planes,
+                           lp_fast, lp_slow)
     n, hc, w = rows_re.shape
-    if n < 1:
-        raise ValueError("colspec_chunk needs at least one frame")
+    _check_col_height(pad_h)
     check_cuda("colspec_chunk", (n, hc, w), rows_re, rows_im)
-    check_cuda("colspec_chunk", (1, pad_h, w), prev_re, prev_im)
+    taps = (lp_fast, lp_slow) if lp_fast is not None else ()
+    check_cuda("colspec_chunk", (planes, pad_h, w), prev_re, prev_im, *taps)
     dev = rows_re.device
-    m = _check_fourstep(pad_h)
-    if m > _COLSPEC_MAX_M:
-        raise ValueError(
-            f"the CUDA column kernel takes heights up to "
-            f"{_COLSPEC_MAX_M * _LANE} rows, got {pad_h}")
-    total, m_amp = device_arrays(_static_phase_planes,
-                                 (cfg, pad_h, w, full_w), dev)
-    fsr, fsi = device_arrays(_fourstep_twiddle, (pad_h, False), dev)
-    cwr, cwi = device_arrays(_combine_matrix, (m,), dev)
-    dfr, dfi = device_arrays(_dif_twiddles, (_LANE, False), dev)
-    dir_, dii = device_arrays(_dif_twiddles, (_LANE, True), dev)
-    out_re = torch.empty((n, r1 - r0, w), dtype=torch.float32, device=dev)
-    out_im = torch.empty_like(out_re)
-    np_re = torch.empty((1, pad_h, w), dtype=torch.float32, device=dev)
-    np_im = torch.empty_like(np_re)
+    plan = _phase_plan(cfg)
+    host = _static_phase_planes(cfg, pad_h, w, full_w)
+    planes_d = (device_arrays(_static_phase_planes, (cfg, pad_h, w, full_w),
+                              dev) if host is not None else ())
+    planes_d = planes_d + (None,) * (2 - len(planes_d))
+    fy, fx = device_arrays(_freq_tables, (pad_h, w, full_w), dev)
+    if _is_pow2(pad_h):
+        fs = cw = (None, None)
+        tw = (device_arrays(_dif_twiddles, (pad_h, False), dev)
+              + device_arrays(_dif_twiddles, (pad_h, True), dev))
+    else:
+        fs = device_arrays(_fourstep_twiddle, (pad_h, False), dev)
+        cw = device_arrays(_combine_matrix, (pad_h // _LANE,), dev)
+        tw = (device_arrays(_dif_twiddles, (_LANE, False), dev)
+              + device_arrays(_dif_twiddles, (_LANE, True), dev))
+    outs = [torch.empty((n, r1 - r0, w), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    outs += [torch.empty((planes, pad_h, w), dtype=torch.float32, device=dev)
+             for _ in range(2 + len(taps))]
+    ints, floats = _phase_args(plan, host is not None)
+    ins = ((rows_re, rows_im, prev_re, prev_im) + (taps or (None, None))
+           + planes_d + (fy, fx) + fs + cw + tw)
     err = library().pbmm_colspec_chunk(
-        rows_re.data_ptr(), rows_im.data_ptr(), prev_re.data_ptr(),
-        prev_im.data_ptr(), total.data_ptr(), m_amp.data_ptr(),
-        fsr.data_ptr(), fsi.data_ptr(), cwr.data_ptr(), cwi.data_ptr(),
-        dfr.data_ptr(), dfi.data_ptr(), dir_.data_ptr(), dii.data_ptr(),
-        out_re.data_ptr(), out_im.data_ptr(), np_re.data_ptr(),
-        np_im.data_ptr(), n, hc, pad_h, w, row0, r0, r1, float(tau2), power,
-        stream_handle(dev))
+        *(None if x is None else x.data_ptr()
+          for x in ins + tuple(outs) + (None,) * (6 - len(outs))),
+        c_ints(ints), c_floats(floats), n // planes, planes, hc, pad_h, w,
+        row0, r0, r1, stream_handle(dev))
     check_launch(err, "colspec_chunk")
     colspec_chunk.launches += 1
-    return out_re, out_im, np_re, np_im
+    return tuple(outs)
 
 
 colspec_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: zero-embedded radix-2 column FFT (pow-2 heights)
+# ---------------------------------------------------------------------------
+
+
+def _col_fft_args(re, pad_h: int, row0: int):
+    _, hc, _ = re.shape
+    check_pow2(pad_h, "radix-2 column height")
+    if not 0 <= row0 <= pad_h - hc:
+        raise ValueError(f"rows [{row0}, {row0 + hc}) outside pad_h={pad_h}")
+
+
+def col_fft_zero_padded_ref(re, im, pad_h: int, row0: int = 0):
+    """Plain PyTorch version of `col_fft_zero_padded`: `_col_fft_ref`, the
+    forward half of `colspec_chunk_ref`, frame by frame."""
+    _col_fft_args(re, pad_h, row0)
+    order = torch.as_tensor(_col_order(pad_h), device=re.device)
+    out_re = torch.empty((re.shape[0], pad_h, re.shape[-1]),
+                         dtype=torch.float32, device=re.device)
+    out_im = torch.empty_like(out_re)
+    for b in range(re.shape[0]):
+        spec = _col_fft_ref(re[b], im[b], pad_h, row0, order)
+        out_re[b] = spec.real
+        out_im[b] = spec.imag
+    return out_re, out_im
+
+
+def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
+    """(B, Hc, W) row spectra of the content rows -> (B, pad_h, W)
+    forward column FFT, the content slab zero-embedded at `row0` on chip
+    (the zero rows are never read), rows bit-reversed: the radix-2 DIF of
+    `colspec_chunk`'s pow-2 branch, the same op sequence, so the spectrum
+    of a frame equals the one kernel 2 carries bit for bit.  pow-2
+    heights only.
+
+    CPU tensors take `col_fft_zero_padded_ref`; CUDA tensors launch
+    `csrc/col_fft.cu`."""
+    if re.device.type == "cpu":
+        return col_fft_zero_padded_ref(re, im, pad_h, row0)
+    from pbmm_tpu_torch.kernels.build import check_launch, library
+
+    _col_fft_args(re, pad_h, row0)
+    b, hc, w = re.shape
+    _check_col_height(pad_h)
+    check_cuda("col_fft_zero_padded", (b, hc, w), re, im)
+    dev = re.device
+    twr, twi = device_arrays(_dif_twiddles, (pad_h, False), dev)
+    out_re = torch.empty((b, pad_h, w), dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    err = library().pbmm_col_fft(
+        re.data_ptr(), im.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+        out_re.data_ptr(), out_im.data_ptr(), b, hc, pad_h, w, row0,
+        stream_handle(dev))
+    check_launch(err, "col_fft_zero_padded")
+    col_fft_zero_padded.launches += 1
+    return out_re, out_im
+
+
+col_fft_zero_padded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -572,11 +885,8 @@ def lane_plan(wk: int, w: int):
     return reconstruction_plan(w)
 
 
-def _row_ifft_args(re, magnitude: bool, pad_h: int, full_w):
-    """Validate a row-IFFT call; returns (full width, |z| scale)."""
-    if not magnitude:
-        raise NotImplementedError(
-            "reconstruct='real' is not ported yet (ROADMAP item 6)")
+def _row_ifft_args(re, pad_h: int, full_w):
+    """Validate a row-IFFT call; returns (full width, 1 / (pad_h W))."""
     _, h, w = re.shape
     fw = full_w if full_w is not None else w
     check_pow2(fw, "row IFFT length")
@@ -585,11 +895,12 @@ def _row_ifft_args(re, magnitude: bool, pad_h: int, full_w):
     return fw, 1.0 / ((pad_h or h) * fw)
 
 
-def rebuilt_row_magnitude(re, im, fw: int, scale: float) -> torch.Tensor:
-    """|row IFFT| * scale of (B, Hb, Wk) bit-reversed kept lanes, full
-    width: lane gathers for the rebuild and the bit reversal, then
-    `torch.fft` one frame at a time (the plain arithmetic behind kernels
-    3 and 7)."""
+def rebuilt_row_ifft(re, im, fw: int, scale: float,
+                     magnitude: bool = True) -> torch.Tensor:
+    """|row IFFT| * scale (or Re * scale) of (B, Hb, Wk) bit-reversed kept
+    lanes, full width: lane gathers for the rebuild and the bit reversal,
+    then `torch.fft` one frame at a time (the plain arithmetic behind
+    kernels 3 and 7)."""
     b, hb, wk = re.shape
     dev = re.device
     src, flip = [], []
@@ -601,30 +912,31 @@ def rebuilt_row_magnitude(re, im, fw: int, scale: float) -> torch.Tensor:
     perm = bit_reverse_permutation(fw)
     gather = torch.as_tensor(np.concatenate(src)[perm], device=dev)
     flip = torch.as_tensor(np.concatenate(flip)[perm], device=dev)
-    mag = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
     for f in range(b):
         x = torch.complex(re[f], im[f])[:, gather]
         x = torch.where(flip, x.conj(), x)
         z = torch.fft.ifft(x, dim=-1, norm="forward")
-        mag[f] = torch.sqrt(z.real * z.real + z.imag * z.imag) * scale
-    return mag
+        out[f] = (torch.sqrt(z.real * z.real + z.imag * z.imag)
+                  if magnitude else z.real) * scale
+    return out
 
 
 def row_ifft_magnitude_ref(re, im, magnitude: bool = True, pad_h: int = 0,
                            full_w=None):
     """Plain PyTorch version of `row_ifft_magnitude`."""
-    fw, scale = _row_ifft_args(re, magnitude, pad_h, full_w)
-    return rebuilt_row_magnitude(re, im, fw, scale)
+    fw, scale = _row_ifft_args(re, pad_h, full_w)
+    return rebuilt_row_ifft(re, im, fw, scale, magnitude)
 
 
 def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
                        full_w=None):
     """(B, Hb, Wk) bit-reversed kept-lane rows -> (B, Hb, W) f32 |row
-    IFFT| / (pad_h * W), full width: the missing tiles are rebuilt as
+    IFFT| / (pad_h * W), or Re / (pad_h * W) with `magnitude=False`
+    (`reconstruct="real"`), full width: the missing tiles are rebuilt as
     conj(lane reversal) of kept ones (`reconstruction_plan`) when
     `full_w` exceeds Wk.  `pad_h` (default Hb) is the padded height of
-    the normalisation.  Only `magnitude=True` (the reference's |z|) is
-    served.
+    the normalisation.
 
     CPU tensors take `row_ifft_magnitude_ref`; CUDA tensors launch
     `csrc/row_ifft.cu`."""
@@ -632,7 +944,7 @@ def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
         return row_ifft_magnitude_ref(re, im, magnitude, pad_h, full_w)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
-    fw, scale = _row_ifft_args(re, magnitude, pad_h, full_w)
+    fw, scale = _row_ifft_args(re, pad_h, full_w)
     b, hb, wk = re.shape
     if fw > _MAX_TILES * _LANE:
         raise ValueError(f"the CUDA row kernel takes rows up to "
@@ -646,7 +958,7 @@ def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
         re.data_ptr(), im.data_ptr(), twr.data_ptr(), twi.data_ptr(),
         out.data_ptr(), c_ints(kp for kp, _ in plan),
         c_ints(rev for _, rev in plan), len(plan), b, hb, wk, fw,
-        float(scale), stream_handle(dev))
+        float(scale), int(magnitude), stream_handle(dev))
     check_launch(err, "row_ifft_magnitude")
     row_ifft_magnitude.launches += 1
     return out

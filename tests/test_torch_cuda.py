@@ -222,3 +222,217 @@ def test_u8_path_on_card_matches_cpu(dev, in_h, layout):
     o1, s1 = magnify_video(torch.from_numpy(clip[:2]).to(dev), cfg)
     o2, _ = magnify_video(torch.from_numpy(clip[2:]).to(dev), cfg, s1)
     assert torch.equal(torch.cat([o1, o2]), out_d)
+
+
+# -- the config matrix: kernel 2's branches, kernels 5 and 11, the quirk
+#    switches of kernels 3 and 7 ---------------------------------------------
+
+from pbmm_tpu_torch import TemporalConfig  # noqa: E402
+
+_BRANCHES = {
+    "pow2": dict(),
+    "pow2_rgb": dict(chroma="rgb"),
+    "iir": dict(temporal=TemporalConfig(mode="iir_bandpass")),
+    "standard": dict(mode="standard"),
+    "standard_iir": dict(mode="standard",
+                         temporal=TemporalConfig(mode="iir_bandpass")),
+    "steerable": dict(orientations=4),
+    "overlapping": dict(pyramid_levels=6, orientations=3),
+    "non_integer": dict(phase_scale=2.5),
+}
+
+
+def _spectra(rng, shape, dev, zeros=False):
+    """Normal spectra; with `zeros`, a band of exact and signed zeros."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    if zeros:
+        a[..., :16, :] = 0.0
+        a[..., 16:32, :] = -0.0
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("name", sorted(_BRANCHES))
+@pytest.mark.parametrize("pad_h", [512, 384])
+def test_colspec_kernel_branches(dev, name, pad_h):
+    """Every branch of kernel 2 against its plain version, at a pow-2 and
+    a four-step height, with signed zeros in cur and prev."""
+    cfg = _cfg().replace(**_BRANCHES[name])
+    planes = 3 if cfg.chroma == "rgb" else 1
+    w, hc, row0, rows = 512, 256, 64, (64, 320)
+    wk = hermitian_kept_width(w)
+    rng = np.random.default_rng(11)
+    rows_in = [_spectra(rng, (3 * planes, hc, wk), dev, True)
+               for _ in range(2)]
+    state = [_spectra(rng, (planes, pad_h, wk), dev, True) for _ in range(2)]
+    if cfg.temporal.mode == "iir_bandpass":
+        state += [0.1 * _spectra(rng, (planes, pad_h, wk), dev)
+                  for _ in range(2)]
+    n = fused.colspec_chunk.launches
+    args = (*rows_in, *state[:2], cfg, pad_h, row0, *state[2:])
+    kw = dict(out_rows=rows, full_w=w, planes=planes)
+    got = fused.colspec_chunk(*args, **kw)
+    assert fused.colspec_chunk.launches == n + 1
+    want = fused.colspec_chunk_ref(*[x.cpu() for x in args[:4]], cfg, pad_h,
+                                   row0, *[x.cpu() for x in state[2:]], **kw)
+    assert len(got) == len(want) == 4 + len(state[2:])
+    for k in range(0, len(got), 2):
+        assert _rel([g.cpu() for g in got[k:k + 2]], want[k:k + 2]) < 1e-4
+
+
+@pytest.mark.parametrize("pad_h", [512, 384])
+def test_iir_zero_prev_taps_stay_zero(dev, pad_h):
+    """The bootstrap: a zero previous spectrum with signed zeros and zero
+    taps.  atan2 of (+-0, +-0) must be 0, so the taps stay exactly zero
+    (IEEE atan2 would give +-pi at bins with cur in the left half)."""
+    cfg = _cfg().replace(temporal=TemporalConfig(mode="iir_bandpass"))
+    wk = hermitian_kept_width(512)
+    rng = np.random.default_rng(12)
+    rows_in = [_spectra(rng, (1, pad_h, wk), dev) for _ in range(2)]
+    prev = torch.zeros((2, 1, pad_h, wk), device=dev)
+    prev[1, :, ::2] = -0.0
+    taps = torch.zeros((2, 1, pad_h, wk), device=dev)
+    got = fused.colspec_chunk(*rows_in, prev[0], prev[1], cfg, pad_h, 0,
+                              taps[0], taps[1], full_w=512)
+    assert torch.equal(got[4], taps[0]) and torch.equal(got[5], taps[1])
+    assert not torch.signbit(got[4]).any()
+    # Frame 0 passes unmodified: its spectrum is the state it leaves.
+    spec = fused.col_fft_zero_padded(*rows_in, pad_h) if pad_h == 512 else None
+    if spec is not None:
+        assert torch.equal(got[2], spec[0]) and torch.equal(got[3], spec[1])
+
+
+def test_col_fft_kernel_matches_colspec_bootstrap(dev):
+    """Kernel 5 against its plain version, and bit for bit against the
+    spectrum kernel 2 carries out of a zero-prev bootstrap."""
+    rng = np.random.default_rng(13)
+    wk = hermitian_kept_width(1024)
+    re, im = (_spectra(rng, (3, 192, wk), dev) for _ in range(2))
+    n = fused.col_fft_zero_padded.launches
+    got = fused.col_fft_zero_padded(re, im, 1024, row0=320)
+    assert fused.col_fft_zero_padded.launches == n + 1
+    want = fused.col_fft_zero_padded_ref(re.cpu(), im.cpu(), 1024, row0=320)
+    assert _rel([g.cpu() for g in got], want) < 1e-4
+    z = torch.zeros((1, 1024, wk), device=dev)
+    for b in range(3):
+        res = fused.colspec_chunk(re[b:b + 1], im[b:b + 1], z, z, _cfg(),
+                                  1024, 320, full_w=1024)
+        assert torch.equal(res[2][0], got[0][b])
+        assert torch.equal(res[3][0], got[1][b])
+
+
+def test_square_pow2_4k_refused_by_name(dev):
+    z = torch.zeros((1, 64, 128), device=dev)
+    zp = torch.zeros((1, 4096, 128), device=dev)
+    with pytest.raises(ValueError, match="2048"):
+        fused.colspec_chunk(z, z, zp, zp, _cfg(), 4096, 0)
+    with pytest.raises(ValueError, match="2048"):
+        fused.col_fft_zero_padded(z, z, 4096)
+
+
+_QUIRKS = {
+    "real": dict(reconstruct="real"),
+    "compensate": dict(compensate_window=True),
+    "gains": dict(apply_yiq_gains=True, yiq_gains=(1.0, 1.2, 0.8)),
+    "all": dict(reconstruct="real", compensate_window=True,
+                apply_yiq_gains=True, yiq_gains=(0.9, 1.3, 0.7)),
+}
+
+
+@pytest.mark.parametrize("quirk", sorted(_QUIRKS))
+@pytest.mark.parametrize("layout", ["tuple3", "planar_u8"])
+def test_post_kernel_quirks(dev, quirk, layout):
+    in_h, in_w = 320, 384
+    cfg = _cfg().replace(**_QUIRKS[quirk])
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, cfg)
+    wk, hr = hermitian_kept_width(g.pad_w), rows[1] - rows[0]
+    rng = np.random.default_rng(14)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    args = (_rand(rng, (2, hr, wk), dev, scale),
+            _rand(rng, (2, hr, wk), dev, scale),
+            _rand(rng, (2, in_h, in_w), dev, 0.3),
+            _rand(rng, (2, in_h, in_w), dev, 0.3),
+            hann2d_region(g, device=dev), cfg, rows[0], in_h, in_w, "tight")
+    kw = dict(full_w=g.pad_w, out_layout=layout)
+    got = post_fused.rowifft_post_fused(*args, **kw)
+    want = post_fused.rowifft_post_fused_ref(*args, **kw)
+    if layout == "tuple3":
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) < 1e-4
+    else:
+        assert int((got.int() - want.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("quirk", ["none"] + sorted(_QUIRKS))
+@pytest.mark.parametrize("layout", ["tuple3", "planar", "planar_u8"])
+def test_post_rgb_kernel(dev, quirk, layout):
+    in_h, in_w = 320, 384
+    cfg = _cfg().replace(chroma="rgb", **_QUIRKS.get(quirk, {}))
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, cfg)
+    hr = rows[1] - rows[0]
+    rng = np.random.default_rng(15)
+    chans3 = torch.from_numpy(rng.uniform(
+        -0.2, 0.9, (6, hr, g.pad_w)).astype(np.float32)).to(dev)
+    args = (chans3, hann2d_region(g, device=dev), cfg, rows[0], in_h, in_w,
+            "tight")
+    n = post_fused.post_fused_rgb.launches
+    got = post_fused.post_fused_rgb(*args, out_layout=layout)
+    assert post_fused.post_fused_rgb.launches == n + 1
+    want = post_fused.post_fused_rgb_ref(*[a.cpu() if torch.is_tensor(a)
+                                           else a for a in args],
+                                         out_layout=layout)
+    if layout == "tuple3":
+        for a, b in zip(got, want):
+            assert float((a.cpu() - b).abs().max()) < 1e-5
+    elif layout == "planar":
+        assert float((got.cpu() - want).abs().max()) < 1e-5
+    else:
+        assert int((got.cpu().int() - want.int()).abs().max()) <= 1
+        planar = post_fused.post_fused_rgb(*args, out_layout="planar")
+        assert torch.equal(got, torch.round(planar * 255.0).to(torch.uint8))
+
+
+@pytest.mark.parametrize("hb,w", [(384, 512), (64, 2048)])
+def test_row_ifft_kernel_real(dev, hb, w):
+    wk = hermitian_kept_width(w)
+    rng = np.random.default_rng(16)
+    scale = 0.3 * hb * np.sqrt(w)
+    re, im = (_rand(rng, (3, hb, wk), dev, scale) for _ in range(2))
+    got = fused.row_ifft_magnitude(re, im, magnitude=False, pad_h=hb,
+                                   full_w=w)
+    want = fused.row_ifft_magnitude_ref(re.cpu(), im.cpu(), magnitude=False,
+                                        pad_h=hb, full_w=w)
+    assert _rel([got.cpu()], [want]) < 1e-4
+
+
+_PATHS = {
+    "square_pow2": dict(pad_mode="square_pow2"),
+    "rgb_iir": dict(chroma="rgb", temporal=TemporalConfig(mode="iir_bandpass")),
+    "standard_rect": dict(pad_mode="rect_pow2", mode="standard",
+                          phase_scale=2.5),
+    "steer_real_comp": dict(orientations=4, pyramid_levels=6,
+                            reconstruct="real", compensate_window=True,
+                            apply_yiq_gains=True, yiq_gains=(1.0, 1.2, 0.8)),
+    "bypass_pow2": dict(pad_mode="square_pow2",
+                        apply_motion_magnification=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PATHS))
+def test_config_matrix_on_card_matches_cpu(dev, name):
+    rng = np.random.default_rng(17)
+    base = rng.random((320, 384, 3)).astype(np.float32)
+    clip = np.stack([np.roll(base, i, axis=1) * (0.95 + 0.01 * i)
+                     for i in range(5)]).astype(np.float32)
+    cfg = _cfg().replace(**_PATHS[name])
+    out_d, st_d = magnify_video(torch.from_numpy(clip).to(dev), cfg)
+    out_c, st_c = magnify_video(torch.from_numpy(clip), cfg)
+    mse = float(((out_d.cpu().double() - out_c.double()) ** 2).mean())
+    assert mse == 0 or 10 * np.log10(1 / mse) > 100
+    assert _rel([st_d.prev_spec_re.cpu(), st_d.prev_spec_im.cpu()],
+                [st_c.prev_spec_re, st_c.prev_spec_im]) < 1e-4
+    o1, s1 = magnify_video(torch.from_numpy(clip[:2]).to(dev), cfg)
+    o2, s2 = magnify_video(torch.from_numpy(clip[2:]).to(dev), cfg, s1)
+    assert torch.equal(torch.cat([o1, o2]), out_d)
+    assert torch.equal(s2.prev_spec_re, st_d.prev_spec_re)

@@ -189,12 +189,15 @@ def test_radix2_and_fourstep_guards():
         tfused.colspec_chunk_ref(z, z, torch.zeros((1, 300, 384)),
                                  torch.zeros((1, 300, 384)), tc, pad_h=300,
                                  row0=0)
-    # A pow-2 column height takes the radix-2 layout in the JAX package;
-    # the port does not serve it yet rather than compute a wrong layout.
-    with pytest.raises(NotImplementedError):
-        tfused.colspec_chunk_ref(z, z, torch.zeros((1, 512, 384)),
-                                 torch.zeros((1, 512, 384)), tc, pad_h=512,
-                                 row0=0)
+    # A pow-2 column height takes the radix-2 layout, as in the JAX
+    # package (bit-reversed rows; tests/test_torch_branches.py holds it
+    # against the JAX kernel).
+    z = torch.zeros((1, 64, 512))
+    out = tfused.colspec_chunk_ref(z, z, torch.zeros((1, 512, 512)),
+                                   torch.zeros((1, 512, 512)), tc, pad_h=512,
+                                   row0=0)
+    assert out[0].shape == (1, 512, 512) and out[2].shape == (1, 512, 512)
+    assert all(torch.isfinite(x).all() and not x.any() for x in out)
 
 
 def test_wrappers_reject_other_devices():

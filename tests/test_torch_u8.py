@@ -215,9 +215,10 @@ def k7(request):
     scale = 0.3 * g.pad_h * g.pad_w / np.sqrt(g.pad_w)
     re = (scale * rng.standard_normal((2, hr, wk))).astype(np.float32)
     im = (scale * rng.standard_normal((2, hr, wk))).astype(np.float32)
-    want = jrowifft(jnp.asarray(re), jnp.asarray(im), magnitude=True,
-                    pad_h=g.pad_h, full_w=g.pad_w, interpret=True)
-    return dict(g=g, re=re, im=im, want=np.asarray(want))
+    want, want_real = (np.asarray(jrowifft(
+        jnp.asarray(re), jnp.asarray(im), magnitude=mag, pad_h=g.pad_h,
+        full_w=g.pad_w, interpret=True)) for mag in (True, False))
+    return dict(g=g, re=re, im=im, want=want, want_real=want_real)
 
 
 def test_row_ifft_magnitude_ref_vs_jax(k7):
@@ -229,6 +230,8 @@ def test_row_ifft_magnitude_ref_vs_jax(k7):
     assert _rel(got.numpy(), k7["want"]) < 1e-4
     pub = tfused.row_ifft_magnitude(*args, pad_h=g.pad_h, full_w=g.pad_w)
     assert torch.equal(pub, got)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        tfused.row_ifft_magnitude(*args, magnitude=False, pad_h=g.pad_h,
-                                  full_w=g.pad_w)
+    # Re z (reconstruct="real") against the JAX kernel's magnitude=False.
+    real = tfused.row_ifft_magnitude(*args, magnitude=False, pad_h=g.pad_h,
+                                     full_w=g.pad_w)
+    assert _rel(real.numpy(), k7["want_real"]) < 1e-4
+    assert float(real.min()) < 0  # signed, not |z|

@@ -141,37 +141,40 @@ def test_state_to_jax(clip, port):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="standard"),
-    dict(orientations=4),
-    dict(temporal=TemporalConfig(mode="iir_bandpass")),
-    dict(chroma="rgb"),
-    dict(pad_mode="square_pow2"),
     dict(engine="scan"),
     dict(cache_prev_spectrum=False),
-    dict(compensate_window=True),
-    dict(phase_scale=2.5),
-    dict(apply_motion_magnification=False),
-    dict(reconstruct="real"),
     dict(fft_backend="xla", use_rfft=True, use_fused_spectral=False),
-])
+], ids=["scan_engine", "no_cache_prev_spectrum", "xla_backend"])
 def test_unsupported_config_raises(clip, change):
+    """What stays unported names its ROADMAP item (8: the scan engine;
+    8 and 10: the unfused backends).  The batched engine's other configs
+    are served (tests/test_torch_matrix.py, tests/test_torch_rgb.py)."""
     cfg = _tcfg().replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         magnify_video(torch.from_numpy(clip[:2]), cfg)
+    # The bypass is no way around it.
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        magnify_video(torch.from_numpy(clip[:2]),
+                      cfg.replace(apply_motion_magnification=False))
 
 
 def test_unsupported_frames_raise(clip):
-    """Planar frames and frame sizes outside `post_pallas_ok` are served
-    now (tests/test_torch_planar.py); what stays unserved still raises."""
+    """Planar frames, frame sizes outside `post_pallas_ok` and pow-2
+    column heights are served (tests/test_torch_planar.py,
+    tests/test_torch_rgb.py); malformed frames still raise."""
     # Neither (T, H, W, 3) nor (T, 3, H, W): malformed, not unported.
     with pytest.raises(ValueError, match="frames"):
         magnify_video(torch.from_numpy(clip[:2, :, :, :2].copy()), _tcfg())
-    # 256-row frames pad to a pow-2 height (radix-2 column layout), in
-    # either layout.
+    # 256-row frames pad to a pow-2 height even at pad_mode="tight": the
+    # radix-2 column layout, in either frame layout, as in the JAX package.
     small = oscillating_bar(size=256, frames=2, bar_width=2)
+    want, want_state = jmagnify(small, _jcfg())
     for frames in (small, np.moveaxis(small, -1, 1).copy()):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            magnify_video(torch.from_numpy(frames), _tcfg())
+        out, state = magnify_video(torch.from_numpy(frames), _tcfg())
+        assert out.shape == small.shape and torch.isfinite(out).all()
+        assert psnr(out.numpy(), np.asarray(want)) > 70
+        assert _rel(state_to_numpy(state)["prev_spec_re"],
+                    np.asarray(want_state.prev_spec_re)) < 1e-4
     # 300 rows have no 8-multiple divisor: the two-kernel tail serves
     # them, as in the JAX package (`post_pallas_ok` False).
     odd = np.ascontiguousarray(
