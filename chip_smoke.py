@@ -19,7 +19,14 @@ non-zero without the final line:
      rgb, kernel 2's branches (pow-2, 3 planes with the IIR taps,
      standard mode at 2.5 on 720p rect_pow2, steerable overlapping bands,
      a non-integer pyramid scale), kernel 7's Re z and kernel 3's real /
-     compensate / gains variant;
+     compensate / gains variant; and the scan engine's and the unfused
+     backends': kernel 6 (two-frame, IIR taps at 720p rect_pow2,
+     standard, steerable over overlapping bands, full lanes; also bit
+     for bit against kernel 2's output rows on the spectra kernel 5
+     gives), kernel 8 (forward real, forward complex and inverse with a
+     scale, on both axes), kernel 9 ("centered" and "bitrev2d" layouts,
+     integer and 2.5 scale, steerable) and kernel 10 (which no entry
+     point reaches: it is held here only), at 1080p shapes;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -46,27 +53,41 @@ non-zero without the final line:
      - (d) 1080p tight, orientations=4, pyramid_levels=6 (overlapping
        bands), reconstruct="real", compensate_window, YIQ gains (1.0,
        1.2, 0.8), the bench clip: kernels 1, 2, 3 (no oracle covers it);
-     each finite in [0, 1], 8 + 8 equal to 16 bit for bit, (a)-(c) > 100
-       dB against the oracle on frames 0-3 (the oracle runs on host
-       threads while the card works);
+     - (e) the default `MagnifyConfig()` (the CLI without --fast):
+       torch.fft and the scan engine, no kernel, a 1080p oscillating bar;
+     - (f) `tuned_for_tpu()` with engine="scan", 1080p square_pow2, the
+       bar: kernels 1, 5, 6, 7 and the torch posttail; and its
+       cache_prev_spectrum=False + IIR variant at 720p rect_pow2 (kernel
+       6 with the taps);
+     - (g) fft_backend="pallas", use_rfft=False, use_pallas=True, 1080p,
+       the bar: kernels 1, 5, 9, 8;
+     - (h) `magnify_frame_pair` on (f)'s config: kernels 1, 5, 6, 7, each
+       pair equal bit for bit to (f)'s frame;
+     each finite in [0, 1], 8 + 8 equal to 16 bit for bit, (a)-(c) and
+       (e)-(h) > 100 dB against the oracle on frames 0-3 (the oracle runs
+       on host threads while the card works);
   4. timing with CUDA events after warm-up (medians): steady-state chunk
-     frames/s of each path, each kernel and each variant or branch beside
-     its plain version, and the y4m stream's frames/s with the host's
-     parse share;
+     frames/s of each path (pairs/s for (h)), each kernel and each
+     variant or branch beside its plain version and, for the FFT kernels,
+     one `torch.fft` call on the same shape and axis, and the y4m
+     stream's frames/s with the host's parse share;
   5. with --profile only: torch.profiler over a few steady-state chunks
-     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(d), printing
+     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), printing
      where the device time of a chunk goes (each kernel's share) and the
      device's idle share with the profiler on.
 
-The line before the last is one JSON object with the kernels' records
-(each kernel's launches are those of the path named beside it);
-the last line is {"ok": true, "device": {...}}.  The script imports
-neither jax nor the JAX package; the oracle modules (numpy only) are
-loaded by file path.
+The line before the last but one is one JSON object with the kernels'
+records: each kernel's launches on the path named beside it, its max abs
+error against its plain version, the kernel's, the plain version's and
+the library call's times, and its bound: the larger of the bytes it must
+move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100
+SXM's published peaks), counted from this run's shapes.  Then the
+card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  The script imports neither jax nor the JAX package: the oracle
+and the synthetic clips are the port's numpy copies.
 """
 
 import argparse
-import importlib.util
 from concurrent.futures import ThreadPoolExecutor
 import json
 import os
@@ -90,15 +111,6 @@ IMG_TOL = 1e-4  # max abs error, images in [0, 1]
 
 def log(*a):
     print(*a, flush=True)
-
-
-def load_by_path(name, rel):
-    spec = importlib.util.spec_from_file_location(name, ROOT / rel)
-    if spec is None:
-        raise FileNotFoundError(ROOT / rel)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def card_line():
@@ -193,13 +205,23 @@ def main():
     import pbmm_tpu_torch
     from pbmm_tpu_torch import TemporalConfig
     from pbmm_tpu_torch.core.color import RGB_TO_YIQ
+    from pbmm_tpu_torch.core.complexop import split
     from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
     from pbmm_tpu_torch.engine import post_fused
-    from pbmm_tpu_torch.engine.pipeline import blur_row_window, preprocess_cl
+    from pbmm_tpu_torch.engine.pipeline import (
+        blur_row_window,
+        magnify_frame_pair,
+        preprocess,
+        preprocess_cl,
+    )
     from pbmm_tpu_torch.io import stream, y4m
     from pbmm_tpu_torch.io.device_decode import ycbcr_planes_to_rgb_planar_u8
     from pbmm_tpu_torch.kernels.build import build, library
-    from pbmm_tpu_torch.spectral import fused
+    from pbmm_tpu_torch.oracle import reference as oracle
+    from pbmm_tpu_torch.oracle import synthetic
+    from pbmm_tpu_torch.phase import fused_kernels
+    from pbmm_tpu_torch.pyramid.filters import freq_axes
+    from pbmm_tpu_torch.spectral import fused, radix2
     from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -272,6 +294,7 @@ def main():
     g_sq = geometry_for(H, W, "square_pow2")
     r0_sq, r1_sq = fused.aligned_row_window(g_sq.y0, g_sq.y0 + H, g_sq.pad_h)
     rows_sq = blur_row_window(g_sq, cfg_sq)
+    hr_sq = rows_sq[1] - rows_sq[0]
     sq_re, sq_im = (dev_t(rng.standard_normal((T, r1_sq - r0_sq, wk)))
                     for _ in range(2))
     sq_prev = [dev_t(rng.standard_normal((1, g_sq.pad_h, wk)))
@@ -286,8 +309,6 @@ def main():
     # (Re < 0, Im ~ 0), where two FFTs that differ in the last bit pick
     # opposite sides and the rotation differs by 2 pi s.  Paths (b) and (c)
     # run the same clips, for the same reason against the fp64 oracle.
-    synthetic = load_by_path("_pbmm_oracle_synthetic",
-                             "pbmm_tpu/oracle/synthetic.py")
     bar_u8 = np.ascontiguousarray(np.moveaxis(np.round(
         synthetic.oscillating_bar(size=W, frames=T, bar_width=2)[:, :H]
         * 255.0).astype(np.uint8), -1, 1))
@@ -310,10 +331,49 @@ def main():
     quirk_post_args = (rre, rim, i_pl, q_pl, win, cfg_str, rows[0], H, W,
                        "tight")
 
+    # The scan engine's and the unfused backends' configs and kernel
+    # inputs (kernels 6, 8, 9, 10), at the shapes paths (f)-(h) give them:
+    # whole spectra of two 1080p bar frames from kernels 1 and 5.
+    cfg_e = pbmm_tpu_torch.MagnifyConfig()
+    cfg_f = cfg_sq.replace(engine="scan")
+    cfg_fi = cfg.replace(pad_mode="rect_pow2", cache_prev_spectrum=False,
+                         temporal=TemporalConfig(mode="iir_bandpass"))
+    cfg_g = pbmm_tpu_torch.MagnifyConfig(fft_backend="pallas",
+                                         use_rfft=False, use_pallas=True)
+    bar_il_d = dev_t(bar_f01)  # (T, 1080, 1920, 3) f32, interleaved
+
+    def spectra(frame, c):
+        return split(preprocess(frame, c)[0])
+
+    k6_cur, k6_prev = (spectra(bar_il_d[i], cfg_f) for i in (1, 0))
+    k6i_cur, k6i_prev = (spectra(bar720_d[i], cfg_fi) for i in (1, 0))
+    k6i_taps = [0.1 * dev_t(rng.standard_normal(tuple(k6i_cur[0].shape)))
+                for _ in range(2)]
+    cfg_full = cfg_sq.replace(use_hermitian_spectral=False)
+    k6f_cur, k6f_prev = (spectra(bar_il_d[i], cfg_full) for i in (1, 0))
+    k6_kw = dict(out_rows=rows_sq, full_w=g_sq.pad_w)
+    k8_re, k8_im = (dev_t(rng.standard_normal((1, g_sq.pad_h, g_sq.pad_w)))
+                    for _ in range(2))
+    k9_cur, k9_prev = (spectra(bar_il_d[i], cfg_g) for i in (1, 0))
+    k9c_cur, k9c_prev = (spectra(bar_il_d[i], cfg_e.replace(use_rfft=False))
+                         for i in (1, 0))
+    fyb, fxb = freq_axes(g_sq.pad_h, g_sq.pad_w, "bitrev2d", dev)
+    fyc, fxc = freq_axes(g_sq.pad_h, g_sq.pad_w, "centered", dev)
+    axes_b = (fyb[:, 0].contiguous(), fxb[0].contiguous())
+    axes_c = (fyc[:, 0].contiguous(), fxc[0].contiguous())
+
+    def k9_args(c):
+        return (c.pyramid_levels, c.min_frequency, c.max_frequency,
+                c.phase_scale, c.magnitude_threshold, c.orientations)
+
+    rec1 = rec3[0::3].contiguous()  # (T, Hr, W) Y rows for kernel 10
+    yonly_post_args = (rec1, i_pl, q_pl, win, cfg, rows[0], H, W, "tight")
+
     def both(fn, *a, **k):
         """(kernel call, plain-version call) of one wrapper."""
-        ref = getattr(fused, fn.__name__ + "_ref", None) or getattr(
-            post_fused, fn.__name__ + "_ref")
+        ref = next(getattr(m, fn.__name__ + "_ref") for m in (
+            fused, post_fused, radix2, fused_kernels)
+            if hasattr(m, fn.__name__ + "_ref"))
         return (lambda: fn(*a, **k)), (lambda: ref(*a, **k))
 
     calls = {
@@ -332,6 +392,13 @@ def main():
                                     sq_im[:1], g_sq.pad_h, r0_sq),
         "post_fused_rgb": both(post_fused.post_fused_rgb, *rgb_post_args,
                                out_layout="planar_u8"),
+        "phase_col_ifft": both(fused.phase_col_ifft, *k6_cur, *k6_prev,
+                               cfg_f, **k6_kw),
+        "_fft_axis": both(radix2._fft_axis, k8_re, k8_im, 1, True, 1.0),
+        "amplify_procedural": both(fused_kernels.amplify_procedural,
+                                   *k9_cur, *k9_prev, *axes_b,
+                                   *k9_args(cfg_g)),
+        "post_fused": both(post_fused.post_fused, *yonly_post_args),
     }
     variants = {  # kernel 3's new variants and kernel 7 at 540p shapes
         "rowifft_post_fused[u8, planar_u8]": both(
@@ -371,7 +438,107 @@ def main():
         "post_fused_rgb[tuple3, compensate, gains]": both(
             post_fused.post_fused_rgb, rec3, win, cfg_str.replace(
                 chroma="rgb"), rows[0], H, W, "tight"),
+        # The scan engine's and the unfused backends' branches.
+        "phase_col_ifft[IIR taps, 720p rect_pow2]": both(
+            fused.phase_col_ifft, *k6i_cur, *k6i_prev, cfg_fi,
+            out_rows=blur_row_window(g720, cfg_fi), full_w=g720.pad_w,
+            lp_fast=k6i_taps[0], lp_slow=k6i_taps[1]),
+        "phase_col_ifft[standard]": both(
+            fused.phase_col_ifft, *k6_cur, *k6_prev,
+            cfg_f.replace(mode="standard"), **k6_kw),
+        "phase_col_ifft[steerable 4, overlapping bands]": both(
+            fused.phase_col_ifft, *k6_cur, *k6_prev,
+            cfg_f.replace(orientations=4, pyramid_levels=6), **k6_kw),
+        "phase_col_ifft[full lanes]": both(
+            fused.phase_col_ifft, *k6f_cur, *k6f_prev, cfg_full, **k6_kw),
+        "_fft_axis[inverse, axis 2, scale]": both(
+            radix2._fft_axis, k8_re, k8_im, 2, True,
+            1.0 / (g_sq.pad_h * g_sq.pad_w)),
+        "_fft_axis[forward real, axis 2]": both(
+            radix2._fft_axis, k8_re, None, 2, False),
+        "_fft_axis[forward real, axis 1]": both(
+            radix2._fft_axis, k8_re, None, 1, False),
+        "_fft_axis[forward complex, axis 1]": both(
+            radix2._fft_axis, k8_re, k8_im, 1, False),
+        "_fft_axis[forward complex, axis 2]": both(
+            radix2._fft_axis, k8_re, k8_im, 2, False),
+        "amplify_procedural[centered]": both(
+            fused_kernels.amplify_procedural, *k9c_cur, *k9c_prev, *axes_c,
+            *k9_args(cfg_g)),
+        "amplify_procedural[2.5]": both(
+            fused_kernels.amplify_procedural, *k9_cur, *k9_prev, *axes_b,
+            *k9_args(cfg_g.replace(phase_scale=2.5))),
+        "amplify_procedural[steerable 4]": both(
+            fused_kernels.amplify_procedural, *k9_cur, *k9_prev, *axes_b,
+            *k9_args(cfg_g.replace(orientations=4))),
+        "post_fused[planar_u8]": both(
+            post_fused.post_fused, *yonly_post_args, out_layout="planar_u8"),
+        "post_fused[compensate, gains]": both(
+            post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_str, rows[0],
+            H, W, "tight"),
     }
+    # What each kernel's call above must move and compute, and the one
+    # torch call that computes the same transform (FFT kernels only):
+    # name -> (bytes, f32 operations, library call or None).  Bytes: each
+    # input read once, each output written once.  Operations: 5 n log2 n
+    # per complex radix-2 transform of length n, and per element of the
+    # other stages a count of their multiplies and adds (the phase pass
+    # ~40, a mask level ~15, a (2r + 1)^2 blur tap pair 2, the post
+    # epilogue ~20), so the bound is a floor.
+    f4 = 4
+    n_sq = g_sq.pad_h * g_sq.pad_w
+
+    def fft_ops(n, count):
+        return 5.0 * n * np.log2(n) * count
+
+    blur = 2 * (2 * post_fused._radius(cfg) + 1) ** 2
+    hc_sq = r1_sq - r0_sq
+    u8_r0, u8_r1 = fused.aligned_row_window(geom.y0, geom.y0 + H, geom.pad_h)
+    work = {
+        "windowed_row_fft": (
+            f4 * y.numel() + 2 * f4 * T * geom.pad_h * wk,
+            fft_ops(geom.pad_w, T * geom.pad_h) + 2 * y.numel(),
+            lambda: torch.fft.fft(y, dim=-1)),
+        "colspec_chunk": (
+            f4 * (2 * rows_re.numel() + 4 * prev_re.numel()
+                  + 2 * T * hr * wk),
+            fft_ops(geom.pad_h, 2 * T * wk) + 40 * T * geom.pad_h * wk, None),
+        "rowifft_post_fused": (
+            f4 * (2 * rre.numel() + 2 * i_pl.numel() + H * W + 3 * T * H * W),
+            fft_ops(geom.pad_w, T * hr) + (blur + 20) * T * H * W, None),
+        "windowed_row_fft_u8planar": (
+            u8_frames.numel() + 2 * f4 * T * (u8_r1 - u8_r0) * wk,
+            fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 8 * T * H * W,
+            lambda: torch.fft.fft(y[:, u8_r0:u8_r1], dim=-1)),
+        "row_ifft_magnitude": (
+            f4 * (2 * rre.numel() + T * hr * geom.pad_w),
+            fft_ops(geom.pad_w, T * hr) + 3 * T * hr * geom.pad_w,
+            lambda: torch.fft.irfft(irfft_in, n=geom.pad_w, dim=-1)),
+        "col_fft_zero_padded": (
+            2 * f4 * (hc_sq * wk + g_sq.pad_h * wk),
+            fft_ops(g_sq.pad_h, wk), lambda: torch.fft.fft(col_in, dim=-2)),
+        "post_fused_rgb": (
+            f4 * (rec3.numel() + H * W) + 3 * T * H * W,
+            (3 * blur + 20) * T * H * W, None),
+        "phase_col_ifft": (
+            f4 * (4 * k6_cur[0].numel() + 2 * hr_sq * wk),
+            fft_ops(g_sq.pad_h, wk) + 40 * g_sq.pad_h * wk, None),
+        "_fft_axis": (
+            f4 * 4 * n_sq, fft_ops(g_sq.pad_h, g_sq.pad_w),
+            lambda: torch.fft.ifft(fft_in, dim=-2)),
+        "amplify_procedural": (
+            f4 * (6 * n_sq + g_sq.pad_h + g_sq.pad_w),
+            (15 * cfg_g.pyramid_levels + 40) * n_sq, None),
+        "post_fused": (
+            f4 * (rec1.numel() + 2 * i_pl.numel() + H * W + 3 * T * H * W),
+            (blur + 20) * T * H * W, None),
+    }
+    assert set(work) == set(calls)
+    irfft_in = torch.complex(rre[..., :geom.pad_w // 2 + 1].contiguous(),
+                             rim[..., :geom.pad_w // 2 + 1].contiguous())
+    col_in = torch.complex(sq_prev[0], sq_prev[1])
+    fft_in = torch.complex(k8_re, k8_im)
+
     records = {}
     for name, (kern, plain) in {**calls, **variants}.items():
         got = kern()
@@ -385,7 +552,7 @@ def main():
                       for g, w in zip(got, want))
             rel, tol, what = err, 1, "max code difference"
             ok = rel <= tol
-        elif name.startswith(("rowifft_post_fused", "post_fused_rgb")):
+        elif name.startswith(("rowifft_post_fused", "post_fused")):
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             rel, tol, what = err, IMG_TOL, "max abs"
             ok = np.isfinite(rel) and rel < tol
@@ -435,6 +602,20 @@ def main():
     if not same:
         raise AssertionError("kernel 4 differs from the pre stage + kernel 1")
     del k4, pre
+    # Kernel 6 = kernel 2's phase pass and inverse: on the spectra kernel 5
+    # gives, its rows equal kernel 2's bit for bit (1080p square_pow2).
+    k5 = fused.col_fft_zero_padded(sq_re, sq_im, g_sq.pad_h, r0_sq)
+    k2 = fused.colspec_chunk(sq_re, sq_im, *sq_prev, cfg_sq, g_sq.pad_h,
+                             r0_sq, **k6_kw)
+    k6 = fused.phase_col_ifft(
+        *k5, *(torch.cat([p, c[:-1]]) for p, c in zip(sq_prev, k5)), cfg_sq,
+        **k6_kw)
+    same = torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    log(f"[2] phase_col_ifft on kernel 5's spectra == colspec_chunk's output "
+        f"rows, (16, {hr_sq}, {wk}) at 1080p square_pow2: {same}")
+    if not same:
+        raise AssertionError("kernel 6 differs from kernel 2's output rows")
+    del k5, k2, k6
 
     # -- 3. end to end, path by path -----------------------------------------
     wrappers = {"windowed_row_fft": fused.windowed_row_fft,
@@ -443,7 +624,11 @@ def main():
                 "windowed_row_fft_u8planar": fused.windowed_row_fft_u8planar,
                 "row_ifft_magnitude": fused.row_ifft_magnitude,
                 "col_fft_zero_padded": fused.col_fft_zero_padded,
-                "post_fused_rgb": post_fused.post_fused_rgb}
+                "post_fused_rgb": post_fused.post_fused_rgb,
+                "phase_col_ifft": fused.phase_col_ifft,
+                "_fft_axis": radix2._fft_axis,
+                "amplify_procedural": fused_kernels.amplify_procedural,
+                "post_fused": post_fused.post_fused}
     path_launches = {}
 
     def run_path(name, must, must_not, fn):
@@ -488,8 +673,6 @@ def main():
                                      "finite")
         log(f"[3] {what}: outputs {shape} {dtype}, finite in [0, 1]")
 
-    oracle = load_by_path("_pbmm_oracle_reference",
-                          "pbmm_tpu/oracle/reference.py")
     # The fp64 oracle of every path runs on host threads (numpy releases
     # the GIL in its loops) while the card works; all of them end before
     # phase 4 times anything.
@@ -539,7 +722,11 @@ def main():
             "540p": oracle_job(f540, cfg),
             "a": oracle_job(frames, cfg_sq),
             "b": oracle_job(bar_f01, cfg_rgb),
-            "c": oracle_job(bar720, cfg_std)}
+            "c": oracle_job(bar720, cfg_std),
+            # One oracle serves (e)-(h): the same bar and geometry, the
+            # backends and engines compute the same function.
+            "bar": oracle_job(bar_f01, cfg_e),
+            "f_iir": oracle_job(bar720, cfg_fi)}
 
     out1, s1, out2, s2 = run_path(
         "f32 1080p", ("windowed_row_fft", "colspec_chunk",
@@ -675,6 +862,64 @@ def main():
         lambda: two_chunks(frames_d, cfg_str))
     check_frames(path_d, (d1, d2), (T, H, W, 3), torch.float32)
     check_split(frames_d, cfg_str, d1, sd1, path_d)
+
+    # The scan engine and the unfused backends on the 1080p bar.
+    none_of = tuple(wrappers)
+    scan_k = ("windowed_row_fft", "col_fft_zero_padded", "phase_col_ifft",
+              "row_ifft_magnitude")
+    not_scan = ("colspec_chunk", "rowifft_post_fused", "_fft_axis",
+                "amplify_procedural", "post_fused", "post_fused_rgb",
+                "windowed_row_fft_u8planar")
+    path_e = "(e) 1080p MagnifyConfig() (torch.fft, scan)"
+    e1, se1, e2, _ = run_path(path_e, (), none_of,
+                              lambda: two_chunks(bar_il_d, cfg_e))
+    check_frames(path_e, (e1, e2), (T, H, W, 3), torch.float32)
+    check_split(bar_il_d, cfg_e, e1, se1, path_e)
+    psnr_e, = vs_oracle([(path_e, e1)], jobs["bar"])
+
+    path_f = "(f) 1080p tuned scan square_pow2"
+    f1, sf1, f2, _ = run_path(path_f, scan_k, not_scan,
+                              lambda: two_chunks(bar_il_d, cfg_f))
+    check_frames(path_f, (f1, f2), (T, H, W, 3), torch.float32)
+    check_split(bar_il_d, cfg_f, f1, sf1, path_f)
+    psnr_f, = vs_oracle([(path_f, f1)], jobs["bar"])
+
+    path_fi = "(f) 720p rect_pow2 tuned scan, no cache, IIR"
+    fi1, sfi1, fi2, sfi2 = run_path(path_fi, scan_k, not_scan,
+                                    lambda: two_chunks(bar720_d, cfg_fi))
+    check_frames(path_fi, (fi1, fi2), (T, H720, W720, 3), torch.float32)
+    taps = sfi2.temporal
+    if not (tuple(sfi2.prev_frame.shape) == (H720, W720, 3)
+            and all(torch.isfinite(x).all() for x in taps)
+            and taps.lp_fast.any()):
+        raise AssertionError(f"{path_fi}: state {tuple(sfi2.prev_frame.shape)}"
+                             ", taps not finite or all zero")
+    check_split(bar720_d, cfg_fi, fi1, sfi1, path_fi)
+    psnr_fi, = vs_oracle([(path_fi, fi1)], jobs["f_iir"])
+
+    path_g = "(g) 1080p pallas unfused, use_pallas"
+    g1, sg1, g2, _ = run_path(
+        path_g, ("windowed_row_fft", "col_fft_zero_padded",
+                 "amplify_procedural", "_fft_axis"),
+        ("phase_col_ifft", "colspec_chunk", "row_ifft_magnitude",
+         "rowifft_post_fused", "post_fused", "post_fused_rgb"),
+        lambda: two_chunks(bar_il_d, cfg_g))
+    check_frames(path_g, (g1, g2), (T, H, W, 3), torch.float32)
+    check_split(bar_il_d, cfg_g, g1, sg1, path_g)
+    psnr_g, = vs_oracle([(path_g, g1)], jobs["bar"])
+
+    path_h = "(h) 1080p magnify_frame_pair, tuned"
+    pairs = run_path(path_h, scan_k, not_scan, lambda: [
+        magnify_frame_pair(bar_il_d[i - 1], bar_il_d[i], cfg_f)
+        for i in range(1, 4)])
+    check_frames(path_h, pairs, (H, W, 3), torch.float32)
+    same = all(torch.equal(p, f1[i]) for i, p in enumerate(pairs, 1))
+    log(f"[3] {path_h}: pairs (0, 1), (1, 2), (2, 3) equal (f)'s frames "
+        f"1-3 bit for bit: {same}")
+    if not same:
+        raise AssertionError("magnify_frame_pair differs from the scan step")
+    psnr_h, = vs_oracle([(path_h, torch.stack([bar_il_d[0], *pairs]))],
+                        jobs["bar"])
     pool.shutdown(wait=True)
 
     # stream: a 1080p 420jpeg y4m through stream_magnify(ingest="u8")
@@ -733,12 +978,34 @@ def main():
                             (path_c, bar720_d, cfg_std),
                             (path_d, frames_d, cfg_str)):
             matrix[what] = steady(fd, c, what)
+        scan_paths = {}
+        for what, fd, c, db in ((path_e, bar_il_d, cfg_e, psnr_e),
+                                (path_f, bar_il_d, cfg_f, psnr_f),
+                                (path_fi, bar720_d, cfg_fi, psnr_fi),
+                                (path_g, bar_il_d, cfg_g, psnr_g)):
+            scan_paths[what] = steady(fd, c, what) + (db,)
+        pair_ms = time_ms(torch, lambda: magnify_frame_pair(
+            bar_il_d[0], bar_il_d[1], cfg_f))
+        log(f"[4] {card}: {path_h}: {pair_ms:.3f} ms a pair, median of 10 "
+            f"-> {1e3 / pair_ms:.2f} pairs/s")
         for name, (kern, plain) in {**calls, **variants}.items():
             k_ms = time_ms(torch, kern)
             p_ms = time_ms(torch, plain, reps=5, warmup=1)
             records[name].update(ms=k_ms, plain_ms=p_ms)
             log(f"[4] {card}: {name} {k_ms:.4f} ms, plain PyTorch version "
-                f"{p_ms:.4f} ms (medians, chunk of {T} frames)")
+                f"{p_ms:.4f} ms (medians, at its path's shapes)")
+        for name, (nbytes, ops, lib) in work.items():
+            byte_ms, op_ms = nbytes / 3.35e9, ops / 67e9
+            records[name].update(
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                library_ms=time_ms(torch, lib) if lib else None)
+            log(f"[4] {card}: {name}: bound {records[name]['bound_ms']:.4f} "
+                f"ms ({records[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.2f} GFLOP), kernel {records[name]['ms']:.4f} "
+                f"ms; library call "
+                + (f"{records[name]['library_ms']:.4f} ms" if lib
+                   else "none"))
         # The y4m stream end to end, and the host's parse alone.
         list(stream.stream_magnify(clip, cfg_u8, chunk_frames=T,
                                    ingest="u8", device=dev))
@@ -776,6 +1043,8 @@ def main():
         profile_chunks(torch, chunk_540, card, "540p f32")
         for what, (fn, _, _) in matrix.items():
             profile_chunks(torch, fn, card, what)
+        for what, (fn, _, _, _) in scan_paths.items():
+            profile_chunks(torch, fn, card, what)
 
     sources = {
         "windowed_row_fft": ("pbmm_tpu_torch/csrc/row_fft.cu",
@@ -795,12 +1064,24 @@ def main():
                                 "pbmm_tpu/spectral/fused.py:303", path_a),
         "post_fused_rgb": ("pbmm_tpu_torch/csrc/post_rgb.cu",
                            "pbmm_tpu/engine/post_pallas.py:398", path_b),
+        "phase_col_ifft": ("pbmm_tpu_torch/csrc/phase_col_ifft.cu",
+                           "pbmm_tpu/spectral/fused.py:1022", path_f),
+        "_fft_axis": ("pbmm_tpu_torch/csrc/fft_axis.cu",
+                      "pbmm_tpu/spectral/pallas_fft.py:405", path_g),
+        "amplify_procedural": ("pbmm_tpu_torch/csrc/amplify_procedural.cu",
+                               "pbmm_tpu/phase/pallas_kernels.py:136",
+                               path_g),
+        # No entry point of either package reaches kernel 10 (kernel 3
+        # serves every y_only geometry where post_pallas_ok holds): it is
+        # held against its plain version in phase 2 only.
+        "post_fused": ("pbmm_tpu_torch/csrc/post_rgb.cu",
+                       "pbmm_tpu/engine/post_pallas.py:91", None),
     }
     kernels = []
     for name, (src, rep, path) in sources.items():
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": path_launches[path][name], "path": path,
-               **records[name]}
+               "launches": path_launches[path][name] if path else 0,
+               "path": path or "none: phase 2 only", **records[name]}
         extra = {k: records[k] for k in variants if k.startswith(name + "[")}
         if extra:
             rec["variants"] = extra
@@ -822,6 +1103,10 @@ def main():
                 {"psnr_vs_oracle_db": db} if db is not None else {})}
                for (what, (_, m, f)), db in zip(
                    matrix.items(), (psnr_a, psnr_b, psnr_c, None))},
+            **{what: {"fps": f, "chunk_ms": m, "psnr_vs_oracle_db": db}
+               for what, (_, m, f, db) in scan_paths.items()},
+            path_h: {"pairs_per_s": 1e3 / pair_ms, "pair_ms": pair_ms,
+                     "psnr_vs_oracle_db": psnr_h},
         },
         "launches_by_path": path_launches}))
     log(card)

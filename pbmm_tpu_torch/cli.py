@@ -9,15 +9,16 @@
 The parser and `config_from_args` are those of `pbmm_tpu/cli.py`, so one
 command line configures either package.  Served: the whole-file mode and
 the three `--stream` modes (the resumable `--checkpoint` loop, the
-`--output -` y4m pipe loop and whole output), with every `--fast`
-configuration of the batched engine: any `--pad-mode`, `--chroma`,
-`--temporal`, `--mode`, `--orientations`, `--levels`, `--phase-scale`,
-`--reconstruct`, `--compensate-window`, `--yiq-gains` and
-`--no-magnify`.  `--engine scan`, `--no-cache-prev-spectrum`,
-`--apply-magnitude-scale` and the backends without `--fast` exit 2
-naming ROADMAP items 8 and 10; `--debug-view`, `--trace` and `--demo`
-exit 2 naming item 9.  It runs on the first CUDA card and exits with an
-error when there is none.
+`--output -` y4m pipe loop and whole output), with the default config
+(`torch.fft`, the scan engine), `--fast` (the batched engine where it
+serves the frames) and any `--engine`, `--no-cache-prev-spectrum`,
+`--fft-backend xla|pallas`, `--full-spectrum`, `--apply-magnitude-scale`,
+`--pad-mode`, `--chroma`, `--temporal`, `--mode`, `--orientations`,
+`--levels`, `--phase-scale`, `--reconstruct`, `--compensate-window`,
+`--yiq-gains` and `--no-magnify`.  `--stats` names the engine that ran.
+`--fft-backend mxu` exits 2 naming ROADMAP item 10; `--debug-view`,
+`--trace` and `--demo` exit 2 naming item 9.  It runs on the first CUDA
+card and exits with an error when there is none.
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fps", type=float, default=30.0)
     p.add_argument("--engine", default="auto",
                    choices=["auto", "scan", "batched"],
-                   help="batched/auto = the chunk engine; scan (the "
-                        "per-frame engine) is not ported yet")
+                   help="batched/auto = the chunk engine where it serves "
+                        "the config (else the scan engine); scan = the "
+                        "per-frame engine")
     p.add_argument("--checkpoint", help="state file: loaded if it exists, "
                                         "saved after the run (streaming)")
     p.add_argument("--debug-view", choices=["magnitude", "phase", "split"],
@@ -236,8 +238,6 @@ def _stats(args, **kw) -> None:
 
 
 def _run(args, cfg, device) -> int:
-    import torch
-
     from pbmm_tpu_torch.io.video import load_video, save_video
 
     t0 = time.perf_counter()
@@ -250,19 +250,23 @@ def _run(args, cfg, device) -> int:
             print(f"error: expected (T, H, W, 3) input, got {frames.shape}",
                   file=sys.stderr)
             return 2
+        from pbmm_tpu_torch.engine.video import _colspec_ok
+
         state = None
         if args.checkpoint and os.path.exists(args.checkpoint):
             state = load_state(args.checkpoint, device)
-        out, state = magnify_video(torch.from_numpy(frames).to(device), cfg,
-                                   state=state)
+        out, state = magnify_video(frames, cfg, state=state, device=device)
         out = out.cpu().numpy()
         if args.checkpoint:
             save_state(state, args.checkpoint)
         dt = time.perf_counter() - t0
         save_video(args.output, out)
+        # The engine that served the run, not just the config field.
+        batched = cfg.engine == "batched" and _colspec_ok(cfg, frames.shape)
         _stats(args, frames=int(frames.shape[0]),
                shape=list(frames.shape[1:3]), seconds=round(dt, 3),
-               fps=round(frames.shape[0] / dt, 2), engine="batched")
+               fps=round(frames.shape[0] / dt, 2),
+               engine="batched" if batched else "scan")
         return 0
 
     from pbmm_tpu_torch.io.stream import (

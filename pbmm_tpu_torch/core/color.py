@@ -58,6 +58,11 @@ def _apply_3x3(x: torch.Tensor, m: np.ndarray, axis: int = -1
     return torch.stack(rows, dim=axis if axis >= 0 else x.ndim + axis)
 
 
+def rgb_to_yiq(rgb: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """RGB -> YIQ along the channel `axis` (`RGBToYIQ.shader:46-50`)."""
+    return _apply_3x3(rgb, RGB_TO_YIQ, axis)
+
+
 def yiq_to_rgb(yiq: torch.Tensor, saturate: bool = True,
                axis: int = -1) -> torch.Tensor:
     """YIQ -> RGB along the channel `axis`; `saturate` applies the

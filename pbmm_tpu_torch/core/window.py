@@ -4,8 +4,9 @@ Counterpart of `pbmm_tpu/core/window.py` for what the main path uses:
 `Geometry`/`geometry_for` (pad sizes and centre offsets), `blur_taps`
 (the reference's bilinear 5-tap blur as discrete taps), `hann2d_region`
 (the padded-frame Hann window on the crop region, which windows the
-original chroma in the post stage) and the blur of the two-kernel tail
-(`gaussian_blur5`, `blur_then_crop`, torch ops).
+original chroma in the post stage), the blur of the two-kernel tail
+(`gaussian_blur5`, `blur_then_crop`, torch ops), and the scan engine's
+`pad_center`, `hann2d` and `crop_center`.
 """
 
 from __future__ import annotations
@@ -67,6 +68,32 @@ def hann2d_region(geom: Geometry, device=None) -> torch.Tensor:
     wy = 0.5 * (1.0 - torch.cos(2.0 * np.float32(np.pi) * iy))
     wx = 0.5 * (1.0 - torch.cos(2.0 * np.float32(np.pi) * ix))
     return wy[:, None] * wx[None, :]
+
+
+def hann2d(pad_h: int, pad_w: int, device=None) -> torch.Tensor:
+    """The separable 2D Hann window over the padded frame, (pad_h, pad_w)
+    f32 at pixel-centre uv (`WindowingFunction.shader:46-70`), evaluated
+    in f32 as the JAX package does."""
+    iy = (torch.arange(pad_h, dtype=torch.float32, device=device)
+          + 0.5) / pad_h
+    ix = (torch.arange(pad_w, dtype=torch.float32, device=device)
+          + 0.5) / pad_w
+    wy = 0.5 * (1.0 - torch.cos(2.0 * np.float32(np.pi) * iy))
+    wx = 0.5 * (1.0 - torch.cos(2.0 * np.float32(np.pi) * ix))
+    return wy[:, None] * wx[None, :]
+
+
+def pad_center(img: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Centre-pad the last two (spatial) dims with zeros, (..., H, W) ->
+    (..., pad_h, pad_w) (`MotionMagnificationProcessor.cs:358-384`)."""
+    return F.pad(img, (geom.x0, geom.pad_w - geom.in_w - geom.x0,
+                       geom.y0, geom.pad_h - geom.in_h - geom.y0))
+
+
+def crop_center(img: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """Centre-crop the last two dims back to (..., H, W)."""
+    return img[..., geom.y0:geom.y0 + geom.in_h,
+               geom.x0:geom.x0 + geom.in_w]
 
 
 @functools.lru_cache(maxsize=8)

@@ -42,13 +42,8 @@
 // swap roles each frame (the phase pass overwrites prev with the modified
 // spectrum in place).  H = 4096 would need 256 KB at S = 4 and is refused.
 //
-// The transcendentals: the TPU kernel evaluates atan2, sin/cos and the
-// band's cosine as polynomials (Mosaic has no lowering for them); here
-// atan2f, sincosf and cosf (no fast math) compute the same functions to
-// within the polynomials' ~1e-8.  atan2f follows IEEE on signed zeros
-// (atan2(+0, -0) = pi, atan2(-0, -1) = -pi); the JAX kernel counts -0 as
-// +0 and gives 0 at (0, 0), which keeps the IIR taps exactly zero after
-// the zero-prev bootstrap, so cs_atan2 adds +0 to both arguments first.
+// The phase pass (every branch, and its transcendentals) lives in
+// phase_pass.cuh, shared with kernel 6 (csrc/phase_col_ifft.cu).
 //
 // What bounds it on an H100: per frame and column it reads Hc content
 // rows and writes r1 - r0 output rows (re+im), ~18 KB per column at
@@ -58,12 +53,11 @@
 // first.
 
 #include "common.cuh"
+#include "phase_pass.cuh"
 
 #define CS_S PBMM_COL_S  // kept columns per block
 #define CS_MAXM 16       // largest four-step block count (H <= 2048)
 #define CS_MAXH 2048     // tallest column held in shared memory
-#define CS_MAXK 16       // most steerable sectors
-#define CS_MAXB 16       // most radial levels
 
 // Pointers and sizes of one launch (device pointers; null where a branch
 // does not read them).
@@ -95,158 +89,11 @@ struct ColspecIO {
   int t, c, hc, h, wk, row0, r0, r1;
 };
 
-// The phase pass's branch and constants (spectral/fused.py::_phase_args
-// packs them in this order).
-struct PhaseArgs {
-  int iir, standard, host_planes, steer, power, n_bands;
-  int kind[CS_MAXB];  // 0 zero, 1 high, 2 low, 3 band
-  int amp[CS_MAXB];
-  float tau2, scale, r_hi, r_lo, inv_norm;
-  float cphi[CS_MAXK], sphi[CS_MAXK];  // cos, sin of 2 pi k / K
-  float lo[CS_MAXB], hi[CS_MAXB], span[CS_MAXB];
-};
-
 // JAX row of block row p: identity at pow-2 heights, the in-block
 // bit reversal of the four-step's 128-point factor otherwise.
 template <bool POW2>
 __device__ __forceinline__ int cs_row(int p) {
   return POW2 ? p : ((p & ~127) | pbmm_rev7(p & 127));
-}
-
-// unit(prev * conj(cur)) ** power by square-and-multiply.
-__device__ __forceinline__ void cs_unit_pow(float rr, float ri, int power,
-                                            float& qr, float& qi) {
-  const float m2 = rr * rr + ri * ri;
-  // 1e-38 is subnormal: built without -ftz so it survives.
-  const float inv = m2 > 0.0f ? 1.0f / sqrtf(fmaxf(m2, 1e-38f)) : 0.0f;
-  float br = rr * inv, bi = ri * inv;
-  qr = 1.0f;
-  qi = 0.0f;
-  for (int n = power; n > 0; n >>= 1) {
-    if (n & 1) {
-      const float tr = qr * br - qi * bi;
-      qi = qr * bi + qi * br;
-      qr = tr;
-    }
-    const float sr = br * br - bi * bi;
-    bi = 2.0f * br * bi;
-    br = sr;
-  }
-}
-
-// atan2 with the JAX kernel's zero convention (see the header).
-__device__ __forceinline__ float cs_atan2(float y, float x) {
-  return atan2f(__fadd_rn(y, 0.0f), __fadd_rn(x, 0.0f));
-}
-
-// x ** n, integer n >= 0, in the product order of fused.py:602
-// _pow_static.
-__device__ __forceinline__ float cs_pow_int(float x, int n) {
-  float acc = 1.0f, base = x;
-  bool any = false;
-  for (; n > 0; n >>= 1) {
-    if (n & 1) {
-      acc = any ? acc * base : base;
-      any = true;
-    }
-    base = base * base;
-  }
-  return acc;
-}
-
-// One radial level's mask at frequency f (fused.py:707 _eval_mask).
-__device__ __forceinline__ float cs_mask(int kind, float lo, float hi,
-                                         float span, float f) {
-  if (kind == 0) return 0.0f;
-  const float t = fminf(fmaxf((f - lo) / span, 0.0f), 1.0f);
-  if (kind == 1)
-    return f > hi ? 1.0f : (f > lo ? t * t * (3.0f - 2.0f * t) : 0.0f);
-  if (kind == 2)
-    return f < lo ? 1.0f
-                  : (f < hi ? 1.0f - t * t * (3.0f - 2.0f * t) : 0.0f);
-  const float band = 0.5f * (1.0f + cosf(6.2831855f * (t - 0.5f)));
-  return (f >= lo && f <= hi) ? band : 0.0f;
-}
-
-// The gated amplified part of mask m: m itself where it passes the
-// magnitude gate, or, steerable, the sum over the K sector windows
-// m * a_k that pass theirs (fused.py:928-936, :972-981).
-__device__ __forceinline__ float cs_gated(float m, float min_mag2,
-                                          float cos2t, float sin2t,
-                                          const PhaseArgs& pa) {
-  if (!pa.steer) return (min_mag2 * (m * m) >= pa.tau2) ? m : 0.0f;
-  float amped = 0.0f;
-  for (int k = 0; k < pa.steer; ++k) {
-    const float c2 = fmaxf(
-        0.5f * (1.0f + cos2t * pa.cphi[k] + sin2t * pa.sphi[k]), 0.0f);
-    const float mk = m * (cs_pow_int(c2, pa.steer - 1) * pa.inv_norm);
-    amped += (min_mag2 * (mk * mk) >= pa.tau2) ? mk : 0.0f;
-  }
-  return amped;
-}
-
-// Every branch of fused.py:865 _phase_block on one bin: cur (cr, ci)
-// against prev (pr, pi) at frequency (fy, fx), host planes pl0/pl1,
-// IIR taps updated in place.
-template <bool IIR>
-__device__ __forceinline__ void cs_phase_general(
-    float cr, float ci, float pr, float pi, float fy, float fx, float pl0,
-    float pl1, float* lpf, float* lps, const PhaseArgs& pa, float& out_r,
-    float& out_i) {
-  // prev * conj(cur), and the taps, rounded op by op as the plain
-  // version computes them: near the branch cut (Re < 0, Im ~ 0) a
-  // contracted FMA could flip the sign of Im, and the angle by 2 pi.
-  const float rr = __fadd_rn(__fmul_rn(pr, cr), __fmul_rn(pi, ci));
-  const float ri = __fsub_rn(__fmul_rn(pi, cr), __fmul_rn(pr, ci));
-  float d_iir = 0.0f;
-  if (IIR) {
-    const float d = cs_atan2(ri, rr);
-    *lpf = __fadd_rn(*lpf, __fmul_rn(pa.r_hi, __fsub_rn(d, *lpf)));
-    *lps = __fadd_rn(*lps, __fmul_rn(pa.r_lo, __fsub_rn(d, *lps)));
-    d_iir = __fsub_rn(*lpf, *lps);
-  }
-  if (pa.standard) {
-    const float d = IIR ? d_iir : cs_atan2(ri, rr);
-    float s, c;
-    sincosf(d * pl0 * pa.scale, &s, &c);
-    const bool pass =
-        (cr * cr + ci * ci) < pa.tau2 || (pr * pr + pi * pi) < pa.tau2;
-    out_r = pass ? cr : cr * c - ci * s;
-    out_i = pass ? ci : cr * s + ci * c;
-    return;
-  }
-  const float min_mag2 = fminf(cr * cr + ci * ci, pr * pr + pi * pi);
-  float cos2t = 1.0f, sin2t = 0.0f;
-  if (pa.steer) {  // the double angle of (fx, fy); theta = 0 at DC
-    const float r2 = fx * fx + fy * fy;
-    const float inv_r2 = r2 > 0.0f ? 1.0f / fmaxf(r2, 1e-38f) : 0.0f;
-    cos2t = r2 > 0.0f ? (fx * fx - fy * fy) * inv_r2 : 1.0f;
-    sin2t = 2.0f * fx * fy * inv_r2;
-  }
-  float total, amped;
-  if (pa.host_planes) {
-    total = pl0;
-    amped = cs_gated(pl1, min_mag2, cos2t, sin2t, pa);
-  } else {
-    const float f = sqrtf(fy * fy + fx * fx);
-    total = 0.0f;
-    amped = 0.0f;
-    for (int b = 0; b < pa.n_bands; ++b) {
-      const float m = cs_mask(pa.kind[b], pa.lo[b], pa.hi[b], pa.span[b], f);
-      total += m;
-      if (pa.amp[b]) amped += cs_gated(m, min_mag2, cos2t, sin2t, pa);
-    }
-  }
-  float qr, qi;
-  if (pa.power >= 0) {
-    cs_unit_pow(rr, ri, pa.power, qr, qi);
-  } else {
-    sincosf(pa.scale * (IIR ? d_iir : cs_atan2(ri, rr)), &qi, &qr);
-  }
-  const float gr = (total - amped) + amped * qr;
-  const float gi = amped * qi;
-  out_r = cr * gr - ci * gi;
-  out_i = cr * gi + ci * gr;
 }
 
 template <bool POW2, bool GENERAL, bool IIR>
@@ -337,26 +184,9 @@ __global__ void __launch_bounds__(256)
       const float cr = a_re[e], ci = a_im[e];
       const float pr = b_re[e], pi = b_im[e];
       float o_r, o_i;
-      if (GENERAL) {
-        const float pl0 = io.plane0 ? __ldg(io.plane0 + g) : 0.0f;
-        const float pl1 = io.plane1 ? __ldg(io.plane1 + g) : 0.0f;
-        cs_phase_general<IIR>(cr, ci, pr, pi, __ldg(io.fy + P),
-                              __ldg(io.fx + col0 + c), pl0, pl1, l_f + e,
-                              l_s + e, pa, o_r, o_i);
-      } else {
-        const float rr = pr * cr + pi * ci;  // prev * conj(cur)
-        const float ri = pi * cr - pr * ci;
-        const float min_mag2 = fminf(cr * cr + ci * ci, pr * pr + pi * pi);
-        const float mk = __ldg(io.plane1 + g);
-        const float tot = __ldg(io.plane0 + g);
-        const float amped = (min_mag2 * (mk * mk) >= pa.tau2) ? mk : 0.0f;
-        float qr, qi;
-        cs_unit_pow(rr, ri, pa.power, qr, qi);
-        const float gr = (tot - amped) + amped * qr;
-        const float gi = amped * qi;
-        o_r = cr * gr - ci * gi;
-        o_i = cr * gi + ci * gr;
-      }
+      pbmm_phase_bin<GENERAL, IIR>(cr, ci, pr, pi, io.plane0, io.plane1, g,
+                                   io.fy, P, io.fx, col0 + c, l_f + e,
+                                   l_s + e, pa, o_r, o_i);
       b_re[e] = o_r;
       b_im[e] = o_i;
     }
@@ -444,9 +274,8 @@ static cudaError_t cs_launch(const ColspecIO& io, const PhaseArgs& pa,
   return cudaGetLastError();
 }
 
-// iargs: iir, standard, host_planes, steer, power, n_bands, kind[16],
-// amp[16]; fargs: tau2, scale, r_hi, r_lo, inv_norm, cphi[16], sphi[16],
-// lo[16], hi[16], span[16] (host arrays, copied by value).
+// iargs, fargs: the phase pass's branch and constants (host arrays,
+// copied by value; phase_pass.cuh::pbmm_phase_unpack).
 extern "C" int pbmm_colspec_chunk(
     const float* rows_re, const float* rows_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
@@ -459,39 +288,14 @@ extern "C" int pbmm_colspec_chunk(
     int t, int c, int hc, int h, int wk, int row0, int r0, int r1,
     void* stream) {
   PhaseArgs pa;
-  pa.iir = iargs[0];
-  pa.standard = iargs[1];
-  pa.host_planes = iargs[2];
-  pa.steer = iargs[3];
-  pa.power = iargs[4];
-  pa.n_bands = iargs[5];
-  for (int b = 0; b < CS_MAXB; ++b) {
-    pa.kind[b] = iargs[6 + b];
-    pa.amp[b] = iargs[6 + CS_MAXB + b];
-  }
-  pa.tau2 = fargs[0];
-  pa.scale = fargs[1];
-  pa.r_hi = fargs[2];
-  pa.r_lo = fargs[3];
-  pa.inv_norm = fargs[4];
-  for (int k = 0; k < CS_MAXK; ++k) {
-    pa.cphi[k] = fargs[5 + k];
-    pa.sphi[k] = fargs[5 + CS_MAXK + k];
-  }
-  for (int b = 0; b < CS_MAXB; ++b) {
-    pa.lo[b] = fargs[5 + 2 * CS_MAXK + b];
-    pa.hi[b] = fargs[5 + 2 * CS_MAXK + CS_MAXB + b];
-    pa.span[b] = fargs[5 + 2 * CS_MAXK + 2 * CS_MAXB + b];
-  }
+  const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool pow2 = h >= 2 && (h & (h - 1)) == 0;
   const int m = h / PBMM_LANE;
-  const bool general = pa.iir || pa.standard || !pa.host_planes ||
-                       pa.steer || pa.power < 0;
-  if (t < 1 || c < 1 || h > CS_MAXH ||
+  const bool general = pbmm_phase_general(pa);
+  if (!args_ok || t < 1 || c < 1 || h > CS_MAXH ||
       (!pow2 && (h != m * PBMM_LANE || m < 1 || m > CS_MAXM)) ||
       wk % CS_S != 0 || hc < 1 || row0 < 0 || row0 + hc > h || r0 < 0 ||
-      r1 <= r0 || r1 > h || pa.steer < 0 || pa.steer > CS_MAXK ||
-      pa.n_bands < 0 || pa.n_bands > CS_MAXB || pa.power > 64 ||
+      r1 <= r0 || r1 > h ||
       (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (pa.iir && (lpf_in == nullptr || lps_in == nullptr ||

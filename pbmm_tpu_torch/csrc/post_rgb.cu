@@ -1,9 +1,17 @@
-// Kernel 11: the chroma="rgb" post tail: blur + crop of the three
-// reconstructed YIQ planes, window compensation, YIQ gains, YIQ->RGB and
-// the [0, 1] clip, straight to the output layout.
+// Kernels 11 and 10: the post tail from reconstructed planes: blur +
+// crop, window compensation, YIQ gains, YIQ->RGB and the [0, 1] clip,
+// straight to the output layout.
 //
-// Replaces pbmm_tpu/engine/post_pallas.py:398 post_fused_rgb (the Pallas
-// kernel launched at :490).  Its input is kernel 7's output: (3T, Hr, W)
+// Kernel 11 (pbmm_post_rgb) replaces pbmm_tpu/engine/post_pallas.py:398
+// post_fused_rgb (the Pallas kernel launched at :490), the chroma="rgb"
+// tail.  Kernel 10 (pbmm_post_yonly) replaces post_pallas.py:91
+// post_fused (launched at :181), the y_only tail of the JAX package's
+// _post_block: Y is the one reconstructed plane of each frame, blurred
+// and cropped the same way, and I, Q are the original chroma planes
+// times the crop-region Hann window (post_pallas.py:164-178); no entry
+// point of either package reaches it (kernel 3 serves every y_only
+// geometry where post_pallas_ok holds), only tests and chip_smoke.py.
+// Kernel 11's input is kernel 7's output: (3T, Hr, W)
 // region rows of |z| (or Re z), plane-minor frame-major (frame t's Y, I,
 // Q at rows 3t, 3t + 1, 3t + 2), from padded row rows0.  With all three
 // planes processed there is no original-chroma combine (posttail's rgb
@@ -29,7 +37,9 @@
 // What bounds it on an H100: per 1080p tight frame it reads the three
 // region planes once from DRAM (3 x 1152 x 2048 f32, 28 MB; the halo
 // rows again from L2) and writes 25 MB (f32) or 6 MB (u8); the 75 tap
-// loads per pixel go to L1.  Simple and right first.
+// loads per pixel go to L1.  Kernel 10 reads one region plane and the
+// two chroma planes (9 + 17 MB at 1080p tight) and writes 25 MB.  Simple
+// and right first.
 
 #include "common.cuh"
 
@@ -43,9 +53,13 @@ struct RgbParams {
   int gain;        // apply the gains
 };
 
-template <int LAYOUT>
+// YONLY: chans holds one plane a frame (Y), and I/Q come from i_pl, q_pl
+// (T, H, W) times win; else three planes a frame (Y, I, Q).
+template <int LAYOUT, bool YONLY>
 __global__ void __launch_bounds__(128)
     post_rgb_kernel(const float* __restrict__ chans3,
+                    const float* __restrict__ i_pl,
+                    const float* __restrict__ q_pl,
                     const float* __restrict__ win, void* __restrict__ out0,
                     void* __restrict__ out1, void* __restrict__ out2,
                     RgbParams prm, int radius, int hr, int w, int in_h,
@@ -55,11 +69,13 @@ __global__ void __launch_bounds__(128)
   const int y = blockIdx.y;
   const int f = blockIdx.z;
   const int col = x0 + x;
+  const size_t pix = (size_t)y * in_w + x;
+  const size_t plane = (size_t)in_h * in_w;
   float v[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float* base =
-        chans3 + ((size_t)(3 * f + c) * hr + (yrow0 + y - radius)) * w;
+  for (int c = 0; c < (YONLY ? 1 : 3); ++c) {
+    const size_t src = YONLY ? (size_t)f : (size_t)(3 * f + c);
+    const float* base = chans3 + (src * hr + (yrow0 + y - radius)) * w;
     float vb = 0.0f;
     for (int ky = 0; ky <= 2 * radius; ++ky) {
       const float* row = base + (size_t)ky * w;
@@ -76,7 +92,11 @@ __global__ void __launch_bounds__(128)
     }
     v[c] = vb;
   }
-  const size_t pix = (size_t)y * in_w + x;
+  if (YONLY) {
+    const float wn = __ldg(win + pix);
+    v[1] = __fmul_rn(__ldg(i_pl + (size_t)f * plane + pix), wn);
+    v[2] = __fmul_rn(__ldg(q_pl + (size_t)f * plane + pix), wn);
+  }
   if (prm.comp) {
     const float inv = __fdiv_rn(1.0f, fmaxf(__ldg(win + pix), 1e-3f));
 #pragma unroll
@@ -86,7 +106,6 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = __fmul_rn(v[c], prm.gains[c]);
   }
-  const size_t plane = (size_t)in_h * in_w;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const float s = __fadd_rn(__fadd_rn(__fmul_rn(v[0], prm.m[3 * d]),
@@ -107,19 +126,18 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-// layout: 0 tuple3 (out0..2 = R, G, B planes), 1 planar f32, 2 planar
-// uint8 (out0 only).  taps and yiq_to_rgb are host arrays.
-extern "C" int pbmm_post_rgb(const float* chans3, const float* win,
-                             void* out0, void* out1, void* out2,
-                             const float* taps, int radius,
-                             const float* yiq_to_rgb, int layout, int t,
-                             int hr, int w, int in_h, int in_w, int yrow0,
-                             int x0, int comp, int gain, float g_y,
-                             float g_i, float g_q, void* stream) {
+static int pr_run(const float* chans, const float* i_pl, const float* q_pl,
+                  const float* win, void* out0, void* out1, void* out2,
+                  const float* taps, int radius, const float* yiq_to_rgb,
+                  int layout, int t, int hr, int w, int in_h, int in_w,
+                  int yrow0, int x0, int comp, int gain, float g_y,
+                  float g_i, float g_q, void* stream) {
+  const bool yonly = i_pl != nullptr;
   if (t < 1 || in_h < 1 || in_w < 1 || radius < 0 || radius > PR_MAXR ||
       yrow0 - radius < 0 || yrow0 + in_h + radius > hr || x0 < radius ||
       x0 + in_w + radius > w || layout < 0 || layout > 2 ||
       in_h > 65535 || t > 65535 || out0 == nullptr ||
+      (yonly && q_pl == nullptr) ||
       (layout == 0 && (out1 == nullptr || out2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   RgbParams prm;
@@ -132,16 +150,47 @@ extern "C" int pbmm_post_rgb(const float* chans3, const float* win,
   prm.gain = gain;
   const dim3 grid((in_w + 127) / 128, in_h, t);
   cudaStream_t s = (cudaStream_t)stream;
-#define PR_LAUNCH(L)                                                      \
-  post_rgb_kernel<L><<<grid, 128, 0, s>>>(chans3, win, out0, out1, out2,  \
-                                          prm, radius, hr, w, in_h, in_w, \
-                                          yrow0, x0)
-  if (layout == 0)
-    PR_LAUNCH(0);
-  else if (layout == 1)
-    PR_LAUNCH(1);
-  else
-    PR_LAUNCH(2);
+#define PR_LAUNCH(L, Y)                                                    \
+  post_rgb_kernel<L, Y><<<grid, 128, 0, s>>>(chans, i_pl, q_pl, win, out0, \
+                                             out1, out2, prm, radius, hr,  \
+                                             w, in_h, in_w, yrow0, x0)
+  if (layout == 0) {
+    if (yonly) PR_LAUNCH(0, true); else PR_LAUNCH(0, false);
+  } else if (layout == 1) {
+    if (yonly) PR_LAUNCH(1, true); else PR_LAUNCH(1, false);
+  } else {
+    if (yonly) PR_LAUNCH(2, true); else PR_LAUNCH(2, false);
+  }
 #undef PR_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Kernel 11.  layout: 0 tuple3 (out0..2 = R, G, B planes), 1 planar f32,
+// 2 planar uint8 (out0 only).  taps and yiq_to_rgb are host arrays.
+extern "C" int pbmm_post_rgb(const float* chans3, const float* win,
+                             void* out0, void* out1, void* out2,
+                             const float* taps, int radius,
+                             const float* yiq_to_rgb, int layout, int t,
+                             int hr, int w, int in_h, int in_w, int yrow0,
+                             int x0, int comp, int gain, float g_y,
+                             float g_i, float g_q, void* stream) {
+  return pr_run(chans3, nullptr, nullptr, win, out0, out1, out2, taps,
+                radius, yiq_to_rgb, layout, t, hr, w, in_h, in_w, yrow0, x0,
+                comp, gain, g_y, g_i, g_q, stream);
+}
+
+// Kernel 10: chans (T, Hr, W) Y rows, i_pl/q_pl (T, H, W) original chroma;
+// the rest as pbmm_post_rgb.
+extern "C" int pbmm_post_yonly(const float* chans, const float* i_pl,
+                               const float* q_pl, const float* win,
+                               void* out0, void* out1, void* out2,
+                               const float* taps, int radius,
+                               const float* yiq_to_rgb, int layout, int t,
+                               int hr, int w, int in_h, int in_w, int yrow0,
+                               int x0, int comp, int gain, float g_y,
+                               float g_i, float g_q, void* stream) {
+  if (i_pl == nullptr) return (int)cudaErrorInvalidValue;
+  return pr_run(chans, i_pl, q_pl, win, out0, out1, out2, taps, radius,
+                yiq_to_rgb, layout, t, hr, w, in_h, in_w, yrow0, x0, comp,
+                gain, g_y, g_i, g_q, stream);
 }

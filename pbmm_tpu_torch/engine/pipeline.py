@@ -1,18 +1,35 @@
-"""Pre stage and routing predicates of the chunk engine.
+"""The per-frame pipeline and the pre stage of the chunk engine.
 
-Counterpart of `pbmm_tpu/engine/pipeline.py` for the chunk engine:
-`hermitian_active`, `blur_row_window`, `preprocess_cl` (interleaved or
-planar, f32 or u8 frames, y_only or rgb, stopping after the row FFT),
-`preprocess` (one frame's whole spectrum, for the pow-2 bootstrap) and
-the `posttail` of the two-kernel tail.  The Y/I/Q plane FMAs, the centre
-pad and `posttail` are plain torch ops, as the JAX package leaves them
-to XLA; kernel 1 (`spectral.fused.windowed_row_fft`) or, for planar
-uint8 y_only frames, kernel 4 (`windowed_row_fft_u8planar`) does the row
-FFT, and kernel 5 (`col_fft_zero_padded`) the column FFT of `preprocess`.
+Counterpart of `pbmm_tpu/engine/pipeline.py`.  Per frame (the scan engine
+and the stateless pair; the reference's sequence,
+`MotionMagnificationProcessor.cs:145-232`):
+
+    rgb -> yiq -> pad + Hann window       `preprocess`
+    forward FFT of the processed planes   (same)
+    band/phase pass against prev          `amplify_spectrum`
+    inverse FFT, |z| or Re z              `reconstruct`
+    blur -> chroma -> yiq -> rgb -> crop  `posttail` (`postprocess`)
+
+`fft_backend="xla"` is `torch.fft` (cuFFT), as the JAX package leaves it
+to XLA, with the band/phase pass as torch ops or, with `use_pallas`,
+kernel 9 (`phase.fused_kernels`).  `"pallas"` runs kernel 1 (row FFT)
+and kernel 5 (column FFT) in `preprocess`, and either kernel 6 (phase +
+column IFFT) and kernel 7 (row IFFT + |z|) in `amplify_reconstruct_fused`
+where `fused_reconstruct_ok` holds, or kernel 8 (`ifft2_bitrev`) in
+`reconstruct`.  `"mxu"` is ROADMAP item 10 and raises.
+
+For the chunk engine: `hermitian_active`, `blur_row_window` and
+`preprocess_cl` (interleaved or planar, f32 or u8 frames, y_only or rgb,
+stopping after the row FFT; kernel 4 takes planar uint8 y_only frames).
+The Y/I/Q FMAs, pads and the post tail are plain torch ops, as the JAX
+package leaves them to XLA.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,24 +37,85 @@ from pbmm_tpu_torch.config import MagnifyConfig
 from pbmm_tpu_torch.core.color import (
     RGB_TO_YIQ,
     channel_mix,
+    rgb_to_yiq,
     unit_float,
     yiq_to_rgb,
 )
+from pbmm_tpu_torch.core.complexop import split
 from pbmm_tpu_torch.core.window import (
     Geometry,
     blur_taps,
     blur_then_crop,
     geometry_for,
+    hann2d,
     hann2d_region,
+    pad_center,
+)
+from pbmm_tpu_torch.phase.amplify import (
+    phase_delta,
+    pyramid_phase_amplify_procedural,
+)
+from pbmm_tpu_torch.phase.fused_kernels import (
+    pyramid_phase_amplify_pallas_procedural,
+)
+from pbmm_tpu_torch.phase.standard import (
+    bandpass_weight_map,
+    standard_phase_amplify,
+)
+from pbmm_tpu_torch.phase.temporal import (
+    TemporalState,
+    temporal_apply,
+    temporal_init,
+)
+from pbmm_tpu_torch.spectral.fft import (
+    fft2_centered,
+    ifft2_centered,
+    irfft2_half,
+    rfft2_half,
 )
 from pbmm_tpu_torch.spectral.fused import (
     aligned_row_window,
     col_fft_zero_padded,
     fused_eligible,
+    phase_col_ifft,
+    row_ifft_magnitude,
     windowed_row_fft,
     windowed_row_fft_u8planar,
 )
 from pbmm_tpu_torch.spectral.hermitian import hermitian_saves
+from pbmm_tpu_torch.spectral.radix2 import ifft2_bitrev
+
+
+def default_device() -> torch.device:
+    """The first CUDA card: where the entry points run numpy input when
+    the caller names no device.  Raises when there is none (there is no
+    fallback to the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "pbmm_tpu_torch runs on a CUDA card and none is available; "
+            "pass device='cpu' (or CPU tensors) to run on the CPU")
+    return torch.device("cuda", 0)
+
+
+def on_device(x, device=None) -> torch.Tensor:
+    """`x` as a tensor: a torch tensor stays where it lies unless
+    `device` names another; anything numpy reads goes to `device`, else
+    to `default_device()`."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    a = np.ascontiguousarray(np.asarray(x))
+    return torch.from_numpy(a).to(
+        device if device is not None else default_device())
+
+
+def _mxu_unported():
+    return NotImplementedError(
+        "fft_backend='mxu' (the four-step matmul DFT) is not ported yet "
+        "(ROADMAP item 10)")
+
+
+def _geometry(frame_shape, cfg: MagnifyConfig) -> Geometry:
+    return geometry_for(frame_shape[-3], frame_shape[-2], cfg.pad_mode)
 
 
 def is_planar(frames) -> bool:
@@ -95,39 +173,6 @@ def _row_spectra(fft_in, geom: Geometry, cfg: MagnifyConfig):
                             keep_half=hermitian_active(cfg, geom))
 
 
-def check_fused(cfg: MagnifyConfig) -> None:
-    """Raise for the spectral paths the port does not serve."""
-    if not fused_eligible(cfg):
-        raise NotImplementedError(
-            "only the fused spectral path (MagnifyConfig().tuned_for_tpu()) "
-            "is ported; fft_backend='xla'/'mxu' and the unfused kernels are "
-            "ROADMAP items 8 and 10")
-
-
-def preprocess(frame: torch.Tensor, cfg: MagnifyConfig):
-    """One (H, W, 3) or (3, H, W) RGB frame -> its (C, pad_h, Wk) spectrum
-    (re, im) in the working layout: C = 1 (Y) or 3 (Y, I, Q with
-    chroma="rgb"); the torch FMAs, kernel 1 on the content rows and
-    kernel 5 (the zero-embedded radix-2 column FFT).  The
-    `fft_backend="pallas"` branch of the JAX function, the one
-    `video_init` runs; pow-2 heights only (tight heights start a stream
-    through kernel 2 instead).  The YIQ planes the JAX function also
-    returns feed the scan engine (ROADMAP item 8) and are not built."""
-    check_fused(cfg)
-    planar = is_planar(frame[None])
-    h_in, w_in = frame.shape[-2:] if planar else frame.shape[-3:-1]
-    geom = geometry_for(h_in, w_in, cfg.pad_mode)
-    if geom.pad_h & (geom.pad_h - 1):
-        raise ValueError(
-            f"preprocess takes pow-2 column heights (radix-2 kernel 5); "
-            f"pad_h={geom.pad_h} starts through magnify_video's chunk "
-            "kernel")
-    fft_in, _, _ = _luma_chroma(frame[None], cfg, want_iq=False)
-    re, im = _row_spectra(fft_in, geom, cfg)
-    r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
-    return col_fft_zero_padded(re, im, pad_h=geom.pad_h, row0=r0)
-
-
 def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
                   want_iq: bool = True):
     """Channels-last pre stage: interleaved (T, H, W, 3) or planar
@@ -143,8 +188,9 @@ def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
     takes the chroma from the uint8 planes inside kernel 3.  Planar
     uint8 frames then go straight to kernel 4 (y_only), which forms the
     luma, pad and window itself; every other input takes the torch FMAs
-    and kernel 1."""
-    check_fused(cfg)
+    and kernel 1.  `fft_backend="pallas"` only."""
+    if cfg.fft_backend != "pallas":
+        raise ValueError("preprocess_cl is the pallas backend's pre stage")
     planar = is_planar(frames)
     h_in, w_in = frames.shape[-2:] if planar else frames.shape[-3:-1]
     geom = geometry_for(h_in, w_in, cfg.pad_mode)
@@ -162,7 +208,7 @@ def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
     return re, im, i_plane, q_plane
 
 
-def posttail(chans: torch.Tensor, geom: Geometry, cfg: MagnifyConfig,
+def _posttail(chans: torch.Tensor, geom: Geometry, cfg: MagnifyConfig,
              row0: int = 0, iq=None) -> torch.Tensor:
     """The post stage on the real reconstruction, as torch ops: blur ->
     crop -> chroma -> optional window compensation and YIQ gains -> YIQ
@@ -191,3 +237,199 @@ def posttail(chans: torch.Tensor, geom: Geometry, cfg: MagnifyConfig,
                              device=chans.device).reshape((3, 1, 1))
         out_yiq = out_yiq * gains
     return yiq_to_rgb(out_yiq, saturate=True, axis=-3)
+
+
+def preprocess(frame_rgb, cfg: MagnifyConfig):
+    """(..., H, W, 3) RGB -> (spectra (..., C, Hp, Wk) complex64, YIQ at
+    input resolution (..., 3, H, W) f32): C = 1 (Y) or 3 (Y, I, Q with
+    chroma="rgb"), padded and windowed, then transformed: `torch.fft`
+    (rfft half or DC-centred full spectrum) for `fft_backend="xla"`;
+    kernel 1 on the content rows and kernel 5 down the columns (both
+    axes bit-reversed, kept Hermitian lanes where `hermitian_active`)
+    for `"pallas"`, at pow-2 heights only: tight heights are served by
+    the chunk engine's four-step kernel and raise here, as in the JAX
+    package."""
+    geom = _geometry(frame_rgb.shape, cfg)
+    yiq = rgb_to_yiq(torch.movedim(unit_float(frame_rgb), -1, -3), axis=-3)
+    chans_small = yiq if cfg.chroma == "rgb" else yiq[..., 0:1, :, :]
+    if cfg.fft_backend == "mxu":
+        raise _mxu_unported()
+    if cfg.fft_backend == "pallas":
+        if geom.pad_h & (geom.pad_h - 1):
+            raise ValueError(
+                "pad_mode='tight' with fft_backend='pallas' is served by "
+                "engine.video.magnify_video (spectrum-resident chunk "
+                "engine); the standalone pow-2 column kernel cannot "
+                f"transform pad_h={geom.pad_h}.  Use magnify_video, or "
+                "fft_backend='xla' for this entry point.")
+        r0, r1 = aligned_row_window(geom.y0, geom.y0 + geom.in_h,
+                                    geom.pad_h)
+        slab = F.pad(chans_small, (geom.x0, geom.pad_w - geom.in_w - geom.x0,
+                                   geom.y0 - r0, r1 - geom.y0 - geom.in_h))
+        shape = tuple(slab.shape)
+        re, im = windowed_row_fft(slab.reshape((-1,) + shape[-2:]),
+                                  pad_h=geom.pad_h, row0=r0,
+                                  keep_half=hermitian_active(cfg, geom))
+        re, im = col_fft_zero_padded(re, im, pad_h=geom.pad_h, row0=r0)
+        spec = torch.complex(re, im).reshape(
+            shape[:-2] + (geom.pad_h, re.shape[-1]))
+        return spec, yiq
+    chans = pad_center(chans_small, geom) * hann2d(
+        geom.pad_h, geom.pad_w, device=yiq.device)
+    spec = rfft2_half(chans) if cfg.use_rfft else fft2_centered(chans)
+    return spec, yiq
+
+
+def amplify_spectrum(cur_spec, prev_spec, cfg: MagnifyConfig,
+                     temporal_state: Optional[TemporalState] = None):
+    """The pyramid or standard band/phase pass on complex spectra in the
+    backend's layout ("bitrev2d" for pallas, "rfft" with `use_rfft`, else
+    "centered"); with the IIR band-pass the phase delta is filtered first
+    and the new taps come back.  Returns (modified spectrum, taps)."""
+    pad_h = cur_spec.shape[-2]
+    if cfg.fft_backend == "pallas":
+        layout = "bitrev2d"
+    elif cfg.use_rfft:
+        layout = "rfft"
+    else:
+        layout = "centered"
+    # The rfft array is (H, W // 2 + 1); pow-2 widths make W unambiguous.
+    pad_w = (2 * (cur_spec.shape[-1] - 1) if cfg.use_rfft
+             else cur_spec.shape[-1])
+    delta_override = None
+    new_state = temporal_state
+    if cfg.temporal.mode != "two_frame":
+        delta = phase_delta(cur_spec, prev_spec)
+        if temporal_state is None:
+            temporal_state = temporal_init(tuple(delta.shape), cfg.temporal,
+                                           device=delta.device)
+        delta_override, new_state = temporal_apply(delta, temporal_state,
+                                                   cfg.temporal)
+    if cfg.mode == "pyramid":
+        if cfg.use_pallas and delta_override is None and pad_w % 128 == 0:
+            mod = pyramid_phase_amplify_pallas_procedural(
+                cur_spec, prev_spec, cfg, layout)
+        else:
+            mod = pyramid_phase_amplify_procedural(
+                cur_spec, prev_spec, cfg, delta_override=delta_override,
+                layout=layout, full_pad_w=pad_w)
+    else:
+        weight = bandpass_weight_map(pad_h, pad_w, cfg, layout,
+                                     device=cur_spec.device)
+        mod = standard_phase_amplify(
+            cur_spec, prev_spec, weight, cfg.phase_scale,
+            cfg.magnitude_threshold, cfg.magnitude_scale,
+            cfg.apply_magnitude_scale, delta_override=delta_override)
+    return mod, new_state
+
+
+def reconstruct(mod_spec, cfg: MagnifyConfig, pad_w: int) -> torch.Tensor:
+    """Modified spectrum -> the real reconstruction at padded resolution:
+    |z| of the inverse (the reference's, `FFT.compute:143-150`) or, with
+    `reconstruct="real"`, Re z.  The pallas backend's inverse is kernel 8
+    twice (`ifft2_bitrev`)."""
+    if cfg.fft_backend == "pallas":
+        shape = mod_spec.shape
+        rre, rim = ifft2_bitrev(*split(mod_spec.reshape(
+            (-1,) + tuple(shape[-2:]))))
+        rec = torch.complex(rre, rim).reshape(shape)
+    elif cfg.fft_backend == "mxu":
+        raise _mxu_unported()
+    elif cfg.use_rfft:
+        rec = irfft2_half(mod_spec, pad_w)  # real by construction
+    else:
+        rec = ifft2_centered(mod_spec)
+    if cfg.reconstruct == "magnitude":
+        return torch.abs(rec)
+    return rec.real if rec.is_complex() else rec
+
+
+def fused_reconstruct_ok(cfg: MagnifyConfig, spec_shape) -> bool:
+    """Whether kernels 6 and 7 (phase + column IFFT, row IFFT + |z|)
+    serve this config and working size."""
+    h, w = spec_shape[-2:]
+    return fused_eligible(cfg) and h % 128 == 0 and w % 128 == 0
+
+
+def amplify_reconstruct_fused(cur_spec, prev_spec, cfg: MagnifyConfig,
+                              out_rows=None, full_w=None,
+                              temporal_state=None):
+    """The band/phase pass fused into the column IFFT (kernel 6), and the
+    row IFFT fused with |z| (kernel 7): `reconstruct(amplify(...))` on
+    the spatial rows `out_rows` only, the modified spectrum never stored.
+    Returns ((..., r1 - r0, full width) f32, taps)."""
+    shape = tuple(cur_spec.shape)
+    fw = full_w if full_w is not None else shape[-1]
+    r0, r1 = out_rows if out_rows is not None else (0, shape[-2])
+    flat = (-1,) + shape[-2:]
+    iir = cfg.temporal.mode == "iir_bandpass"
+    taps = {}
+    if iir:
+        taps = dict(lp_fast=temporal_state.lp_fast.reshape(flat),
+                    lp_slow=temporal_state.lp_slow.reshape(flat))
+    res = phase_col_ifft(*split(cur_spec.reshape(flat)),
+                         *split(prev_spec.reshape(flat)), cfg,
+                         out_rows=out_rows, full_w=fw, **taps)
+    new_state = (TemporalState(res[2].reshape(shape), res[3].reshape(shape))
+                 if iir else temporal_state)
+    rec = row_ifft_magnitude(res[0], res[1],
+                             magnitude=(cfg.reconstruct == "magnitude"),
+                             pad_h=shape[-2], full_w=fw)
+    return rec.reshape(shape[:-2] + (r1 - r0, fw)), new_state
+
+
+def posttail(chans, yiq_small, cfg: MagnifyConfig, row0: int = 0):
+    """The post stage on (..., C, Hr, Wp) reconstruction rows from padded
+    row `row0` with the (..., 3, H, W) input-resolution YIQ (only its
+    I/Q planes are read, for y_only): blur -> crop -> windowed chroma ->
+    compensation and gains -> YIQ -> RGB, saturated; (..., 3, H, W)."""
+    h, w = yiq_small.shape[-2:]
+    geom = geometry_for(h, w, cfg.pad_mode)
+    lead = tuple(chans.shape[:-3])
+    c4 = chans.reshape((-1,) + tuple(chans.shape[-3:]))
+    if cfg.chroma == "rgb":
+        out = _posttail(c4, geom, cfg, row0)
+    else:
+        y4 = yiq_small.reshape((-1,) + tuple(yiq_small.shape[-3:]))
+        out = _posttail(c4[:, 0:1], geom, cfg, row0, iq=(y4[:, 1], y4[:, 2]))
+    return out.reshape(lead + tuple(out.shape[-3:]))
+
+
+def postprocess(mod_spec, yiq_small, cfg: MagnifyConfig) -> torch.Tensor:
+    """(..., C, Hp, Wp) modified spectra + (..., 3, H, W) YIQ -> (..., 3,
+    H, W) RGB: `reconstruct`, then `posttail`
+    (`MotionMagnificationProcessor.cs:196-205`)."""
+    h, w = yiq_small.shape[-2:]
+    geom = geometry_for(h, w, cfg.pad_mode)
+    return posttail(reconstruct(mod_spec, cfg, geom.pad_w), yiq_small, cfg)
+
+
+def magnify_frame_pair(prev_rgb, cur_rgb, cfg: MagnifyConfig,
+                       device=None) -> torch.Tensor:
+    """Stateless two-frame magnification, reference-faithful: both frames
+    are fully pre-processed (the reference re-FFTs the previous frame,
+    `MotionMagnificationProcessor.cs:151-156`).
+
+    prev_rgb, cur_rgb: (H, W, 3) RGB in [0, 1] (or uint8); torch tensors
+    run where they lie, numpy arrays on `device` (default: the first CUDA
+    card).  Returns (H, W, 3) f32 RGB."""
+    if cfg.fft_backend == "mxu":
+        raise _mxu_unported()
+    cur_rgb = on_device(cur_rgb, device)
+    prev_rgb = on_device(prev_rgb, cur_rgb.device)
+    if not cfg.apply_motion_magnification:
+        # The reference's bypass (`MotionMagnificationProcessor.cs:126-139`).
+        return unit_float(cur_rgb)
+    cur_spec, cur_yiq = preprocess(cur_rgb, cfg)
+    prev_spec, _ = preprocess(prev_rgb, cfg)
+    if (fused_reconstruct_ok(cfg, cur_spec.shape)
+            and cfg.temporal.mode == "two_frame"):
+        geom = _geometry(cur_rgb.shape, cfg)
+        rows = blur_row_window(geom, cfg)
+        chans, _ = amplify_reconstruct_fused(cur_spec, prev_spec, cfg,
+                                             out_rows=rows,
+                                             full_w=geom.pad_w)
+        return torch.movedim(posttail(chans, cur_yiq, cfg, row0=rows[0]),
+                             -3, -1)
+    mod_spec, _ = amplify_spectrum(cur_spec, prev_spec, cfg)
+    return torch.movedim(postprocess(mod_spec, cur_yiq, cfg), -3, -1)

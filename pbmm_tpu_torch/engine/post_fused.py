@@ -1,12 +1,15 @@
-"""The post kernels of the chunk engine: kernels 3 and 11.
+"""The post kernels: kernels 3, 11 and 10.
 
 Counterpart of `pbmm_tpu/engine/post_pallas.py` (renamed: the port holds
-no Pallas) for what the chunk engine runs: `_radius`, `_out_block`,
-`post_pallas_ok` (the geometry predicate, kept under its JAX name so the
-two packages route alike), `rowifft_post_fused` (kernel 3, the y_only
-tail; CUDA: `csrc/rowifft_post.cu`) and `post_fused_rgb` (kernel 11, the
-chroma="rgb" tail after kernel 7; CUDA: `csrc/post_rgb.cu`), both in all
-three output layouts.
+no Pallas): `_radius`, `_out_block`, `post_pallas_ok` (the geometry
+predicate, kept under its JAX name so the two packages route alike),
+`rowifft_post_fused` (kernel 3, the y_only tail; CUDA:
+`csrc/rowifft_post.cu`), `post_fused_rgb` (kernel 11, the chroma="rgb"
+tail after kernel 7; CUDA: `csrc/post_rgb.cu`) and `post_fused` (kernel
+10, the y_only tail after kernel 7; CUDA: `csrc/post_rgb.cu`), all in the
+three output layouts.  Like the JAX package's, the engines reach
+`post_fused` only through `engine.video._post_block`, where kernel 3
+always serves first: no entry point launches it.
 
 Kernel 3's chain per frame: rebuild the missing Hermitian tiles, row
 IFFT (bit-reversed lanes in, natural out), |z| (or Re z) / (pad_h *
@@ -330,3 +333,77 @@ def post_fused_rgb(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
 
 
 post_fused_rgb.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 10: the y_only post tail on reconstructed rows
+# ---------------------------------------------------------------------------
+
+
+def _check_post_yonly(chans, i_plane, q_plane, cfg, rows0, in_h, in_w,
+                      pad_mode, out_layout):
+    if out_layout not in _LAYOUTS:
+        raise ValueError(f"unknown out_layout {out_layout!r}")
+    t, hr, wp = chans.shape
+    geom = geometry_for(in_h, in_w, pad_mode)
+    if wp != geom.pad_w:
+        raise ValueError(f"region rows of {wp} lanes for a pad width of "
+                         f"{geom.pad_w}")
+    for pl in (i_plane, q_plane):
+        if tuple(pl.shape) != (t, in_h, in_w):
+            raise ValueError(f"chroma plane {tuple(pl.shape)} for {t} "
+                             f"frames of {in_h} x {in_w}")
+    _halo_check(geom, _radius(cfg), rows0, hr, wp)
+    return geom
+
+
+def post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
+                   in_w: int, pad_mode: str, out_layout: str = "tuple3"):
+    """Plain PyTorch version of `post_fused`: `_blur_crop` of the Y rows,
+    the windowed chroma, then `_finish`."""
+    geom = _check_post_yonly(chans, i_plane, q_plane, cfg, rows0, in_h,
+                             in_w, pad_mode, out_layout)
+    y = _blur_crop(chans, cfg, geom, rows0)
+    return _finish(y, i_plane * win, q_plane * win, win, cfg, out_layout)
+
+
+def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
+               in_w: int, pad_mode: str, out_layout: str = "tuple3"):
+    """(T, Hr, Wp) reconstruction rows of Y (region rows from `rows0`) +
+    (T, H, W) original I/Q planes + (H, W) crop-region Hann -> RGB in
+    [0, 1]: the blur, the crop, the windowed chroma, the window
+    compensation and YIQ gains, YIQ -> RGB and the clip (`posttail`'s
+    math), written in `out_layout` as `post_fused_rgb` does.  Callers
+    have checked `post_pallas_ok`.
+
+    CPU tensors take `post_fused_ref`; CUDA tensors launch
+    `csrc/post_rgb.cu::pbmm_post_yonly`."""
+    if chans.device.type == "cpu":
+        return post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0,
+                              in_h, in_w, pad_mode, out_layout)
+    from pbmm_tpu_torch.kernels.build import check_launch, library
+
+    geom = _check_post_yonly(chans, i_plane, q_plane, cfg, rows0, in_h,
+                             in_w, pad_mode, out_layout)
+    t, hr, wp = chans.shape
+    r = _radius(cfg)
+    if r > 4:
+        raise ValueError(f"the CUDA post kernel takes blur radius <= 4, "
+                         f"got {r}")
+    check_cuda("post_fused", (t, hr, wp), chans)
+    check_cuda("post_fused", (t, in_h, in_w), i_plane, q_plane)
+    check_cuda("post_fused", (in_h, in_w), win)
+    dev = chans.device
+    outs, ptrs = _outputs(t, in_h, in_w, out_layout, dev)
+    err = library().pbmm_post_yonly(
+        chans.data_ptr(), i_plane.data_ptr(), q_plane.data_ptr(),
+        win.data_ptr(), *ptrs, c_floats(blur_taps(cfg.blur_size)), r,
+        c_floats(YIQ_TO_RGB.reshape(-1)), _LAYOUTS.index(out_layout), t, hr,
+        wp, in_h, in_w, geom.y0 - rows0, geom.x0, *_epilogue_args(cfg),
+        stream_handle(dev))
+    check_launch(err, "post_fused")
+    post_fused.launches += 1
+    return tuple(outs) if out_layout == "tuple3" else outs[0]
+
+
+post_fused.launches = 0

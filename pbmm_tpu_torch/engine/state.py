@@ -3,8 +3,10 @@
 The spectrum carried from one chunk to the next is this system's only
 state (it has no weights).  The port keeps the JAX package's `VideoState`
 leaves in the same layout and shapes — four-step rows x kept bit-reversed
-lanes, `prev_spec_*` (1, 1152, 1152) at 1080p tight — so a stream started
-by one package resumes in the other, and states compare element by
+lanes, `prev_spec_*` (1, 1152, 1152) at 1080p tight; the rfft or centred
+layout of the xla backend; with `cache_prev_spectrum=False` the previous
+frame (H, W, 3) and empty spectra — so a stream started by one package
+resumes in the other, on either engine, and states compare element by
 element.  The numpy side uses the keys of the JAX package's checkpoint
 files, and `save_state` / `load_state` read and write those .npz files
 (`pbmm_tpu/engine/state.py`), so a checkpoint written by either package
@@ -18,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from pbmm_tpu_torch.engine.pipeline import default_device
 from pbmm_tpu_torch.engine.video import VideoState
 from pbmm_tpu_torch.phase.temporal import TemporalState
 
@@ -38,9 +41,11 @@ def state_to_numpy(state: VideoState) -> dict:
 
 
 def state_from_numpy(state, device=None) -> VideoState:
-    """A port `VideoState` on `device` from either a dict under the
+    """A port `VideoState` on `device` (default: the first CUDA card;
+    pass "cpu" to keep it on the CPU) from either a dict under the
     checkpoint keys or a `VideoState` of the JAX package (any leaves
     numpy can read)."""
+    device = device if device is not None else default_device()
     if isinstance(state, dict):
         leaves = dict(state)
     else:
@@ -75,6 +80,6 @@ def save_state(state: VideoState, path: str) -> None:
 
 def load_state(path: str, device=None) -> VideoState:
     """A checkpoint .npz (of either package) as a `VideoState` on
-    `device`."""
+    `device` (default: the first CUDA card)."""
     with np.load(path) as z:
         return state_from_numpy({k: z[k] for k in z.files}, device)

@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbmm_tpu_torch"
 LIB_NAME = "libpbmm_tpu_torch.so"
 SOURCES = ("row_fft.cu", "colspec_chunk.cu", "rowifft_post.cu",
-           "row_ifft.cu", "col_fft.cu", "post_rgb.cu")
+           "row_ifft.cu", "col_fft.cu", "post_rgb.cu", "phase_col_ifft.cu",
+           "fft_axis.cu", "amplify_procedural.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -65,6 +66,19 @@ SIGNATURES = {
     # layout, t, hr, w, in_h, in_w, yrow0, x0, comp, gain, g_y, g_i, g_q,
     # stream
     "pbmm_post_rgb": [_P] * 6 + [_I, _P] + [_I] * 10 + [_F] * 3 + [_P],
+    # chans, i_plane, q_plane, win, out0, out1, out2, taps(host), radius,
+    # yiq_to_rgb(host), then as pbmm_post_rgb from layout on
+    "pbmm_post_yonly": [_P] * 8 + [_I, _P] + [_I] * 10 + [_F] * 3 + [_P],
+    # cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
+    # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, phase
+    # ints(host), phase floats(host), batch, h, w, r0, r1, stream
+    "pbmm_phase_col_ifft": [_P] * 18 + [_I] * 5 + [_P],
+    # re, im (null: real), tw_re, tw_im, out_re, out_im, batch, h, w,
+    # axis, inverse, scale, stream
+    "pbmm_fft_axis": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # cur_re, cur_im, prev_re, prev_im, fy, fx, out_re, out_im, ints(host),
+    # floats(host), planes, h, w, stream
+    "pbmm_amplify_procedural": [_P] * 10 + [_I] * 3 + [_P],
 }
 
 

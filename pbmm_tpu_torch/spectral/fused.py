@@ -1,6 +1,6 @@
-"""The fused spectral stages of the chunk engine: kernels 1, 4, 2, 5 and 7.
+"""The fused spectral stages: kernels 1, 4, 2, 6, 5 and 7.
 
-Counterpart of `pbmm_tpu/spectral/fused.py` for the chunk engine:
+Counterpart of `pbmm_tpu/spectral/fused.py`:
 
   `windowed_row_fft`           Hann window x row FFT, Hermitian kept
                                tiles out (CUDA: `csrc/row_fft.cu`);
@@ -11,9 +11,14 @@ Counterpart of `pbmm_tpu/spectral/fused.py` for the chunk engine:
                                for a whole chunk, previous spectrum and
                                IIR taps carried on chip, every branch of
                                the JAX kernel (CUDA: `csrc/colspec_chunk.cu`);
-  `col_fft_zero_padded`        the radix-2 column FFT of one frame at
-                               pow-2 heights, for the bootstrap state
-                               (CUDA: `csrc/col_fft.cu`);
+  `phase_col_ifft`             one frame's band/phase pass against its
+                               previous frame + column IFFT, the scan
+                               engine's and the frame pair's (CUDA:
+                               `csrc/phase_col_ifft.cu`);
+  `col_fft_zero_padded`        the radix-2 column FFT at pow-2 heights:
+                               the pre stage of the bootstrap state, the
+                               scan engine and the frame pair (CUDA:
+                               `csrc/col_fft.cu`);
   `row_ifft_magnitude`         Hermitian rebuild + row IFFT + |z| or Re z
                                of the two-kernel tail (CUDA:
                                `csrc/row_ifft.cu`);
@@ -61,6 +66,7 @@ from pbmm_tpu_torch.spectral.radix2 import (
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
+PBMM_COL_S = 4  # columns a block of the CUDA column kernels holds
 _MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
 
 
@@ -808,6 +814,118 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
 
 
 colspec_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: one frame's band/phase pass + radix-2 column IFFT
+# ---------------------------------------------------------------------------
+
+
+def _phase_col_args(cur_re, cfg, out_rows, fx_values, lp_fast, lp_slow):
+    """Validate a phase_col_ifft call; returns (r0, r1)."""
+    _, h, _ = cur_re.shape
+    check_pow2(h, "radix-2 column height")
+    if fx_values is not None:
+        raise NotImplementedError(
+            "fx_values (the sharded engines' per-shard frequencies) is "
+            "ROADMAP item 11")
+    if (cfg.temporal.mode == "iir_bandpass") != (lp_fast is not None
+                                                 and lp_slow is not None):
+        raise ValueError("lp_fast/lp_slow carry planes go with, and only "
+                         "with, temporal mode iir_bandpass")
+    _phase_plan(cfg)
+    r0, r1 = out_rows if out_rows is not None else (0, h)
+    if not 0 <= r0 < r1 <= h:
+        raise ValueError(f"bad out_rows {out_rows} for H={h}")
+    return r0, r1
+
+
+def phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
+                       full_w=None, fx_values=None, lp_fast=None,
+                       lp_slow=None):
+    """Plain PyTorch version of `phase_col_ifft`: per frame,
+    `_phase_block_ref` against its prev, the inverse index map and an
+    unnormalised inverse FFT down the columns (`colspec_chunk_ref`'s
+    inverse half, one frame at a time)."""
+    r0, r1 = _phase_col_args(cur_re, cfg, out_rows, fx_values, lp_fast,
+                             lp_slow)
+    b, h, w = cur_re.shape
+    dev = cur_re.device
+    host = _static_phase_planes(cfg, h, w, full_w)
+    if host is not None:
+        host = device_arrays(_static_phase_planes, (cfg, h, w, full_w), dev)
+    fy, fx = device_arrays(_freq_tables, (h, w, full_w), dev)
+    order = torch.as_tensor(_col_order(h), device=dev)
+    out_re = torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    taps = []
+    for f in range(b):
+        tap_in = (lp_fast[f], lp_slow[f]) if lp_fast is not None else ()
+        res = _phase_block_ref(cur_re[f], cur_im[f], prev_re[f], prev_im[f],
+                               fy, fx, cfg, *tap_in, static_planes=host)
+        nat = torch.empty((h, w), dtype=torch.complex64, device=dev)
+        nat[order] = torch.complex(res[0], res[1])
+        z = torch.fft.ifft(nat, dim=0, norm="forward")[r0:r1]
+        out_re[f] = z.real
+        out_im[f] = z.imag
+        taps.append(res[2:])
+    return (out_re, out_im) + tuple(torch.stack(t) for t in zip(*taps))
+
+
+def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
+                   full_w=None, fx_values=None, lp_fast=None, lp_slow=None):
+    """(B, H, W) spectra pair in the working layout (bit-reversed rows at
+    a pow-2 height H, bit-reversed lanes, the kept Hermitian tiles when
+    `full_w` exceeds W) -> the column IFFT of the phase-amplified
+    spectrum, spatial rows `out_rows` = (r0, r1) only: (re, im) each
+    (B, r1 - r0, W) f32, unnormalised; with the IIR band-pass also the
+    new (B, H, W) taps from `lp_fast`/`lp_slow`.  Each frame is amplified
+    against its own prev.  `fx_values` (the sharded engines') is not
+    ported.
+
+    CPU tensors take `phase_col_ifft_ref`; CUDA tensors launch
+    `csrc/phase_col_ifft.cu`."""
+    if cur_re.device.type == "cpu":
+        return phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg,
+                                  out_rows, full_w, fx_values, lp_fast,
+                                  lp_slow)
+    from pbmm_tpu_torch.kernels.build import check_launch, library
+
+    r0, r1 = _phase_col_args(cur_re, cfg, out_rows, fx_values, lp_fast,
+                             lp_slow)
+    b, h, w = cur_re.shape
+    _check_col_height(h)
+    if w % PBMM_COL_S:
+        raise ValueError(f"the CUDA kernel takes widths that are multiples "
+                         f"of {PBMM_COL_S}, got {w}")
+    taps = (lp_fast, lp_slow) if lp_fast is not None else ()
+    check_cuda("phase_col_ifft", (b, h, w), cur_re, cur_im, prev_re,
+               prev_im, *taps)
+    dev = cur_re.device
+    host = _static_phase_planes(cfg, h, w, full_w)
+    planes_d = (device_arrays(_static_phase_planes, (cfg, h, w, full_w),
+                              dev) if host is not None else ())
+    planes_d = planes_d + (None,) * (2 - len(planes_d))
+    fy, fx = device_arrays(_freq_tables, (h, w, full_w), dev)
+    twr, twi = device_arrays(_dif_twiddles, (h, True), dev)
+    outs = [torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+    outs += [torch.empty((b, h, w), dtype=torch.float32, device=dev)
+             for _ in taps]
+    ints, floats = _phase_args(_phase_plan(cfg), host is not None)
+    ins = ((cur_re, cur_im, prev_re, prev_im) + (taps or (None, None))
+           + planes_d + (fy, fx, twr, twi))
+    err = library().pbmm_phase_col_ifft(
+        *(None if x is None else x.data_ptr()
+          for x in ins + tuple(outs) + (None,) * (4 - len(outs))),
+        c_ints(ints), c_floats(floats), b, h, w, r0, r1,
+        stream_handle(dev))
+    check_launch(err, "phase_col_ifft")
+    phase_col_ifft.launches += 1
+    return tuple(outs)
+
+
+phase_col_ifft.launches = 0
 
 
 # ---------------------------------------------------------------------------

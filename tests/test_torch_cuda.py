@@ -9,7 +9,14 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
 - kernel 3 in all six chroma x layout variants;
 - kernel 7 (row IFFT + |z|) at W = 512 to 4096;
 - the whole main path on the card against the CPU path, interleaved f32
-  and planar uint8 in, on both tails.
+  and planar uint8 in, on both tails;
+- kernel 2's branches, kernels 5 and 11, the quirk switches of kernels 3
+  and 7 and the config matrix's paths;
+- kernel 6 in every branch at three heights (and bit for bit against
+  kernel 2), kernel 8 on both axes from 8 to 8192 points, kernel 9 in
+  both layouts, kernel 10 in every layout, the scan engine's paths on the
+  card against the CPU (numpy input landing on the card), and
+  `load_state` defaulting to the card.
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
@@ -436,3 +443,180 @@ def test_config_matrix_on_card_matches_cpu(dev, name):
     o2, s2 = magnify_video(torch.from_numpy(clip[2:]).to(dev), cfg, s1)
     assert torch.equal(torch.cat([o1, o2]), out_d)
     assert torch.equal(s2.prev_spec_re, st_d.prev_spec_re)
+
+
+# -- the scan engine and the unfused backends: kernels 6, 8, 9, 10, the
+#    default device ------------------------------------------------------------
+
+from pbmm_tpu_torch.engine.pipeline import magnify_frame_pair  # noqa: E402
+from pbmm_tpu_torch.phase import fused_kernels  # noqa: E402
+from pbmm_tpu_torch.pyramid.filters import freq_axes  # noqa: E402
+from pbmm_tpu_torch.spectral import radix2  # noqa: E402
+
+_K6 = {
+    "main": dict(),
+    "iir": dict(temporal=TemporalConfig(mode="iir_bandpass")),
+    "standard": dict(mode="standard"),
+    "steerable_overlapping": dict(orientations=4, pyramid_levels=6),
+    "non_integer": dict(phase_scale=2.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_K6))
+@pytest.mark.parametrize("h,fw,kept", [(256, 512, True), (1024, 2048, False),
+                                       (2048, 256, True)])
+def test_phase_col_ifft_kernel(dev, name, h, fw, kept):
+    """Kernel 6 against its plain version in every branch and at three
+    heights, with signed zeros in the spectra."""
+    cfg = _cfg().replace(pad_mode="square_pow2", **_K6[name])
+    w = hermitian_kept_width(fw) if kept else fw
+    rng = np.random.default_rng(18)
+    spec = [_spectra(rng, (2, h, w), dev, True) for _ in range(4)]
+    taps = ([0.1 * _spectra(rng, (2, h, w), dev) for _ in range(2)]
+            if cfg.temporal.mode == "iir_bandpass" else [])
+    kw = dict(out_rows=(h // 4, 3 * h // 4), full_w=fw,
+              **dict(zip(("lp_fast", "lp_slow"), taps)))
+    n = fused.phase_col_ifft.launches
+    got = fused.phase_col_ifft(*spec, cfg, **kw)
+    assert fused.phase_col_ifft.launches == n + 1
+    want = fused.phase_col_ifft_ref(
+        *[x.cpu() for x in spec], cfg,
+        **{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in kw.items()})
+    assert len(got) == len(want) == 2 + len(taps)
+    assert _rel([g.cpu() for g in got[:2]], want[:2]) < 1e-4
+
+
+def test_phase_col_ifft_kernel_equals_colspec(dev):
+    """On the spectra kernel 5 gives, kernel 6's rows equal kernel 2's bit
+    for bit (the shared phase pass and inverse)."""
+    cfg = _cfg().replace(pad_mode="square_pow2")
+    wk = hermitian_kept_width(512)
+    rng = np.random.default_rng(19)
+    rows_in = [_spectra(rng, (4, 192, wk), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, 512, wk), dev) for _ in range(2)]
+    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, 512, 64,
+                             out_rows=(64, 448), full_w=512)
+    cur = fused.col_fft_zero_padded(*rows_in, 512, 64)
+    prv = [torch.cat([p, c[:-1]]) for p, c in zip(prev, cur)]
+    k6 = fused.phase_col_ifft(*cur, *prv, cfg, out_rows=(64, 448),
+                              full_w=512)
+    assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+
+
+@pytest.mark.parametrize("kind", ["forward_real", "forward_complex",
+                                  "inverse_scaled"])
+@pytest.mark.parametrize("axis,shape", [(1, (2, 8, 40)), (2, (3, 5, 8)),
+                                        (1, (1, 4096, 24)),
+                                        (2, (1, 16, 8192)),
+                                        (1, (2, 512, 512))])
+def test_fft_axis_kernel(dev, axis, shape, kind):
+    rng = np.random.default_rng(20)
+    re, im = (_rand(rng, shape, dev) for _ in range(2))
+    im = None if kind == "forward_real" else im
+    inverse = kind == "inverse_scaled"
+    scale = 1.0 / (shape[1] * shape[2]) if inverse else 1.0
+    n = radix2._fft_axis.launches
+    got = radix2._fft_axis(re, im, axis, inverse, scale)
+    assert radix2._fft_axis.launches == n + 1
+    want = radix2._fft_axis_ref(re.cpu(), None if im is None else im.cpu(),
+                                axis, inverse, scale)
+    assert _rel([g.cpu() for g in got], want) < 1e-4
+
+
+@pytest.mark.parametrize("layout", ["centered", "bitrev2d"])
+@pytest.mark.parametrize("change", [dict(), dict(phase_scale=2.5),
+                                    dict(orientations=4),
+                                    dict(pyramid_levels=7, phase_scale=0.0)],
+                         ids=["integer", "scale_2_5", "steerable",
+                              "levels7_zero"])
+def test_amplify_procedural_kernel(dev, layout, change):
+    cfg = MagnifyConfig(**change)
+    h, w = 256, 512
+    rng = np.random.default_rng(21)
+    spec = [_spectra(rng, (2, h, w), dev, True) for _ in range(4)]
+    fy, fx = freq_axes(h, w, layout, dev)
+    args = (*spec, fy[:, 0].contiguous(), fx[0].contiguous(),
+            cfg.pyramid_levels, cfg.min_frequency, cfg.max_frequency,
+            cfg.phase_scale, cfg.magnitude_threshold, cfg.orientations)
+    n = fused_kernels.amplify_procedural.launches
+    got = fused_kernels.amplify_procedural(*args)
+    assert fused_kernels.amplify_procedural.launches == n + 1
+    want = fused_kernels.amplify_procedural_ref(*args)
+    assert _rel([g.cpu() for g in got], [x.cpu() for x in want]) < 1e-4
+
+
+@pytest.mark.parametrize("layout", ["tuple3", "planar", "planar_u8"])
+@pytest.mark.parametrize("quirk", ["none", "all"])
+def test_post_fused_kernel(dev, layout, quirk):
+    in_h, in_w = 320, 384
+    cfg = _cfg().replace(**_QUIRKS.get(quirk, {}))
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, cfg)
+    hr = rows[1] - rows[0]
+    rng = np.random.default_rng(22)
+    rec = torch.from_numpy(rng.uniform(0, 0.9, (2, hr, g.pad_w)).astype(
+        np.float32)).to(dev)
+    args = (rec, _rand(rng, (2, in_h, in_w), dev, 0.3),
+            _rand(rng, (2, in_h, in_w), dev, 0.3),
+            hann2d_region(g, device=dev), cfg, rows[0], in_h, in_w, "tight")
+    n = post_fused.post_fused.launches
+    got = post_fused.post_fused(*args, out_layout=layout)
+    assert post_fused.post_fused.launches == n + 1
+    want = post_fused.post_fused_ref(*[a.cpu() if torch.is_tensor(a) else a
+                                       for a in args], out_layout=layout)
+    if layout == "tuple3":
+        for a, b in zip(got, want):
+            assert float((a.cpu() - b).abs().max()) < 1e-5
+    elif layout == "planar":
+        assert float((got.cpu() - want).abs().max()) < 1e-5
+    else:
+        assert int((got.cpu().int() - want.int()).abs().max()) <= 1
+
+
+_SCAN = {
+    "default": MagnifyConfig(),
+    "tuned_scan": _cfg().replace(pad_mode="square_pow2", engine="scan"),
+    "tuned_no_cache_iir": _cfg().replace(
+        pad_mode="rect_pow2", cache_prev_spectrum=False,
+        temporal=TemporalConfig(mode="iir_bandpass")),
+    "pallas_unfused_k9": MagnifyConfig(fft_backend="pallas", use_rfft=False,
+                                       use_pallas=True),
+    "xla_k9": MagnifyConfig(use_rfft=False, use_pallas=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SCAN))
+def test_scan_paths_on_card_match_cpu(dev, name):
+    rng = np.random.default_rng(23)
+    base = rng.random((320, 384, 3)).astype(np.float32)
+    clip = np.stack([np.roll(base, i, axis=1) * (0.95 + 0.01 * i)
+                     for i in range(4)]).astype(np.float32)
+    cfg = _SCAN[name]
+    out_d, _ = magnify_video(clip, cfg)  # numpy lands on the card
+    assert out_d.device.type == "cuda"
+    out_c, _ = magnify_video(clip, cfg, device="cpu")
+    mse = float(((out_d.cpu().double() - out_c.double()) ** 2).mean())
+    assert mse == 0 or 10 * np.log10(1 / mse) > 100
+    o1, s1 = magnify_video(clip[:2], cfg)
+    o2, _ = magnify_video(clip[2:], cfg, s1)
+    assert torch.equal(torch.cat([o1, o2]), out_d)
+    if cfg.temporal.mode != "two_frame":
+        return  # the pair is two-frame by definition
+    pair = magnify_frame_pair(clip[1], clip[2], cfg)
+    assert pair.device.type == "cuda"
+    pair_c = magnify_frame_pair(clip[1], clip[2], cfg, device="cpu")
+    assert float((pair.cpu() - pair_c).abs().max()) < 1e-3
+
+
+def test_load_state_defaults_to_the_card(dev, tmp_path):
+    from pbmm_tpu_torch.engine.state import load_state, save_state
+
+    clip = np.random.default_rng(24).random((2, 64, 128, 3)).astype(
+        np.float32)
+    _, st = magnify_video(clip, MagnifyConfig(), device="cpu")
+    ck = str(tmp_path / "ck.npz")
+    save_state(st, ck)
+    back = load_state(ck)
+    assert back.prev_spec_re.device.type == "cuda"
+    assert torch.equal(back.prev_spec_re.cpu(), st.prev_spec_re)
+    assert load_state(ck, device="cpu").prev_spec_re.device.type == "cpu"

@@ -153,7 +153,7 @@ def test_state_crosses_packages(clip, tmp_path, name):
     _, jhead = jmagnify(clip[:2], jcfg)
     ck = str(tmp_path / "jax.npz")
     jstate_io.save_state(jhead, ck)
-    st = tstate_io.load_state(ck)
+    st = tstate_io.load_state(ck, device="cpu")
     _assert_states_match(st, jhead)
     out, st2 = magnify_video(torch.from_numpy(clip[2:]), tcfg, st)
     assert psnr(out.numpy(), np.asarray(jfull)[2:]) > 70
@@ -174,7 +174,7 @@ def test_state_crosses_packages(clip, tmp_path, name):
     d = state_to_numpy(head)
     assert set(d) == {"prev_spec_re", "prev_spec_im", "prev_frame",
                       "lp_fast", "lp_slow", "frame_idx"}
-    back = state_from_numpy(_jax_state(d))
+    back = state_from_numpy(_jax_state(d), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(
         back[:3] + tuple(back.temporal), head[:3] + tuple(head.temporal)))
 
@@ -235,8 +235,9 @@ def test_bypass(clip, pad_mode, layout):
 
 def test_cli_serves_the_matrix(clip256, tmp_path, capsys):
     """`--fast` at the CLI's default `--pad-mode square_pow2` with the
-    matrix's switches runs (it exited 2 before); the scan engine's
-    switches and the unfused backends still exit 2 naming their item."""
+    matrix's switches runs (it exited 2 before); so do the scan engine's
+    switches and the bypass, each equal to `magnify_video` on its config;
+    the mxu backend exits 2 naming its item."""
     from pbmm_tpu_torch.cli import build_parser, config_from_args, main
 
     inp, out = str(tmp_path / "in.npy"), str(tmp_path / "out.npy")
@@ -250,10 +251,17 @@ def test_cli_serves_the_matrix(clip256, tmp_path, capsys):
     assert cfg.pad_mode == "square_pow2" and cfg.apply_yiq_gains
     want, _ = magnify_video(torch.from_numpy(clip256[:3]), cfg)
     np.testing.assert_array_equal(np.load(out), want.numpy())
-    for flags, item in ((["--fast", "--engine", "scan"], "item 8"),
-                        (["--fast", "--no-cache-prev-spectrum"], "item 8"),
-                        (["--fast", "--apply-magnitude-scale"], "items 8"),
-                        (["--no-magnify"], "items 8 and 10")):
-        assert main(["--input", inp, "--output", out] + flags,
-                    device="cpu") == 2
-        assert f"ROADMAP {item}" in capsys.readouterr().err
+    for flags in (["--fast", "--engine", "scan"],
+                  ["--fast", "--no-cache-prev-spectrum"],
+                  ["--mode", "standard", "--apply-magnitude-scale"],
+                  ["--no-magnify"]):
+        argv = ["--input", inp, "--output", out] + flags
+        assert main(argv, device="cpu") == 0
+        cfg = config_from_args(build_parser().parse_args(argv))
+        if "--fast" in flags:
+            cfg = cfg.tuned_for_tpu()
+        want, _ = magnify_video(torch.from_numpy(clip256[:3]), cfg)
+        np.testing.assert_array_equal(np.load(out), want.numpy())
+    assert main(["--input", inp, "--output", out, "--fft-backend", "mxu"],
+                device="cpu") == 2
+    assert "ROADMAP item 10" in capsys.readouterr().err

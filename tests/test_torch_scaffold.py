@@ -52,11 +52,49 @@ def test_config_presets_and_validation_match():
             tcfg.MagnifyConfig(**bad)
 
 
+def _jax_package_refs(path):
+    """Every import of jax or pbmm_tpu in a source file, and every path
+    string under pbmm_tpu/ handed to a `load_by_path` call."""
+    import ast
+
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def bad(mod):
+        return mod.split(".")[0] in ("jax", "pbmm_tpu")
+
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if bad(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.module and bad(node.module):
+                found.append(node.module)
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = getattr(fn, "id", None) or getattr(fn, "attr", None)
+            if name in ("load_by_path", "spec_from_file_location"):
+                for arg in node.args:
+                    if (isinstance(arg, ast.Constant)
+                            and isinstance(arg.value, str)
+                            and "pbmm_tpu/" in arg.value):
+                        found.append(arg.value)
+    return found
+
+
 def test_import_leaves_jax_out():
+    """Importing the port loads neither jax nor the JAX package, and
+    chip_smoke.py (which runs where there is no JAX) imports neither and
+    loads no file of the JAX package by path."""
+    from pathlib import Path
+
     code = (
         "import sys, pbmm_tpu_torch, pbmm_tpu_torch.engine.state, "
         "pbmm_tpu_torch.kernels.build, pbmm_tpu_torch.io.stream, "
-        "pbmm_tpu_torch.cli\n"
+        "pbmm_tpu_torch.cli, pbmm_tpu_torch.oracle, "
+        "pbmm_tpu_torch.engine.pipeline, pbmm_tpu_torch.phase.amplify, "
+        "pbmm_tpu_torch.phase.standard, pbmm_tpu_torch.phase.fused_kernels, "
+        "pbmm_tpu_torch.spectral.fft, pbmm_tpu_torch.core.complexop, "
+        "pbmm_tpu_torch.pyramid.filters\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pbmm_tpu' or m.startswith('pbmm_tpu.')]\n"
         "assert not bad, bad\n"
@@ -66,6 +104,10 @@ def test_import_leaves_jax_out():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+    root = Path(__file__).resolve().parents[1]
+    assert _jax_package_refs(root / "chip_smoke.py") == []
+    for src in sorted((root / "pbmm_tpu_torch").rglob("*.py")):
+        assert _jax_package_refs(src) == [], src
 
 
 def test_exports():

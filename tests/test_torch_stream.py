@@ -172,7 +172,7 @@ def test_resumable_kill_and_resume_bit_identical(y4m_files, port_run,
     kw = dict(chunk_frames=2, checkpoint=ck, ingest="u8", device=CPU)
     args = (y4m_files["420jpeg"], out, _tcfg())
     assert tstream.stream_magnify_resumable(*args, max_chunks=1, **kw) == 2
-    assert tstate.load_state(ck).frame_idx == 2
+    assert tstate.load_state(ck, device="cpu").frame_idx == 2
     with pytest.raises(ValueError, match="chunk"):
         tstream.stream_magnify_resumable(*args, chunk_frames=4,
                                          checkpoint=ck, device=CPU)
@@ -207,7 +207,7 @@ def test_checkpoint_crosses_packages(y4m_files, tmp_path, first):
                 "prev_spec_re", "prev_spec_im", "prev_frame", "lp_fast",
                 "lp_slow", "frame_idx"}
             assert int(jstate.load_state(ck).frame_idx) == 2
-            assert tstate.load_state(ck).frame_idx == 2
+            assert tstate.load_state(ck, device="cpu").frame_idx == 2
     want = np.concatenate(list(tstream.stream_magnify(
         src, _tcfg(), chunk_frames=2, device=CPU)))
     got = np.load(out)
@@ -231,7 +231,7 @@ def test_cli_npy_and_checkpoint(frames, tmp_path):
                  "--chunk-frames", "2", "--checkpoint", ck, *FAST],
                 device="cpu") == 0
     np.testing.assert_array_equal(np.load(out3), want)
-    assert tstate.load_state(ck).frame_idx == T
+    assert tstate.load_state(ck, device="cpu").frame_idx == T
 
 
 def test_cli_pipe_loop(y4m_files, port_run, monkeypatch):
@@ -264,8 +264,12 @@ def test_cli_refusals(tmp_path, capsys):
     # Without a card and without an explicit device the CLI refuses.
     if not torch.cuda.is_available():
         assert main(["--input", "x.npy", "--output", out]) == 1
-    # A configuration the port does not serve names its ROADMAP item.
+    # The default config is served (the scan engine); the mxu backend is
+    # not, and names its ROADMAP item.
     np.save(str(tmp_path / "in.npy"), np.zeros((2, H, W, 3), np.float32))
     assert main(["--input", str(tmp_path / "in.npy"), "--output", out],
-                device="cpu") == 2
-    assert "ROADMAP item" in capsys.readouterr().err
+                device="cpu") == 0
+    assert np.load(out).shape == (2, H, W, 3)
+    assert main(["--input", str(tmp_path / "in.npy"), "--output", out,
+                 "--fft-backend", "mxu"], device="cpu") == 2
+    assert "ROADMAP item 10" in capsys.readouterr().err

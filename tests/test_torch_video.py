@@ -115,7 +115,7 @@ def test_zero_prev_bootstrap(clip, port, jax_runs):
 
 def test_state_from_jax(clip, jax_runs):
     """JAX runs frames[:2]; the port continues from its state."""
-    st = state_from_numpy(jax_runs["head_state"])
+    st = state_from_numpy(jax_runs["head_state"], device="cpu")
     assert st.frame_idx == 2
     out, st2 = magnify_video(torch.from_numpy(clip[2:]), _tcfg(), st)
     assert psnr(out.numpy(), jax_runs["tail_out"]) > 70
@@ -144,18 +144,36 @@ def test_state_to_jax(clip, port):
     dict(engine="scan"),
     dict(cache_prev_spectrum=False),
     dict(fft_backend="xla", use_rfft=True, use_fused_spectral=False),
-], ids=["scan_engine", "no_cache_prev_spectrum", "xla_backend"])
+    dict(fft_backend="mxu", use_rfft=True, use_fused_spectral=False,
+         pad_mode="square_pow2"),
+], ids=["scan_engine", "no_cache_prev_spectrum", "xla_backend",
+        "mxu_backend"])
 def test_unsupported_config_raises(clip, change):
-    """What stays unported names its ROADMAP item (8: the scan engine;
-    8 and 10: the unfused backends).  The batched engine's other configs
-    are served (tests/test_torch_matrix.py, tests/test_torch_rgb.py)."""
+    """On the tight pallas config, the scan engine and the no-cache mode
+    raise the JAX package's ValueError (the per-frame kernels are radix-2
+    down the columns), and their bypass passes the frames through as
+    JAX's does; the xla backend at tight heights is served (the scan
+    engine, against JAX); the mxu backend names ROADMAP item 10."""
     cfg = _tcfg().replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        magnify_video(torch.from_numpy(clip[:2]), cfg)
-    # The bypass is no way around it.
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        magnify_video(torch.from_numpy(clip[:2]),
-                      cfg.replace(apply_motion_magnification=False))
+    frames = clip[:3]
+    if cfg.fft_backend == "mxu":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+            magnify_video(torch.from_numpy(frames), cfg)
+        return
+    if cfg.fft_backend == "xla":
+        out, _ = magnify_video(torch.from_numpy(frames), cfg)
+        jcfg = _jcfg().replace(**change)
+        assert psnr(out.numpy(), np.asarray(jmagnify(frames, jcfg)[0])) > 70
+        return
+    for pkg, jc in ((magnify_video, cfg),
+                    (jmagnify, _jcfg().replace(**change))):
+        with pytest.raises(ValueError, match="pad_mode='tight'"):
+            pkg(torch.from_numpy(frames) if pkg is magnify_video else frames,
+                jc)
+    out, state = magnify_video(torch.from_numpy(frames),
+                               cfg.replace(apply_motion_magnification=False))
+    np.testing.assert_array_equal(out.numpy(), frames)
+    assert state.frame_idx == 3 and not state.prev_spec_re.any()
 
 
 def test_unsupported_frames_raise(clip):
