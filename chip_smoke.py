@@ -26,7 +26,13 @@ non-zero without the final line:
      gives), kernel 8 (forward real, forward complex and inverse with a
      scale, on both axes), kernel 9 ("centered" and "bitrev2d" layouts,
      integer and 2.5 scale, steerable) and kernel 10 (which no entry
-     point reaches: it is held here only), at 1080p shapes;
+     point reaches: it is held here only), at 1080p shapes; and the
+     measurement path's: kernel 12 (kdecomp, all six piece sets at H =
+     2048, its full variant bit for bit against kernel 6 on kdecomp's
+     planes and on the bar's spectra), kernel 13 (the copy probe, rows of
+     1 and 64, strips of 4, 8 and 32 columns, bit for bit) and kernel 14
+     (the trig probe: every op code against its plain version and fp64,
+     with the JAX probe's tolerances, signed and exact zeros included);
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -63,14 +69,27 @@ non-zero without the final line:
        the bar: kernels 1, 5, 9, 8;
      - (h) `magnify_frame_pair` on (f)'s config: kernels 1, 5, 6, 7, each
        pair equal bit for bit to (f)'s frame;
+     - (i) the measurement path, through the tools: `roofline_table` at
+       1080p (kernels 1, 2, 3 and the row-tile copy ceiling), kexp's
+       experiments (kernels 1, 5, 6, 7 and both copies at kexp's shape
+       and on a 16-frame stack), kdecomp's six variants, the trig probe,
+       and the CLI's `--demo bar --fast --trace DIR --stats` (the trace
+       must name kernel 1) and `--debug-view split`: kernels 12, 13, 14;
      each finite in [0, 1], 8 + 8 equal to 16 bit for bit, (a)-(c) and
        (e)-(h) > 100 dB against the oracle on frames 0-3 (the oracle runs
        on host threads while the card works);
   4. timing with CUDA events after warm-up (medians): steady-state chunk
      frames/s of each path (pairs/s for (h)), each kernel and each
      variant or branch beside its plain version and, for the FFT kernels,
-     one `torch.fft` call on the same shape and axis, and the y4m
-     stream's frames/s with the host's parse share;
+     one `torch.fft` call on the same shape and axis (the copy probe:
+     one `Tensor.copy_`; the trig probe's atan2: `torch.atan2`), and the
+     y4m stream's frames/s with the host's parse share.  Kernels, plain
+     versions and library calls are timed by the device's time alone
+     (`tools.kexp.timed`: a spin of the card ahead of each event pair
+     covers the host's enqueue), each kernel warm (relaunched on the same
+     inputs) and cold (a 128 MB write before each launch, outside the
+     timing: its inputs out of L2), and also, as before, with the host's
+     enqueue inside one event pair around one call (`ms_enqueued`);
   5. with --profile only: torch.profiler over a few steady-state chunks
      of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), printing
      where the device time of a chunk goes (each kernel's share) and the
@@ -223,6 +242,9 @@ def main():
     from pbmm_tpu_torch.pyramid.filters import freq_axes
     from pbmm_tpu_torch.spectral import fused, radix2
     from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
+    from pbmm_tpu_torch import cli as port_cli
+    from pbmm_tpu_torch.tools import kdecomp, kexp, roofline, trig_probe
+    from pbmm_tpu_torch.utils.debug import debug_frame_view
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -372,9 +394,22 @@ def main():
     def both(fn, *a, **k):
         """(kernel call, plain-version call) of one wrapper."""
         ref = next(getattr(m, fn.__name__ + "_ref") for m in (
-            fused, post_fused, radix2, fused_kernels)
-            if hasattr(m, fn.__name__ + "_ref"))
+            fused, post_fused, radix2, fused_kernels, kdecomp, kexp,
+            trig_probe) if hasattr(m, fn.__name__ + "_ref"))
         return (lambda: fn(*a, **k)), (lambda: ref(*a, **k))
+
+    # The measurement path's kernels (12-14) at the tools' shapes:
+    # kdecomp's four (1, 2048, 1152) planes and rows, kexp's copy planes
+    # (1, 1152, 2048) and a 16-frame stack, the trig probe's planes.
+    cfg_t = pbmm_tpu_torch.MagnifyConfig().tuned_for_tpu()
+    kd_rows, kd_fw = (384, 1600), g_sq.pad_w
+    kd = kdecomp.kdecomp_inputs(dev)
+    rng_m = np.random.default_rng(5)
+    cp1, cp16 = ([torch.from_numpy(rng_m.random(kexp.copy_shape(n),
+                                                np.float32)).to(dev)
+                  for _ in range(2)] for n in (1, 16))
+    tp_in = [torch.from_numpy(a).to(dev)
+             for a in trig_probe.probe_inputs(0)["atan2"].values()]
 
     calls = {
         "windowed_row_fft": both(fused.windowed_row_fft, y, geom.pad_h, 0,
@@ -399,6 +434,11 @@ def main():
                                    *k9_cur, *k9_prev, *axes_b,
                                    *k9_args(cfg_g)),
         "post_fused": both(post_fused.post_fused, *yonly_post_args),
+        "kdecomp_variant": both(kdecomp.kdecomp_variant, *kd, cfg_t,
+                                kdecomp.VARIANTS[-1][1], kd_rows,
+                                full_w=kd_fw),
+        "copy_probe": both(kexp.copy_probe, *cp1, "rows", 1),
+        "trig_probe": both(trig_probe.trig_probe, "atan2", *tp_in),
     }
     variants = {  # kernel 3's new variants and kernel 7 at 540p shapes
         "rowifft_post_fused[u8, planar_u8]": both(
@@ -476,6 +516,17 @@ def main():
         "post_fused[compensate, gains]": both(
             post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_str, rows[0],
             H, W, "tight"),
+        # The measurement path's kernels: kdecomp's other piece sets, the
+        # copy patterns at both sizes.
+        **{f"kdecomp_variant[{name}]": both(
+            kdecomp.kdecomp_variant, *kd, cfg_t, pieces, kd_rows,
+            full_w=kd_fw) for name, pieces in kdecomp.VARIANTS[:-1]},
+        **{f"copy_probe[{pat} {blk}{', 16 frames' if big else ''}]": both(
+            kexp.copy_probe, *(cp16 if big else cp1), pat, blk)
+           for big in (False, True)
+           for pat, blk in (("rows", 1), ("rows", 64), ("lanes", 4),
+                            ("lanes", 8), ("lanes", 32))
+           if big or (pat, blk) != ("rows", 1)},
     }
     # What each kernel's call above must move and compute, and the one
     # torch call that computes the same transform (FFT kernels only):
@@ -532,12 +583,23 @@ def main():
         "post_fused": (
             f4 * (rec1.numel() + 2 * i_pl.numel() + H * W + 3 * T * H * W),
             (blur + 20) * T * H * W, None),
+        "kdecomp_variant": (
+            f4 * (4 * kd[0].numel() + 2 * (kd_rows[1] - kd_rows[0]) * wk),
+            fft_ops(g_sq.pad_h, wk) + 40 * g_sq.pad_h * wk,
+            lambda: torch.fft.ifft(kd_in, dim=-2)),
+        "copy_probe": (2 * 2 * f4 * cp1[0].numel(), 0,
+                       lambda: cp_dst.copy_(cp_pair)),
+        "trig_probe": (3 * f4 * tp_in[0].numel(), 20 * tp_in[0].numel(),
+                       lambda: torch.atan2(*tp_in)),
     }
     assert set(work) == set(calls)
     irfft_in = torch.complex(rre[..., :geom.pad_w // 2 + 1].contiguous(),
                              rim[..., :geom.pad_w // 2 + 1].contiguous())
     col_in = torch.complex(sq_prev[0], sq_prev[1])
     fft_in = torch.complex(k8_re, k8_im)
+    kd_in = torch.complex(kd[0], kd[1])
+    cp_pair = torch.stack(cp1)
+    cp_dst = torch.empty_like(cp_pair)
 
     records = {}
     for name, (kern, plain) in {**calls, **variants}.items():
@@ -547,7 +609,12 @@ def main():
         torch.cuda.synchronize()
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
-        if got[0].dtype == torch.uint8:
+        if name.startswith(("copy_probe", "kdecomp_variant[stream only]")):
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            rel, tol, what = err, 0.0, "max abs (bit for bit)"
+            ok = same
+        elif got[0].dtype == torch.uint8:
             err = max(int((g.int() - w.int()).abs().max())
                       for g, w in zip(got, want))
             rel, tol, what = err, 1, "max code difference"
@@ -616,6 +683,31 @@ def main():
     if not same:
         raise AssertionError("kernel 6 differs from kernel 2's output rows")
     del k5, k2, k6
+    # Kernel 12's full variant = kernel 6, bit for bit: on kdecomp's
+    # planes (tuned_for_tpu(), rows (384, 1600)) and on the bar's spectra.
+    full = kdecomp.VARIANTS[-1][1]
+    for what, ins, c, rr in (
+            ("kdecomp's (1, 2048, 1152) planes", kd, cfg_t, kd_rows),
+            ("the 1080p bar's spectra", (*k6_cur, *k6_prev), cfg_f,
+             rows_sq)):
+        k12 = kdecomp.kdecomp_variant(*ins, c, full, rr, full_w=kd_fw)
+        k6 = fused.phase_col_ifft(*ins, c, out_rows=rr, full_w=kd_fw)
+        same = all(torch.equal(a, b) for a, b in zip(k12, k6))
+        log(f"[2] kdecomp_variant (phase + gm + rolls) == phase_col_ifft on "
+            f"{what}: {same}")
+        if not same:
+            raise AssertionError("kernel 12's full variant differs from "
+                                 "kernel 6")
+    # Kernel 14: every op code against fp64 (the JAX probe's tolerances)
+    # and its plain version, signed and exact zeros included.
+    for r in trig_probe.run_probe(dev):
+        ok = r["ok"] and r["max_abs_vs_plain"] <= r["tol"]
+        log(f"[2] trig_probe {r['name']}: max err vs fp64 "
+            f"{r['max_err']:.3e} (bound {r['tol']:g}), vs plain "
+            f"{r['max_abs_vs_plain']:.3e}, finite {r['finite']} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"trig_probe {r['name']}: {r}")
 
     # -- 3. end to end, path by path -----------------------------------------
     wrappers = {"windowed_row_fft": fused.windowed_row_fft,
@@ -628,7 +720,10 @@ def main():
                 "phase_col_ifft": fused.phase_col_ifft,
                 "_fft_axis": radix2._fft_axis,
                 "amplify_procedural": fused_kernels.amplify_procedural,
-                "post_fused": post_fused.post_fused}
+                "post_fused": post_fused.post_fused,
+                "kdecomp_variant": kdecomp.kdecomp_variant,
+                "copy_probe": kexp.copy_probe,
+                "trig_probe": trig_probe.trig_probe}
     path_launches = {}
 
     def run_path(name, must, must_not, fn):
@@ -922,6 +1017,90 @@ def main():
                         jobs["bar"])
     pool.shutdown(wait=True)
 
+    # (i) the measurement path, through the tools' functions and the CLI.
+    path_i = "(i) measurement path"
+    meas_dir = tempfile.mkdtemp(prefix="pbmm_meas_")
+
+    def measurement():
+        t0 = time.perf_counter()
+        res = {"copy_gbps": roofline.row_copy_ceiling(dev)}
+        res["roofline"] = roofline.roofline_table(
+            reps=10, copy_gbps=res["copy_gbps"])
+        res["ceilings"] = {
+            f"{pat} {blk}, {label}": (planes[0].numel(), kexp.timed(
+                kexp.copy_probe, (*planes, pat, blk)))
+            for label, planes in (("1 frame", cp1), ("16 frames", cp16))
+            for pat, blk in (("rows", 1), ("rows", 64), ("lanes", 4),
+                             ("lanes", 8), ("lanes", 32))}
+        res["kexp"] = {n: kexp.timed(fn, a) for n, (fn, a) in
+                       kexp.experiments(dev, {
+                           "rowfft_kept", "colfft_kept", "phase_kept",
+                           "rowifft_kept"}).items()}
+        res["kdecomp"] = kdecomp.run_kdecomp(dev, reps=10)
+        res["trig"] = trig_probe.run_probe(dev)
+        demo_out = os.path.join(meas_dir, "demo.npy")
+        trace_dir = os.path.join(meas_dir, "trace")
+        rc = port_cli.main(
+            ["--demo", "bar", "--fast", "--trace", trace_dir, "--stats",
+             "--output", demo_out])
+        view_out = os.path.join(meas_dir, "view.npy")
+        rc2 = port_cli.main(
+            ["--demo", "bar", "--debug-view", "split", "--output", view_out])
+        res["cli"] = (rc, rc2, demo_out, trace_dir, view_out)
+        res["seconds"] = time.perf_counter() - t0
+        return res
+
+    try:
+        meas = run_path(path_i, ("kdecomp_variant", "copy_probe",
+                                 "trig_probe", "windowed_row_fft",
+                                 "colspec_chunk", "rowifft_post_fused"), (),
+                        measurement)
+        rc, rc2, demo_out, trace_dir, view_out = meas["cli"]
+        if rc != 0 or rc2 != 0:
+            raise AssertionError(f"{path_i}: the CLI exited {rc}, {rc2}")
+        demo = np.load(demo_out)
+        if demo.shape != (64, 128, 128, 3) or not np.isfinite(demo).all():
+            raise AssertionError(f"{path_i}: --demo bar gave {demo.shape}")
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        text = open(traces[0]).read() if len(traces) == 1 else ""
+        named = [k for k in ("row_fft_kernel", "pbmm.colspec_chunk",
+                             "pbmm.preprocess") if k in text]
+        log(f"[3] {path_i}: --demo bar --fast --trace: {len(traces)} trace "
+            f"file(s), {len(text) / 1e6:.1f} MB, naming {named}")
+        if "row_fft_kernel" not in named:
+            raise AssertionError(f"{path_i}: the trace names no kernel 1")
+        view = np.load(view_out)
+        bar = synthetic.oscillating_bar(bar_width=2)
+        want = debug_frame_view(torch.from_numpy(bar[1]), cfg_e,
+                                show_magnitude=True, show_phase=True)
+        err = float(np.abs(view[1, :, :64] - want[:, :64].numpy()).max())
+        log(f"[3] {path_i}: --debug-view split {view.shape}, magnitude half "
+            f"of frame 1 against the CPU's: max abs {err:.3e} (bound 1e-4)")
+        if view.shape != (64, 128, 128, 3) or not err < 1e-4:
+            raise AssertionError(f"{path_i}: --debug-view split disagrees")
+        bad = [r for r in meas["trig"] if not r["ok"]]
+        if bad:
+            raise AssertionError(f"{path_i}: trig probe {bad}")
+    finally:
+        shutil.rmtree(meas_dir, ignore_errors=True)
+    log(f"[3] {path_i}: {meas['seconds']:.1f} s")
+    roofline.print_table(*meas["roofline"], file=sys.stdout)
+    for name, (numel, (warm, cold)) in meas["ceilings"].items():
+        nbytes = 2 * 2 * 4 * numel
+        log(f"[3] {card}: copy ceiling, {name}, {nbytes / 1e6:.1f} MB "
+            f"moved: warm {warm:.4f} ms {kexp.copy_gbps(nbytes, warm):.0f} "
+            f"GB/s, cold {cold:.4f} ms {kexp.copy_gbps(nbytes, cold):.0f} "
+            "GB/s")
+    for name, (warm, cold) in meas["kexp"].items():
+        log(f"[3] {card}: kexp {name}: warm {warm:.4f} ms, cold {cold:.4f} "
+            "ms")
+    for name, warm, cold in meas["kdecomp"]:
+        log(f"[3] {card}: kdecomp {name}: warm {warm:.4f} ms, cold "
+            f"{cold:.4f} ms")
+    for name, (warm, cold) in kdecomp.split(meas["kdecomp"]).items():
+        log(f"[3] {card}: kdecomp split, {name}: warm {warm:.4f} ms, cold "
+            f"{cold:.4f} ms")
+
     # stream: a 1080p 420jpeg y4m through stream_magnify(ingest="u8")
     tmp = tempfile.mkdtemp(prefix="pbmm_smoke_")
     try:
@@ -989,17 +1168,21 @@ def main():
         log(f"[4] {card}: {path_h}: {pair_ms:.3f} ms a pair, median of 10 "
             f"-> {1e3 / pair_ms:.2f} pairs/s")
         for name, (kern, plain) in {**calls, **variants}.items():
-            k_ms = time_ms(torch, kern)
-            p_ms = time_ms(torch, plain, reps=5, warmup=1)
-            records[name].update(ms=k_ms, plain_ms=p_ms)
-            log(f"[4] {card}: {name} {k_ms:.4f} ms, plain PyTorch version "
-                f"{p_ms:.4f} ms (medians, at its path's shapes)")
+            enq_ms = time_ms(torch, kern)
+            k_ms, cold_ms = kexp.timed(kern, device=dev)
+            p_ms = kexp.timed(plain, reps=5, warmup=1, device=dev)[0]
+            records[name].update(ms=k_ms, ms_cold=cold_ms, plain_ms=p_ms,
+                                 ms_enqueued=enq_ms)
+            log(f"[4] {card}: {name} {k_ms:.4f} ms warm, {cold_ms:.4f} ms "
+                f"cold L2, plain PyTorch version {p_ms:.4f} ms (device "
+                f"medians, at its path's shapes); {enq_ms:.4f} ms with the "
+                "host's enqueue inside the event pair")
         for name, (nbytes, ops, lib) in work.items():
             byte_ms, op_ms = nbytes / 3.35e9, ops / 67e9
             records[name].update(
                 bound_ms=max(byte_ms, op_ms),
                 bound_by="bytes" if byte_ms >= op_ms else "operations",
-                library_ms=time_ms(torch, lib) if lib else None)
+                library_ms=kexp.timed(lib, device=dev)[0] if lib else None)
             log(f"[4] {card}: {name}: bound {records[name]['bound_ms']:.4f} "
                 f"ms ({records[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
                 f"{ops / 1e9:.2f} GFLOP), kernel {records[name]['ms']:.4f} "
@@ -1076,6 +1259,12 @@ def main():
         # held against its plain version in phase 2 only.
         "post_fused": ("pbmm_tpu_torch/csrc/post_rgb.cu",
                        "pbmm_tpu/engine/post_pallas.py:91", None),
+        "kdecomp_variant": ("pbmm_tpu_torch/csrc/kdecomp.cu",
+                            "benchmarks/kdecomp.py:42", path_i),
+        "copy_probe": ("pbmm_tpu_torch/csrc/copy_probe.cu",
+                       "benchmarks/kexp.py:70", path_i),
+        "trig_probe": ("pbmm_tpu_torch/csrc/trig_probe.cu",
+                       "benchmarks/trig_probe.py:27", path_i),
     }
     kernels = []
     for name, (src, rep, path) in sources.items():
@@ -1107,6 +1296,10 @@ def main():
                for what, (_, m, f, db) in scan_paths.items()},
             path_h: {"pairs_per_s": 1e3 / pair_ms, "pair_ms": pair_ms,
                      "psnr_vs_oracle_db": psnr_h},
+            path_i: {"seconds": meas["seconds"],
+                     "row_copy_ceiling_gbps": meas["copy_gbps"],
+                     "roofline": meas["roofline"][1],
+                     "kdecomp_split_ms": kdecomp.split(meas["kdecomp"])},
         },
         "launches_by_path": path_launches}))
     log(card)

@@ -16,6 +16,13 @@ CUDA kernel for sm_90a under `csrc/` (numbered as in PERF.md):
     spectral/radix2.py::_fft_axis                    csrc/fft_axis.cu      8
     phase/fused_kernels.py::amplify_procedural       csrc/amplify_procedural.cu 9
     engine/post_fused.py::post_fused[_rgb]           csrc/post_rgb.cu      10, 11
+    tools/kdecomp.py::kdecomp_variant                csrc/kdecomp.cu       12
+    tools/kexp.py::copy_probe                        csrc/copy_probe.cu    13
+    tools/trig_probe.py::trig_probe                  csrc/trig_probe.cu    14
+
+Kernels 12-14 serve the measurement path: `tools/` holds the counterparts
+of the JAX package's `benchmarks/` scripts and `tools/parity.py`, and
+`utils/` its metrics, checks, profiling and debug views.
 
 Tensors on the CPU take each kernel's plain PyTorch version (`*_ref`);
 tensors on the card launch the kernels (built with nvcc at first use,

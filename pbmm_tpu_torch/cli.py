@@ -16,9 +16,12 @@ serves the frames) and any `--engine`, `--no-cache-prev-spectrum`,
 `--pad-mode`, `--chroma`, `--temporal`, `--mode`, `--orientations`,
 `--levels`, `--phase-scale`, `--reconstruct`, `--compensate-window`,
 `--yiq-gains` and `--no-magnify`.  `--stats` names the engine that ran.
-`--fft-backend mxu` exits 2 naming ROADMAP item 10; `--debug-view`,
-`--trace` and `--demo` exit 2 naming item 9.  It runs on the first CUDA
-card and exits with an error when there is none.
+`--demo bar|blob` magnifies a synthetic clip in place of `--input`,
+`--debug-view magnitude|phase|split` renders spectrum views instead of
+magnifying, and `--trace LOGDIR` writes a `torch.profiler` Chrome trace
+of the run into LOGDIR.  `--fft-backend mxu` exits 2 naming ROADMAP item
+10.  It runs on the first CUDA card and exits with an error when there
+is none.
 """
 
 from __future__ import annotations
@@ -138,7 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "inert _YIQADJUSTMENT_ON path)")
     p.add_argument("--trace", metavar="LOGDIR",
                    help="capture a profiler trace of the run into "
-                        "LOGDIR (not ported yet)")
+                        "LOGDIR (a Chrome trace, torch.profiler)")
     return p
 
 
@@ -202,13 +205,9 @@ def main(argv=None, device=None) -> int:
     """Run the command line `argv`; `device` (default: the first CUDA
     card, which must exist) is where the frames are magnified."""
     args = build_parser().parse_args(argv)
-    for flag in ("demo", "debug_view", "trace"):
-        if getattr(args, flag):
-            print(f"error: --{flag.replace('_', '-')} is not ported yet "
-                  "(ROADMAP item 9)", file=sys.stderr)
-            return 2
-    if not args.input:
-        print("error: --input is required", file=sys.stderr)
+    if bool(args.input) == bool(args.demo):
+        print("error: exactly one of --input / --demo is required",
+              file=sys.stderr)
         return 2
     if args.input == "-" and not args.stream:
         print("error: --input - (stdin pipe) requires --stream",
@@ -226,6 +225,11 @@ def main(argv=None, device=None) -> int:
     if args.fast:
         cfg = cfg.tuned_for_tpu()
     try:
+        if args.trace:
+            from pbmm_tpu_torch.utils.profiling import trace
+
+            with trace(args.trace):
+                return _run(args, cfg, torch.device(device))
         return _run(args, cfg, torch.device(device))
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -237,19 +241,55 @@ def _stats(args, **kw) -> None:
         print(json.dumps(kw), file=sys.stderr)
 
 
+def _frames(args):
+    """The whole input clip: the --demo clip or the --input file."""
+    if args.demo:
+        from pbmm_tpu_torch.oracle.synthetic import (
+            oscillating_bar,
+            oscillating_gaussian_blob,
+        )
+
+        return (oscillating_bar(bar_width=2) if args.demo == "bar"
+                else oscillating_gaussian_blob())
+    from pbmm_tpu_torch.io.video import load_video
+
+    return load_video(args.input)
+
+
+def _debug_view(args, frames, cfg, device) -> int:
+    """Render the spectrum view of each frame instead of magnifying."""
+    from pbmm_tpu_torch.engine.pipeline import on_device
+    from pbmm_tpu_torch.io.video import save_video
+    from pbmm_tpu_torch.utils.debug import debug_frame_view
+
+    out = np.stack([debug_frame_view(
+        on_device(f, device), cfg,
+        show_magnitude=args.debug_view in ("magnitude", "split"),
+        show_phase=args.debug_view in ("phase", "split")).cpu().numpy()
+        for f in frames])
+    save_video(args.output, out)
+    return 0
+
+
 def _run(args, cfg, device) -> int:
-    from pbmm_tpu_torch.io.video import load_video, save_video
+    from pbmm_tpu_torch.io.video import save_video
 
     t0 = time.perf_counter()
+    if args.stream and (not args.input or args.debug_view):
+        print("error: --stream requires --input and renders no "
+              "--debug-view", file=sys.stderr)
+        return 2
     if not args.stream:
         from pbmm_tpu_torch.engine.state import load_state, save_state
         from pbmm_tpu_torch.engine.video import magnify_video
 
-        frames = load_video(args.input)
+        frames = _frames(args)
         if frames.ndim != 4 or frames.shape[-1] != 3:
             print(f"error: expected (T, H, W, 3) input, got {frames.shape}",
                   file=sys.stderr)
             return 2
+        if args.debug_view:
+            return _debug_view(args, frames, cfg, device)
         from pbmm_tpu_torch.engine.video import _colspec_ok
 
         state = None

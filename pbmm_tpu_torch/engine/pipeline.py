@@ -84,6 +84,7 @@ from pbmm_tpu_torch.spectral.fused import (
 )
 from pbmm_tpu_torch.spectral.hermitian import hermitian_saves
 from pbmm_tpu_torch.spectral.radix2 import ifft2_bitrev
+from pbmm_tpu_torch.utils.profiling import scope
 
 
 def default_device() -> torch.device:
@@ -169,8 +170,9 @@ def _row_spectra(fft_in, geom: Geometry, cfg: MagnifyConfig):
     r0, r1 = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
     slab = F.pad(fft_in, (geom.x0, geom.pad_w - geom.in_w - geom.x0,
                           geom.y0 - r0, r1 - geom.y0 - geom.in_h))
-    return windowed_row_fft(slab, pad_h=geom.pad_h, row0=r0,
-                            keep_half=hermitian_active(cfg, geom))
+    with scope("pbmm.fft"):
+        return windowed_row_fft(slab, pad_h=geom.pad_h, row0=r0,
+                                keep_half=hermitian_active(cfg, geom))
 
 
 def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
@@ -198,13 +200,15 @@ def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
             and not want_iq and geom.pad_w & (geom.pad_w - 1) == 0):
         r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h,
                                    geom.pad_h)
-        re, im = windowed_row_fft_u8planar(
-            frames, tuple(float(c) for c in RGB_TO_YIQ[0]),
-            pad_h=geom.pad_h, pad_w=geom.pad_w, y0=geom.y0, x0=geom.x0,
-            row0=r0, keep_half=hermitian_active(cfg, geom))
+        with scope("pbmm.fft"):
+            re, im = windowed_row_fft_u8planar(
+                frames, tuple(float(c) for c in RGB_TO_YIQ[0]),
+                pad_h=geom.pad_h, pad_w=geom.pad_w, y0=geom.y0, x0=geom.x0,
+                row0=r0, keep_half=hermitian_active(cfg, geom))
         return re, im, None, None
-    fft_in, i_plane, q_plane = _luma_chroma(frames, cfg, want_iq)
-    re, im = _row_spectra(fft_in, geom, cfg)
+    with scope("pbmm.preprocess"):
+        fft_in, i_plane, q_plane = _luma_chroma(frames, cfg, want_iq)
+        re, im = _row_spectra(fft_in, geom, cfg)
     return re, im, i_plane, q_plane
 
 
@@ -223,7 +227,8 @@ def _posttail(chans: torch.Tensor, geom: Geometry, cfg: MagnifyConfig,
     # the true padded geometry.
     geom_rows = Geometry(geom.in_h, geom.in_w, chans.shape[-2], geom.pad_w,
                          geom.y0 - row0, geom.x0)
-    chans = blur_then_crop(chans, geom_rows, cfg.blur_size)
+    with scope("pbmm.blur"):
+        chans = blur_then_crop(chans, geom_rows, cfg.blur_size)
     win_c = hann2d_region(geom, device=chans.device)
     if chans.shape[-3] == 3:
         out_yiq = chans
@@ -249,6 +254,11 @@ def preprocess(frame_rgb, cfg: MagnifyConfig):
     for `"pallas"`, at pow-2 heights only: tight heights are served by
     the chunk engine's four-step kernel and raise here, as in the JAX
     package."""
+    with scope("pbmm.preprocess"):
+        return _preprocess(frame_rgb, cfg)
+
+
+def _preprocess(frame_rgb, cfg: MagnifyConfig):
     geom = _geometry(frame_rgb.shape, cfg)
     yiq = rgb_to_yiq(torch.movedim(unit_float(frame_rgb), -1, -3), axis=-3)
     chans_small = yiq if cfg.chroma == "rgb" else yiq[..., 0:1, :, :]
@@ -267,16 +277,18 @@ def preprocess(frame_rgb, cfg: MagnifyConfig):
         slab = F.pad(chans_small, (geom.x0, geom.pad_w - geom.in_w - geom.x0,
                                    geom.y0 - r0, r1 - geom.y0 - geom.in_h))
         shape = tuple(slab.shape)
-        re, im = windowed_row_fft(slab.reshape((-1,) + shape[-2:]),
-                                  pad_h=geom.pad_h, row0=r0,
-                                  keep_half=hermitian_active(cfg, geom))
-        re, im = col_fft_zero_padded(re, im, pad_h=geom.pad_h, row0=r0)
+        with scope("pbmm.fft"):
+            re, im = windowed_row_fft(slab.reshape((-1,) + shape[-2:]),
+                                      pad_h=geom.pad_h, row0=r0,
+                                      keep_half=hermitian_active(cfg, geom))
+            re, im = col_fft_zero_padded(re, im, pad_h=geom.pad_h, row0=r0)
         spec = torch.complex(re, im).reshape(
             shape[:-2] + (geom.pad_h, re.shape[-1]))
         return spec, yiq
     chans = pad_center(chans_small, geom) * hann2d(
         geom.pad_h, geom.pad_w, device=yiq.device)
-    spec = rfft2_half(chans) if cfg.use_rfft else fft2_centered(chans)
+    with scope("pbmm.fft"):
+        spec = rfft2_half(chans) if cfg.use_rfft else fft2_centered(chans)
     return spec, yiq
 
 
@@ -286,6 +298,12 @@ def amplify_spectrum(cur_spec, prev_spec, cfg: MagnifyConfig,
     backend's layout ("bitrev2d" for pallas, "rfft" with `use_rfft`, else
     "centered"); with the IIR band-pass the phase delta is filtered first
     and the new taps come back.  Returns (modified spectrum, taps)."""
+    with scope("pbmm.phase_amplify"):
+        return _amplify_spectrum(cur_spec, prev_spec, cfg, temporal_state)
+
+
+def _amplify_spectrum(cur_spec, prev_spec, cfg: MagnifyConfig,
+                      temporal_state: Optional[TemporalState]):
     pad_h = cur_spec.shape[-2]
     if cfg.fft_backend == "pallas":
         layout = "bitrev2d"
@@ -328,17 +346,18 @@ def reconstruct(mod_spec, cfg: MagnifyConfig, pad_w: int) -> torch.Tensor:
     |z| of the inverse (the reference's, `FFT.compute:143-150`) or, with
     `reconstruct="real"`, Re z.  The pallas backend's inverse is kernel 8
     twice (`ifft2_bitrev`)."""
-    if cfg.fft_backend == "pallas":
-        shape = mod_spec.shape
-        rre, rim = ifft2_bitrev(*split(mod_spec.reshape(
-            (-1,) + tuple(shape[-2:]))))
-        rec = torch.complex(rre, rim).reshape(shape)
-    elif cfg.fft_backend == "mxu":
-        raise _mxu_unported()
-    elif cfg.use_rfft:
-        rec = irfft2_half(mod_spec, pad_w)  # real by construction
-    else:
-        rec = ifft2_centered(mod_spec)
+    with scope("pbmm.ifft"):
+        if cfg.fft_backend == "pallas":
+            shape = mod_spec.shape
+            rre, rim = ifft2_bitrev(*split(mod_spec.reshape(
+                (-1,) + tuple(shape[-2:]))))
+            rec = torch.complex(rre, rim).reshape(shape)
+        elif cfg.fft_backend == "mxu":
+            raise _mxu_unported()
+        elif cfg.use_rfft:
+            rec = irfft2_half(mod_spec, pad_w)  # real by construction
+        else:
+            rec = ifft2_centered(mod_spec)
     if cfg.reconstruct == "magnitude":
         return torch.abs(rec)
     return rec.real if rec.is_complex() else rec
@@ -367,9 +386,10 @@ def amplify_reconstruct_fused(cur_spec, prev_spec, cfg: MagnifyConfig,
     if iir:
         taps = dict(lp_fast=temporal_state.lp_fast.reshape(flat),
                     lp_slow=temporal_state.lp_slow.reshape(flat))
-    res = phase_col_ifft(*split(cur_spec.reshape(flat)),
-                         *split(prev_spec.reshape(flat)), cfg,
-                         out_rows=out_rows, full_w=fw, **taps)
+    with scope("pbmm.phase_ifft_fused"):
+        res = phase_col_ifft(*split(cur_spec.reshape(flat)),
+                             *split(prev_spec.reshape(flat)), cfg,
+                             out_rows=out_rows, full_w=fw, **taps)
     new_state = (TemporalState(res[2].reshape(shape), res[3].reshape(shape))
                  if iir else temporal_state)
     rec = row_ifft_magnitude(res[0], res[1],

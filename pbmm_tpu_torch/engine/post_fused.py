@@ -32,6 +32,7 @@ from pbmm_tpu_torch.kernels import (
     c_floats,
     c_ints,
     check_cuda,
+    checked,
     device_arrays,
     stream_handle,
 )
@@ -197,6 +198,7 @@ def rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     return _finish(y, iw, qw, win, cfg, out_layout)
 
 
+@checked
 def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
                        in_h: int, in_w: int, pad_mode: str, full_w=None,
                        rgb_u8=None, out_layout: str = "tuple3"):
@@ -293,6 +295,7 @@ def post_fused_rgb_ref(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
     return _finish(y, iw, qw, win, cfg, out_layout)
 
 
+@checked
 def post_fused_rgb(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
                    pad_mode: str, out_layout: str = "tuple3"):
     """(3T, Hr, Wp) reconstruction rows (plane-minor frame-major: frame
@@ -367,6 +370,7 @@ def post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
     return _finish(y, i_plane * win, q_plane * win, win, cfg, out_layout)
 
 
+@checked
 def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
                in_w: int, pad_mode: str, out_layout: str = "tuple3"):
     """(T, Hr, Wp) reconstruction rows of Y (region rows from `rows0`) +

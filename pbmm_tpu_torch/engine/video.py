@@ -69,6 +69,7 @@ from pbmm_tpu_torch.spectral.fused import (
     row_ifft_magnitude,
 )
 from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
+from pbmm_tpu_torch.utils.profiling import scope
 
 
 class VideoState(NamedTuple):
@@ -191,10 +192,11 @@ def _chunk_colspec(frames, state: VideoState, cfg: MagnifyConfig):
         frames, cfg, want_iq=rgb_u8 is None)
     iir = cfg.temporal.mode == "iir_bandpass"
     taps = (state.temporal.lp_fast, state.temporal.lp_slow) if iir else ()
-    res = colspec_chunk(
-        rre_rows, rim_rows, state.prev_spec_re, state.prev_spec_im, cfg,
-        geom.pad_h, r0, *taps, out_rows=rows, full_w=geom.pad_w,
-        planes=_planes(cfg))
+    with scope("pbmm.colspec_chunk"):
+        res = colspec_chunk(
+            rre_rows, rim_rows, state.prev_spec_re, state.prev_spec_im, cfg,
+            geom.pad_h, r0, *taps, out_rows=rows, full_w=geom.pad_w,
+            planes=_planes(cfg))
     temporal = TemporalState(*res[4:]) if iir else state.temporal
     outs = _tail_block(res[0], res[1], i_plane, q_plane, cfg, geom, rows,
                        rgb_u8=rgb_u8)

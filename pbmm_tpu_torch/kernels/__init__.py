@@ -1,5 +1,6 @@
-"""Helpers shared by the kernel wrappers: host constants on the device and
-argument checks.  The build itself lives in `kernels.build`."""
+"""Helpers shared by the kernel wrappers: host constants on the device,
+argument checks and the finiteness check of `utils.checks.debug_mode`.
+The build itself lives in `kernels.build`."""
 
 from __future__ import annotations
 
@@ -8,6 +9,30 @@ import functools
 
 import numpy as np
 import torch
+
+# Set by `utils.checks.debug_mode(nan_checks=True)`: while it is on, every
+# kernel wrapper checks its outputs (`checked`).
+CHECK_FINITE = False
+
+
+def checked(fn):
+    """Decorate a kernel wrapper: while `CHECK_FINITE` is on, raise
+    `FloatingPointError` naming the wrapper when an output (the kernel's
+    or, on CPU tensors, its plain version's) holds a non-finite value."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if CHECK_FINITE:
+            outs = (out,) if isinstance(out, torch.Tensor) else out
+            for i, x in enumerate(outs):
+                if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                    raise FloatingPointError(
+                        f"{fn.__name__}: output {i} has "
+                        f"{int((~torch.isfinite(x)).sum())} non-finite values")
+        return out
+
+    return wrapper
 
 
 @functools.lru_cache(maxsize=32)

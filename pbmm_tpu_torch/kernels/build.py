@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbmm_tpu_torch"
 LIB_NAME = "libpbmm_tpu_torch.so"
 SOURCES = ("row_fft.cu", "colspec_chunk.cu", "rowifft_post.cu",
            "row_ifft.cu", "col_fft.cu", "post_rgb.cu", "phase_col_ifft.cu",
-           "fft_axis.cu", "amplify_procedural.cu")
+           "fft_axis.cu", "amplify_procedural.cu", "kdecomp.cu",
+           "copy_probe.cu", "trig_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -79,6 +80,15 @@ SIGNATURES = {
     # cur_re, cur_im, prev_re, prev_im, fy, fx, out_re, out_im, ints(host),
     # floats(host), planes, h, w, stream
     "pbmm_amplify_procedural": [_P] * 10 + [_I] * 3 + [_P],
+    # cur_re, cur_im, prev_re, prev_im, plane0, plane1, fy, fx, tw_re,
+    # tw_im, out_re, out_im, phase ints(host), phase floats(host), pieces,
+    # batch, h, w, r0, r1, stream
+    "pbmm_kdecomp": [_P] * 14 + [_I] * 6 + [_P],
+    # a, b, out_a, out_b, pattern, block, batch, h, w, stream
+    "pbmm_copy_probe": [_P] * 4 + [_I] * 5 + [_P],
+    # in0..in4, fy, fx, out0, out1, phase ints(host), phase floats(host),
+    # op, iarg, lo, hi, span, n, w, stream
+    "pbmm_trig_probe": [_P] * 11 + [_I] * 2 + [_F] * 3 + [_I] * 2 + [_P],
 }
 
 

@@ -18,7 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbmm_tpu_torch.kernels import c_floats, c_ints, check_cuda, stream_handle
+from pbmm_tpu_torch.kernels import (
+    c_floats,
+    c_ints,
+    check_cuda,
+    checked,
+    stream_handle,
+)
 
 _MAX_LEVELS = 16  # csrc/amplify_procedural.cu AP_MAXB
 _MAX_ORIENTATIONS = 16  # AP_MAXK
@@ -124,6 +130,7 @@ def _proc_args(levels, min_f, max_f, phase_scale, tau, orientations):
     return ints, floats
 
 
+@checked
 def amplify_procedural(cur_re, cur_im, prev_re, prev_im, fy, fx,
                        levels: int, min_f: float, max_f: float,
                        phase_scale: float, tau: float, orientations: int):

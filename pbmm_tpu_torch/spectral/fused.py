@@ -48,6 +48,7 @@ from pbmm_tpu_torch.kernels import (
     c_floats,
     c_ints,
     check_cuda,
+    checked,
     device_arrays,
     stream_handle,
 )
@@ -199,6 +200,31 @@ def _freq_tables(h: int, wk: int, full_w):
     return col_freq_axis(h)[:, None], lane_freq_axis(wk, full_w)[None, :]
 
 
+def standard_weight(freq: np.ndarray, cfg) -> np.ndarray:
+    """The standard mode's radial phase-delta weight w(f) in f64 at the
+    bins' frequencies `freq` (`PhaseDifferenceComputeShader.compute:
+    74-122`): the host plane kernels 2 and 6 read in standard mode."""
+    f = np.minimum(freq / 0.707, 1.0)
+    if not cfg.apply_bandpass:
+        return np.ones_like(f)
+    lo = max(float(cfg.low_freq_cutoff), 1e-3)
+    hi_div = max(1.0 - float(cfg.high_freq_cutoff), 1e-3)
+    steep = float(cfg.filter_steepness)
+    w_pl = np.ones_like(f)
+    w_pl = np.where(f < cfg.low_freq_cutoff, (f / lo) ** steep, w_pl)
+    w_pl = np.where(f > cfg.high_freq_cutoff,
+                    ((1.0 - f) / hi_div) ** steep, w_pl)
+    w_pl = w_pl * float(cfg.motion_sensitivity)
+    edge = float(cfg.edge_enhancement) if cfg.enhance_edges else 0.0
+    if edge:
+        t = (f - cfg.low_freq_cutoff) / (
+            cfg.high_freq_cutoff - cfg.low_freq_cutoff)
+        mid = (f > cfg.low_freq_cutoff) & (f < cfg.high_freq_cutoff)
+        w_pl = np.where(mid, w_pl * (1.0 + edge * np.sin(
+            np.pi * np.clip(t, 0.0, 1.0))), w_pl)
+    return np.maximum(w_pl, 0.0)
+
+
 @functools.lru_cache(maxsize=8)
 def _static_phase_planes(cfg, h: int, wk: int, full_w: int):
     """Host-precomputed per-bin f32 planes (h, wk) in the working layout,
@@ -210,32 +236,7 @@ def _static_phase_planes(cfg, h: int, wk: int, full_w: int):
     fx = lane_freq_axis(wk, full_w).astype(np.float64)[None, :]
     freq = np.sqrt(fy * fy + fx * fx)
     if cfg.mode == "standard":
-        # The standard mode's radial phase-delta weight w(f)
-        # (`PhaseDifferenceComputeShader.compute:74-122`).
-        f = np.minimum(freq / 0.707, 1.0)
-        if not cfg.apply_bandpass:
-            w_pl = np.ones_like(f)
-        else:
-            lo = max(float(cfg.low_freq_cutoff), 1e-3)
-            hi_div = max(1.0 - float(cfg.high_freq_cutoff), 1e-3)
-            steep = float(cfg.filter_steepness)
-            w_pl = np.ones_like(f)
-            w_pl = np.where(f < cfg.low_freq_cutoff, (f / lo) ** steep,
-                            w_pl)
-            w_pl = np.where(f > cfg.high_freq_cutoff,
-                            ((1.0 - f) / hi_div) ** steep, w_pl)
-            w_pl = w_pl * float(cfg.motion_sensitivity)
-            edge = (float(cfg.edge_enhancement) if cfg.enhance_edges
-                    else 0.0)
-            if edge:
-                t = (f - cfg.low_freq_cutoff) / (
-                    cfg.high_freq_cutoff - cfg.low_freq_cutoff)
-                mid = (f > cfg.low_freq_cutoff) & (f < cfg.high_freq_cutoff)
-                w_pl = np.where(
-                    mid, w_pl * (1.0 + edge * np.sin(
-                        np.pi * np.clip(t, 0.0, 1.0))), w_pl)
-            w_pl = np.maximum(w_pl, 0.0)
-        return (w_pl.astype(np.float32),)
+        return (standard_weight(freq, cfg).astype(np.float32),)
     if cfg.mode != "pyramid":
         return None
     params = _mask_params(cfg)
@@ -325,6 +326,7 @@ def windowed_row_fft_ref(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
     return out_re, out_im
 
 
+@checked
 def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
                      keep_half: bool = False):
     """(B, Hc, W) content rows of the padded real Y plane -> row FFT of
@@ -400,6 +402,7 @@ def windowed_row_fft_u8planar_ref(frames, coeffs, pad_h: int, pad_w: int,
     return windowed_row_fft_ref(slab, pad_h, row0, keep_half)
 
 
+@checked
 def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
                               y0: int, x0: int, row0: int,
                               keep_half: bool = False):
@@ -518,6 +521,22 @@ def _pow_int(x, n: int):
     return acc if acc is not None else torch.ones_like(x)
 
 
+def _unit_pow(r_re, r_im, n: int):
+    """unit(r) ** n by square-and-multiply, r = prev * conj(cur) (the
+    integer-power rotation; `phase_pass.cuh::cs_unit_pow`), 0 at r = 0."""
+    m2 = r_re * r_re + r_im * r_im
+    inv = torch.where(m2 > 0, torch.rsqrt(torch.clamp_min(m2, 1e-38)), 0.0)
+    br, bi = r_re * inv, r_im * inv
+    rot_re, rot_im = torch.ones_like(br), torch.zeros_like(bi)
+    while n > 0:
+        if n & 1:
+            rot_re, rot_im = (rot_re * br - rot_im * bi,
+                              rot_re * bi + rot_im * br)
+        br, bi = br * br - bi * bi, 2.0 * br * bi
+        n >>= 1
+    return rot_re, rot_im
+
+
 def _sector_consts(k: int):
     """(normaliser, [cos 2 phi_i], [sin 2 phi_i]) of the K sector
     windows, phi_i = pi i / K."""
@@ -628,18 +647,7 @@ def _phase_block_ref(cr, ci, pr, pi_, fy, fx, cfg, lpf=None, lps=None,
                 amped = amped + gated(m)
 
     if plan.power >= 0:
-        m2 = r_re * r_re + r_im * r_im
-        inv = torch.where(m2 > 0, torch.rsqrt(torch.clamp_min(m2, 1e-38)),
-                          0.0)
-        br, bi = r_re * inv, r_im * inv
-        rot_re, rot_im = torch.ones_like(br), torch.zeros_like(bi)
-        n = plan.power
-        while n > 0:
-            if n & 1:
-                rot_re, rot_im = (rot_re * br - rot_im * bi,
-                                  rot_re * bi + rot_im * br)
-            br, bi = br * br - bi * bi, 2.0 * br * bi
-            n >>= 1
+        rot_re, rot_im = _unit_pow(r_re, r_im, plan.power)
     else:
         theta = plan.scale * (delta_iir if plan.iir
                               else _atan2z(r_im, r_re))
@@ -743,6 +751,7 @@ def _phase_args(plan: _PhasePlan, host_planes: bool):
     return ints, floats
 
 
+@checked
 def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
                   row0: int, lp_fast=None, lp_slow=None, out_rows=None,
                   full_w=None, planes: int = 1):
@@ -872,6 +881,7 @@ def phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     return (out_re, out_im) + tuple(torch.stack(t) for t in zip(*taps))
 
 
+@checked
 def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
                    full_w=None, fx_values=None, lp_fast=None, lp_slow=None):
     """(B, H, W) spectra pair in the working layout (bit-reversed rows at
@@ -955,6 +965,7 @@ def col_fft_zero_padded_ref(re, im, pad_h: int, row0: int = 0):
     return out_re, out_im
 
 
+@checked
 def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
     """(B, Hc, W) row spectra of the content rows -> (B, pad_h, W)
     forward column FFT, the content slab zero-embedded at `row0` on chip
@@ -1047,6 +1058,7 @@ def row_ifft_magnitude_ref(re, im, magnitude: bool = True, pad_h: int = 0,
     return rebuilt_row_ifft(re, im, fw, scale, magnitude)
 
 
+@checked
 def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
                        full_w=None):
     """(B, Hb, Wk) bit-reversed kept-lane rows -> (B, Hb, W) f32 |row

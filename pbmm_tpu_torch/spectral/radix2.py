@@ -25,7 +25,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pbmm_tpu_torch.kernels import check_cuda, device_arrays, stream_handle
+from pbmm_tpu_torch.kernels import (
+    check_cuda,
+    checked,
+    device_arrays,
+    stream_handle,
+)
 
 
 def check_pow2(n: int, what: str = "radix-2 length") -> None:
@@ -112,6 +117,7 @@ def _fft_axis_ref(re, im, axis: int, inverse: bool, scale: float = 1.0):
     return zr, zi
 
 
+@checked
 def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
     """(B, H, W) f32 re/im -> the same shape transformed along `axis` (1 =
     H, 2 = W): forward natural -> bit-reversed, inverse bit-reversed ->

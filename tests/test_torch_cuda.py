@@ -16,7 +16,12 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   kernel 2), kernel 8 on both axes from 8 to 8192 points, kernel 9 in
   both layouts, kernel 10 in every layout, the scan engine's paths on the
   card against the CPU (numpy input landing on the card), and
-  `load_state` defaulting to the card.
+  `load_state` defaulting to the card;
+- kernel 12 (kdecomp) in every piece set and phase branch, its full
+  variant bit for bit against kernel 6; kernel 13 (the copy probe) in
+  every pattern, bit for bit; kernel 14 (the trig probe) in every op
+  code; `debug_mode` catching a planted NaN; `stage_times` and `timeit`
+  on the card.
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
@@ -620,3 +625,116 @@ def test_load_state_defaults_to_the_card(dev, tmp_path):
     assert back.prev_spec_re.device.type == "cuda"
     assert torch.equal(back.prev_spec_re.cpu(), st.prev_spec_re)
     assert load_state(ck, device="cpu").prev_spec_re.device.type == "cpu"
+
+
+# -- the diagnostics' kernels: 12 (kdecomp), 13 (copy probe), 14 (trig
+#    probe), and debug_mode on the card ----------------------------------------
+
+from pbmm_tpu_torch.tools import kdecomp, kexp, trig_probe  # noqa: E402
+from pbmm_tpu_torch.utils.checks import debug_mode  # noqa: E402
+
+_K12 = {"main": dict(), "standard": dict(mode="standard"),
+        "steerable_overlapping": dict(orientations=4, pyramid_levels=6),
+        "non_integer": dict(phase_scale=2.5)}
+
+
+@pytest.mark.parametrize("cfg_name", sorted(_K12))
+@pytest.mark.parametrize("name,pieces", kdecomp.VARIANTS,
+                         ids=[n for n, _ in kdecomp.VARIANTS])
+def test_kdecomp_kernel(dev, cfg_name, name, pieces):
+    """Kernel 12 against its plain version in every piece set and phase
+    branch (the main branch and the general pass), and its full variant
+    bit for bit against kernel 6."""
+    cfg = _cfg().replace(pad_mode="square_pow2", **_K12[cfg_name])
+    h, fw = 256, 2048
+    w = hermitian_kept_width(fw)
+    rng = np.random.default_rng(25)
+    spec = [_spectra(rng, (2, h, w), dev, True) for _ in range(4)]
+    rows = (32, 224)
+    n = kdecomp.kdecomp_variant.launches
+    got = kdecomp.kdecomp_variant(*spec, cfg, pieces, rows, full_w=fw)
+    assert kdecomp.kdecomp_variant.launches == n + 1
+    want = kdecomp.kdecomp_variant_ref(*[x.cpu() for x in spec], cfg, pieces,
+                                       rows, full_w=fw)
+    if not pieces:
+        assert all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want))
+    else:
+        assert _rel([g.cpu() for g in got], want) < 1e-4
+    if len(pieces) == 3:
+        k6 = fused.phase_col_ifft(*spec, cfg, out_rows=rows, full_w=fw)
+        assert all(torch.equal(g, k) for g, k in zip(got, k6))
+
+
+@pytest.mark.parametrize("pattern,block", [("rows", 1), ("rows", 64),
+                                           ("lanes", 4), ("lanes", 8),
+                                           ("lanes", 32)])
+@pytest.mark.parametrize("shape", [(1, 1152, 2048), (3, 37, 256)])
+def test_copy_probe_kernel(dev, pattern, block, shape):
+    rng = np.random.default_rng(26)
+    a, b = (_rand(rng, shape, dev) for _ in range(2))
+    n = kexp.copy_probe.launches
+    oa, ob = kexp.copy_probe(a, b, pattern, block)
+    assert kexp.copy_probe.launches == n + 1
+    assert torch.equal(oa, a) and torch.equal(ob, b)
+
+
+def test_copy_probe_kernel_refuses_a_strip_that_does_not_divide(dev):
+    a = torch.zeros((1, 64, 100), device=dev)
+    with pytest.raises(ValueError):
+        kexp.copy_probe(a, a, "lanes", 8)
+
+
+@pytest.mark.parametrize("shape", [(3, 40), (17, 128)])
+@pytest.mark.parametrize("op", sorted(trig_probe.OPS))
+def test_trig_probe_kernel(dev, op, shape):
+    """Every op code against its plain version at random shapes, exact
+    zeros in the first row."""
+    rng = np.random.default_rng(27)
+    _, n_in, n_out = trig_probe.OPS[op]
+    ins = [_rand(rng, shape, dev, 3.0) for _ in range(n_in)]
+    for x in ins:
+        x[0] = 0.0
+    kw = {"mask": dict(arg=3, consts=(0.05, 0.45)), "pow_int": dict(arg=5),
+          "unit_pow": dict(arg=10)}.get(op, {})
+    if op == "mask":
+        ins = [x.abs() / 6 for x in ins]
+    if op == "phase_std":
+        ins[4] = ins[4].abs()
+        kw = dict(cfg=MagnifyConfig(mode="standard"),
+                  fy=_rand(rng, (shape[0],), dev, 0.3),
+                  fx=_rand(rng, (shape[1],), dev, 0.3))
+    got = trig_probe.trig_probe(op, *ins, **kw)
+    want = trig_probe.trig_probe_ref(op, *ins, **kw)
+    assert len(got) == len(want) == n_out
+    for g, w_ in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - w_).abs().max()) <= 1e-5 * max(
+            1.0, float(w_.abs().max()))
+
+
+def test_trig_probe_kernel_every_case(dev):
+    rows = trig_probe.run_probe(dev)
+    assert all(r["ok"] for r in rows), [r for r in rows if not r["ok"]]
+
+
+def test_debug_mode_catches_a_planted_nan_on_the_card(dev):
+    a = torch.zeros((1, 64, 128), device=dev)
+    a[0, 3, 5] = float("nan")
+    kexp.copy_probe(a, a, "rows", 1)
+    with debug_mode():
+        with pytest.raises(FloatingPointError, match="copy_probe"):
+            kexp.copy_probe(a, a, "rows", 1)
+        kexp.copy_probe(torch.zeros_like(a), a.nan_to_num(), "lanes", 4)
+
+
+def test_stage_times_and_timeit_on_the_card(dev):
+    from pbmm_tpu_torch.oracle.synthetic import oscillating_bar
+    from pbmm_tpu_torch.utils.profiling import stage_times, timeit
+
+    got = stage_times(oscillating_bar(size=64, frames=3), MagnifyConfig(),
+                      device=dev, reps=2)
+    assert list(got) == ["preprocess_fft", "phase_amplify",
+                         "ifft_postprocess"]
+    assert all(0 < v < 1 for v in got.values())
+    x = torch.ones((1 << 20,), device=dev)
+    assert 0 < timeit(lambda a: a * 2, x, reps=3) < 1

@@ -94,7 +94,12 @@ def test_import_leaves_jax_out():
         "pbmm_tpu_torch.engine.pipeline, pbmm_tpu_torch.phase.amplify, "
         "pbmm_tpu_torch.phase.standard, pbmm_tpu_torch.phase.fused_kernels, "
         "pbmm_tpu_torch.spectral.fft, pbmm_tpu_torch.core.complexop, "
-        "pbmm_tpu_torch.pyramid.filters\n"
+        "pbmm_tpu_torch.pyramid.filters, pbmm_tpu_torch.utils.metrics, "
+        "pbmm_tpu_torch.utils.checks, pbmm_tpu_torch.utils.profiling, "
+        "pbmm_tpu_torch.utils.debug, pbmm_tpu_torch.tools.parity, "
+        "pbmm_tpu_torch.tools.kexp, pbmm_tpu_torch.tools.kdecomp, "
+        "pbmm_tpu_torch.tools.trig_probe, pbmm_tpu_torch.tools.roofline, "
+        "pbmm_tpu_torch.tools.profile_stages\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pbmm_tpu' or m.startswith('pbmm_tpu.')]\n"
         "assert not bad, bad\n"

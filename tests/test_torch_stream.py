@@ -8,6 +8,7 @@ The clip is 320x384 (pad 384x512), where uint8 ingest takes kernels 4
 and 3 as at 1080p."""
 
 import io
+import os
 import sys
 
 import jax.numpy as jnp
@@ -256,19 +257,27 @@ def test_cli_pipe_loop(y4m_files, port_run, monkeypatch):
 
 def test_cli_refusals(tmp_path, capsys):
     out = str(tmp_path / "o.npy")
-    for argv in (["--demo", "bar"], ["--input", "x.npy", "--trace", "d"],
-                 ["--input", "x.npy", "--debug-view", "phase"],
-                 ["--input", "-"]):
+    inp = str(tmp_path / "in.npy")
+    np.save(inp, np.zeros((2, H, W, 3), np.float32))
+    # --demo, --trace and --debug-view are served.
+    assert main(["--demo", "bar", "--output", out], device="cpu") == 0
+    assert np.load(out).shape == (64, 128, 128, 3)
+    assert main(["--input", inp, "--trace", str(tmp_path / "d"), "--output",
+                 out], device="cpu") == 0
+    assert len(os.listdir(tmp_path / "d")) == 1
+    assert main(["--input", inp, "--debug-view", "phase", "--output", out],
+                device="cpu") == 0
+    assert np.load(out).shape == (2, H, W, 3)
+    # Exactly one of --input / --demo; a stdin pipe needs --stream.
+    for argv in (["--demo", "bar", "--input", inp], [], ["--input", "-"]):
         assert main(argv + ["--output", out], device="cpu") == 2
-    assert "ROADMAP item 9" in capsys.readouterr().err
+    assert "exactly one of --input / --demo" in capsys.readouterr().err
     # Without a card and without an explicit device the CLI refuses.
     if not torch.cuda.is_available():
         assert main(["--input", "x.npy", "--output", out]) == 1
     # The default config is served (the scan engine); the mxu backend is
     # not, and names its ROADMAP item.
-    np.save(str(tmp_path / "in.npy"), np.zeros((2, H, W, 3), np.float32))
-    assert main(["--input", str(tmp_path / "in.npy"), "--output", out],
-                device="cpu") == 0
+    assert main(["--input", inp, "--output", out], device="cpu") == 0
     assert np.load(out).shape == (2, H, W, 3)
     assert main(["--input", str(tmp_path / "in.npy"), "--output", out,
                  "--fft-backend", "mxu"], device="cpu") == 2
