@@ -33,6 +33,12 @@ non-zero without the final line:
      1 and 64, strips of 4, 8 and 32 columns, bit for bit) and kernel 14
      (the trig probe: every op code against its plain version and fp64,
      with the JAX probe's tolerances, signed and exact zeros included);
+     blur radii 5 and 13 (kernels 3, 11, 10 with the uint8 chroma, and
+     kernel 3's route through kernels 7 + 10 where its block does not
+     fit); 2160p's heights: kernel 2 at H = 4096 and at tight m = 17,
+     kernels 5, 6 and 12 at H = 4096 (the IIR branch at 4096 is held by
+     the card-only tests), with kernel 6 bit for bit against kernel 2's
+     rows and kernel 12 against kernel 6;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -69,15 +75,24 @@ non-zero without the final line:
        the bar: kernels 1, 5, 9, 8;
      - (h) `magnify_frame_pair` on (f)'s config: kernels 1, 5, 6, 7, each
        pair equal bit for bit to (f)'s frame;
+     - (j) 3840x2160 `tuned_for_tpu()` (square_pow2, 4096x4096), chunks
+       of 8, shifted noise: kernels 5, 1, 2, 3, frames 0-1 > 100 dB
+       against the oracle; 2160p tight (H = 2176, m = 17): kernels 1, 2,
+       3; the scan engine at 4096 (3 frames): kernels 1, 5, 6, 7, > 100
+       dB;
+     - (k) 1080p tight at blur_size 4.0 (radius 13), the bench clip: no
+       kernel-3 block fits, so kernels 1, 2, 7, 10 (and 4, 2, 7, 10 from
+       planar uint8 to planar_u8), > 100 dB; and at blur_size 1.5
+       (radius 5): kernels 1, 2, 3;
      - (i) the measurement path, through the tools: `roofline_table` at
        1080p (kernels 1, 2, 3 and the row-tile copy ceiling), kexp's
        experiments (kernels 1, 5, 6, 7 and both copies at kexp's shape
        and on a 16-frame stack), kdecomp's six variants, the trig probe,
        and the CLI's `--demo bar --fast --trace DIR --stats` (the trace
        must name kernel 1) and `--debug-view split`: kernels 12, 13, 14;
-     each finite in [0, 1], 8 + 8 equal to 16 bit for bit, (a)-(c) and
-       (e)-(h) > 100 dB against the oracle on frames 0-3 (the oracle runs
-       on host threads while the card works);
+     each finite in [0, 1], two half chunks equal to one chunk bit for
+       bit, (a)-(c), (e)-(h) and (k) > 100 dB against the oracle on frames
+       0-3 (the oracle runs on host threads while the card works);
   4. timing with CUDA events after warm-up (medians): steady-state chunk
      frames/s of each path (pairs/s for (h)), each kernel and each
      variant or branch beside its plain version and, for the FFT kernels,
@@ -91,9 +106,9 @@ non-zero without the final line:
      timing: its inputs out of L2), and also, as before, with the host's
      enqueue inside one event pair around one call (`ms_enqueued`);
   5. with --profile only: torch.profiler over a few steady-state chunks
-     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), printing
-     where the device time of a chunk goes (each kernel's share) and the
-     device's idle share with the profiler on.
+     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j), (k),
+     printing where the device time of a chunk goes (each kernel's
+     share) and the device's idle share with the profiler on.
 
 The line before the last but one is one JSON object with the kernels'
 records: each kernel's launches on the path named beside it, its max abs
@@ -124,6 +139,7 @@ ROOT = Path(__file__).resolve().parent
 H, W, T = 1080, 1920, 16
 H540, W540 = 540, 960  # a frame size outside post_pallas_ok
 H720, W720 = 720, 1280  # rect_pow2 pads it to 1024 x 2048
+H4K, W4K, T4K = 2160, 3840, 8  # square_pow2: 4096 x 4096; tight: 2176 rows
 SPEC_TOL = 1e-4  # max error / max magnitude, spectra
 IMG_TOL = 1e-4  # max abs error, images in [0, 1]
 
@@ -191,16 +207,21 @@ def profile_chunks(torch, chunk, card, what, n=5, top=12):
         v = getattr(e, "self_device_time_total", None)
         return float(v if v is not None else e.self_cuda_time_total)
 
+    # The port's `pbmm.*` stage ranges (utils/profiling.py) show on the
+    # device timeline too, spanning the kernels they hold: they are not
+    # device work of their own.
     kernels = sorted(
         (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not e.key.startswith("pbmm.")),
         key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
     if busy_ms == 0:
         log(f"[5] {what}: torch.profiler recorded no device time: shares "
             "not measured")
         return
-    log(f"[5] {card}: {what}, per chunk of {T} frames, mean of {n}: wall "
+    log(f"[5] {card}: {what}, per chunk (phase 4's length), mean of {n}: "
+        f"wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
         f"{100 * (1 - busy_ms / wall_ms):.1f} % (profiler on)")
     for e in kernels[:top]:
@@ -391,6 +412,35 @@ def main():
     rec1 = rec3[0::3].contiguous()  # (T, Hr, W) Y rows for kernel 10
     yonly_post_args = (rec1, i_pl, q_pl, win, cfg, rows[0], H, W, "tight")
 
+    # Blur radii 5 and 13 (blur_size 1.5 and 4.0): kernel 3 with fewer
+    # free rows, and at 13 (no kernel-3 block fits 2048 lanes) kernels 7 +
+    # 10 in its place; kernels 11 and 10 with 11 and 27 taps a row.
+    cfg_b15, cfg_b40 = (cfg.replace(blur_size=b) for b in (1.5, 4.0))
+    assert all(blur_row_window(geom, c) == rows for c in (cfg_b15, cfg_b40))
+    assert not post_fused.kernel3_serves(post_fused._radius(cfg_b40),
+                                         geom.pad_w)
+    # 2160p: square_pow2 (H = 4096, kernel 5's two passes, kernels 2 and 6
+    # on strips of 2) and tight (H = 2176, four-step m = 17), a chunk of 8.
+    cfg_j = pbmm_tpu_torch.MagnifyConfig().tuned_for_tpu()
+    g4k = geometry_for(H4K, W4K, "square_pow2")
+    g4t = geometry_for(H4K, W4K, "tight")
+    wk4 = hermitian_kept_width(g4k.pad_w)
+    r0_4k, r1_4k = fused.aligned_row_window(g4k.y0, g4k.y0 + H4K, g4k.pad_h)
+    rows_4k = blur_row_window(g4k, cfg_j)
+    rows_4t = blur_row_window(g4t, cfg)
+    r0_4t, r1_4t = fused.aligned_row_window(g4t.y0, g4t.y0 + H4K, g4t.pad_h)
+    k4_re, k4_im = (dev_t(rng.standard_normal((T4K, r1_4k - r0_4k, wk4)))
+                    for _ in range(2))
+    k4_prev = [dev_t(rng.standard_normal((1, g4k.pad_h, wk4)))
+               for _ in range(2)]
+    k4_next = [dev_t(rng.standard_normal((1, g4k.pad_h, wk4)))
+               for _ in range(2)]
+    t4_re, t4_im = (dev_t(rng.standard_normal((T4K, r1_4t - r0_4t, wk4)))
+                    for _ in range(2))
+    t4_prev = [dev_t(rng.standard_normal((1, g4t.pad_h, wk4)))
+               for _ in range(2)]
+    k4_kw = dict(out_rows=rows_4k, full_w=g4k.pad_w)
+
     def both(fn, *a, **k):
         """(kernel call, plain-version call) of one wrapper."""
         ref = next(getattr(m, fn.__name__ + "_ref") for m in (
@@ -516,6 +566,41 @@ def main():
         "post_fused[compensate, gains]": both(
             post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_str, rows[0],
             H, W, "tight"),
+        # Blur radii 5 and 13 (kernels 3, 11, 10; kernel 3's route).
+        "rowifft_post_fused[blur 1.5, radius 5]": both(
+            post_fused.rowifft_post_fused, rre, rim, i_pl, q_pl, win,
+            cfg_b15, rows[0], H, W, "tight", full_w=geom.pad_w),
+        "rowifft_post_fused[blur 4.0, radius 13: kernels 7 + 10, u8, "
+        "planar_u8]": both(
+            post_fused.rowifft_post_fused, rre, rim, None, None, win,
+            cfg_b40, rows[0], H, W, "tight", full_w=geom.pad_w,
+            rgb_u8=u8_frames, out_layout="planar_u8"),
+        "post_fused_rgb[blur 1.5, radius 5]": both(
+            post_fused.post_fused_rgb, rec3, win,
+            cfg_rgb.replace(blur_size=1.5), rows[0], H, W, "tight",
+            out_layout="planar_u8"),
+        "post_fused_rgb[blur 4.0, radius 13]": both(
+            post_fused.post_fused_rgb, rec3, win,
+            cfg_rgb.replace(blur_size=4.0), rows[0], H, W, "tight",
+            out_layout="planar_u8"),
+        "post_fused[blur 4.0, radius 13, u8 chroma, planar_u8]": both(
+            post_fused.post_fused, rec1, None, None, win, cfg_b40, rows[0],
+            H, W, "tight", "planar_u8", rgb_u8=u8_frames),
+        # 2160p: H = 4096 (strips of 2; kernel 5's passes) and m = 17.
+        "colspec_chunk[pow-2, H 4096, 2160p square_pow2]": both(
+            fused.colspec_chunk, k4_re, k4_im, *k4_prev, cfg_j, g4k.pad_h,
+            r0_4k, **k4_kw),
+        "colspec_chunk[tight m 17, 2160p]": both(
+            fused.colspec_chunk, t4_re, t4_im, *t4_prev, cfg, g4t.pad_h,
+            r0_4t, out_rows=rows_4t, full_w=g4t.pad_w),
+        "col_fft_zero_padded[H 4096, 2160p]": both(
+            fused.col_fft_zero_padded, k4_re[:1], k4_im[:1], g4k.pad_h,
+            r0_4k),
+        "phase_col_ifft[H 4096, 2160p]": both(
+            fused.phase_col_ifft, *k4_next, *k4_prev, cfg_j, **k4_kw),
+        "kdecomp_variant[phase + gm + rolls, H 4096]": both(
+            kdecomp.kdecomp_variant, *k4_next, *k4_prev, cfg_j,
+            kdecomp.VARIANTS[-1][1], rows_4k, full_w=g4k.pad_w),
         # The measurement path's kernels: kdecomp's other piece sets, the
         # copy patterns at both sizes.
         **{f"kdecomp_variant[{name}]": both(
@@ -683,6 +768,25 @@ def main():
     if not same:
         raise AssertionError("kernel 6 differs from kernel 2's output rows")
     del k5, k2, k6
+    # The same at 2160p square_pow2 (H = 4096: kernel 5's passes, kernels
+    # 2 and 6 on strips of 2), and kernel 12 = kernel 6 there.
+    k5 = fused.col_fft_zero_padded(k4_re, k4_im, g4k.pad_h, r0_4k)
+    k2 = fused.colspec_chunk(k4_re, k4_im, *k4_prev, cfg_j, g4k.pad_h,
+                             r0_4k, **k4_kw)
+    prv = [torch.cat([p, c[:-1]]) for p, c in zip(k4_prev, k5)]
+    k6 = fused.phase_col_ifft(*k5, *prv, cfg_j, **k4_kw)
+    k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg_j, kdecomp.VARIANTS[-1][1],
+                                  rows_4k, full_w=g4k.pad_w)
+    same = (torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+            and all(torch.equal(a, b) for a, b in zip(k12, k6)))
+    log(f"[2] at H = 4096, (8, {rows_4k[1] - rows_4k[0]}, {wk4}): "
+        f"phase_col_ifft on kernel 5's spectra == colspec_chunk's output "
+        f"rows, and kdecomp_variant (phase + gm + rolls) == "
+        f"phase_col_ifft: {same}")
+    if not same:
+        raise AssertionError("at H = 4096 kernel 6 differs from kernel 2's "
+                             "rows or kernel 12 from kernel 6")
+    del k5, k2, k6, k12, prv
     # Kernel 12's full variant = kernel 6, bit for bit: on kdecomp's
     # planes (tuned_for_tpu(), rows (384, 1600)) and on the bar's spectra.
     full = kdecomp.VARIANTS[-1][1]
@@ -747,16 +851,17 @@ def main():
         return o1, s1, o2, s2
 
     def check_split(frames_d, c, out1, s1, what):
-        oa, sa = pbmm_tpu_torch.magnify_video(frames_d[:8], c)
-        ob, sb = pbmm_tpu_torch.magnify_video(frames_d[8:], c, sa)
+        n = frames_d.shape[0]
+        oa, sa = pbmm_tpu_torch.magnify_video(frames_d[:n // 2], c)
+        ob, sb = pbmm_tpu_torch.magnify_video(frames_d[n // 2:], c, sa)
         if not (torch.equal(torch.cat([oa, ob]), out1)
                 and all(torch.equal(a, b) for a, b in zip(
                     sb[:2] + tuple(sb.temporal),
                     s1[:2] + tuple(s1.temporal)))):
-            raise AssertionError(f"{what}: chunks of 8 + 8 differ from one "
-                                 "chunk of 16")
-        log(f"[3] {what}: chunks 8 + 8 equal one chunk of 16 bit for bit "
-            "(frames and state)")
+            raise AssertionError(f"{what}: chunks of {n // 2} + {n - n // 2}"
+                                 f" differ from one chunk of {n}")
+        log(f"[3] {what}: chunks {n // 2} + {n - n // 2} equal one chunk of "
+            f"{n} bit for bit (frames and state)")
 
     def check_frames(what, outs, shape, dtype):
         for o in outs:
@@ -773,26 +878,27 @@ def main():
     # phase 4 times anything.
     pool = ThreadPoolExecutor(4)
 
-    def oracle_job(frames01, c):
-        """The oracle on frames 0-3 of `frames01` (interleaved, in [0, 1])
-        under config c, started on a host thread."""
+    def oracle_job(frames01, c, n=4):
+        """The oracle on frames 0 to n - 1 of `frames01` (interleaved, in
+        [0, 1]) under config c, started on a host thread."""
         fn = (oracle.oracle_magnify_video_iir
               if c.temporal.mode == "iir_bandpass"
               else oracle.oracle_magnify_video)
 
         def run():
             t0 = time.perf_counter()
-            return fn(frames01[:4], c), time.perf_counter() - t0
+            return fn(frames01[:n], c), time.perf_counter() - t0
         return pool.submit(run)
 
     def vs_oracle(outs, job):
-        """PSNR of frames 0-3 of each (name, interleaved output) against
-        the oracle's result of `job`."""
+        """PSNR of the first frames of each (name, interleaved output)
+        against the oracle's result of `job` (as many frames as it has)."""
         want, secs = job.result()
         dbs = []
         for name, got in outs:
-            db = psnr_db(got[:4].double().cpu().numpy(), want)
-            log(f"[3] {name}: PSNR vs the fp64 oracle, frames 0-3: "
+            n = want.shape[0]
+            db = psnr_db(got[:n].double().cpu().numpy(), want)
+            log(f"[3] {name}: PSNR vs the fp64 oracle, frames 0-{n - 1}: "
                 f"{db:.2f} dB (bound > 100; oracle {secs:.1f} s on a host "
                 "thread)")
             if not db > 100:
@@ -812,7 +918,14 @@ def main():
                                              dtype=np.uint8)
     f540_u8 = np.stack([np.roll(b540, shift=i, axis=1) for i in range(T)])
     f540 = (f540_u8 / 255.0).astype(np.float32)
+    base4k = np.random.default_rng(3).random((H4K, W4K, 3), np.float32)
+    frames4k = np.stack([np.roll(base4k, shift=i, axis=1)
+                         * (0.95 + 0.01 * i) for i in range(T4K)])
+    frames4k_d = torch.from_numpy(frames4k).to(dev)
+    cfg_k = cfg_b40
     jobs = {"f32": oracle_job(frames, cfg),
+            "j": oracle_job(frames4k, cfg_j, n=2),
+            "k": oracle_job(frames, cfg_k),
             "u8": oracle_job(np.moveaxis(frames_u8, 1, -1) / 255.0, cfg),
             "540p": oracle_job(f540, cfg),
             "a": oracle_job(frames, cfg_sq),
@@ -1015,6 +1128,62 @@ def main():
         raise AssertionError("magnify_frame_pair differs from the scan step")
     psnr_h, = vs_oracle([(path_h, torch.stack([bar_il_d[0], *pairs]))],
                         jobs["bar"])
+
+    # (j) 2160p: 3840x2160 tuned_for_tpu() (square_pow2, H = 4096): the
+    # stream starts through kernel 5, kernels 1, 2 (strips of 2), 3 (8
+    # rows a block at radius 2, 4096 lanes).  Then 2160p tight (H = 2176,
+    # the four-step at m = 17) and the scan engine at H = 4096 (kernel 6).
+    path_j = "(j) 2160p square_pow2"
+    j1, sj1, j2, _ = run_path(
+        path_j, sq_kernels, ("windowed_row_fft_u8planar",
+                             "row_ifft_magnitude", "post_fused_rgb",
+                             "post_fused"),
+        lambda: two_chunks(frames4k_d, cfg_j))
+    check_frames(path_j, (j1, j2), (T4K, H4K, W4K, 3), torch.float32)
+    check_split(frames4k_d, cfg_j, j1, sj1, path_j)
+    if tuple(sj1.prev_spec_re.shape) != (1, g4k.pad_h, wk4):
+        raise AssertionError(f"{path_j}: state "
+                             f"{tuple(sj1.prev_spec_re.shape)}")
+    psnr_j, = vs_oracle([(path_j, j1)], jobs["j"])
+    path_jt = "(j) 2160p tight"
+    jt1, sjt1, jt2, _ = run_path(
+        path_jt, ("windowed_row_fft", "colspec_chunk", "rowifft_post_fused"),
+        ("col_fft_zero_padded", "row_ifft_magnitude", "post_fused"),
+        lambda: two_chunks(frames4k_d, cfg))
+    check_frames(path_jt, (jt1, jt2), (T4K, H4K, W4K, 3), torch.float32)
+    if tuple(sjt1.prev_spec_re.shape) != (1, g4t.pad_h, wk4):
+        raise AssertionError(f"{path_jt}: state "
+                             f"{tuple(sjt1.prev_spec_re.shape)}")
+    path_js = "(j) 2160p tuned scan square_pow2"
+    js1 = run_path(path_js, scan_k, not_scan,
+                   lambda: pbmm_tpu_torch.magnify_video(
+                       frames4k_d[:3], cfg_j.replace(engine="scan"))[0])
+    check_frames(path_js, (js1,), (3, H4K, W4K, 3), torch.float32)
+    psnr_js, = vs_oracle([(path_js, js1)], jobs["j"])
+
+    # (k) 1080p tight at blur_size 4.0 (radius 13): no kernel-3 block
+    # fits, so kernel 7 and kernel 10 take the tail; f32 and u8 in.
+    path_k = "(k) 1080p blur 4.0 (kernels 7 + 10)"
+    k_kernels = ("colspec_chunk", "row_ifft_magnitude", "post_fused")
+    k1, sk1, k2_, _ = run_path(
+        path_k, ("windowed_row_fft",) + k_kernels,
+        ("rowifft_post_fused", "post_fused_rgb", "col_fft_zero_padded"),
+        lambda: two_chunks(frames_d, cfg_k))
+    check_frames(path_k, (k1, k2_), (T, H, W, 3), torch.float32)
+    check_split(frames_d, cfg_k, k1, sk1, path_k)
+    ku1, *_ = run_path(
+        path_k + " u8 -> planar_u8", ("windowed_row_fft_u8planar",)
+        + k_kernels, ("rowifft_post_fused", "windowed_row_fft"),
+        lambda: two_chunks(u8_d, cfg_k.replace(output_layout="planar_u8")))
+    check_frames(path_k + " u8", (ku1,), (T, 3, H, W), torch.uint8)
+    psnr_k, = vs_oracle([(path_k, k1)], jobs["k"])
+    path_k15 = "(k) 1080p blur 1.5 (kernel 3)"
+    k15, *_ = run_path(
+        path_k15, ("windowed_row_fft", "colspec_chunk",
+                   "rowifft_post_fused"),
+        ("row_ifft_magnitude", "post_fused"),
+        lambda: two_chunks(frames_d, cfg_b15))
+    check_frames(path_k15, (k15,), (T, H, W, 3), torch.float32)
     pool.shutdown(wait=True)
 
     # (i) the measurement path, through the tools' functions and the CLI.
@@ -1139,9 +1308,10 @@ def main():
                                                              state[0])
                 return out
 
+            n = frames_d.shape[0]
             ms = time_ms(torch, chunk, reps=reps, warmup=2)
-            fps_ = T / (ms / 1e3)
-            log(f"[4] {card}: {what}: steady-state chunk of {T} frames "
+            fps_ = n / (ms / 1e3)
+            log(f"[4] {card}: {what}: steady-state chunk of {n} frames "
                 f"{ms:.3f} ms median of {reps} -> {fps_:.2f} frames/s, "
                 f"{ms / T:.4f} ms/frame")
             return chunk, ms, fps_
@@ -1155,7 +1325,11 @@ def main():
         for what, fd, c in ((path_a, frames_d, cfg_sq),
                             (path_b, bar_d, cfg_rgb),
                             (path_c, bar720_d, cfg_std),
-                            (path_d, frames_d, cfg_str)):
+                            (path_d, frames_d, cfg_str),
+                            (path_j, frames4k_d, cfg_j),
+                            (path_jt, frames4k_d, cfg),
+                            (path_k, frames_d, cfg_k),
+                            (path_k15, frames_d, cfg_b15)):
             matrix[what] = steady(fd, c, what)
         scan_paths = {}
         for what, fd, c, db in ((path_e, bar_il_d, cfg_e, psnr_e),
@@ -1254,11 +1428,10 @@ def main():
         "amplify_procedural": ("pbmm_tpu_torch/csrc/amplify_procedural.cu",
                                "pbmm_tpu/phase/pallas_kernels.py:136",
                                path_g),
-        # No entry point of either package reaches kernel 10 (kernel 3
-        # serves every y_only geometry where post_pallas_ok holds): it is
-        # held against its plain version in phase 2 only.
+        # Kernel 10 takes the y_only tail where no kernel-3 block fits
+        # (path (k)); the JAX package reaches it only through _post_block.
         "post_fused": ("pbmm_tpu_torch/csrc/post_rgb.cu",
-                       "pbmm_tpu/engine/post_pallas.py:91", None),
+                       "pbmm_tpu/engine/post_pallas.py:91", path_k),
         "kdecomp_variant": ("pbmm_tpu_torch/csrc/kdecomp.cu",
                             "benchmarks/kdecomp.py:42", path_i),
         "copy_probe": ("pbmm_tpu_torch/csrc/copy_probe.cu",
@@ -1291,11 +1464,13 @@ def main():
             **{what: {"fps": f, "chunk_ms": m, **(
                 {"psnr_vs_oracle_db": db} if db is not None else {})}
                for (what, (_, m, f)), db in zip(
-                   matrix.items(), (psnr_a, psnr_b, psnr_c, None))},
+                   matrix.items(), (psnr_a, psnr_b, psnr_c, None, psnr_j,
+                                    None, psnr_k, None))},
             **{what: {"fps": f, "chunk_ms": m, "psnr_vs_oracle_db": db}
                for what, (_, m, f, db) in scan_paths.items()},
             path_h: {"pairs_per_s": 1e3 / pair_ms, "pair_ms": pair_ms,
                      "psnr_vs_oracle_db": psnr_h},
+            path_js: {"psnr_vs_oracle_db": psnr_js},
             path_i: {"seconds": meas["seconds"],
                      "row_copy_ceiling_gbps": meas["copy_gbps"],
                      "roofline": meas["roofline"][1],

@@ -35,12 +35,18 @@
 //
 // The TPU grid (planes, lane strips, frames) runs frames in order and
 // carries prev in VMEM scratch.  CUDA blocks run in no order, so each
-// block owns a strip of S = 4 kept columns of one plane and loops over
-// the T frames itself; cur and prev (4 x H x S f32: 72 KB at H = 1152,
-// 128 KB at H = 2048) and the IIR taps (2 more planes, 192 KB at 2048)
-// stay in shared memory for the whole chunk, and the two spectrum buffers
-// swap roles each frame (the phase pass overwrites prev with the modified
-// spectrum in place).  H = 4096 would need 256 KB at S = 4 and is refused.
+// block owns a strip of S kept columns of one plane and loops over the T
+// frames itself; cur and prev (4 x H x S f32) and the IIR taps (2 more
+// planes) stay in shared memory for the whole chunk, and the two spectrum
+// buffers swap roles each frame (the phase pass overwrites prev with the
+// modified spectrum in place).  The strip width S and the four-step block
+// bound MAXM are template parameters, two instantiations of each branch:
+//   S = 4, MAXM = 16 up to H = 2048 (72 KB at H = 1152, 128 KB at 2048,
+//     192 KB with the IIR taps): the 1080p paths;
+//   S = 2, MAXM = 32 above, up to H = 4096 (128 KB at 4096, 192 KB with
+//     the taps; tight heights to m = 32, 2160p's 2176 rows are m = 17).
+// The strip width changes which thread holds a column, not the
+// arithmetic of a column.
 //
 // The phase pass (every branch, and its transcendentals) lives in
 // phase_pass.cuh, shared with kernel 6 (csrc/phase_col_ifft.cu).
@@ -55,9 +61,6 @@
 #include "common.cuh"
 #include "phase_pass.cuh"
 
-#define CS_S PBMM_COL_S  // kept columns per block
-#define CS_MAXM 16       // largest four-step block count (H <= 2048)
-#define CS_MAXH 2048     // tallest column held in shared memory
 
 // Pointers and sizes of one launch (device pointers; null where a branch
 // does not read them).
@@ -96,7 +99,7 @@ __device__ __forceinline__ int cs_row(int p) {
   return POW2 ? p : ((p & ~127) | pbmm_rev7(p & 127));
 }
 
-template <bool POW2, bool GENERAL, bool IIR>
+template <bool POW2, bool GENERAL, bool IIR, int CS_S, int CS_MAXM>
 __global__ void __launch_bounds__(256)
     colspec_chunk_kernel(ColspecIO io, PhaseArgs pa) {
   extern __shared__ float smem[];
@@ -131,13 +134,14 @@ __global__ void __launch_bounds__(256)
     const size_t n = (size_t)f * io.c + plane;  // this plane's row of f
     const size_t fbase = n * io.hc * wk;
     if (POW2) {
-      // 1-3. Zero-embed and the radix-2 DIF (shared with kernel 5).
-      pbmm_col_fft_pow2(io.rows_re + fbase, io.rows_im + fbase, io.hc, wk,
-                        col0, io.row0, h, io.tw_fre, io.tw_fim, a_re, a_im);
+      // 1-3. Zero-embed and the radix-2 DIF (kernel 5's arithmetic).
+      pbmm_col_fft_pow2<CS_S>(io.rows_re + fbase, io.rows_im + fbase,
+                              io.hc, wk, col0, io.row0, h, io.tw_fre,
+                              io.tw_fim, a_re, a_im);
     } else {
       // 1. Zero-embed the content rows at row0.
-      pbmm_col_embed(io.rows_re + fbase, io.rows_im + fbase, io.hc, wk,
-                     col0, io.row0, h, a_re, a_im);
+      pbmm_col_embed<CS_S>(io.rows_re + fbase, io.rows_im + fbase, io.hc,
+                           wk, col0, io.row0, h, a_re, a_im);
 
       // 2. Cross-block m-point DFT, then the four-step twiddle.
       for (int it = threadIdx.x; it < PBMM_LANE * CS_S; it += nt) {
@@ -262,16 +266,25 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <bool POW2, bool GENERAL, bool IIR>
+template <bool POW2, bool GENERAL, bool IIR, int S, int MAXM>
 static cudaError_t cs_launch(const ColspecIO& io, const PhaseArgs& pa,
                              cudaStream_t stream) {
-  const size_t smem = (IIR ? 6 : 4) * (size_t)io.h * CS_S * sizeof(float);
-  cudaError_t err =
-      pbmm_smem_opt_in(colspec_chunk_kernel<POW2, GENERAL, IIR>, smem);
+  const size_t smem = (IIR ? 6 : 4) * (size_t)io.h * S * sizeof(float);
+  cudaError_t err = pbmm_smem_opt_in(
+      colspec_chunk_kernel<POW2, GENERAL, IIR, S, MAXM>, smem);
   if (err != cudaSuccess) return err;
-  colspec_chunk_kernel<POW2, GENERAL, IIR>
-      <<<dim3(io.wk / CS_S, io.c), 256, smem, stream>>>(io, pa);
+  colspec_chunk_kernel<POW2, GENERAL, IIR, S, MAXM>
+      <<<dim3(io.wk / S, io.c), 256, smem, stream>>>(io, pa);
   return cudaGetLastError();
+}
+
+// The phase branch of one (height class, strip) instantiation.
+template <bool POW2, int S, int MAXM>
+static cudaError_t cs_branch(const ColspecIO& io, const PhaseArgs& pa,
+                             bool general, cudaStream_t stream) {
+  return pa.iir   ? cs_launch<POW2, true, true, S, MAXM>(io, pa, stream)
+         : general ? cs_launch<POW2, true, false, S, MAXM>(io, pa, stream)
+                   : cs_launch<POW2, false, false, S, MAXM>(io, pa, stream);
 }
 
 // iargs, fargs: the phase pass's branch and constants (host arrays,
@@ -292,10 +305,11 @@ extern "C" int pbmm_colspec_chunk(
   const bool pow2 = h >= 2 && (h & (h - 1)) == 0;
   const int m = h / PBMM_LANE;
   const bool general = pbmm_phase_general(pa);
-  if (!args_ok || t < 1 || c < 1 || h > CS_MAXH ||
-      (!pow2 && (h != m * PBMM_LANE || m < 1 || m > CS_MAXM)) ||
-      wk % CS_S != 0 || hc < 1 || row0 < 0 || row0 + hc > h || r0 < 0 ||
-      r1 <= r0 || r1 > h ||
+  const bool tall = h > PBMM_COL_MAXH;  // the S = 2 instantiations
+  const int s = tall ? PBMM_COL_S_TALL : PBMM_COL_S;
+  if (!args_ok || t < 1 || c < 1 || h > PBMM_COL_MAXH_TALL ||
+      (!pow2 && (h != m * PBMM_LANE || m < 1)) || wk % s != 0 || hc < 1 ||
+      row0 < 0 || row0 + hc > h || r0 < 0 || r1 <= r0 || r1 > h ||
       (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (pa.iir && (lpf_in == nullptr || lps_in == nullptr ||
@@ -308,16 +322,12 @@ extern "C" int pbmm_colspec_chunk(
                         tw_fre, tw_fim, tw_ire, tw_iim, out_re, out_im,
                         np_re, np_im, lpf_out, lps_out, t, c, hc, h, wk,
                         row0, r0, r1};
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (pow2) {
-    err = pa.iir ? cs_launch<true, true, true>(io, pa, s)
-          : general ? cs_launch<true, true, false>(io, pa, s)
-                    : cs_launch<true, false, false>(io, pa, s);
-  } else {
-    err = pa.iir ? cs_launch<false, true, true>(io, pa, s)
-          : general ? cs_launch<false, true, false>(io, pa, s)
-                    : cs_launch<false, false, false>(io, pa, s);
-  }
+  cudaStream_t st = (cudaStream_t)stream;
+  // Four-step heights: m <= 16 at h <= 2048, m <= 32 at h <= 4096.
+  const cudaError_t err =
+      pow2 ? (tall ? cs_branch<true, PBMM_COL_S_TALL, 16>(io, pa, general, st)
+                   : cs_branch<true, PBMM_COL_S, 16>(io, pa, general, st))
+           : (tall ? cs_branch<false, PBMM_COL_S_TALL, 32>(io, pa, general, st)
+                   : cs_branch<false, PBMM_COL_S, 16>(io, pa, general, st));
   return (int)err;
 }

@@ -7,8 +7,15 @@
 // Widest padded row the kernels take: 64 tiles of 128 lanes (W = 8192).
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
-// Columns a block of the column kernels (2 and 5) holds in shared memory.
+// Columns a block of the strip kernels (2, 6, 12) holds in shared memory:
+// 4 up to H = 2048, 2 above (PBMM_COL_S_TALL), up to H = 4096.
 #define PBMM_COL_S 4
+#define PBMM_COL_S_TALL 2
+#define PBMM_COL_MAXH 2048       // tallest column at PBMM_COL_S
+#define PBMM_COL_MAXH_TALL 4096  // tallest column at PBMM_COL_S_TALL
+// Largest blur radius of the post kernels (3, 10, 11): post_pallas_ok
+// admits 2 r <= ob - e with the output block ob <= 192, so r <= 96.
+#define PBMM_MAX_BLUR_R 96
 
 // Dynamic shared memory above 48 KB must be opted into per kernel; the
 // H100 allows at most 227 KB (232,448 bytes) per block.
@@ -156,15 +163,16 @@ __device__ __forceinline__ void pbmm_row_ifft_mag(
   __syncthreads();
 }
 
-// Zero-embed of a strip of PBMM_COL_S columns from col0 of an h-row
-// column: rows [row0, row0 + hc) take the content rows' spectra (src,
-// row stride wk), the others zeros; element (row p, column c) lands at
-// p * PBMM_COL_S + c.  Ends synchronised.
+// Zero-embed of a strip of S columns from col0 of an h-row column: rows
+// [row0, row0 + hc) take the content rows' spectra (src, row stride wk),
+// the others zeros; element (row p, column c) lands at p * S + c.  Ends
+// synchronised.
+template <int S>
 __device__ __forceinline__ void pbmm_col_embed(
     const float* __restrict__ src_re, const float* __restrict__ src_im,
     int hc, int wk, int col0, int row0, int h, float* re, float* im) {
-  for (int e = threadIdx.x; e < h * PBMM_COL_S; e += blockDim.x) {
-    const int p = e / PBMM_COL_S, c = e % PBMM_COL_S;
+  for (int e = threadIdx.x; e < h * S; e += blockDim.x) {
+    const int p = e / S, c = e % S;
     const int r = p - row0;
     float vr = 0.0f, vi = 0.0f;
     if (r >= 0 && r < hc) {
@@ -178,16 +186,17 @@ __device__ __forceinline__ void pbmm_col_embed(
   __syncthreads();
 }
 
-// The forward column FFT at pow-2 heights h, the one op sequence of
-// kernels 2 and 5: the zero-embed, then a radix-2 DIF over the whole
-// column (natural rows in, bit-reversed rows out: JAX's layout), every
-// product and sum rounded separately, so both kernels compute the same
-// bits.  tw_re/tw_im: _dif_twiddles(h, forward).  Ends synchronised.
+// Kernel 2's forward column FFT at pow-2 heights h on a strip of S
+// columns: the zero-embed, then a radix-2 DIF over the whole column
+// (natural rows in, bit-reversed rows out: JAX's layout), every product
+// and sum rounded separately.  Kernel 5 (col_pass.cuh's engine) runs the
+// same butterflies in the same order and computes the same bits.
+// tw_re/tw_im: _dif_twiddles(h, forward).  Ends synchronised.
+template <int S>
 __device__ __forceinline__ void pbmm_col_fft_pow2(
     const float* __restrict__ src_re, const float* __restrict__ src_im,
     int hc, int wk, int col0, int row0, int h, const float* __restrict__ tw_re,
     const float* __restrict__ tw_im, float* re, float* im) {
-  pbmm_col_embed(src_re, src_im, hc, wk, col0, row0, h, re, im);
-  pbmm_radix2(re, im, h, PBMM_COL_S, PBMM_COL_S, 0, 1, PBMM_COL_S, tw_re,
-              tw_im, false);
+  pbmm_col_embed<S>(src_re, src_im, hc, wk, col0, row0, h, re, im);
+  pbmm_radix2(re, im, h, S, S, 0, 1, S, tw_re, tw_im, false);
 }

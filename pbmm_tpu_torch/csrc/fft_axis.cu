@@ -1,5 +1,4 @@
-// Kernel 8: a radix-2 FFT along one axis of (B, H, W) f32 planes, every
-// stage in one pass over shared memory.
+// Kernel 8: a radix-2 FFT along one axis of (B, H, W) f32 planes.
 //
 // Replaces pbmm_tpu/spectral/pallas_fft.py:405 _fft_axis (the Pallas
 // kernel launched at :464), reached through fft2_bitrev / ifft2_bitrev
@@ -9,51 +8,55 @@
 // in, bit-reversed out), with a first stage that reads no imaginary plane
 // when the input is real; the inverse is decimation in time (bit-reversed
 // in, natural out), unnormalised but for `scale`, which multiplies the
-// output.  The TPU kernel runs the 7 innermost stages as one 128 x 128
-// MXU group matmul with a 3-pass bf16 split, a way around the TPU's
-// matmul precision; here every stage is common.cuh's f32 butterfly, as in
-// kernels 2, 5 and 7, each product and sum rounded on its own.
-//
-// Design: axis 2 (rows of W): one block per row holds the row (2 W f32,
-// 16 KB at W = 2048).  Axis 1 (columns of H): a block holds a strip of S
-// columns, S = 8 up to H = 2048 (128 KB; 32 bytes of each row, one
-// sector), fewer above; a ragged last strip is masked.
+// output.  Lengths are powers of two from 2 to 8192.  The TPU kernel runs
+// the 7 innermost stages as one 128 x 128 MXU group matmul with a 3-pass
+// bf16 split, a way around the TPU's matmul precision; here every stage
+// is an f32 radix-2 butterfly, each product and sum rounded on its own.
 //
 // What bounds it on an H100: it reads 1 (real) or 2 planes and writes 2,
 // once each, against 5 n log2(n) flops per length-n transform: ~3.4
 // flops per byte at n = 2048, far under the card's ~20, so bytes bound.
+//
+// Axis 2 (rows of W): one block per row holds the row (2 W f32, 16 KB at
+// W = 2048) in shared memory, every stage in place.  Axis 1 (columns of
+// H): col_pass.cuh's engine, shared with kernel 5.  The strip-of-8 design
+// it replaces held 8 columns of every row in shared memory (128 KB at
+// H = 2048, one block of 8 warps an SM), read 32 bytes of each row, put
+// its threads 8 floats apart (8-way bank conflicts on every stage) and
+// synchronised after each of the 11 stages.  Now a warp owns 32
+// neighbouring columns (128-byte row segments, the row-copy pattern), a
+// thread holds up to 64 points of its column in registers and runs up to
+// six stages there, and there is no shared memory and no barrier: two
+// passes over the planes at H <= 4096, three at 8192.  The ragged last
+// tile of columns is masked.  On an NVIDIA H100 80GB HBM3 at its 700 W
+// limit (chip_smoke.py) the inverse column pass at (1, 2048, 2048) takes
+// 0.055 ms warm, against 0.057 for torch.fft.ifft along dim -2 and 0.329
+// for the strip-of-8 design; its two passes move 134 MB at 2.4 TB/s.
 
+#include "col_pass.cuh"
 #include "common.cuh"
 
-#define FA_MAXN 8192  // longest transform held in shared memory
+#define FA_MAXN 8192  // longest transform (a row of it in shared memory)
 
-// The forward DIF's first stage (d = n / 2) on real input: im is written,
-// never read (pallas_fft.py:331-347).
+// The forward DIF's first stage (d = n / 2) on a real row: im is
+// written, never read (pallas_fft.py:331-347).
 __device__ __forceinline__ void fa_real_first_stage(
-    float* re, float* im, int n, int groups, int gdiv, int ghi, int glo,
-    int estride, const float* __restrict__ tw_re,
+    float* re, float* im, int n, const float* __restrict__ tw_re,
     const float* __restrict__ tw_im) {
   const int d = n >> 1;
-  for (int b = threadIdx.x; b < d * groups; b += blockDim.x) {
-    const int g = b / d;
-    const int k = b - g * d;
-    const int gb = (g / gdiv) * ghi + (g % gdiv) * glo;
-    const int a0 = gb + k * estride;
-    const int a1 = gb + (k + d) * estride;
-    const float xr = re[a0], ur = re[a1];
+  for (int k = threadIdx.x; k < d; k += blockDim.x) {
+    const float xr = re[k], ur = re[k + d];
     const float br = __fsub_rn(xr, ur);
-    re[a0] = __fadd_rn(xr, ur);
-    im[a0] = 0.0f;
-    re[a1] = __fmul_rn(br, __ldg(tw_re + k + d));
-    im[a1] = __fmul_rn(br, __ldg(tw_im + k + d));
+    re[k] = __fadd_rn(xr, ur);
+    im[k] = 0.0f;
+    re[k + d] = __fmul_rn(br, __ldg(tw_re + k + d));
+    im[k + d] = __fmul_rn(br, __ldg(tw_im + k + d));
   }
 }
 
-// All stages over `groups` sequences (layout as pbmm_radix2_stage).
+// All stages of one row held in shared memory.
 template <bool INVERSE, bool REAL>
 __device__ __forceinline__ void fa_stages(float* re, float* im, int n,
-                                          int groups, int gdiv, int ghi,
-                                          int glo, int estride,
                                           const float* tw_re,
                                           const float* tw_im) {
   int stages = 0;
@@ -61,11 +64,10 @@ __device__ __forceinline__ void fa_stages(float* re, float* im, int n,
   for (int s = 0; s < stages; ++s) {
     const int d = INVERSE ? (1 << s) : (n >> (s + 1));
     if (REAL && s == 0)
-      fa_real_first_stage(re, im, n, groups, gdiv, ghi, glo, estride, tw_re,
-                          tw_im);
+      fa_real_first_stage(re, im, n, tw_re, tw_im);
     else
-      pbmm_radix2_stage(re, im, n, d, groups, gdiv, ghi, glo, estride,
-                        tw_re + s * n, tw_im + s * n, INVERSE);
+      pbmm_radix2_stage(re, im, n, d, 1, 1, 0, 0, 1, tw_re + s * n,
+                        tw_im + s * n, INVERSE);
     __syncthreads();
   }
 }
@@ -85,7 +87,7 @@ __global__ void __launch_bounds__(256)
     if (!REAL) xi[i] = im[base + i];
   }
   __syncthreads();
-  fa_stages<INVERSE, REAL>(xr, xi, w, 1, 1, 0, 0, 1, tw_re, tw_im);
+  fa_stages<INVERSE, REAL>(xr, xi, w, tw_re, tw_im);
   const bool scaled = scale != 1.0f;
   for (int i = threadIdx.x; i < w; i += blockDim.x) {
     out_re[base + i] = scaled ? __fmul_rn(xr[i], scale) : xr[i];
@@ -93,36 +95,15 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <bool INVERSE, bool REAL>
-__global__ void __launch_bounds__(256)
-    fft_cols_kernel(const float* __restrict__ re,
-                    const float* __restrict__ im, const float* tw_re,
-                    const float* tw_im, float* __restrict__ out_re,
-                    float* __restrict__ out_im, int h, int w, int s,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int hs = h * s;
-  float* xr = smem;
-  float* xi = smem + hs;
-  const int col0 = blockIdx.x * s;
-  const size_t base = (size_t)blockIdx.y * h * w;
-  for (int e = threadIdx.x; e < hs; e += blockDim.x) {
-    const int p = e / s, c = e % s;
-    const bool in = col0 + c < w;
-    const size_t g = base + (size_t)p * w + col0 + c;
-    xr[e] = in ? re[g] : 0.0f;
-    if (!REAL) xi[e] = in ? im[g] : 0.0f;
-  }
-  __syncthreads();
-  fa_stages<INVERSE, REAL>(xr, xi, h, s, s, 0, 1, s, tw_re, tw_im);
-  const bool scaled = scale != 1.0f;
-  for (int e = threadIdx.x; e < hs; e += blockDim.x) {
-    const int p = e / s, c = e % s;
-    if (col0 + c >= w) continue;
-    const size_t g = base + (size_t)p * w + col0 + c;
-    out_re[g] = scaled ? __fmul_rn(xr[e], scale) : xr[e];
-    out_im[g] = scaled ? __fmul_rn(xi[e], scale) : xi[e];
-  }
+// One pass of the column transform (col_pass.cuh).  The min-blocks
+// bound of 1 lets the 64-point pass keep up to 255 registers a thread
+// (without it nvcc stops at 184 and the kernel runs slower), and the
+// loads are evict-first: both measured against the alternatives on the
+// card (PERF.md).
+template <int L, bool INVERSE, bool REAL>
+__global__ void __launch_bounds__(PBMM_CP_LANES * PBMM_CP_GROUPS, 1)
+    fft_cols_pass(PbmmColPass a) {
+  pbmm_col_pass<L, INVERSE, REAL, false, true>(a);
 }
 
 template <bool INVERSE, bool REAL>
@@ -139,14 +120,18 @@ static cudaError_t fa_launch(const float* re, const float* im,
                                      stream>>>(re, im, tw_re, tw_im, out_re,
                                                out_im, w, scale);
   } else {
-    int s = 16384 / h;  // columns a block: 128 KB of shared memory
-    if (s > 8) s = 8;
-    const size_t smem = 2 * (size_t)h * s * sizeof(float);
-    cudaError_t err = pbmm_smem_opt_in(fft_cols_kernel<INVERSE, REAL>, smem);
-    if (err != cudaSuccess) return err;
-    fft_cols_kernel<INVERSE, REAL>
-        <<<dim3((w + s - 1) / s, b), 256, smem, stream>>>(
-            re, im, tw_re, tw_im, out_re, out_im, h, w, s, scale);
+    const PbmmColPass a = {re, im, out_re, out_im, tw_re, tw_im, h, w, h,
+                           0, 0, 0, 1.0f};
+    auto first = [](int k, dim3 grid, dim3 block, const PbmmColPass& a,
+                    cudaStream_t stream) -> cudaError_t {
+      PBMM_CP_SWITCH(fft_cols_pass, INVERSE, REAL)
+    };
+    auto rest = [](int k, dim3 grid, dim3 block, const PbmmColPass& a,
+                   cudaStream_t stream) -> cudaError_t {
+      PBMM_CP_SWITCH(fft_cols_pass, INVERSE, false)
+    };
+    return pbmm_col_launch(a, b, first, rest, INVERSE, false, scale,
+                           stream);
   }
   return cudaGetLastError();
 }

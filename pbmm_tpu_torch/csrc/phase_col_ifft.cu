@@ -14,9 +14,10 @@
 // are not ported.
 //
 // Design: kernel 2's pow-2 branch without its forward half.  A block owns
-// a strip of S = 4 columns of one frame; cur and prev (4 x H x S f32, 128
-// KB at H = 2048) and the taps (2 more planes, 192 KB) sit in shared
-// memory.  The phase pass is phase_pass.cuh's pbmm_phase_bin and the
+// a strip of S columns of one frame, S a template parameter as in kernel
+// 2: 4 up to H = 2048, 2 above, up to 4096; cur and prev (4 x H x S f32,
+// 128 KB at H = 2048 or 4096) and the taps (2 more planes, 192 KB) sit in
+// shared memory.  The phase pass is phase_pass.cuh's pbmm_phase_bin and the
 // inverse is common.cuh's pbmm_radix2 with kernel 2's arguments, so on
 // the spectra kernel 5 gives, this kernel's rows equal kernel 2's bit for
 // bit (checked on the card by chip_smoke.py).
@@ -31,8 +32,6 @@
 #include "common.cuh"
 #include "phase_pass.cuh"
 
-#define PC_S PBMM_COL_S  // columns per block
-#define PC_MAXH 2048     // tallest column held in shared memory
 
 struct PhaseColIO {
   const float* cur_re;
@@ -54,7 +53,7 @@ struct PhaseColIO {
   int h, w, r0, r1;
 };
 
-template <bool GENERAL, bool IIR>
+template <bool GENERAL, bool IIR, int PC_S>
 __global__ void __launch_bounds__(256)
     phase_col_ifft_kernel(PhaseColIO io, PhaseArgs pa) {
   extern __shared__ float smem[];
@@ -121,16 +120,24 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <bool GENERAL, bool IIR>
+template <bool GENERAL, bool IIR, int S>
 static cudaError_t pc_launch(const PhaseColIO& io, const PhaseArgs& pa,
                              int b, cudaStream_t stream) {
-  const size_t smem = (IIR ? 6 : 4) * (size_t)io.h * PC_S * sizeof(float);
+  const size_t smem = (IIR ? 6 : 4) * (size_t)io.h * S * sizeof(float);
   cudaError_t err =
-      pbmm_smem_opt_in(phase_col_ifft_kernel<GENERAL, IIR>, smem);
+      pbmm_smem_opt_in(phase_col_ifft_kernel<GENERAL, IIR, S>, smem);
   if (err != cudaSuccess) return err;
-  phase_col_ifft_kernel<GENERAL, IIR>
-      <<<dim3(io.w / PC_S, b), 256, smem, stream>>>(io, pa);
+  phase_col_ifft_kernel<GENERAL, IIR, S>
+      <<<dim3(io.w / S, b), 256, smem, stream>>>(io, pa);
   return cudaGetLastError();
+}
+
+template <int S>
+static cudaError_t pc_branch(const PhaseColIO& io, const PhaseArgs& pa,
+                             bool general, int b, cudaStream_t stream) {
+  return pa.iir   ? pc_launch<true, true, S>(io, pa, b, stream)
+         : general ? pc_launch<true, false, S>(io, pa, b, stream)
+                   : pc_launch<false, false, S>(io, pa, b, stream);
 }
 
 // iargs, fargs: the phase pass's branch and constants (host arrays, as
@@ -147,8 +154,10 @@ extern "C" int pbmm_phase_col_ifft(
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool general = pbmm_phase_general(pa);
+  const bool tall = h > PBMM_COL_MAXH;
+  const int s = tall ? PBMM_COL_S_TALL : PBMM_COL_S;
   if (!args_ok || b < 1 || b > 65535 || h < 2 || (h & (h - 1)) != 0 ||
-      h > PC_MAXH || w < PC_S || w % PC_S != 0 || r0 < 0 || r1 <= r0 ||
+      h > PBMM_COL_MAXH_TALL || w < s || w % s != 0 || r0 < 0 || r1 <= r0 ||
       r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (!general && (plane0 == nullptr || plane1 == nullptr)) ||
@@ -159,9 +168,9 @@ extern "C" int pbmm_phase_col_ifft(
   const PhaseColIO io = {cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in,
                          plane0, plane1, fy, fx, tw_re, tw_im, out_re,
                          out_im, lpf_out, lps_out, h, w, r0, r1};
-  cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = pa.iir ? pc_launch<true, true>(io, pa, b, s)
-                          : general ? pc_launch<true, false>(io, pa, b, s)
-                                    : pc_launch<false, false>(io, pa, b, s);
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err =
+      tall ? pc_branch<PBMM_COL_S_TALL>(io, pa, general, b, st)
+           : pc_branch<PBMM_COL_S>(io, pa, general, b, st);
   return (int)err;
 }

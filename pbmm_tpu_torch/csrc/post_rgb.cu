@@ -8,9 +8,13 @@
 // post_fused (launched at :181), the y_only tail of the JAX package's
 // _post_block: Y is the one reconstructed plane of each frame, blurred
 // and cropped the same way, and I, Q are the original chroma planes
-// times the crop-region Hann window (post_pallas.py:164-178); no entry
-// point of either package reaches it (kernel 3 serves every y_only
-// geometry where post_pallas_ok holds), only tests and chip_smoke.py.
+// times the crop-region Hann window (post_pallas.py:164-178).  The port
+// also reaches it after kernel 7 where kernel 3's block does not fit
+// shared memory (a blur radius of 13 or more at W = 2048, 6 or more at
+// 4096: engine/post_fused.py::kernel3_serves), so it takes kernel 3's
+// chroma sources too: the f32 I/Q planes, or the (T, 3, H, W) uint8
+// source frames, from which it forms I and Q as kernel 3 does,
+// ((r c0 + g c1) + b c2) * window with the 1/255 folded into c.
 // Kernel 11's input is kernel 7's output: (3T, Hr, W)
 // region rows of |z| (or Re z), plane-minor frame-major (frame t's Y, I,
 // Q at rows 3t, 3t + 1, 3t + 2), from padded row rows0.  With all three
@@ -29,7 +33,9 @@
 // The TPU kernel walks 8-aligned row blocks with a two-block window and
 // a rolling scratch per plane, for Mosaic's (8, 128) tiling.  Here one
 // thread owns one output pixel of one frame and reads its (2r + 1)^2
-// taps of each plane straight from device memory: neighbouring threads
+// taps of each plane straight from device memory (r up to
+// PBMM_MAX_BLUR_R = 96, every radius post_pallas_ok admits; the taps go
+// by value): neighbouring threads
 // read neighbouring columns, so the loads coalesce, and the overlapping
 // taps of a block's pixels are served by L1/L2.  No shared memory, no
 // halo bookkeeping.
@@ -43,23 +49,26 @@
 
 #include "common.cuh"
 
-#define PR_MAXR 4  // largest blur radius (9 taps)
-
 struct RgbParams {
-  float taps[2 * PR_MAXR + 1];
+  float taps[2 * PBMM_MAX_BLUR_R + 1];
   float m[9];      // YIQ -> RGB, row-major
+  float iq[6];     // I and Q rows of RGB -> YIQ times 1/255 (u8 chroma)
   float gains[3];  // YIQ gains
   int comp;        // divide the Hann window back out
   int gain;        // apply the gains
 };
 
-// YONLY: chans holds one plane a frame (Y), and I/Q come from i_pl, q_pl
-// (T, H, W) times win; else three planes a frame (Y, I, Q).
-template <int LAYOUT, bool YONLY>
+// Chroma sources.  PR_RGB: chans holds three planes a frame (Y, I, Q).
+// Else chans holds one plane a frame (Y), and I/Q come from i_pl, q_pl
+// (T, H, W) (PR_IQ) or from the uint8 frames rgb_u8 (PR_U8), times win.
+enum { PR_RGB = 0, PR_IQ = 1, PR_U8 = 2 };
+
+template <int LAYOUT, int CHROMA>
 __global__ void __launch_bounds__(128)
     post_rgb_kernel(const float* __restrict__ chans3,
                     const float* __restrict__ i_pl,
                     const float* __restrict__ q_pl,
+                    const unsigned char* __restrict__ rgb_u8,
                     const float* __restrict__ win, void* __restrict__ out0,
                     void* __restrict__ out1, void* __restrict__ out2,
                     RgbParams prm, int radius, int hr, int w, int in_h,
@@ -71,6 +80,7 @@ __global__ void __launch_bounds__(128)
   const int col = x0 + x;
   const size_t pix = (size_t)y * in_w + x;
   const size_t plane = (size_t)in_h * in_w;
+  constexpr bool YONLY = CHROMA != PR_RGB;
   float v[3];
 #pragma unroll
   for (int c = 0; c < (YONLY ? 1 : 3); ++c) {
@@ -92,10 +102,24 @@ __global__ void __launch_bounds__(128)
     }
     v[c] = vb;
   }
-  if (YONLY) {
+  if (CHROMA == PR_IQ) {
     const float wn = __ldg(win + pix);
     v[1] = __fmul_rn(__ldg(i_pl + (size_t)f * plane + pix), wn);
     v[2] = __fmul_rn(__ldg(q_pl + (size_t)f * plane + pix), wn);
+  } else if (CHROMA == PR_U8) {
+    // rowifft_post.cu's u8 chroma, in its order of products and sums.
+    const float wn = __ldg(win + pix);
+    const unsigned char* px = rgb_u8 + (size_t)f * 3 * plane + pix;
+    const float ru = (float)px[0];
+    const float gu = (float)px[plane];
+    const float bu = (float)px[2 * plane];
+#pragma unroll
+    for (int d = 0; d < 2; ++d)
+      v[1 + d] = __fmul_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(ru, prm.iq[3 * d]),
+                              __fmul_rn(gu, prm.iq[3 * d + 1])),
+                    __fmul_rn(bu, prm.iq[3 * d + 2])),
+          wn);
   }
   if (prm.comp) {
     const float inv = __fdiv_rn(1.0f, fmaxf(__ldg(win + pix), 1e-3f));
@@ -126,23 +150,26 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-static int pr_run(const float* chans, const float* i_pl, const float* q_pl,
-                  const float* win, void* out0, void* out1, void* out2,
-                  const float* taps, int radius, const float* yiq_to_rgb,
-                  int layout, int t, int hr, int w, int in_h, int in_w,
-                  int yrow0, int x0, int comp, int gain, float g_y,
-                  float g_i, float g_q, void* stream) {
-  const bool yonly = i_pl != nullptr;
-  if (t < 1 || in_h < 1 || in_w < 1 || radius < 0 || radius > PR_MAXR ||
+static int pr_run(int chroma, const float* chans, const float* i_pl,
+                  const float* q_pl, const unsigned char* rgb_u8,
+                  const float* iq_u8, const float* win, void* out0,
+                  void* out1, void* out2, const float* taps, int radius,
+                  const float* yiq_to_rgb, int layout, int t, int hr, int w,
+                  int in_h, int in_w, int yrow0, int x0, int comp, int gain,
+                  float g_y, float g_i, float g_q, void* stream) {
+  if (t < 1 || in_h < 1 || in_w < 1 || radius < 0 ||
+      radius > PBMM_MAX_BLUR_R ||
       yrow0 - radius < 0 || yrow0 + in_h + radius > hr || x0 < radius ||
       x0 + in_w + radius > w || layout < 0 || layout > 2 ||
       in_h > 65535 || t > 65535 || out0 == nullptr ||
-      (yonly && q_pl == nullptr) ||
+      (chroma == PR_IQ && (i_pl == nullptr || q_pl == nullptr)) ||
+      (chroma == PR_U8 && (rgb_u8 == nullptr || iq_u8 == nullptr)) ||
       (layout == 0 && (out1 == nullptr || out2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   RgbParams prm;
   for (int i = 0; i <= 2 * radius; ++i) prm.taps[i] = taps[i];
   for (int i = 0; i < 9; ++i) prm.m[i] = yiq_to_rgb[i];
+  for (int i = 0; i < 6; ++i) prm.iq[i] = chroma == PR_U8 ? iq_u8[i] : 0.0f;
   prm.gains[0] = g_y;
   prm.gains[1] = g_i;
   prm.gains[2] = g_q;
@@ -150,17 +177,25 @@ static int pr_run(const float* chans, const float* i_pl, const float* q_pl,
   prm.gain = gain;
   const dim3 grid((in_w + 127) / 128, in_h, t);
   cudaStream_t s = (cudaStream_t)stream;
-#define PR_LAUNCH(L, Y)                                                    \
-  post_rgb_kernel<L, Y><<<grid, 128, 0, s>>>(chans, i_pl, q_pl, win, out0, \
-                                             out1, out2, prm, radius, hr,  \
-                                             w, in_h, in_w, yrow0, x0)
-  if (layout == 0) {
-    if (yonly) PR_LAUNCH(0, true); else PR_LAUNCH(0, false);
-  } else if (layout == 1) {
-    if (yonly) PR_LAUNCH(1, true); else PR_LAUNCH(1, false);
-  } else {
-    if (yonly) PR_LAUNCH(2, true); else PR_LAUNCH(2, false);
+#define PR_LAUNCH(L, C)                                                  \
+  post_rgb_kernel<L, C><<<grid, 128, 0, s>>>(chans, i_pl, q_pl, rgb_u8,  \
+                                             win, out0, out1, out2, prm, \
+                                             radius, hr, w, in_h, in_w,  \
+                                             yrow0, x0)
+#define PR_CHROMA(L)                          \
+  switch (chroma) {                           \
+    case PR_RGB: PR_LAUNCH(L, PR_RGB); break; \
+    case PR_IQ: PR_LAUNCH(L, PR_IQ); break;   \
+    default: PR_LAUNCH(L, PR_U8); break;      \
   }
+  if (layout == 0) {
+    PR_CHROMA(0)
+  } else if (layout == 1) {
+    PR_CHROMA(1)
+  } else {
+    PR_CHROMA(2)
+  }
+#undef PR_CHROMA
 #undef PR_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -174,23 +209,27 @@ extern "C" int pbmm_post_rgb(const float* chans3, const float* win,
                              int hr, int w, int in_h, int in_w, int yrow0,
                              int x0, int comp, int gain, float g_y,
                              float g_i, float g_q, void* stream) {
-  return pr_run(chans3, nullptr, nullptr, win, out0, out1, out2, taps,
-                radius, yiq_to_rgb, layout, t, hr, w, in_h, in_w, yrow0, x0,
-                comp, gain, g_y, g_i, g_q, stream);
+  return pr_run(PR_RGB, chans3, nullptr, nullptr, nullptr, nullptr, win,
+                out0, out1, out2, taps, radius, yiq_to_rgb, layout, t, hr, w,
+                in_h, in_w, yrow0, x0, comp, gain, g_y, g_i, g_q, stream);
 }
 
-// Kernel 10: chans (T, Hr, W) Y rows, i_pl/q_pl (T, H, W) original chroma;
-// the rest as pbmm_post_rgb.
+// Kernel 10: chans (T, Hr, W) Y rows; the chroma either i_pl/q_pl (T, H,
+// W) f32 planes or, with rgb_u8 non-null, the (T, 3, H, W) uint8 frames
+// and iq_u8 (host, the I and Q rows of RGB -> YIQ times 1/255); the rest
+// as pbmm_post_rgb.
 extern "C" int pbmm_post_yonly(const float* chans, const float* i_pl,
-                               const float* q_pl, const float* win,
+                               const float* q_pl,
+                               const unsigned char* rgb_u8,
+                               const float* iq_u8, const float* win,
                                void* out0, void* out1, void* out2,
                                const float* taps, int radius,
                                const float* yiq_to_rgb, int layout, int t,
                                int hr, int w, int in_h, int in_w, int yrow0,
                                int x0, int comp, int gain, float g_y,
                                float g_i, float g_q, void* stream) {
-  if (i_pl == nullptr) return (int)cudaErrorInvalidValue;
-  return pr_run(chans, i_pl, q_pl, win, out0, out1, out2, taps, radius,
-                yiq_to_rgb, layout, t, hr, w, in_h, in_w, yrow0, x0, comp,
-                gain, g_y, g_i, g_q, stream);
+  const int chroma = rgb_u8 != nullptr ? PR_U8 : PR_IQ;
+  return pr_run(chroma, chans, i_pl, q_pl, rgb_u8, iq_u8, win, out0, out1,
+                out2, taps, radius, yiq_to_rgb, layout, t, hr, w, in_h,
+                in_w, yrow0, x0, comp, gain, g_y, g_i, g_q, stream);
 }

@@ -24,8 +24,10 @@
 // Per region row: pbmm_row_ifft_mag (common.cuh, shared with kernel 7)
 // rebuilds the missing 128-lane tiles by the static plan, takes the
 // bit-reversed lanes to natural order with a radix-2 DIT inverse, and
-// keeps |z| / (pad_h * W) (or Re z / (pad_h * W)).  The blur is the reference's 5-tap kernel,
-// horizontal taps first (wrapping around the padded width exactly as
+// keeps |z| / (pad_h * W) (or Re z / (pad_h * W)).  The blur is the
+// reference's kernel of 2 r + 1 taps (r = ceil(3.23 blur_size), up to
+// PBMM_MAX_BLUR_R = 96, every radius post_pallas_ok admits), horizontal
+// taps first (wrapping around the padded width exactly as
 // pltpu.roll does; the crop offset x0 exceeds the radius, so the wrap
 // never reaches the output), then vertical; the crop, the windowed
 // original I/Q and the RGB matrix with its [0, 1] clip follow.  The
@@ -34,9 +36,13 @@
 // same value: "planar_u8" is exactly rint(255 * "planar").
 //
 // The TPU kernel's two-block halo and rolling scratch exist for Mosaic's
-// (8, 128) tiling.  Here one block owns 8 output rows of one frame and
-// recomputes the 2-row halo on each side: 12 transformed |z| rows of W
-// f32 (96 KB at W = 2048) plus one complex row (16 KB) in shared memory.
+// (8, 128) tiling.  Here one block owns ob output rows of one frame and
+// recomputes the r-row halo on each side: ob + 2 r transformed |z| rows
+// of W f32 plus one complex row (2 W f32) in shared memory, at most
+// 227 KB.  The caller chooses ob (engine/post_fused.py::kernel3_rows):
+// 8, or fewer where the blur halo leaves less room (r = 12 at W = 2048
+// leaves 2); where not even one row fits (r >= 13 at W = 2048, r >= 6 at
+// 4096) the caller runs kernel 7 and kernel 10 in its place.
 //
 // What bounds it on an H100: each output row reads ~1.5 region rows of
 // 2 x Wk f32 (the halo is read and transformed again by the neighbouring
@@ -48,12 +54,9 @@
 
 #include "common.cuh"
 
-#define PP_OB 8        // output rows per block
-#define PP_MAXR 4      // largest blur radius (9 taps)
-
 struct PostParams {
   PbmmLanePlan plan;
-  float taps[2 * PP_MAXR + 1];
+  float taps[2 * PBMM_MAX_BLUR_R + 1];
   float m[9];    // YIQ -> RGB, row-major
   float iq[6];   // I and Q rows of RGB -> YIQ times 1/255 (u8 chroma)
   float gains[3];  // YIQ gains
@@ -69,15 +72,15 @@ __global__ void rowifft_post_kernel(
     const unsigned char* __restrict__ rgb_u8, const float* __restrict__ win,
     const float* __restrict__ tw_re, const float* __restrict__ tw_im,
     void* __restrict__ out0, void* __restrict__ out1,
-    void* __restrict__ out2, PostParams prm, int radius, int hr, int wk,
-    int w, int in_h, int in_w, int yrow0, int x0, float scale) {
+    void* __restrict__ out2, PostParams prm, int radius, int ob, int hr,
+    int wk, int w, int in_h, int in_w, int yrow0, int x0, float scale) {
   extern __shared__ float smem[];
   float* xre = smem;
   float* xim = smem + w;
   float* mag = smem + 2 * w;  // (rows, w)
   const int f = blockIdx.y;
-  const int y_first = blockIdx.x * PP_OB;
-  const int ny = min(PP_OB, in_h - y_first);
+  const int y_first = blockIdx.x * ob;
+  const int ny = min(ob, in_h - y_first);
   const int nrows = ny + 2 * radius;
   const int reg0 = yrow0 + y_first - radius;  // first region row used
 
@@ -165,32 +168,33 @@ static cudaError_t launch_post(dim3 grid, size_t smem, cudaStream_t stream,
                                const unsigned char* rgb_u8, const float* win,
                                const float* tw_re, const float* tw_im,
                                void* out0, void* out1, void* out2,
-                               const PostParams& prm, int radius, int hr,
-                               int wk, int w, int in_h, int in_w, int yrow0,
-                               int x0, float scale) {
+                               const PostParams& prm, int radius, int ob,
+                               int hr, int wk, int w, int in_h, int in_w,
+                               int yrow0, int x0, float scale) {
   cudaError_t err = pbmm_smem_opt_in(rowifft_post_kernel<U8, LAYOUT>, smem);
   if (err != cudaSuccess) return err;
   rowifft_post_kernel<U8, LAYOUT><<<grid, 512, smem, stream>>>(
       rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
-      out2, prm, radius, hr, wk, w, in_h, in_w, yrow0, x0, scale);
+      out2, prm, radius, ob, hr, wk, w, in_h, in_w, yrow0, x0, scale);
   return cudaGetLastError();
 }
 
 // layout: 0 tuple3 (out0..2 = R, G, B planes), 1 planar f32, 2 planar
 // uint8 (out0 only).  rgb_u8 non-null selects the u8 chroma source
-// (i_plane/q_plane are then unused).
+// (i_plane/q_plane are then unused).  ob: output rows a block.
 extern "C" int pbmm_rowifft_post(
     const float* rre, const float* rim, const float* i_plane,
     const float* q_plane, const unsigned char* rgb_u8, const float* win,
     const float* tw_re, const float* tw_im, void* out0, void* out1,
     void* out2, const int* plan_src, const int* plan_rev, int n_tiles,
-    const float* taps, int radius, const float* yiq_to_rgb,
+    const float* taps, int radius, int ob, const float* yiq_to_rgb,
     const float* iq_u8, int layout, int t, int hr, int wk, int w, int in_h,
     int in_w, int yrow0, int x0, float scale, int magnitude, int comp,
     int gain, float g_y, float g_i, float g_q, void* stream) {
   const bool u8 = rgb_u8 != nullptr;
   if (t < 1 || n_tiles < 1 || n_tiles > PBMM_MAX_TILES ||
-      n_tiles * PBMM_LANE != w || radius < 0 || radius > PP_MAXR ||
+      n_tiles * PBMM_LANE != w || radius < 0 || radius > PBMM_MAX_BLUR_R ||
+      ob < 1 ||
       yrow0 - radius < 0 || yrow0 + in_h + radius > hr || x0 < radius ||
       x0 + in_w + radius > w || layout < 0 || layout > 2 ||
       (!u8 && (i_plane == nullptr || q_plane == nullptr)) ||
@@ -211,13 +215,13 @@ extern "C" int pbmm_rowifft_post(
   prm.comp = comp;
   prm.gain = gain;
   const size_t smem =
-      (2 + PP_OB + 2 * (size_t)radius) * (size_t)w * sizeof(float);
-  dim3 grid((in_h + PP_OB - 1) / PP_OB, t);
+      (2 + (size_t)ob + 2 * (size_t)radius) * (size_t)w * sizeof(float);
+  dim3 grid((in_h + ob - 1) / ob, t);
   cudaStream_t s = (cudaStream_t)stream;
 #define PP_LAUNCH(U, L)                                                     \
   launch_post<U, L>(grid, smem, s, rre, rim, i_plane, q_plane, rgb_u8, win, \
-                    tw_re, tw_im, out0, out1, out2, prm, radius, hr, wk, w, \
-                    in_h, in_w, yrow0, x0, scale)
+                    tw_re, tw_im, out0, out1, out2, prm, radius, ob, hr,    \
+                    wk, w, in_h, in_w, yrow0, x0, scale)
   cudaError_t err;
   switch (layout + 3 * (int)u8) {
     case 0: err = PP_LAUNCH(false, 0); break;

@@ -7,9 +7,11 @@ predicate, kept under its JAX name so the two packages route alike),
 `csrc/rowifft_post.cu`), `post_fused_rgb` (kernel 11, the chroma="rgb"
 tail after kernel 7; CUDA: `csrc/post_rgb.cu`) and `post_fused` (kernel
 10, the y_only tail after kernel 7; CUDA: `csrc/post_rgb.cu`), all in the
-three output layouts.  Like the JAX package's, the engines reach
-`post_fused` only through `engine.video._post_block`, where kernel 3
-always serves first: no entry point launches it.
+three output layouts, at every blur radius `post_pallas_ok` admits.
+Like the JAX package's, the engines reach `post_fused` through
+`engine.video._post_block`, where kernel 3 serves first; on the card
+`rowifft_post_fused` also runs kernel 7 + kernel 10 in place of kernel 3
+where kernel 3's block does not fit shared memory (`kernel3_serves`).
 
 Kernel 3's chain per frame: rebuild the missing Hermitian tiles, row
 IFFT (bit-reversed lanes in, natural out), |z| (or Re z) / (pad_h *
@@ -36,7 +38,11 @@ from pbmm_tpu_torch.kernels import (
     device_arrays,
     stream_handle,
 )
-from pbmm_tpu_torch.spectral.fused import lane_plan, rebuilt_row_ifft
+from pbmm_tpu_torch.spectral.fused import (
+    lane_plan,
+    rebuilt_row_ifft,
+    row_ifft_magnitude,
+)
 from pbmm_tpu_torch.spectral.radix2 import _dif_twiddles, check_pow2
 
 _LANE = 128
@@ -83,6 +89,35 @@ def post_pallas_ok(geom: Geometry, cfg, rows0: int, region_h: int) -> bool:
 
 
 _LAYOUTS = ("tuple3", "planar", "planar_u8")  # csrc/rowifft_post.cu order
+# Largest blur radius of the CUDA post kernels (PBMM_MAX_BLUR_R):
+# `post_pallas_ok` admits 2 r <= ob with the output block ob <= 192.
+_MAX_BLUR_R = 96
+_SMEM_BYTES = 232448  # shared memory a block may use on an H100
+_KERNEL3_OB = 8  # output rows a kernel-3 block holds where they fit
+
+
+def kernel3_rows(radius: int, pad_w: int) -> int:
+    """Output rows a block of kernel 3 (`csrc/rowifft_post.cu`) holds at
+    this blur radius and padded width: 8, or fewer where the block's
+    (2 + rows + 2 r) rows of `pad_w` f32 would pass 227 KB of shared
+    memory; 0 where not even one output row fits."""
+    fit = _SMEM_BYTES // (4 * pad_w) - 2 - 2 * radius
+    return max(0, min(_KERNEL3_OB, fit))
+
+
+def kernel3_serves(radius: int, pad_w: int) -> bool:
+    """Which kernels take the y_only tail on the card: kernel 3 where one
+    of its blocks fits (`kernel3_rows` > 0), else kernel 7 (row IFFT +
+    |z|) then kernel 10 (blur, crop, chroma, RGB) on its rows, the same
+    arithmetic in two launches.  At `pad_w` 2048 kernel 3 serves r <= 12,
+    at 4096 r <= 5."""
+    return kernel3_rows(radius, pad_w) > 0
+
+
+def _check_radius(r: int) -> None:
+    if r > _MAX_BLUR_R:
+        raise ValueError(f"the CUDA post kernels take blur radii up to "
+                         f"{_MAX_BLUR_R}, got {r}")
 
 
 def _u8_chroma_coeffs():
@@ -187,14 +222,7 @@ def rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     rec = rebuilt_row_ifft(rre, rim, wp, 1.0 / (geom.pad_h * wp),
                            cfg.reconstruct == "magnitude")
     y = _blur_crop(rec, cfg, geom, rows0)
-    if rgb_u8 is not None:
-        c = _u8_chroma_coeffs()
-        rgb = [rgb_u8[:, k].to(torch.float32) for k in range(3)]
-        iw = channel_mix(*rgb, c[:3]) * win
-        qw = channel_mix(*rgb, c[3:]) * win
-    else:
-        iw = i_plane * win
-        qw = q_plane * win
+    iw, qw = _windowed_chroma(i_plane, q_plane, rgb_u8, win)
     return _finish(y, iw, qw, win, cfg, out_layout)
 
 
@@ -216,7 +244,8 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     served as in the JAX kernel.
 
     CPU tensors take `rowifft_post_fused_ref`; CUDA tensors launch
-    `csrc/rowifft_post.cu`."""
+    `csrc/rowifft_post.cu`, or, where `kernel3_serves` is False,
+    `row_ifft_magnitude` (kernel 7) and `post_fused` (kernel 10)."""
     if rre.device.type == "cpu":
         return rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg,
                                       rows0, in_h, in_w, pad_mode, full_w,
@@ -226,14 +255,14 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     geom, wp = _check_post(rre, i_plane, q_plane, rgb_u8, cfg, in_h, in_w,
                            pad_mode, rows0, full_w, out_layout)
     t, hr, wk = rre.shape
-    # csrc/rowifft_post.cu holds one complex row plus 8 output rows and
-    # their blur halo of |z| in shared memory (227 KB a block on an H100),
-    # and takes blur radii up to 4 (PP_MAXR).
     r = _radius(cfg)
-    if r > 4 or (2 + 8 + 2 * r) * wp * 4 > 232448:
-        raise ValueError(f"the CUDA post kernel takes blur radius <= 4 and "
-                         f"rows that fit shared memory; got radius {r}, "
-                         f"{wp} lanes")
+    _check_radius(r)
+    if not kernel3_serves(r, wp):
+        rec = row_ifft_magnitude(rre, rim,
+                                 magnitude=(cfg.reconstruct == "magnitude"),
+                                 pad_h=geom.pad_h, full_w=wp)
+        return post_fused(rec, i_plane, q_plane, win, cfg, rows0, in_h, in_w,
+                          pad_mode, out_layout, rgb_u8=rgb_u8)
     check_cuda("rowifft_post_fused", (t, hr, wk), rre, rim)
     check_cuda("rowifft_post_fused", (in_h, in_w), win)
     if rgb_u8 is None:
@@ -252,7 +281,8 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
         twr.data_ptr(), twi.data_ptr(), *ptrs,
         c_ints(kp for kp, _ in plan), c_ints(rev for _, rev in plan),
         len(plan), c_floats(blur_taps(cfg.blur_size)), r,
-        c_floats(YIQ_TO_RGB.reshape(-1)), c_floats(_u8_chroma_coeffs()),
+        kernel3_rows(r, wp), c_floats(YIQ_TO_RGB.reshape(-1)),
+        c_floats(_u8_chroma_coeffs()),
         _LAYOUTS.index(out_layout), t, hr, wk, wp, in_h, in_w,
         geom.y0 - rows0, geom.x0, float(1.0 / (geom.pad_h * wp)),
         int(cfg.reconstruct == "magnitude"), *_epilogue_args(cfg),
@@ -317,9 +347,7 @@ def post_fused_rgb(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
                            out_layout)
     t3, hr, wp = chans3.shape
     r = _radius(cfg)
-    if r > 4:
-        raise ValueError(f"the CUDA post kernel takes blur radius <= 4, "
-                         f"got {r}")
+    _check_radius(r)
     check_cuda("post_fused_rgb", (t3, hr, wp), chans3)
     check_cuda("post_fused_rgb", (in_h, in_w), win)
     dev = chans3.device
@@ -343,65 +371,89 @@ post_fused_rgb.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_post_yonly(chans, i_plane, q_plane, cfg, rows0, in_h, in_w,
-                      pad_mode, out_layout):
+def _check_post_yonly(chans, i_plane, q_plane, rgb_u8, cfg, rows0, in_h,
+                      in_w, pad_mode, out_layout):
     if out_layout not in _LAYOUTS:
         raise ValueError(f"unknown out_layout {out_layout!r}")
+    if (rgb_u8 is None) == (i_plane is None or q_plane is None):
+        raise ValueError("pass either the f32 I/Q planes or rgb_u8")
     t, hr, wp = chans.shape
     geom = geometry_for(in_h, in_w, pad_mode)
     if wp != geom.pad_w:
         raise ValueError(f"region rows of {wp} lanes for a pad width of "
                          f"{geom.pad_w}")
-    for pl in (i_plane, q_plane):
-        if tuple(pl.shape) != (t, in_h, in_w):
-            raise ValueError(f"chroma plane {tuple(pl.shape)} for {t} "
+    shapes = ([(pl, (t, in_h, in_w)) for pl in (i_plane, q_plane)]
+              if rgb_u8 is None else [(rgb_u8, (t, 3, in_h, in_w))])
+    for pl, want in shapes:
+        if tuple(pl.shape) != want:
+            raise ValueError(f"chroma source {tuple(pl.shape)} for {t} "
                              f"frames of {in_h} x {in_w}")
     _halo_check(geom, _radius(cfg), rows0, hr, wp)
     return geom
 
 
+def _windowed_chroma(i_plane, q_plane, rgb_u8, win):
+    """(I, Q) times the crop-region window: from the f32 planes, or formed
+    from the uint8 frames as the u8 chroma path of kernel 3 forms them."""
+    if rgb_u8 is None:
+        return i_plane * win, q_plane * win
+    c = _u8_chroma_coeffs()
+    rgb = [rgb_u8[:, k].to(torch.float32) for k in range(3)]
+    return channel_mix(*rgb, c[:3]) * win, channel_mix(*rgb, c[3:]) * win
+
+
 def post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
-                   in_w: int, pad_mode: str, out_layout: str = "tuple3"):
+                   in_w: int, pad_mode: str, out_layout: str = "tuple3",
+                   rgb_u8=None):
     """Plain PyTorch version of `post_fused`: `_blur_crop` of the Y rows,
     the windowed chroma, then `_finish`."""
-    geom = _check_post_yonly(chans, i_plane, q_plane, cfg, rows0, in_h,
-                             in_w, pad_mode, out_layout)
+    geom = _check_post_yonly(chans, i_plane, q_plane, rgb_u8, cfg, rows0,
+                             in_h, in_w, pad_mode, out_layout)
     y = _blur_crop(chans, cfg, geom, rows0)
-    return _finish(y, i_plane * win, q_plane * win, win, cfg, out_layout)
+    iw, qw = _windowed_chroma(i_plane, q_plane, rgb_u8, win)
+    return _finish(y, iw, qw, win, cfg, out_layout)
 
 
 @checked
 def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
-               in_w: int, pad_mode: str, out_layout: str = "tuple3"):
+               in_w: int, pad_mode: str, out_layout: str = "tuple3",
+               rgb_u8=None):
     """(T, Hr, Wp) reconstruction rows of Y (region rows from `rows0`) +
-    (T, H, W) original I/Q planes + (H, W) crop-region Hann -> RGB in
-    [0, 1]: the blur, the crop, the windowed chroma, the window
-    compensation and YIQ gains, YIQ -> RGB and the clip (`posttail`'s
-    math), written in `out_layout` as `post_fused_rgb` does.  Callers
-    have checked `post_pallas_ok`.
+    the original chroma + (H, W) crop-region Hann -> RGB in [0, 1]: the
+    blur, the crop, the windowed chroma, the window compensation and YIQ
+    gains, YIQ -> RGB and the clip (`posttail`'s math), written in
+    `out_layout` as `post_fused_rgb` does.  The chroma is either the
+    (T, H, W) f32 I/Q planes or, with `rgb_u8`, the (T, 3, H, W) uint8
+    source frames (i_plane/q_plane None), as for `rowifft_post_fused`.
+    Callers have checked `post_pallas_ok`.
 
     CPU tensors take `post_fused_ref`; CUDA tensors launch
     `csrc/post_rgb.cu::pbmm_post_yonly`."""
     if chans.device.type == "cpu":
         return post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0,
-                              in_h, in_w, pad_mode, out_layout)
+                              in_h, in_w, pad_mode, out_layout, rgb_u8)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
-    geom = _check_post_yonly(chans, i_plane, q_plane, cfg, rows0, in_h,
-                             in_w, pad_mode, out_layout)
+    geom = _check_post_yonly(chans, i_plane, q_plane, rgb_u8, cfg, rows0,
+                             in_h, in_w, pad_mode, out_layout)
     t, hr, wp = chans.shape
     r = _radius(cfg)
-    if r > 4:
-        raise ValueError(f"the CUDA post kernel takes blur radius <= 4, "
-                         f"got {r}")
+    _check_radius(r)
     check_cuda("post_fused", (t, hr, wp), chans)
-    check_cuda("post_fused", (t, in_h, in_w), i_plane, q_plane)
+    if rgb_u8 is None:
+        check_cuda("post_fused", (t, in_h, in_w), i_plane, q_plane)
+        chroma = (i_plane.data_ptr(), q_plane.data_ptr(), None, None)
+    else:
+        check_cuda("post_fused", (t, 3, in_h, in_w), rgb_u8,
+                   dtype=torch.uint8)
+        chroma = (None, None, rgb_u8.data_ptr(),
+                  c_floats(_u8_chroma_coeffs()))
     check_cuda("post_fused", (in_h, in_w), win)
     dev = chans.device
     outs, ptrs = _outputs(t, in_h, in_w, out_layout, dev)
     err = library().pbmm_post_yonly(
-        chans.data_ptr(), i_plane.data_ptr(), q_plane.data_ptr(),
-        win.data_ptr(), *ptrs, c_floats(blur_taps(cfg.blur_size)), r,
+        chans.data_ptr(), *chroma, win.data_ptr(), *ptrs,
+        c_floats(blur_taps(cfg.blur_size)), r,
         c_floats(YIQ_TO_RGB.reshape(-1)), _LAYOUTS.index(out_layout), t, hr,
         wp, in_h, in_w, geom.y0 - rows0, geom.x0, *_epilogue_args(cfg),
         stream_handle(dev))

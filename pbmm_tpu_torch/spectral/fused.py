@@ -67,7 +67,8 @@ from pbmm_tpu_torch.spectral.radix2 import (
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
-PBMM_COL_S = 4  # columns a block of the CUDA column kernels holds
+_COL_STRIP = 4  # columns a block of the CUDA strip kernels (2, 6, 12)
+_COL_STRIP_TALL = 2  # ... holds above H = 2048 (PBMM_COL_S_TALL)
 _MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
 
 
@@ -453,17 +454,24 @@ windowed_row_fft_u8planar.launches = 0
 # Kernel 2: column FFT + band/phase + column IFFT over a chunk
 # ---------------------------------------------------------------------------
 
-_COLSPEC_MAX_H = 2048  # tallest column csrc/colspec_chunk.cu holds on chip
+_COLSPEC_MAX_H = 4096  # tallest column kernels 2, 6 and 12 hold on chip
+_COL_FFT_MAX_H = 8192  # longest column of kernel 5 (three passes)
 _MAX_ORIENTATIONS = 16  # sector count of the CUDA phase pass (CS_MAXK)
 _MAX_LEVELS = 16  # radial levels of the CUDA phase pass (CS_MAXB)
 _MASK_KINDS = ("zero", "high", "low", "band")
 
 
-def _check_col_height(pad_h: int) -> None:
-    if pad_h > _COLSPEC_MAX_H:
-        raise ValueError(
-            f"the CUDA column kernels hold columns up to {_COLSPEC_MAX_H} "
-            f"rows in shared memory, got {pad_h}")
+def col_strip(h: int) -> int:
+    """Columns a block of the strip kernels (2, 6, 12) holds at column
+    height h: 4 up to 2048 rows, 2 above (csrc/common.cuh)."""
+    return _COL_STRIP if h <= 2048 else _COL_STRIP_TALL
+
+
+def _check_col_height(pad_h: int, limit: int = _COLSPEC_MAX_H,
+                      what: str = "the CUDA strip kernels (2, 6, 12) hold "
+                                  "columns") -> None:
+    if pad_h > limit:
+        raise ValueError(f"{what} up to {limit} rows, got {pad_h}")
 
 
 class _PhasePlan(NamedTuple):
@@ -905,9 +913,9 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
                              lp_slow)
     b, h, w = cur_re.shape
     _check_col_height(h)
-    if w % PBMM_COL_S:
+    if w % col_strip(h):
         raise ValueError(f"the CUDA kernel takes widths that are multiples "
-                         f"of {PBMM_COL_S}, got {w}")
+                         f"of {col_strip(h)} at H = {h}, got {w}")
     taps = (lp_fast, lp_slow) if lp_fast is not None else ()
     check_cuda("phase_col_ifft", (b, h, w), cur_re, cur_im, prev_re,
                prev_im, *taps)
@@ -972,7 +980,7 @@ def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
     (the zero rows are never read), rows bit-reversed: the radix-2 DIF of
     `colspec_chunk`'s pow-2 branch, the same op sequence, so the spectrum
     of a frame equals the one kernel 2 carries bit for bit.  pow-2
-    heights only.
+    heights only, up to 8192 on the card.
 
     CPU tensors take `col_fft_zero_padded_ref`; CUDA tensors launch
     `csrc/col_fft.cu`."""
@@ -982,7 +990,8 @@ def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
 
     _col_fft_args(re, pad_h, row0)
     b, hc, w = re.shape
-    _check_col_height(pad_h)
+    _check_col_height(pad_h, _COL_FFT_MAX_H, "the CUDA column FFT takes "
+                                             "columns")
     check_cuda("col_fft_zero_padded", (b, hc, w), re, im)
     dev = re.device
     twr, twi = device_arrays(_dif_twiddles, (pad_h, False), dev)

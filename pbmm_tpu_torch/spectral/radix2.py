@@ -132,8 +132,8 @@ def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
 
     n = _fft_axis_args(re, im, axis, inverse)
     if n > 8192:
-        raise ValueError(f"the CUDA kernel holds transforms up to 8192 "
-                         f"points in shared memory, got {n}")
+        raise ValueError(f"the CUDA kernel takes transforms up to 8192 "
+                         f"points, got {n}")
     check_cuda("_fft_axis", tuple(re.shape), re,
                *(() if im is None else (im,)))
     dev = re.device

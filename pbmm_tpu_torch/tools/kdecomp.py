@@ -142,9 +142,9 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
     bits = _kdecomp_args(cur_re, cfg, pieces, rows)
     b, h, w = cur_re.shape
     fused._check_col_height(h)
-    if w % fused.PBMM_COL_S:
+    if w % fused.col_strip(h):
         raise ValueError(f"the CUDA kernel takes widths that are multiples "
-                         f"of {fused.PBMM_COL_S}, got {w}")
+                         f"of {fused.col_strip(h)} at H = {h}, got {w}")
     check_cuda("kdecomp_variant", (b, h, w), cur_re, cur_im, prev_re,
                prev_im)
     dev = cur_re.device

@@ -1,0 +1,174 @@
+"""Blur radii above the default, and padded heights above 2048, on the CPU.
+
+- The port's `magnify_video` against the JAX package's (interpret mode)
+  on the same numpy-seeded bar frames, at 96x384 (tight: 128x512, where
+  `post_pallas_ok` holds for every radius below), in y_only f32, rgb and
+  planar uint8 -> planar_u8, at `blur_size` 0.5, 0.75, 1.5 and 4.0 (blur
+  radii 2, 3, 5 and 13): > 70 dB between the packages, the path bar of
+  tests/test_fused.py.
+- The predicate that routes the y_only tail on the card
+  (`post_fused.kernel3_serves`): kernel 3 up to radius 12 at a padded
+  width of 2048 and up to 5 at 4096, kernels 7 + 10 above.
+- Kernel 10's plain version with the uint8 chroma source against
+  kernel 3's on the same rows.
+- The port's plain `colspec_chunk_ref` against the JAX `colspec_chunk`
+  (interpret) at the padded heights of 2160p: 4096 (square_pow2) and
+  2176 = 17 x 128 (tight), 128 lanes, 2 frames: spectra to max error /
+  max magnitude < 1e-4, as tests/test_torch_kernels.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pbmm_tpu.config import MagnifyConfig as JCfg
+from pbmm_tpu.engine.post_pallas import post_pallas_ok as jpost_ok
+from pbmm_tpu.engine.video import magnify_video as jmagnify
+from pbmm_tpu.oracle.synthetic import oscillating_bar
+from pbmm_tpu.spectral.fused import colspec_chunk as jcolspec
+from pbmm_tpu.spectral.pallas_fft import set_gm_precision
+from pbmm_tpu_torch import MagnifyConfig, magnify_video
+from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
+from pbmm_tpu_torch.engine import post_fused
+from pbmm_tpu_torch.engine.pipeline import blur_row_window
+from pbmm_tpu_torch.spectral import fused
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs (the suite runs in
+    parallel worker processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+BLUR = {0.5: 2, 0.75: 3, 1.5: 5, 4.0: 13}  # blur_size -> radius
+MODES = {"y_only": dict(),
+         "rgb": dict(chroma="rgb"),
+         "planar_u8": dict(output_layout="planar_u8")}
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+@pytest.fixture(scope="module")
+def clip():
+    return oscillating_bar(size=384, frames=3, bar_width=2)[:, :96]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("blur_size", sorted(BLUR))
+def test_blur_radius_vs_jax(clip, blur_size, mode):
+    change = dict(pad_mode="tight", blur_size=blur_size, **MODES[mode])
+    t = MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(**change)
+    j = JCfg(phase_scale=10.0).tuned_for_tpu().replace(
+        interpret_pallas=True, **change)
+    geom = geometry_for(96, 384, "tight")
+    rows = blur_row_window(geom, t)
+    assert post_fused._radius(t) == BLUR[blur_size]
+    assert post_fused.post_pallas_ok(geom, t, rows[0], rows[1] - rows[0])
+    assert jpost_ok(geom, j, rows[0], rows[1] - rows[0])
+    frames = clip
+    if mode == "planar_u8":
+        frames = np.ascontiguousarray(np.moveaxis(
+            np.round(clip * 255.0).astype(np.uint8), -1, 1))
+    got, _ = magnify_video(torch.from_numpy(frames), t, device="cpu")
+    want = np.asarray(jmagnify(frames, j)[0])
+    assert got.shape == want.shape
+    got = got.numpy()
+    if mode == "planar_u8":
+        assert got.dtype == want.dtype == np.uint8
+        assert int(np.abs(got.astype(int) - want).max()) <= 1
+        got, want = got / 255.0, want / 255.0
+    assert _psnr(got, want) > 70
+
+
+@pytest.mark.parametrize("pad_w,radius,kernel3", [
+    (2048, 2, True), (2048, 3, True), (2048, 5, True), (2048, 12, True),
+    (2048, 13, False), (4096, 2, True), (4096, 5, True), (4096, 6, False),
+    (4096, 13, False), (1024, 13, True), (8192, 2, True), (8192, 3, False),
+])
+def test_kernel3_route(pad_w, radius, kernel3):
+    """Kernel 3 holds (2 + rows + 2 r) rows of `pad_w` f32 in 227 KB of
+    shared memory: it serves while one output row fits, with 8 rows a
+    block where they fit and fewer where the halo leaves less room."""
+    assert post_fused.kernel3_serves(radius, pad_w) is kernel3
+    rows = post_fused.kernel3_rows(radius, pad_w)
+    assert (rows > 0) is kernel3 and rows <= 8
+    if kernel3:
+        assert (2 + rows + 2 * radius) * pad_w * 4 <= 232448
+    if rows < 8:
+        assert (2 + rows + 1 + 2 * radius) * pad_w * 4 > 232448
+    assert post_fused.kernel3_rows(2, 2048) == 8
+    assert post_fused.kernel3_rows(12, 2048) == 2
+
+
+@pytest.mark.parametrize("layout", ["tuple3", "planar_u8"])
+def test_post_fused_u8_chroma_ref_matches_kernel3_ref(layout):
+    """Kernel 10 takes over from kernel 3 where kernel 3's block does not
+    fit: on kernel 7's rows with the uint8 frames as the chroma source it
+    gives what kernel 3 gives."""
+    in_h, in_w = 96, 384
+    cfg = MagnifyConfig().tuned_for_tpu().replace(pad_mode="tight",
+                                                  blur_size=4.0)
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, cfg)
+    hr = rows[1] - rows[0]
+    rng = np.random.default_rng(3)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    rre, rim = (torch.from_numpy((scale * rng.standard_normal(
+        (2, hr, g.pad_w))).astype(np.float32)) for _ in range(2))
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 3, in_h, in_w),
+                                       dtype=np.uint8))
+    win = hann2d_region(g)
+    want = post_fused.rowifft_post_fused(
+        rre, rim, None, None, win, cfg, rows[0], in_h, in_w, "tight",
+        full_w=g.pad_w, rgb_u8=u8, out_layout=layout)
+    rec = fused.row_ifft_magnitude(rre, rim, pad_h=g.pad_h, full_w=g.pad_w)
+    got = post_fused.post_fused(rec, None, None, win, cfg, rows[0], in_h,
+                                in_w, "tight", layout, rgb_u8=u8)
+    if layout == "tuple3":
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) < 1e-6
+    else:
+        assert got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+    with pytest.raises(ValueError, match="rgb_u8"):
+        post_fused.post_fused(rec, None, None, win, cfg, rows[0], in_h, in_w,
+                              "tight", layout)
+
+
+@pytest.mark.parametrize("pad_h,row0", [(4096, 968), (2176, 8)],
+                         ids=["square_pow2_4096", "tight_2176"])
+def test_colspec_chunk_ref_vs_jax_tall(pad_h, row0):
+    hc = 2160
+    rng = np.random.default_rng(pad_h)
+    rows_in = [rng.standard_normal((2, hc, 128)).astype(np.float32)
+               for _ in range(2)]
+    prev = [rng.standard_normal((1, pad_h, 128)).astype(np.float32)
+            for _ in range(2)]
+    tc = MagnifyConfig(phase_scale=10.0).tuned_for_tpu().replace(
+        pad_mode="tight")
+    jc = JCfg(phase_scale=10.0).tuned_for_tpu().replace(
+        pad_mode="tight", interpret_pallas=True, gm_precision="highest")
+    # Full-f32 matmuls in the JAX kernel, as tests/test_torch_kernels.py.
+    set_gm_precision("highest")
+    try:
+        want = [np.asarray(x) for x in jcolspec(
+            *[jnp.asarray(x) for x in rows_in + prev], jc, pad_h=pad_h,
+            row0=row0, out_rows=(0, pad_h), interpret=True)]
+    finally:
+        set_gm_precision("")
+    got = fused.colspec_chunk_ref(*[torch.from_numpy(x)
+                                    for x in rows_in + prev], tc, pad_h,
+                                  row0, out_rows=(0, pad_h))
+    assert got[0].shape == (2, pad_h, 128)
+    assert got[2].shape == (1, pad_h, 128)
+    for k in (0, 2):
+        g = got[k].numpy() + 1j * got[k + 1].numpy()
+        w = want[k] + 1j * want[k + 1]
+        assert np.abs(g - w).max() / np.abs(w).max() < 1e-4

@@ -21,7 +21,19 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   variant bit for bit against kernel 6; kernel 13 (the copy probe) in
   every pattern, bit for bit; kernel 14 (the trig probe) in every op
   code; `debug_mode` catching a planted NaN; `stage_times` and `timeit`
-  on the card.
+  on the card;
+- 2160p's heights: kernels 2, 5 and 6 at H = 4096 (with and without the
+  IIR taps; 6 = 2's rows and 12 = 6 bit for bit), kernel 2 at tight
+  H = 2176 (m = 17), the refusals above 4096 (kernels 2, 6) and 8192
+  (kernel 5);
+- the column engine of kernels 5 and 8 (`csrc/col_pass.cuh`): kernel 8
+  in every kind at lengths 2 to 8192 on ragged widths, kernel 5 bit for
+  bit against kernel 2's forward half at H = 512 to 4096 and against
+  its plain version at 8192;
+- blur radii 3, 5 and 13: kernels 3, 10 (f32 and uint8 chroma) and 11,
+  kernel 3's route through kernels 7 + 10, `magnify_video` at 1080p in
+  y_only, uint8 -> planar_u8 and rgb against the CPU, and the CLI's
+  `--fast --blur-size 1.5` at 1080p.
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
@@ -332,13 +344,118 @@ def test_col_fft_kernel_matches_colspec_bootstrap(dev):
         assert torch.equal(res[3][0], got[1][b])
 
 
-def test_square_pow2_4k_refused_by_name(dev):
+def _tall_cfg(pad_mode, iir):
+    change = dict(temporal=TemporalConfig(mode="iir_bandpass")) if iir else {}
+    return _cfg().replace(pad_mode=pad_mode, **change)
+
+
+@pytest.mark.parametrize("iir", [False, True], ids=["two_frame", "iir"])
+def test_square_pow2_4k_kernels(dev, iir):
+    """2160p at square_pow2 pads to H = 4096: kernels 2 and 6 on strips of
+    2 columns and kernel 5's two passes, each against its plain version;
+    kernel 6's rows equal kernel 2's and kernel 12's full variant equals
+    kernel 6, bit for bit."""
+    cfg = _tall_cfg("square_pow2", iir)
+    h, fw, hc, row0, rows = 4096, 512, 2160, 968, (964, 3132)
+    w = hermitian_kept_width(fw)
+    rng = np.random.default_rng(30)
+    rows_in = [_spectra(rng, (3, hc, w), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, w), dev) for _ in range(2)]
+    taps = ([0.1 * _spectra(rng, (1, h, w), dev) for _ in range(2)]
+            if iir else [])
+    kw = dict(out_rows=rows, full_w=fw)
+    n = fused.colspec_chunk.launches
+    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, h, row0, *taps, **kw)
+    assert fused.colspec_chunk.launches == n + 1
+    want = fused.colspec_chunk_ref(*[x.cpu() for x in rows_in + prev], cfg,
+                                   h, row0, *[x.cpu() for x in taps], **kw)
+    for k in range(0, len(k2), 2):
+        assert _rel([g.cpu() for g in k2[k:k + 2]], want[k:k + 2]) < 1e-4
+    k5 = fused.col_fft_zero_padded(*rows_in, h, row0)
+    want5 = fused.col_fft_zero_padded_ref(*[x.cpu() for x in rows_in], h,
+                                          row0)
+    assert _rel([g.cpu() for g in k5], want5) < 1e-4
+    prv = [torch.cat([p, c[:-1]]) for p, c in zip(prev, k5)]
+    tap6 = ([0.1 * _spectra(rng, (3, h, w), dev) for _ in range(2)]
+            if iir else [])
+    k6 = fused.phase_col_ifft(*k5, *prv, cfg, **kw,
+                              **dict(zip(("lp_fast", "lp_slow"), tap6)))
+    want6 = fused.phase_col_ifft_ref(
+        *[x.cpu() for x in (*k5, *prv)], cfg, **kw,
+        **dict(zip(("lp_fast", "lp_slow"), [x.cpu() for x in tap6])))
+    assert _rel([g.cpu() for g in k6[:2]], want6[:2]) < 1e-4
+    if iir:
+        return
+    assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg, kdecomp.VARIANTS[-1][1],
+                                  rows, full_w=fw)
+    assert all(torch.equal(a, b) for a, b in zip(k12, k6))
+
+
+@pytest.mark.parametrize("iir", [False, True], ids=["two_frame", "iir"])
+def test_tight_2160p_colspec_kernel(dev, iir):
+    """2160p at tight pads to H = 2176 = 17 x 128: kernel 2's four-step
+    instantiation for m up to 32 (kernel 6 takes pow-2 heights only, as
+    the JAX phase_col_ifft)."""
+    cfg = _tall_cfg("tight", iir)
+    h, fw, hc, row0 = 2176, 512, 2176, 0
+    w = hermitian_kept_width(fw)
+    rng = np.random.default_rng(31)
+    rows_in = [_spectra(rng, (3, hc, w), dev, True) for _ in range(2)]
+    state = [_spectra(rng, (1, h, w), dev, True) for _ in range(2)]
+    if iir:
+        state += [0.1 * _spectra(rng, (1, h, w), dev) for _ in range(2)]
+    kw = dict(out_rows=(8, 2168), full_w=fw)
+    got = fused.colspec_chunk(*rows_in, *state[:2], cfg, h, row0,
+                              *state[2:], **kw)
+    want = fused.colspec_chunk_ref(*[x.cpu() for x in rows_in + state[:2]],
+                                   cfg, h, row0,
+                                   *[x.cpu() for x in state[2:]], **kw)
+    assert len(got) == len(want) == 4 + len(state[2:])
+    for k in range(0, len(got), 2):
+        assert _rel([g.cpu() for g in got[k:k + 2]], want[k:k + 2]) < 1e-4
+
+
+def test_column_kernels_refuse_past_their_height_by_name(dev):
     z = torch.zeros((1, 64, 128), device=dev)
-    zp = torch.zeros((1, 4096, 128), device=dev)
-    with pytest.raises(ValueError, match="2048"):
-        fused.colspec_chunk(z, z, zp, zp, _cfg(), 4096, 0)
-    with pytest.raises(ValueError, match="2048"):
-        fused.col_fft_zero_padded(z, z, 4096)
+    zp = torch.zeros((1, 8192, 128), device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        fused.colspec_chunk(z, z, zp, zp, _cfg(), 8192, 0)
+    with pytest.raises(ValueError, match="4096"):
+        fused.phase_col_ifft(zp, zp, zp, zp, _cfg())
+    with pytest.raises(ValueError, match="8192"):
+        fused.col_fft_zero_padded(z, z, 16384)
+
+
+@pytest.mark.parametrize("h", [512, 1024, 2048, 4096])
+@pytest.mark.parametrize("where", ["row0_zero", "off_centre"])
+def test_col_fft_kernel_equals_colspec_forward(dev, h, where):
+    """Kernel 5 (the column engine's passes) equals kernel 2's forward
+    half (the strip in shared memory) bit for bit: the spectrum kernel 2
+    carries out of a zero-prev start of each frame."""
+    hc = h // 2 + 40
+    row0 = 0 if where == "row0_zero" else (h - hc) // 2 + 5
+    w = hermitian_kept_width(512)
+    rng = np.random.default_rng(h)
+    re, im = (_spectra(rng, (2, hc, w), dev) for _ in range(2))
+    got = fused.col_fft_zero_padded(re, im, h, row0)
+    z = torch.zeros((1, h, w), device=dev)
+    for b in range(2):
+        res = fused.colspec_chunk(re[b:b + 1], im[b:b + 1], z, z,
+                                  _cfg().replace(pad_mode="square_pow2"), h,
+                                  row0, full_w=512)
+        assert torch.equal(res[2][0], got[0][b])
+        assert torch.equal(res[3][0], got[1][b])
+
+
+def test_col_fft_kernel_8192(dev):
+    rng = np.random.default_rng(32)
+    re, im = (_spectra(rng, (1, 4320, 128), dev) for _ in range(2))
+    n = fused.col_fft_zero_padded.launches
+    got = fused.col_fft_zero_padded(re, im, 8192, 1936)
+    assert fused.col_fft_zero_padded.launches == n + 1
+    want = fused.col_fft_zero_padded_ref(re.cpu(), im.cpu(), 8192, 1936)
+    assert _rel([g.cpu() for g in got], want) < 1e-4
 
 
 _QUIRKS = {
@@ -738,3 +855,159 @@ def test_stage_times_and_timeit_on_the_card(dev):
     assert all(0 < v < 1 for v in got.values())
     x = torch.ones((1 << 20,), device=dev)
     assert 0 < timeit(lambda a: a * 2, x, reps=3) < 1
+
+
+# -- the column engine of kernels 5 and 8 at every length, blur radii above
+#    4 (kernels 3, 10, 11 and the kernel 7 + 10 route), 1080p end to end --------
+
+
+@pytest.mark.parametrize("kind", ["forward_real", "forward_complex",
+                                  "inverse_scaled"])
+@pytest.mark.parametrize("n", [2, 8, 128, 2048, 8192])
+@pytest.mark.parametrize("w", [24, 40, 1000])
+def test_fft_axis_column_kernel(dev, n, w, kind):
+    """Kernel 8's column pass (col_pass.cuh: one to three passes, ragged
+    last tile of 32 columns) against its plain version."""
+    rng = np.random.default_rng(n + w)
+    shape = (2 if n <= 2048 else 1, n, w)
+    re, im = (_rand(rng, shape, dev) for _ in range(2))
+    im = None if kind == "forward_real" else im
+    inverse = kind == "inverse_scaled"
+    scale = 1.0 / (n * w) if inverse else 1.0
+    got = radix2._fft_axis(re, im, 1, inverse, scale)
+    want = radix2._fft_axis_ref(re.cpu(), None if im is None else im.cpu(),
+                                1, inverse, scale)
+    assert _rel([g.cpu() for g in got], want) < 1e-4
+
+
+def _blur_cfg(blur_size, **change):
+    return _cfg().replace(blur_size=blur_size, **change)
+
+
+@pytest.mark.parametrize("blur_size", [0.75, 1.5, 4.0])
+@pytest.mark.parametrize("src,layout", [("f32", "tuple3"),
+                                        ("u8", "planar_u8"),
+                                        ("u8", "planar"),
+                                        ("f32", "planar_u8")])
+def test_post_kernel_blur_radius(dev, blur_size, src, layout):
+    """Kernel 3 at blur radii 3 and 5 (8 output rows a block) and, at 13,
+    the kernel 7 + kernel 10 route that replaces it at a padded width of
+    2048, each against kernel 3's plain version at 1080p tight."""
+    cfg = _blur_cfg(blur_size)
+    in_h, in_w = 1080, 1920
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, cfg)
+    wk, hr = hermitian_kept_width(g.pad_w), rows[1] - rows[0]
+    r = post_fused._radius(cfg)
+    rng = np.random.default_rng(33)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    rre, rim = (_rand(rng, (2, hr, wk), dev, scale) for _ in range(2))
+    if src == "f32":
+        chroma = (_rand(rng, (2, in_h, in_w), dev, 0.3),
+                  _rand(rng, (2, in_h, in_w), dev, 0.3), None)
+    else:
+        chroma = (None, None, torch.from_numpy(rng.integers(
+            0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev))
+    args = (rre, rim, chroma[0], chroma[1], hann2d_region(g, device=dev),
+            cfg, rows[0], in_h, in_w, "tight")
+    kw = dict(full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout)
+    counts = {f: f.launches for f in (post_fused.rowifft_post_fused,
+                                      fused.row_ifft_magnitude,
+                                      post_fused.post_fused)}
+    got = post_fused.rowifft_post_fused(*args, **kw)
+    routed = not post_fused.kernel3_serves(r, g.pad_w)
+    assert routed == (r == 13)
+    moved = {f: f.launches - n for f, n in counts.items()}
+    assert moved == {post_fused.rowifft_post_fused: int(not routed),
+                     fused.row_ifft_magnitude: int(routed),
+                     post_fused.post_fused: int(routed)}
+    want = post_fused.rowifft_post_fused_ref(*args, **kw)
+    if layout == "tuple3":
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) < 1e-4
+    elif layout == "planar":
+        assert float((got - want).abs().max()) < 1e-4
+    else:
+        assert got.dtype == torch.uint8
+        assert int((got.int() - want.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("blur_size", [0.75, 1.5, 4.0])
+@pytest.mark.parametrize("layout", ["tuple3", "planar_u8"])
+def test_post_rgb_and_yonly_kernels_blur_radius(dev, blur_size, layout):
+    """Kernels 11 and 10 (f32 and uint8 chroma) at blur radii 3, 5, 13,
+    against their plain versions at 1080p tight."""
+    in_h, in_w = 1080, 1920
+    g = geometry_for(in_h, in_w, "tight")
+    cfg = _blur_cfg(blur_size)
+    rows = blur_row_window(g, cfg)
+    hr = rows[1] - rows[0]
+    rng = np.random.default_rng(34)
+    win = hann2d_region(g, device=dev)
+    rec3 = torch.from_numpy(rng.uniform(
+        -0.2, 0.9, (6, hr, g.pad_w)).astype(np.float32)).to(dev)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 3, in_h, in_w),
+                                       dtype=np.uint8)).to(dev)
+    iq = [_rand(rng, (2, in_h, in_w), dev, 0.3) for _ in range(2)]
+    common = (win, cfg, rows[0], in_h, in_w, "tight")
+    calls = {
+        "k11": (post_fused.post_fused_rgb, post_fused.post_fused_rgb_ref,
+                (rec3, *common), dict(out_layout=layout)),
+        "k10_f32": (post_fused.post_fused, post_fused.post_fused_ref,
+                    (rec3[0::3].contiguous(), *iq, *common),
+                    dict(out_layout=layout)),
+        "k10_u8": (post_fused.post_fused, post_fused.post_fused_ref,
+                   (rec3[0::3].contiguous(), None, None, *common),
+                   dict(out_layout=layout, rgb_u8=u8)),
+    }
+    for name, (kern, ref, args, kw) in calls.items():
+        n = kern.launches
+        got = kern(*args, **kw)
+        assert kern.launches == n + 1, name
+        want = ref(*args, **kw)
+        if layout == "tuple3":
+            for a, b in zip(got, want):
+                assert float((a - b).abs().max()) < 1e-4, name
+        else:
+            assert int((got.int() - want.int()).abs().max()) <= 1, name
+
+
+@pytest.mark.parametrize("blur_size", [0.75, 1.5, 4.0])
+@pytest.mark.parametrize("mode", ["y_only", "planar_u8", "rgb"])
+def test_1080p_blur_radius_on_card_matches_cpu(dev, blur_size, mode):
+    """`magnify_video` at 1080p, `tuned_for_tpu()`, at blur radii 3, 5 and
+    13 in y_only f32, uint8 -> planar_u8 and rgb: it runs on the card
+    (kernel 3 or, at 13, kernels 7 + 10; kernel 11 for rgb) and matches
+    the CPU path."""
+    change = dict(chroma="rgb") if mode == "rgb" else (
+        dict(output_layout="planar_u8") if mode == "planar_u8" else {})
+    cfg = MagnifyConfig().tuned_for_tpu().replace(blur_size=blur_size,
+                                                  **change)
+    rng = np.random.default_rng(35)
+    base = rng.random((1080, 1920, 3)).astype(np.float32)
+    clip = np.stack([np.roll(base, i, axis=1) for i in range(3)])
+    if mode == "planar_u8":
+        clip = np.ascontiguousarray(np.moveaxis(
+            np.round(clip * 255.0).astype(np.uint8), -1, 1))
+    out_d, _ = magnify_video(clip, cfg)
+    assert out_d.device.type == "cuda"
+    out_c, _ = magnify_video(clip, cfg, device="cpu")
+    if mode == "planar_u8":
+        assert int((out_d.cpu().int() - out_c.int()).abs().max()) <= 1
+    else:
+        mse = float(((out_d.cpu().double() - out_c.double()) ** 2).mean())
+        assert mse == 0 or 10 * np.log10(1 / mse) > 100
+
+
+def test_cli_fast_blur_size_1_5_at_1080p(dev, tmp_path):
+    from pbmm_tpu_torch import cli
+
+    rng = np.random.default_rng(36)
+    base = rng.random((1080, 1920, 3)).astype(np.float32)
+    clip = np.stack([np.roll(base, i, axis=1) for i in range(3)])
+    src, out = str(tmp_path / "clip.npy"), str(tmp_path / "out.npy")
+    np.save(src, clip)
+    assert cli.main(["--input", src, "--output", out, "--fast",
+                     "--blur-size", "1.5"]) == 0
+    got = np.load(out)
+    assert got.shape == clip.shape and np.isfinite(got).all()
