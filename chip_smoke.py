@@ -14,7 +14,9 @@ non-zero without the final line:
      uint8 images: 1 code): kernels 1-3 at 1080p, kernel 4 on (16, 3,
      1080, 1920) uint8 frames (also bit for bit against the pre stage +
      kernel 1), kernel 3's u8-chroma / planar_u8 and f32 / planar
-     variants, kernel 7 at the 1080p and 960x540 region shapes; and the
+     variants, kernel 7 at the 1080p and 960x540 region shapes (also bit
+     for bit against kernel 8's row pass on the rebuilt rows + torch's
+     |z|, there, at 2160p's 4096 lanes and for Re z); and the
      config matrix's: kernel 5 at 1080p square_pow2, kernel 11 at 1080p
      rgb, kernel 2's branches (pow-2, 3 planes with the IIR taps,
      standard mode at 2.5 on 720p rect_pow2, steerable overlapping bands,
@@ -97,7 +99,9 @@ non-zero without the final line:
      frames/s of each path (pairs/s for (h)), each kernel and each
      variant or branch beside its plain version and, for the FFT kernels,
      one `torch.fft` call on the same shape and axis (the copy probe:
-     one `Tensor.copy_`; the trig probe's atan2: `torch.atan2`), and the
+     one `Tensor.copy_`; the trig probe's atan2: `torch.atan2`; kernels
+     7 and 4, the row engine's, each on a line of its own beside its
+     call), and the
      y4m stream's frames/s with the host's parse share.  Kernels, plain
      versions and library calls are timed by the device's time alone
      (`tools.kexp.timed`: a spin of the card ahead of each event pair
@@ -754,6 +758,35 @@ def main():
     if not same:
         raise AssertionError("kernel 4 differs from the pre stage + kernel 1")
     del k4, pre
+    # Kernel 7 on the row engine (csrc/row_pass.cuh) = kernel 8's row pass
+    # (stage by stage in shared memory) on the rows the plan rebuilds,
+    # then torch's sqrt(re re + im im) * scale (or re * scale), bit for
+    # bit: the same butterflies in the same order, |z| rounded as torch
+    # rounds it.  At 1080p, 960x540, 2160p's 4096 lanes, and Re z.
+    rng7 = np.random.default_rng(7)
+    s4k = 0.3 * g4k.pad_h * g4k.pad_w / np.sqrt(g4k.pad_w)
+    r4k = [dev_t(s4k * rng7.standard_normal(
+        (1, rows_4k[1] - rows_4k[0], wk4))) for _ in range(2)]
+    for what, (a, b), ph, fw, mag in (
+            ("1080p", (rre, rim), geom.pad_h, geom.pad_w, True),
+            ("960x540", (rre540, rim540), g540.pad_h, g540.pad_w, True),
+            ("2160p, 4096 lanes", r4k, g4k.pad_h, g4k.pad_w, True),
+            ("1080p rgb, Re z", (rre3, rim3), geom.pad_h, geom.pad_w,
+             False)):
+        got = fused.row_ifft_magnitude(a, b, mag, pad_h=ph, full_w=fw)
+        zr, zi = radix2._fft_axis(*fused.rebuild_lanes(a, b, fw), 2, True,
+                                  1.0)
+        want = ((torch.sqrt(zr * zr + zi * zi) if mag else zr)
+                * (1.0 / (ph * fw)))
+        same = torch.equal(got, want)
+        log(f"[2] row_ifft_magnitude == _fft_axis's row pass + torch "
+            f"{'|z|' if mag else 'Re z'} on {tuple(a.shape)} -> "
+            f"{tuple(got.shape)} ({what}): {same}")
+        if not same:
+            raise AssertionError(f"kernel 7 differs from kernel 8's row pass "
+                                 f"+ torch at {what}")
+        del got, zr, zi, want
+    del r4k
     # Kernel 6 = kernel 2's phase pass and inverse: on the spectra kernel 5
     # gives, its rows equal kernel 2's bit for bit (1080p square_pow2).
     k5 = fused.col_fft_zero_padded(sq_re, sq_im, g_sq.pad_h, r0_sq)
@@ -1363,6 +1396,14 @@ def main():
                 f"ms; library call "
                 + (f"{records[name]['library_ms']:.4f} ms" if lib
                    else "none"))
+        for name, num in (("row_ifft_magnitude", 7),
+                          ("windowed_row_fft_u8planar", 4)):
+            rec = records[name]
+            log(f"[4] {card}: kernel {num} ({name}, the row engine) "
+                f"{rec['ms']:.4f} ms warm against its library call "
+                f"{rec['library_ms']:.4f} ms: "
+                f"{rec['ms'] / rec['library_ms']:.2f}x; bound "
+                f"{rec['bound_ms']:.4f} ms")
         # The y4m stream end to end, and the host's parse alone.
         list(stream.stream_magnify(clip, cfg_u8, chunk_frames=T,
                                    ingest="u8", device=dev))

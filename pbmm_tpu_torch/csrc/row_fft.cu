@@ -13,24 +13,43 @@
 // three u8 source rows (source row r - off, zero outside [0, H)), forms
 // Y = r c_r + g c_g + b c_b with r = u8 * f32(1/255) at column x0 + c of
 // the padded row (zero elsewhere), applies the window, and runs the same
-// FFT and store as kernel 1 (pbmm_row_fft_store in common.cuh).  The luma
-// and window arithmetic is written with __fmul_rn / __fadd_rn in the pre
-// stage's op order, so nvcc cannot contract it into FMAs: kernel 4 then
-// equals the torch pre stage + kernel 1 bit for bit, the contract the JAX
-// kernel states (fused.py:249-253).
+// FFT and store as kernel 1.  The luma and window arithmetic is written
+// with __fmul_rn / __fadd_rn in the pre stage's op order, so nvcc cannot
+// contract it into FMAs, and the FFT runs kernel 1's butterflies in
+// kernel 1's order: kernel 4 then equals the torch pre stage + kernel 1
+// bit for bit, the contract the JAX kernel states (fused.py:249-253).
 //
 // What bounds them on an H100: kernel 1 reads the row once (4W bytes),
 // kernel 4 three u8 rows (3w bytes); both write 2 x Wk x 4 bytes, about
 // 9 KB per 2048-lane row.  The 11 stages cost 5 W log2(W) flops, ~1.1e5
 // per row, so the kernels are bound by device memory only if the
-// butterflies keep up.  Design: one block per row, the whole complex row
-// in shared memory (16 KB at W = 2048), every stage in place between
-// __syncthreads(); twiddles come from the host-built f32 tables (L1/L2
-// resident).  The JAX kernel's 128x128 "intra-group" matmul is just the
-// product of the last 7 stages, so it runs as ordinary stages here.
-// Simple and right first: no register blocking, no multi-row batching.
+// butterflies keep up.  The JAX kernel's 128x128 "intra-group" matmul is
+// just the product of the last 7 stages, so it runs as ordinary stages
+// here.
+//
+// Kernel 1's design: one block per row, the whole complex row in shared
+// memory (16 KB at W = 2048), every stage in place between
+// __syncthreads() (pbmm_row_fft_store in common.cuh); twiddles from the
+// host-built (log2 W, W) tables.
+//
+// Kernel 4's design: the row engine of row_pass.cuh.  W / 16 threads hold
+// a row, 16 points each.  Each thread first forms the windowed luma of 16
+// consecutive lanes from 16-byte loads of the three u8 planes (byte loads
+// where the frame's width or placement is not a multiple of 16) and
+// stages it in shared memory; the first DIF pass reads it from there.  The
+// passes exchange through shared memory (three barriers at W = 2048,
+// against 11); the last 7 stages run as passes of 4 and 3 inside 128-lane
+// tiles, skipped for the tiles that are not kept (7 of 16 at W = 2048, as
+// the JAX kernel applies its intra-group matmul to the kept tiles only);
+// in the last pass a thread holds 16 consecutive bit-reversed lanes of one
+// tile and stores them with 16-byte stores.  Twiddles: the compact table
+// (W - 1 words) in L1.  On an NVIDIA H100 80GB HBM3 at its 700 W limit
+// (chip_smoke.py) kernel 4 takes 0.191 ms warm at 1080p ((16, 3, 1080,
+// 1920) u8 -> 16 x 1152 rows of 1152 kept lanes: 269 MB), against 0.417
+// for torch.fft.fft on the f32 rows and 0.546 for kernel 1's design.
 
 #include "common.cuh"
+#include "row_pass.cuh"
 
 __global__ void row_fft_kernel(const float* __restrict__ y,
                                const float* __restrict__ wy,
@@ -61,45 +80,146 @@ struct LumaRow {
   float s;     // f32(1/255)
 };
 
-__global__ void row_fft_u8_kernel(const unsigned char* __restrict__ frames,
-                                  const float* __restrict__ wy,
-                                  const float* __restrict__ wx,
-                                  const float* __restrict__ tw_re,
-                                  const float* __restrict__ tw_im,
-                                  float* __restrict__ out_re,
-                                  float* __restrict__ out_im,
-                                  PbmmKeptTiles kept, int n_kept, int hc,
-                                  int h_in, int w_in, int w, int off, int x0,
-                                  LumaRow luma) {
+// The kept tiles' positions in the output row, by full tile (-1: not
+// kept), and the same as one bit per tile.
+struct RfKeptPos {
+  int pos[PBMM_MAX_TILES];
+  unsigned long long mask;
+};
+
+template <int N>
+__global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
+    row_fft_u8_kernel(const unsigned char* __restrict__ frames,
+                      const float* __restrict__ wy,
+                      const float* __restrict__ wx,
+                      const float* __restrict__ tw_re,
+                      const float* __restrict__ tw_im,
+                      float* __restrict__ out_re, float* __restrict__ out_im,
+                      RfKeptPos kept, int n_kept, long long rows, int hc,
+                      int h_in, int w_in, int off, int x0, LumaRow luma,
+                      int vec) {
   extern __shared__ float smem[];
-  float* re = smem;
-  float* im = smem + w;
-  const int row = blockIdx.x;
-  const int f = blockIdx.y;
+  constexpr int NT = N / PBMM_RP_P;
+  const int r = threadIdx.x / NT, t = threadIdx.x % NT;
+  const long long rowid =
+      (long long)blockIdx.x * pbmm_rp_rows_per_block(N) + r;
+  const bool valid = rowid < rows;
+  float* sre = smem + (size_t)r * pbmm_rp_row_floats(N);
+  float* sim = sre + pbmm_rp_pad(N);
+  const int f = valid ? (int)(rowid / hc) : 0;
+  const int row = valid ? (int)(rowid - (long long)f * hc) : 0;
   const int src_row = row - off;
-  const bool content = src_row >= 0 && src_row < h_in;
+  const bool content = valid && src_row >= 0 && src_row < h_in;
   const size_t plane = (size_t)h_in * w_in;
   const unsigned char* r8 =
       frames + (size_t)f * 3 * plane + (size_t)(content ? src_row : 0) * w_in;
   const float wr = wy[row];
-  for (int i = threadIdx.x; i < w; i += blockDim.x) {
-    const int x = i - x0;
-    float v = 0.0f;
-    if (content && x >= 0 && x < w_in) {
-      const float r = __fmul_rn((float)r8[x], luma.s);
-      const float g = __fmul_rn((float)r8[plane + x], luma.s);
-      const float b = __fmul_rn((float)r8[2 * plane + x], luma.s);
-      v = __fadd_rn(__fadd_rn(__fmul_rn(r, luma.c[0]),
-                              __fmul_rn(g, luma.c[1])),
-                    __fmul_rn(b, luma.c[2]));
+  const float s = luma.s, c0 = luma.c[0], c1 = luma.c[1], c2 = luma.c[2];
+
+  // The row's windowed luma, staged in the re plane: thread t forms lanes
+  // [16 t, 16 t + 16) from 16-byte loads of the three planes where the
+  // run lies inside the frame row and vec allows it (the row, the plane
+  // and x0 16-byte aligned), else byte by byte.  The byte -> float
+  // conversion by the exponent trick is exact, as the cast is.
+  {
+    constexpr int C = PBMM_RP_P;
+    static_assert(C % 16 == 0, "a thread stages whole 16-byte runs");
+    const int i0 = t * C, xs = i0 - x0;
+    float v[C];
+    if (content && vec && xs >= 0 && xs + C <= w_in) {
+      uint4 wd[3][C / 16];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int u = 0; u < C / 16; ++u)
+          wd[c][u] = __ldg(
+              reinterpret_cast<const uint4*>(r8 + c * plane + xs) + u);
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
+        float ch[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const uint4 q4 = wd[c][e / 16];
+          const int m = e % 16;
+          const unsigned w32 = m < 4 ? q4.x : m < 8 ? q4.y
+                               : m < 12 ? q4.z : q4.w;
+          const unsigned b = (w32 >> (8 * (m % 4))) & 0xffu;
+          ch[c] = __fmul_rn(
+              __fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.0f), s);
+        }
+        v[e] = __fadd_rn(__fadd_rn(__fmul_rn(ch[0], c0), __fmul_rn(ch[1], c1)),
+                         __fmul_rn(ch[2], c2));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < C; ++e) {
+        const int x = xs + e;
+        const int xc = min(max(x, 0), w_in - 1);
+        const float rr = __fmul_rn((float)__ldg(r8 + xc), s);
+        const float gg = __fmul_rn((float)__ldg(r8 + plane + xc), s);
+        const float bb = __fmul_rn((float)__ldg(r8 + 2 * plane + xc), s);
+        v[e] = content && x >= 0 && x < w_in
+                   ? __fadd_rn(__fadd_rn(__fmul_rn(rr, c0), __fmul_rn(gg, c1)),
+                               __fmul_rn(bb, c2))
+                   : 0.0f;
+      }
     }
-    re[i] = __fmul_rn(__fmul_rn(v, wr), wx[i]);
-    im[i] = 0.0f;
+    const float4* w4 = reinterpret_cast<const float4*>(wx + i0);
+#pragma unroll
+    for (int c = 0; c < C / 4; ++c) {
+      const float4 u = __ldg(w4 + c);
+      const float wv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sre[pbmm_rp_pad(i0 + 4 * c + e)] =
+            __fmul_rn(__fmul_rn(v[4 * c + e], wr), wv[e]);
+    }
   }
-  const size_t rowid = (size_t)f * hc + row;
+  __syncthreads();
+
+  // First DIF pass: base = g < st, so point q of group j is lane g + q st
+  // of the staged row, its imaginary part 0.
+  auto load = [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                  float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+#pragma unroll
+    for (int j = 0; j < G::J; ++j) {
+      const float* a = sre + pbmm_rp_pad(gr.base[j]);
+#pragma unroll
+      for (int q = 0; q < G::L; ++q) {
+        xr[j * G::L + q] = a[pbmm_rp_pad(q * G::ST)];
+        xi[j * G::L + q] = 0.0f;
+      }
+    }
+  };
+  // Last DIF pass (st = 1), its groups adjacent: a thread holds 2^K J
+  // consecutive bit-reversed lanes of one tile, stored only where the
+  // tile is kept (its groups elsewhere were skipped).
   const size_t wk = (size_t)n_kept * PBMM_LANE;
-  pbmm_row_fft_store(re, im, w, tw_re, tw_im, kept, n_kept,
-                     out_re + rowid * wk, out_im + rowid * wk);
+  float* dre = out_re + (size_t)rowid * wk;
+  float* dim = out_im + (size_t)rowid * wk;
+  auto store = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
+                   const float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+    static_assert(G::L % 4 == 0, "the last DIF pass runs 2 stages or more");
+    if (!valid) return;
+#pragma unroll
+    for (int j = 0; j < G::J; ++j) {
+      if (!gr.on[j]) continue;
+      const int p0 = gr.base[j];
+      const int o = kept.pos[p0 / PBMM_LANE] * PBMM_LANE + p0 % PBMM_LANE;
+#pragma unroll
+      for (int c = 0; c < G::L / 4; ++c) {
+        const int e = j * G::L + 4 * c;
+        reinterpret_cast<float4*>(dre + o)[c] =
+            make_float4(xr[e], xr[e + 1], xr[e + 2], xr[e + 3]);
+        reinterpret_cast<float4*>(dim + o)[c] =
+            make_float4(xi[e], xi[e + 1], xi[e + 2], xi[e + 3]);
+      }
+    }
+  };
+  pbmm_row_transform<N, false, true>(t, sre, sim, tw_re, tw_im, kept.mask,
+                                     load, store);
 }
 
 static bool fill_kept(const int* kept_tiles, int n_kept, PbmmKeptTiles* k) {
@@ -126,6 +246,7 @@ extern "C" int pbmm_row_fft(const float* y, const float* wy, const float* wx,
   return (int)cudaGetLastError();
 }
 
+// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each.
 extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
                                const float* wx, const float* tw_re,
                                const float* tw_im, float* out_re,
@@ -133,19 +254,48 @@ extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
                                int n_kept, int t, int hc, int h_in, int w_in,
                                int w, int off, int x0, const float* coeffs,
                                float scale, void* stream) {
-  PbmmKeptTiles kept;
-  if (!fill_kept(kept_tiles, n_kept, &kept) || t < 1 || hc < 1 ||
-      h_in < 1 || w_in < 1 || w < PBMM_LANE || x0 < 0 || x0 + w_in > w)
+  if (n_kept < 1 || n_kept > PBMM_MAX_TILES || t < 1 || hc < 1 ||
+      h_in < 1 || w_in < 1 || x0 < 0 || x0 + w_in > w ||
+      !pbmm_rp_length_ok(w))
     return (int)cudaErrorInvalidValue;
+  // 16-byte loads of wx and stores of the output rows (n_kept * 128
+  // floats keep every row aligned).
+  if ((size_t)wx % 16 != 0 || (size_t)out_re % 16 != 0 ||
+      (size_t)out_im % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  RfKeptPos kept;
+  kept.mask = 0;
+  for (int i = 0; i < PBMM_MAX_TILES; ++i) kept.pos[i] = -1;
+  for (int i = 0; i < n_kept; ++i) {
+    const int tile = kept_tiles[i];
+    if (tile < 0 || (tile + 1) * PBMM_LANE > w || kept.pos[tile] >= 0)
+      return (int)cudaErrorInvalidValue;
+    kept.pos[tile] = i;
+    kept.mask |= 1ull << tile;
+  }
   LumaRow luma;
   for (int i = 0; i < 3; ++i) luma.c[i] = coeffs[i];
   luma.s = scale;
-  const size_t smem = 2 * (size_t)w * sizeof(float);
-  cudaError_t err = pbmm_smem_opt_in(row_fft_u8_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(hc, t);
-  row_fft_u8_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      frames, wy, wx, tw_re, tw_im, out_re, out_im, kept, n_kept, hc, h_in,
-      w_in, w, off, x0, luma);
+  const long long rows = (long long)t * hc;
+  const int rpb = pbmm_rp_rows_per_block(w);
+  const long long blocks = (rows + rpb - 1) / rpb;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)rpb * pbmm_rp_row_floats(w) * sizeof(float);
+  // 16-byte loads of the u8 rows where frames, w_in and x0 are multiples
+  // of 16; byte loads otherwise.
+  const int vec =
+      (size_t)frames % 16 == 0 && w_in % 16 == 0 && x0 % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RF_LAUNCH(N)                                                        \
+  {                                                                         \
+    cudaError_t err = pbmm_smem_opt_in(row_fft_u8_kernel<N>, smem);         \
+    if (err != cudaSuccess) return (int)err;                                \
+    row_fft_u8_kernel<N><<<(unsigned)blocks, rpb * (N / PBMM_RP_P), smem,   \
+                           s>>>(frames, wy, wx, tw_re, tw_im, out_re,       \
+                                out_im, kept, n_kept, rows, hc, h_in, w_in, \
+                                off, x0, luma, vec);                        \
+  }
+  PBMM_RP_SWITCH(w, RF_LAUNCH)
+#undef RF_LAUNCH
   return (int)cudaGetLastError();
 }

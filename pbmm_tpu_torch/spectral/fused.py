@@ -63,6 +63,7 @@ from pbmm_tpu_torch.spectral.radix2 import (
     bit_reverse_permutation,
     bitrev_freq_axis,
     check_pow2,
+    compact_twiddles,
 )
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
@@ -415,7 +416,8 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
     for bit to the pre stage + `windowed_row_fft` on the same frames.
 
     CPU tensors take `windowed_row_fft_u8planar_ref`; CUDA tensors launch
-    `csrc/row_fft.cu::pbmm_row_fft_u8`."""
+    `csrc/row_fft.cu::pbmm_row_fft_u8` (the row engine of
+    `csrc/row_pass.cuh`)."""
     if frames.device.type == "cpu":
         return windowed_row_fft_u8planar_ref(frames, coeffs, pad_h, pad_w,
                                              y0, x0, row0, keep_half)
@@ -433,7 +435,7 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
     wk = len(tiles) * _LANE
     dev = frames.device
     wy, wx = device_arrays(_hann_pair, (pad_h, pad_w), dev)
-    twr, twi = device_arrays(_dif_twiddles, (pad_w, False), dev)
+    twr, twi = device_arrays(compact_twiddles, (pad_w, False), dev)
     out_re = torch.empty((t, hc, wk), dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
     err = library().pbmm_row_fft_u8(
@@ -1033,6 +1035,32 @@ def _row_ifft_args(re, pad_h: int, full_w):
     return fw, 1.0 / ((pad_h or h) * fw)
 
 
+@functools.lru_cache(maxsize=16)
+def _rebuild_index(wk: int, fw: int):
+    """(kept lane, conjugated) of each of the fw bit-reversed positions:
+    the Hermitian rebuild of `lane_plan` as a gather."""
+    src, flip = [], []
+    for kp, rev in lane_plan(wk, fw):
+        lanes = np.arange(_LANE)
+        src.append(kp * _LANE + (_LANE - 1 - lanes if rev else lanes))
+        flip.append(np.full(_LANE, bool(rev)))
+    return np.concatenate(src), np.concatenate(flip)
+
+
+def rebuild_lanes(re, im, fw: int):
+    """(..., Wk) bit-reversed kept lanes -> the (re, im) (..., fw) rows
+    they stand for, still bit-reversed: each missing tile conj(lane
+    reversal) of its kept partner, by torch gathers.  Kernel 7's input
+    as kernel 8's row pass takes it (`tests/test_torch_cuda.py`,
+    `chip_smoke.py`)."""
+    src, flip = _rebuild_index(re.shape[-1], fw)
+    src = torch.as_tensor(src, device=re.device)
+    flip = torch.as_tensor(flip, device=re.device)
+    xi = im[..., src]
+    return (re[..., src].contiguous(),
+            torch.where(flip, -xi, xi).contiguous())
+
+
 def rebuilt_row_ifft(re, im, fw: int, scale: float,
                      magnitude: bool = True) -> torch.Tensor:
     """|row IFFT| * scale (or Re * scale) of (B, Hb, Wk) bit-reversed kept
@@ -1041,15 +1069,11 @@ def rebuilt_row_ifft(re, im, fw: int, scale: float,
     kernels 3 and 7)."""
     b, hb, wk = re.shape
     dev = re.device
-    src, flip = [], []
-    for kp, rev in lane_plan(wk, fw):
-        lanes = np.arange(_LANE)
-        src.append(kp * _LANE + (_LANE - 1 - lanes if rev else lanes))
-        flip.append(np.full(_LANE, bool(rev)))
+    src, flip = _rebuild_index(wk, fw)
     # Natural lane k holds bit-reversed position rev(k).
     perm = bit_reverse_permutation(fw)
-    gather = torch.as_tensor(np.concatenate(src)[perm], device=dev)
-    flip = torch.as_tensor(np.concatenate(flip)[perm], device=dev)
+    gather = torch.as_tensor(src[perm], device=dev)
+    flip = torch.as_tensor(flip[perm], device=dev)
     out = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
     for f in range(b):
         x = torch.complex(re[f], im[f])[:, gather]
@@ -1078,7 +1102,7 @@ def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
     the normalisation.
 
     CPU tensors take `row_ifft_magnitude_ref`; CUDA tensors launch
-    `csrc/row_ifft.cu`."""
+    `csrc/row_ifft.cu` (the row engine of `csrc/row_pass.cuh`)."""
     if re.device.type == "cpu":
         return row_ifft_magnitude_ref(re, im, magnitude, pad_h, full_w)
     from pbmm_tpu_torch.kernels.build import check_launch, library
@@ -1090,7 +1114,7 @@ def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
                          f"{_MAX_TILES * _LANE} lanes, got {fw}")
     check_cuda("row_ifft_magnitude", (b, hb, wk), re, im)
     dev = re.device
-    twr, twi = device_arrays(_dif_twiddles, (fw, True), dev)
+    twr, twi = device_arrays(compact_twiddles, (fw, True), dev)
     plan = lane_plan(wk, fw)
     out = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
     err = library().pbmm_row_ifft(

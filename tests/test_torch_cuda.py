@@ -8,6 +8,10 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   version and bit for bit against the pre stage + kernel 1;
 - kernel 3 in all six chroma x layout variants;
 - kernel 7 (row IFFT + |z|) at W = 512 to 4096;
+- the row engine of kernels 4 and 7 (`csrc/row_pass.cuh`): kernel 7 bit
+  for bit kernel 8's row pass + torch's |z| (or Re z) at W = 512 to
+  8192, kept and full lanes; kernel 4 bit for bit the pre stage + kernel
+  1 at 3840x2160 (W = 4096) and at an odd width, kept and full lanes;
 - the whole main path on the card against the CPU path, interleaved f32
   and planar uint8 in, on both tails;
 - kernel 2's branches, kernels 5 and 11, the quirk switches of kernels 3
@@ -170,6 +174,58 @@ def test_u8_row_fft_kernel(dev, in_h, in_w):
     # The torch pre stage + kernel 1 on the same frames, bit for bit.
     re, im, _, _ = preprocess_cl(frames, _cfg(), want_iq=True)
     assert torch.equal(got[0], re) and torch.equal(got[1], im)
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["kept", "full"])
+@pytest.mark.parametrize("in_h,in_w", [(2160, 3840), (270, 481)])
+def test_u8_row_fft_kernel_wide_and_ragged(dev, in_h, in_w, keep):
+    # Kernel 4 on the row engine at 3840x2160 (W = 4096, four passes) and
+    # at an odd width (481: scalar byte loads at every alignment), bit
+    # for bit the torch pre stage + kernel 1 on the same frames.
+    g = geometry_for(in_h, in_w, "tight")
+    r0, _ = fused.aligned_row_window(g.y0, g.y0 + in_h, g.pad_h)
+    rng = np.random.default_rng(in_w)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev)
+    luma = tuple(float(c) for c in RGB_TO_YIQ[0])
+    args = (frames, luma, g.pad_h, g.pad_w, g.y0, g.x0, r0, keep)
+    got = fused.windowed_row_fft_u8planar(*args)
+    hc, off = fused._u8_args(frames, g.pad_h, g.pad_w, g.y0, g.x0, r0)
+    f = fused.unit_float(frames)
+    slab = fused.channel_mix(f[:, 0], f[:, 1], f[:, 2], luma)
+    slab = torch.nn.functional.pad(
+        slab, (g.x0, g.pad_w - in_w - g.x0, off, hc - off - in_h))
+    want = fused.windowed_row_fft(slab.contiguous(), g.pad_h, r0, keep)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _rel(got, fused.windowed_row_fft_u8planar_ref(*args)) < 1e-4
+
+
+def _row_pass_then_abs(re, im, w, scale, magnitude):
+    """Kernel 7's function from kernel 8's row pass: the plan's rebuild
+    gathered with torch, `_fft_axis` along the rows (inverse, unscaled),
+    then torch's sqrt(re re + im im) * scale (or re * scale)."""
+    from pbmm_tpu_torch.spectral import radix2
+
+    zr, zi = radix2._fft_axis(*fused.rebuild_lanes(re, im, w), 2, True, 1.0)
+    return (torch.sqrt(zr * zr + zi * zi) if magnitude else zr) * scale
+
+
+@pytest.mark.parametrize("magnitude", [True, False], ids=["abs", "re"])
+@pytest.mark.parametrize("keep", [True, False], ids=["kept", "full"])
+@pytest.mark.parametrize("w", [512, 1024, 2048, 4096, 8192])
+def test_row_ifft_kernel_equals_row_pass_and_torch_abs(dev, w, keep,
+                                                       magnitude):
+    # Kernel 7 on the row engine runs kernel 8's butterflies in kernel 8's
+    # order with the same twiddle words, and rounds |z| as torch does.
+    hb = max(8, 16384 // w)
+    wk = hermitian_kept_width(w) if keep else w
+    rng = np.random.default_rng(w + keep)
+    scale = 0.3 * hb * np.sqrt(w)
+    re, im = (_rand(rng, (3, hb, wk), dev, scale) for _ in range(2))
+    got = fused.row_ifft_magnitude(re, im, magnitude, pad_h=hb, full_w=w)
+    want = _row_pass_then_abs(re, im, w, 1.0 / (hb * w), magnitude)
+    assert got.shape == want.shape == (3, hb, w)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("src", ["f32", "u8"])
