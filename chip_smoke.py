@@ -11,9 +11,13 @@ non-zero without the final line:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, from inputs made with numpy from a seed
      (spectra: max error / max magnitude < 1e-4; images: max abs < 1e-4;
-     uint8 images: 1 code): kernels 1-3 at 1080p, kernel 4 on (16, 3,
-     1080, 1920) uint8 frames (also bit for bit against the pre stage +
-     kernel 1), kernel 3's u8-chroma / planar_u8 and f32 / planar
+     uint8 images: 1 code): kernels 1-3 at 1080p (kernel 1, on the row
+     engine, also bit for bit against kernel 8's stage-by-stage row pass
+     on the same windowed rows at 1080p, 960x540 and 4096 lanes; kernel
+     2, frame-parallel, at the tight heights to 1e-4 of the spectrum),
+     kernel 4 on (16, 3, 1080, 1920) uint8 frames (also bit for bit
+     against the pre stage + kernel 1), kernel 3's u8-chroma / planar_u8
+     and f32 / planar
      variants, kernel 7 at the 1080p and 960x540 region shapes (also bit
      for bit against kernel 8's row pass on the rebuilt rows + torch's
      |z|, there, at 2160p's 4096 lanes and for Re z); and the
@@ -99,9 +103,9 @@ non-zero without the final line:
      frames/s of each path (pairs/s for (h)), each kernel and each
      variant or branch beside its plain version and, for the FFT kernels,
      one `torch.fft` call on the same shape and axis (the copy probe:
-     one `Tensor.copy_`; the trig probe's atan2: `torch.atan2`; kernels
-     7 and 4, the row engine's, each on a line of its own beside its
-     call), and the
+     one `Tensor.copy_`; the trig probe's atan2: `torch.atan2`; kernel
+     8's row pass beside `torch.fft` along dim -1; kernels 7, 4 and 1, the
+     row engine's, each on a line of its own beside its call), and the
      y4m stream's frames/s with the host's parse share.  Kernels, plain
      versions and library calls are timed by the device's time alone
      (`tools.kexp.timed`: a spin of the card ahead of each event pair
@@ -424,7 +428,8 @@ def main():
     assert not post_fused.kernel3_serves(post_fused._radius(cfg_b40),
                                          geom.pad_w)
     # 2160p: square_pow2 (H = 4096, kernel 5's two passes, kernels 2 and 6
-    # on strips of 2) and tight (H = 2176, four-step m = 17), a chunk of 8.
+    # on strips of 4 and 2) and tight (H = 2176, four-step m = 17), a chunk
+    # of 8.
     cfg_j = pbmm_tpu_torch.MagnifyConfig().tuned_for_tpu()
     g4k = geometry_for(H4K, W4K, "square_pow2")
     g4t = geometry_for(H4K, W4K, "tight")
@@ -590,7 +595,8 @@ def main():
         "post_fused[blur 4.0, radius 13, u8 chroma, planar_u8]": both(
             post_fused.post_fused, rec1, None, None, win, cfg_b40, rows[0],
             H, W, "tight", "planar_u8", rgb_u8=u8_frames),
-        # 2160p: H = 4096 (strips of 2; kernel 5's passes) and m = 17.
+        # 2160p: H = 4096 (kernel 2 on strips of 4; kernel 5's passes) and
+        # m = 17.
         "colspec_chunk[pow-2, H 4096, 2160p square_pow2]": both(
             fused.colspec_chunk, k4_re, k4_im, *k4_prev, cfg_j, g4k.pad_h,
             r0_4k, **k4_kw),
@@ -758,6 +764,32 @@ def main():
     if not same:
         raise AssertionError("kernel 4 differs from the pre stage + kernel 1")
     del k4, pre
+    # Kernel 1 on the row engine (csrc/row_pass.cuh) = the stage-by-stage
+    # DIF of kernel 8's row pass on a zero imaginary plane (pbmm_radix2's
+    # butterflies, the same twiddle words) on the same windowed rows, y *
+    # wy[row] * wx in kernel 1's op order, kept tiles, bit for bit: at
+    # 1080p, 960x540 and 2160p's 4096 lanes.
+    rng1 = np.random.default_rng(11)
+    for what, g, yy in (
+            ("1080p", geom, y),
+            ("960x540", g540, dev_t(rng1.random((T, g540.pad_h,
+                                                  g540.pad_w)))),
+            ("2160p, 4096 lanes", g4t, dev_t(rng1.random((2, g4t.pad_h,
+                                                          g4t.pad_w))))):
+        got = fused.windowed_row_fft(yy, g.pad_h, 0, True)
+        wy1, wx1 = (torch.from_numpy(a).to(dev)
+                    for a in fused._hann_pair(g.pad_h, g.pad_w))
+        yw = (yy * wy1[:, None]) * wx1
+        zr, zi = radix2._fft_axis(yw, torch.zeros_like(yw), 2, False)
+        lanes = torch.as_tensor(fused.kept_lane_indices(g.pad_w), device=dev)
+        same = torch.equal(got[0], zr[..., lanes]) and torch.equal(
+            got[1], zi[..., lanes])
+        log(f"[2] windowed_row_fft == _fft_axis's row pass on the windowed "
+            f"rows, kept tiles, {tuple(yy.shape)} ({what}): {same}")
+        if not same:
+            raise AssertionError(f"kernel 1 differs from the stage-by-stage "
+                                 f"DIF at {what}")
+        del got, yw, zr, zi
     # Kernel 7 on the row engine (csrc/row_pass.cuh) = kernel 8's row pass
     # (stage by stage in shared memory) on the rows the plan rebuilds,
     # then torch's sqrt(re re + im im) * scale (or re * scale), bit for
@@ -802,7 +834,7 @@ def main():
         raise AssertionError("kernel 6 differs from kernel 2's output rows")
     del k5, k2, k6
     # The same at 2160p square_pow2 (H = 4096: kernel 5's passes, kernels
-    # 2 and 6 on strips of 2), and kernel 12 = kernel 6 there.
+    # 2 and 6 on strips of 4 and 2), and kernel 12 = kernel 6 there.
     k5 = fused.col_fft_zero_padded(k4_re, k4_im, g4k.pad_h, r0_4k)
     k2 = fused.colspec_chunk(k4_re, k4_im, *k4_prev, cfg_j, g4k.pad_h,
                              r0_4k, **k4_kw)
@@ -1163,7 +1195,7 @@ def main():
                         jobs["bar"])
 
     # (j) 2160p: 3840x2160 tuned_for_tpu() (square_pow2, H = 4096): the
-    # stream starts through kernel 5, kernels 1, 2 (strips of 2), 3 (8
+    # stream starts through kernel 5, kernels 1, 2 (strips of 4), 3 (8
     # rows a block at radius 2, 4096 lanes).  Then 2160p tight (H = 2176,
     # the four-step at m = 17) and the scan engine at H = 4096 (kernel 6).
     path_j = "(j) 2160p square_pow2"
@@ -1265,11 +1297,11 @@ def main():
             raise AssertionError(f"{path_i}: --demo bar gave {demo.shape}")
         traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
         text = open(traces[0]).read() if len(traces) == 1 else ""
-        named = [k for k in ("row_fft_kernel", "pbmm.colspec_chunk",
+        named = [k for k in ("row_fft_f32_kernel", "pbmm.colspec_chunk",
                              "pbmm.preprocess") if k in text]
         log(f"[3] {path_i}: --demo bar --fast --trace: {len(traces)} trace "
             f"file(s), {len(text) / 1e6:.1f} MB, naming {named}")
-        if "row_fft_kernel" not in named:
+        if "row_fft_f32_kernel" not in named:
             raise AssertionError(f"{path_i}: the trace names no kernel 1")
         view = np.load(view_out)
         bar = synthetic.oscillating_bar(bar_width=2)
@@ -1396,8 +1428,21 @@ def main():
                 f"ms; library call "
                 + (f"{records[name]['library_ms']:.4f} ms" if lib
                    else "none"))
+        # Kernel 8's row pass beside one torch.fft call along the rows.
+        for name, lib in (
+                ("_fft_axis[inverse, axis 2, scale]",
+                 lambda: torch.fft.ifft(fft_in, dim=-1)),
+                ("_fft_axis[forward complex, axis 2]",
+                 lambda: torch.fft.fft(fft_in, dim=-1)),
+                ("_fft_axis[forward real, axis 2]",
+                 lambda: torch.fft.fft(k8_re, dim=-1))):
+            records[name]["library_ms"] = kexp.timed(lib, device=dev)[0]
+            log(f"[4] {card}: {name} {records[name]['ms']:.4f} ms warm "
+                f"against its library call (torch.fft along dim -1) "
+                f"{records[name]['library_ms']:.4f} ms")
         for name, num in (("row_ifft_magnitude", 7),
-                          ("windowed_row_fft_u8planar", 4)):
+                          ("windowed_row_fft_u8planar", 4),
+                          ("windowed_row_fft", 1)):
             rec = records[name]
             log(f"[4] {card}: kernel {num} ({name}, the row engine) "
                 f"{rec['ms']:.4f} ms warm against its library call "

@@ -185,3 +185,156 @@ static cudaError_t pbmm_col_launch(PbmmColPass a, int batch, FirstK first,
     default: KERNEL<64, __VA_ARGS__><<<grid, block, 0, stream>>>(a); break; \
   }                                                                       \
   return cudaGetLastError();
+
+// ---------------------------------------------------------------------------
+// The in-block form (kernel 2): a strip of S neighbouring columns of one
+// frame held in shared memory, the column transform run as register passes
+// of up to PBMM_RP_KMAX stages that exchange through it, one barrier a
+// pass boundary.  A pass couples the L = 2^K points {base + q st} of a
+// group (the formula above), and the block's threads take (group, column)
+// tasks e = g S + c: a warp spans S columns (S = 4, 8 or 16: 16- to
+// 64-byte row segments) and 32 / S neighbouring groups.  The stage sequence, the elements, the
+// butterflies (row_pass.cuh's pbmm_rp_stages) and the twiddle words (the
+// compact table of radix2.compact_twiddles) are pbmm_radix2's, so the
+// result is bit for bit the stage-by-stage one.  A transform may run on
+// nseq sequences of 2^NLOG rows stacked down the column (the four-step's
+// 128-point factor): sequence k sits at rows k 2^NLOG.
+//
+// Shared memory holds element (row p, column c) of a plane at
+// (pbmm_cb_swz<S>(p) << log2 S) | c.  The swizzle XORs the low B =
+// log2(32 / S) bits of p with the XOR of p's higher B-bit digits: linear
+// over XOR and a permutation inside each aligned run of 2^B rows, so
+// point q of a group lies at the group's word XOR a constant of the code,
+// and the 32 / S rows a warp reaches at once (bits 0 .. B - 1 of p where
+// st >= 2^B; bits K .. K + B - 1 where st = 1) fall on distinct banks.
+// The plans keep every other stride at 2^B or more.
+// tests/test_torch_colpass.py checks the plans, the banks and a numpy
+// model of the passes bit for bit against the stage-by-stage radix-2.
+
+#include "row_pass.cuh"
+
+#define PBMM_CB_THREADS 512  // a block of the in-block kernels
+
+__host__ __device__ constexpr int pbmm_cb_passes(int nlog) {
+  return (nlog + PBMM_RP_KMAX - 1) / PBMM_RP_KMAX;
+}
+
+// Stages of pass i of a 2^nlog transform: an even split, the longer first
+// (forward and inverse alike).
+__host__ __device__ constexpr int pbmm_cb_k(int nlog, int i) {
+  return nlog / pbmm_cb_passes(nlog) +
+         (i < nlog % pbmm_cb_passes(nlog) ? 1 : 0);
+}
+
+__host__ __device__ constexpr int pbmm_cb_s0(int nlog, int i) {
+  return i == 0 ? 0 : pbmm_cb_s0(nlog, i - 1) + pbmm_cb_k(nlog, i - 1);
+}
+
+template <int S>
+__device__ __forceinline__ int pbmm_cb_swz(int p) {
+  constexpr int B = 5 - pbmm_log2(S);
+  int f = 0;
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    unsigned digits = 0;  // bit j of every B-bit digit of p >> B
+#pragma unroll
+    for (int b = j; b < 16; b += B) digits |= 1u << b;
+    f |= (__popc((unsigned)(p >> B) & digits) & 1) << j;
+  }
+  return p ^ f;
+}
+
+template <int S>
+__device__ __forceinline__ int pbmm_cb_idx(int p, int c) {
+  return (pbmm_cb_swz<S>(p) << pbmm_log2(S)) | c;
+}
+
+// Task e of pass PASS of a 2^NLOG transform on strips of S columns.  Reads
+// like row_pass.cuh's PbmmRpGroups with one group (J = 1), so
+// pbmm_rp_stages runs its butterflies.
+template <int NLOG, int S, bool INVERSE, int PASS>
+struct PbmmCbGroup {
+  static constexpr int K = pbmm_cb_k(NLOG, PASS);
+  static constexpr int LST = INVERSE ? pbmm_cb_s0(NLOG, PASS)
+                                     : NLOG - pbmm_cb_s0(NLOG, PASS) - K;
+  static constexpr int L = 1 << K;
+  static constexpr int J = 1;
+  static constexpr int ST = 1 << LST;
+  static constexpr int LS = pbmm_log2(S);
+  int lo[1];
+  bool on[1];
+  int c;     // column in the strip
+  int base;  // row of point 0
+  int idx;   // shared-memory word of point 0
+  __device__ __forceinline__ explicit PbmmCbGroup(int e) {
+    c = e & (S - 1);
+    const int g = e >> LS;
+    const int gl = g & ((1 << (NLOG - K)) - 1);
+    lo[0] = gl & (ST - 1);
+    base = ((g >> (NLOG - K)) << NLOG) | ((gl >> LST) << (LST + K)) | lo[0];
+    on[0] = true;
+    idx = pbmm_cb_idx<S>(base, c);
+  }
+  __device__ __forceinline__ int pos(int q) const { return base + q * ST; }
+  __device__ __forceinline__ int at(int q) const {
+    return idx ^ (pbmm_cb_swz<S>(q << LST) << LS);
+  }
+};
+
+template <class G>
+__device__ __forceinline__ void pbmm_cb_read(const G& gr,
+                                             float (&xr)[PBMM_RP_P],
+                                             float (&xi)[PBMM_RP_P],
+                                             const float* sre,
+                                             const float* sim) {
+#pragma unroll
+  for (int q = 0; q < G::L; ++q) {
+    xr[q] = sre[gr.at(q)];
+    xi[q] = sim[gr.at(q)];
+  }
+}
+
+template <class G>
+__device__ __forceinline__ void pbmm_cb_write(const G& gr,
+                                              const float (&xr)[PBMM_RP_P],
+                                              const float (&xi)[PBMM_RP_P],
+                                              float* sre, float* sim) {
+#pragma unroll
+  for (int q = 0; q < G::L; ++q) {
+    sre[gr.at(q)] = xr[q];
+    sim[gr.at(q)] = xi[q];
+  }
+}
+
+// Passes PASS .. of a 2^NLOG transform of nseq sequences on the block's
+// strip.  Pass 0 takes its points from first(gr, xr, xi) and the last
+// pass hands them to last(gr, xr, xi); the passes between read and write
+// the strip (sre, sim) in place, after a barrier.  Every thread of the
+// block calls it; it ends without a barrier.
+template <int NLOG, int S, bool INVERSE, int PASS = 0, class First,
+          class Last>
+__device__ __forceinline__ void pbmm_cb_transform(
+    int nseq, float* sre, float* sim, const float* __restrict__ tw_re,
+    const float* __restrict__ tw_im, First&& first, Last&& last) {
+  constexpr int NP = pbmm_cb_passes(NLOG);
+  using G = PbmmCbGroup<NLOG, S, INVERSE, PASS>;
+  const int tasks = (nseq << (NLOG - G::K)) * S;
+  for (int e = threadIdx.x; e < tasks; e += blockDim.x) {
+    const G gr(e);
+    float xr[PBMM_RP_P], xi[PBMM_RP_P];
+    if constexpr (PASS == 0)
+      first(gr, xr, xi);
+    else
+      pbmm_cb_read(gr, xr, xi, sre, sim);
+    pbmm_rp_stages<G, INVERSE>(gr, xr, xi, tw_re, tw_im);
+    if constexpr (PASS == NP - 1)
+      last(gr, xr, xi);
+    else
+      pbmm_cb_write(gr, xr, xi, sre, sim);
+  }
+  if constexpr (PASS + 1 < NP) {
+    __syncthreads();
+    pbmm_cb_transform<NLOG, S, INVERSE, PASS + 1>(nseq, sre, sim, tw_re,
+                                                  tw_im, first, last);
+  }
+}

@@ -7,7 +7,8 @@
 // Widest padded row the kernels take: 64 tiles of 128 lanes (W = 8192).
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
-// Columns a block of the strip kernels (2, 6, 12) holds in shared memory:
+// Columns a block of the strip kernels (6, 12 and kernel 2's IIR branch)
+// holds in shared memory:
 // 4 up to H = 2048, 2 above (PBMM_COL_S_TALL), up to H = 4096.
 #define PBMM_COL_S 4
 #define PBMM_COL_S_TALL 2
@@ -94,11 +95,6 @@ __device__ __forceinline__ void pbmm_radix2(
   }
 }
 
-// Full-layout tile index of each kept 128-lane tile (passed by value).
-struct PbmmKeptTiles {
-  int tile[PBMM_MAX_TILES];
-};
-
 // Static Hermitian rebuild plan, per full 128-lane tile: the kept tile
 // position feeding it, and 1 where it is conj(lane reversal) of that
 // tile (spectral/hermitian.py::reconstruction_plan; identity when the
@@ -107,24 +103,6 @@ struct PbmmLanePlan {
   int src[PBMM_MAX_TILES];
   int rev[PBMM_MAX_TILES];
 };
-
-// The row FFT and kept-tile store shared by kernels 1 and 4: the caller
-// has written one windowed real row of w values into re (and zeros into
-// im) in shared memory; the forward DIF leaves it bit-reversed, and only
-// the n_kept kept tiles go to dst_re/dst_im (n_kept * 128 values each).
-__device__ __forceinline__ void pbmm_row_fft_store(
-    float* re, float* im, int w, const float* __restrict__ tw_re,
-    const float* __restrict__ tw_im, const PbmmKeptTiles& kept, int n_kept,
-    float* __restrict__ dst_re, float* __restrict__ dst_im) {
-  __syncthreads();
-  pbmm_radix2(re, im, w, 1, 1, 0, 0, 1, tw_re, tw_im, false);
-  const int wk = n_kept * PBMM_LANE;
-  for (int k = threadIdx.x; k < wk; k += blockDim.x) {
-    const int p = kept.tile[k / PBMM_LANE] * PBMM_LANE + (k % PBMM_LANE);
-    dst_re[k] = re[p];
-    dst_im[k] = im[p];
-  }
-}
 
 // The load -> rebuild -> row IFFT -> |z| (or Re z) step shared by kernels
 // 3 and 7: one row of wk bit-reversed kept lanes (src_re/src_im) is

@@ -27,53 +27,30 @@
 // just the product of the last 7 stages, so it runs as ordinary stages
 // here.
 //
-// Kernel 1's design: one block per row, the whole complex row in shared
-// memory (16 KB at W = 2048), every stage in place between
-// __syncthreads() (pbmm_row_fft_store in common.cuh); twiddles from the
-// host-built (log2 W, W) tables.
-//
-// Kernel 4's design: the row engine of row_pass.cuh.  W / 16 threads hold
-// a row, 16 points each.  Each thread first forms the windowed luma of 16
-// consecutive lanes from 16-byte loads of the three u8 planes (byte loads
-// where the frame's width or placement is not a multiple of 16) and
-// stages it in shared memory; the first DIF pass reads it from there.  The
-// passes exchange through shared memory (three barriers at W = 2048,
-// against 11); the last 7 stages run as passes of 4 and 3 inside 128-lane
-// tiles, skipped for the tiles that are not kept (7 of 16 at W = 2048, as
-// the JAX kernel applies its intra-group matmul to the kept tiles only);
-// in the last pass a thread holds 16 consecutive bit-reversed lanes of one
-// tile and stores them with 16-byte stores.  Twiddles: the compact table
-// (W - 1 words) in L1.  On an NVIDIA H100 80GB HBM3 at its 700 W limit
-// (chip_smoke.py) kernel 4 takes 0.191 ms warm at 1080p ((16, 3, 1080,
-// 1920) u8 -> 16 x 1152 rows of 1152 kept lanes: 269 MB), against 0.417
-// for torch.fft.fft on the f32 rows and 0.546 for kernel 1's design.
+// Design (both kernels): the row engine of row_pass.cuh.  W / 16 threads
+// hold a row, 16 points each.  Each thread first forms the windowed row
+// of 16 consecutive lanes and stages it in shared memory: kernel 1 from
+// four 16-byte loads of its f32 row, kernel 4 from 16-byte loads of the
+// three u8 planes (byte loads where the frame's width or placement is not
+// a multiple of 16); the first DIF pass reads it from there.  The passes
+// exchange through shared memory (three barriers at W = 2048, against 11
+// for the stage-by-stage design kernel 1 had before); the last 7 stages
+// run as passes of 4 and 3 inside 128-lane tiles, skipped for the tiles
+// that are not kept (7 of 16 at W = 2048, as the JAX kernel applies its
+// intra-group matmul to the kept tiles only); in the last pass a thread
+// holds 16 consecutive bit-reversed lanes of one tile and stores them
+// with 16-byte stores.  Twiddles: the compact table (W - 1 words) in L1.
+// Rows under 2048 lanes are packed several to a block.  Every butterfly
+// is pbmm_radix2's, so kernel 1 equals the stage-by-stage DIF (kernel 8's
+// row pass on the windowed rows) bit for bit.  On an NVIDIA H100 80GB
+// HBM3 at its 700 W limit (chip_smoke.py) kernel 4 takes 0.191 ms warm at
+// 1080p ((16, 3, 1080, 1920) u8 -> 16 x 1152 rows of 1152 kept lanes:
+// 269 MB), against 0.417 for torch.fft.fft on the f32 rows, and kernel 1
+// 0.186 ms at (16, 1152, 2048) f32 (321 MB) against 0.417 for
+// torch.fft.fft and 0.520 for its stage-by-stage design.
 
 #include "common.cuh"
 #include "row_pass.cuh"
-
-__global__ void row_fft_kernel(const float* __restrict__ y,
-                               const float* __restrict__ wy,
-                               const float* __restrict__ wx,
-                               const float* __restrict__ tw_re,
-                               const float* __restrict__ tw_im,
-                               float* __restrict__ out_re,
-                               float* __restrict__ out_im, PbmmKeptTiles kept,
-                               int n_kept, int hc, int w) {
-  extern __shared__ float smem[];
-  float* re = smem;
-  float* im = smem + w;
-  const int row = blockIdx.x;
-  const size_t rowid = (size_t)blockIdx.y * hc + row;
-  const float* src = y + rowid * w;
-  const float wr = wy[row];
-  for (int i = threadIdx.x; i < w; i += blockDim.x) {
-    re[i] = __fmul_rn(__fmul_rn(src[i], wr), wx[i]);
-    im[i] = 0.0f;
-  }
-  const size_t wk = (size_t)n_kept * PBMM_LANE;
-  pbmm_row_fft_store(re, im, w, tw_re, tw_im, kept, n_kept,
-                     out_re + rowid * wk, out_im + rowid * wk);
-}
 
 struct LumaRow {
   float c[3];  // the Y row of RGB -> YIQ
@@ -86,6 +63,108 @@ struct RfKeptPos {
   int pos[PBMM_MAX_TILES];
   unsigned long long mask;
 };
+
+// The shared part of kernels 1 and 4: the row's windowed real values are
+// staged in the re plane of its shared memory (sre, sim; the caller has
+// synchronised); the DIF passes run and the kept tiles go to row rowid of
+// out_re / out_im (n_kept * 128 lanes a row).
+template <int N>
+__device__ __forceinline__ void rf_transform_store(
+    int t, float* sre, float* sim, const float* __restrict__ tw_re,
+    const float* __restrict__ tw_im, const RfKeptPos& kept, int n_kept,
+    long long rowid, bool valid, float* __restrict__ out_re,
+    float* __restrict__ out_im) {
+  // First DIF pass: base = g < st, so point q of group j is lane g + q st
+  // of the staged row, its imaginary part 0.
+  auto load = [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                  float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+#pragma unroll
+    for (int j = 0; j < G::J; ++j) {
+      const float* a = sre + pbmm_rp_pad(gr.base[j]);
+#pragma unroll
+      for (int q = 0; q < G::L; ++q) {
+        xr[j * G::L + q] = a[pbmm_rp_pad(q * G::ST)];
+        xi[j * G::L + q] = 0.0f;
+      }
+    }
+  };
+  // Last DIF pass (st = 1), its groups adjacent: a thread holds 2^K J
+  // consecutive bit-reversed lanes of one tile, stored only where the
+  // tile is kept (its groups elsewhere were skipped).
+  const size_t wk = (size_t)n_kept * PBMM_LANE;
+  float* dre = out_re + (size_t)rowid * wk;
+  float* dim = out_im + (size_t)rowid * wk;
+  auto store = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
+                   const float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+    static_assert(G::L % 4 == 0, "the last DIF pass runs 2 stages or more");
+    if (!valid) return;
+#pragma unroll
+    for (int j = 0; j < G::J; ++j) {
+      if (!gr.on[j]) continue;
+      const int p0 = gr.base[j];
+      const int o = kept.pos[p0 / PBMM_LANE] * PBMM_LANE + p0 % PBMM_LANE;
+#pragma unroll
+      for (int c = 0; c < G::L / 4; ++c) {
+        const int e = j * G::L + 4 * c;
+        reinterpret_cast<float4*>(dre + o)[c] =
+            make_float4(xr[e], xr[e + 1], xr[e + 2], xr[e + 3]);
+        reinterpret_cast<float4*>(dim + o)[c] =
+            make_float4(xi[e], xi[e + 1], xi[e + 2], xi[e + 3]);
+      }
+    }
+  };
+  pbmm_row_transform<N, false, true>(t, sre, sim, tw_re, tw_im, kept.mask,
+                                     load, store);
+}
+
+// Kernel 1: rows of (batch x hc) padded f32 content rows of N lanes.
+template <int N>
+__global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
+    row_fft_f32_kernel(const float* __restrict__ y,
+                       const float* __restrict__ wy,
+                       const float* __restrict__ wx,
+                       const float* __restrict__ tw_re,
+                       const float* __restrict__ tw_im,
+                       float* __restrict__ out_re, float* __restrict__ out_im,
+                       RfKeptPos kept, int n_kept, long long rows, int hc) {
+  extern __shared__ float smem[];
+  constexpr int NT = N / PBMM_RP_P;
+  const int r = threadIdx.x / NT, t = threadIdx.x % NT;
+  const long long rowid =
+      (long long)blockIdx.x * pbmm_rp_rows_per_block(N) + r;
+  const bool valid = rowid < rows;
+  float* sre = smem + (size_t)r * pbmm_rp_row_floats(N);
+  float* sim = sre + pbmm_rp_pad(N);
+  const long long src = valid ? rowid : 0;  // a past-the-end row reads row 0
+  const float wr = wy[src % hc];
+
+  // Thread t windows lanes [16 t, 16 t + 16): y * wy[row] * wx in the op
+  // order of the pre stage's product, from 16-byte loads.
+  {
+    constexpr int C = PBMM_RP_P;
+    const int i0 = t * C;
+    const float4* y4 = reinterpret_cast<const float4*>(y + src * N + i0);
+    const float4* w4 = reinterpret_cast<const float4*>(wx + i0);
+    float4 v[C / 4];
+#pragma unroll
+    for (int c = 0; c < C / 4; ++c) v[c] = __ldg(y4 + c);
+#pragma unroll
+    for (int c = 0; c < C / 4; ++c) {
+      const float4 u = __ldg(w4 + c);
+      const float yv[4] = {v[c].x, v[c].y, v[c].z, v[c].w};
+      const float wv[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sre[pbmm_rp_pad(i0 + 4 * c + e)] =
+            __fmul_rn(__fmul_rn(yv[e], wr), wv[e]);
+    }
+  }
+  __syncthreads();
+  rf_transform_store<N>(t, sre, sim, tw_re, tw_im, kept, n_kept, rowid,
+                        valid, out_re, out_im);
+}
 
 template <int N>
 __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
@@ -176,73 +255,68 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
     }
   }
   __syncthreads();
-
-  // First DIF pass: base = g < st, so point q of group j is lane g + q st
-  // of the staged row, its imaginary part 0.
-  auto load = [&](const auto& gr, float (&xr)[PBMM_RP_P],
-                  float (&xi)[PBMM_RP_P]) {
-    using G = PbmmRpOf<decltype(gr)>;
-#pragma unroll
-    for (int j = 0; j < G::J; ++j) {
-      const float* a = sre + pbmm_rp_pad(gr.base[j]);
-#pragma unroll
-      for (int q = 0; q < G::L; ++q) {
-        xr[j * G::L + q] = a[pbmm_rp_pad(q * G::ST)];
-        xi[j * G::L + q] = 0.0f;
-      }
-    }
-  };
-  // Last DIF pass (st = 1), its groups adjacent: a thread holds 2^K J
-  // consecutive bit-reversed lanes of one tile, stored only where the
-  // tile is kept (its groups elsewhere were skipped).
-  const size_t wk = (size_t)n_kept * PBMM_LANE;
-  float* dre = out_re + (size_t)rowid * wk;
-  float* dim = out_im + (size_t)rowid * wk;
-  auto store = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
-                   const float (&xi)[PBMM_RP_P]) {
-    using G = PbmmRpOf<decltype(gr)>;
-    static_assert(G::L % 4 == 0, "the last DIF pass runs 2 stages or more");
-    if (!valid) return;
-#pragma unroll
-    for (int j = 0; j < G::J; ++j) {
-      if (!gr.on[j]) continue;
-      const int p0 = gr.base[j];
-      const int o = kept.pos[p0 / PBMM_LANE] * PBMM_LANE + p0 % PBMM_LANE;
-#pragma unroll
-      for (int c = 0; c < G::L / 4; ++c) {
-        const int e = j * G::L + 4 * c;
-        reinterpret_cast<float4*>(dre + o)[c] =
-            make_float4(xr[e], xr[e + 1], xr[e + 2], xr[e + 3]);
-        reinterpret_cast<float4*>(dim + o)[c] =
-            make_float4(xi[e], xi[e + 1], xi[e + 2], xi[e + 3]);
-      }
-    }
-  };
-  pbmm_row_transform<N, false, true>(t, sre, sim, tw_re, tw_im, kept.mask,
-                                     load, store);
+  rf_transform_store<N>(t, sre, sim, tw_re, tw_im, kept, n_kept, rowid,
+                        valid, out_re, out_im);
 }
 
-static bool fill_kept(const int* kept_tiles, int n_kept, PbmmKeptTiles* k) {
-  if (n_kept < 1 || n_kept > PBMM_MAX_TILES) return false;
-  for (int i = 0; i < n_kept; ++i) k->tile[i] = kept_tiles[i];
-  return true;
+// The checks both entry points share: w a row length of the engine,
+// 16-byte aligned wx and outputs (n_kept * 128 floats keep every row
+// aligned), the kept tiles distinct and inside the row.
+static int rf_setup(const int* kept_tiles, int n_kept, int w, const float* wx,
+                    const float* out_re, const float* out_im,
+                    RfKeptPos* kept) {
+  if (n_kept < 1 || n_kept > PBMM_MAX_TILES || !pbmm_rp_length_ok(w))
+    return (int)cudaErrorInvalidValue;
+  if ((size_t)wx % 16 != 0 || (size_t)out_re % 16 != 0 ||
+      (size_t)out_im % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  kept->mask = 0;
+  for (int i = 0; i < PBMM_MAX_TILES; ++i) kept->pos[i] = -1;
+  for (int i = 0; i < n_kept; ++i) {
+    const int tile = kept_tiles[i];
+    if (tile < 0 || (tile + 1) * PBMM_LANE > w || kept->pos[tile] >= 0)
+      return (int)cudaErrorInvalidValue;
+    kept->pos[tile] = i;
+    kept->mask |= 1ull << tile;
+  }
+  return 0;
 }
 
+// Blocks of pbmm_rp_rows_per_block(w) rows, and their shared memory.
+static bool rf_grid(long long rows, int w, unsigned* blocks, size_t* smem) {
+  const int rpb = pbmm_rp_rows_per_block(w);
+  const long long b = (rows + rpb - 1) / rpb;
+  *blocks = (unsigned)b;
+  *smem = (size_t)rpb * pbmm_rp_row_floats(w) * sizeof(float);
+  return b <= 2147483647LL;
+}
+
+// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each.
 extern "C" int pbmm_row_fft(const float* y, const float* wy, const float* wx,
                             const float* tw_re, const float* tw_im,
                             float* out_re, float* out_im,
                             const int* kept_tiles, int n_kept, int batch,
                             int hc, int w, void* stream) {
-  PbmmKeptTiles kept;
-  if (!fill_kept(kept_tiles, n_kept, &kept) || batch < 1 || hc < 1 ||
-      w < PBMM_LANE)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)w * sizeof(float);
-  cudaError_t err = pbmm_smem_opt_in(row_fft_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(hc, batch);
-  row_fft_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      y, wy, wx, tw_re, tw_im, out_re, out_im, kept, n_kept, hc, w);
+  RfKeptPos kept;
+  if (batch < 1 || hc < 1) return (int)cudaErrorInvalidValue;
+  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, &kept);
+  if (bad) return bad;
+  if ((size_t)y % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const long long rows = (long long)batch * hc;
+  unsigned blocks;
+  size_t smem;
+  if (!rf_grid(rows, w, &blocks, &smem)) return (int)cudaErrorInvalidValue;
+  const int rpb = pbmm_rp_rows_per_block(w);
+  cudaStream_t s = (cudaStream_t)stream;
+#define RF1_LAUNCH(N)                                                       \
+  {                                                                         \
+    cudaError_t err = pbmm_smem_opt_in(row_fft_f32_kernel<N>, smem);        \
+    if (err != cudaSuccess) return (int)err;                                \
+    row_fft_f32_kernel<N><<<blocks, rpb * (N / PBMM_RP_P), smem, s>>>(      \
+        y, wy, wx, tw_re, tw_im, out_re, out_im, kept, n_kept, rows, hc);   \
+  }
+  PBMM_RP_SWITCH(w, RF1_LAUNCH)
+#undef RF1_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -254,33 +328,19 @@ extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
                                int n_kept, int t, int hc, int h_in, int w_in,
                                int w, int off, int x0, const float* coeffs,
                                float scale, void* stream) {
-  if (n_kept < 1 || n_kept > PBMM_MAX_TILES || t < 1 || hc < 1 ||
-      h_in < 1 || w_in < 1 || x0 < 0 || x0 + w_in > w ||
-      !pbmm_rp_length_ok(w))
+  if (t < 1 || hc < 1 || h_in < 1 || w_in < 1 || x0 < 0 || x0 + w_in > w)
     return (int)cudaErrorInvalidValue;
-  // 16-byte loads of wx and stores of the output rows (n_kept * 128
-  // floats keep every row aligned).
-  if ((size_t)wx % 16 != 0 || (size_t)out_re % 16 != 0 ||
-      (size_t)out_im % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
   RfKeptPos kept;
-  kept.mask = 0;
-  for (int i = 0; i < PBMM_MAX_TILES; ++i) kept.pos[i] = -1;
-  for (int i = 0; i < n_kept; ++i) {
-    const int tile = kept_tiles[i];
-    if (tile < 0 || (tile + 1) * PBMM_LANE > w || kept.pos[tile] >= 0)
-      return (int)cudaErrorInvalidValue;
-    kept.pos[tile] = i;
-    kept.mask |= 1ull << tile;
-  }
+  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, &kept);
+  if (bad) return bad;
   LumaRow luma;
   for (int i = 0; i < 3; ++i) luma.c[i] = coeffs[i];
   luma.s = scale;
   const long long rows = (long long)t * hc;
+  unsigned blocks;
+  size_t smem;
+  if (!rf_grid(rows, w, &blocks, &smem)) return (int)cudaErrorInvalidValue;
   const int rpb = pbmm_rp_rows_per_block(w);
-  const long long blocks = (rows + rpb - 1) / rpb;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)rpb * pbmm_rp_row_floats(w) * sizeof(float);
   // 16-byte loads of the u8 rows where frames, w_in and x0 are multiples
   // of 16; byte loads otherwise.
   const int vec =
@@ -290,10 +350,9 @@ extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
   {                                                                         \
     cudaError_t err = pbmm_smem_opt_in(row_fft_u8_kernel<N>, smem);         \
     if (err != cudaSuccess) return (int)err;                                \
-    row_fft_u8_kernel<N><<<(unsigned)blocks, rpb * (N / PBMM_RP_P), smem,   \
-                           s>>>(frames, wy, wx, tw_re, tw_im, out_re,       \
-                                out_im, kept, n_kept, rows, hc, h_in, w_in, \
-                                off, x0, luma, vec);                        \
+    row_fft_u8_kernel<N><<<blocks, rpb * (N / PBMM_RP_P), smem, s>>>(       \
+        frames, wy, wx, tw_re, tw_im, out_re, out_im, kept, n_kept, rows,   \
+        hc, h_in, w_in, off, x0, luma, vec);                                \
   }
   PBMM_RP_SWITCH(w, RF_LAUNCH)
 #undef RF_LAUNCH

@@ -1,4 +1,4 @@
-// The row engine of kernels 4 and 7: a radix-2 transform of one row of
+// The row engine of kernels 1, 4 and 7: a radix-2 transform of one row of
 // length N (128 to 8192) held on chip, as a few register passes that
 // exchange through the row's shared memory inside one launch.
 //

@@ -68,7 +68,7 @@ from pbmm_tpu_torch.spectral.radix2 import (
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
-_COL_STRIP = 4  # columns a block of the CUDA strip kernels (2, 6, 12)
+_COL_STRIP = 4  # columns a block of the CUDA strip kernels (6, 12)
 _COL_STRIP_TALL = 2  # ... holds above H = 2048 (PBMM_COL_S_TALL)
 _MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
 
@@ -338,7 +338,8 @@ def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
     window uses absolute rows (pad_h=0: Hc is the padded height).
 
     CPU tensors take `windowed_row_fft_ref`; CUDA tensors launch
-    `csrc/row_fft.cu`."""
+    `csrc/row_fft.cu::pbmm_row_fft` (the row engine of
+    `csrc/row_pass.cuh`), which refuses misaligned planes."""
     if y.device.type == "cpu":
         return windowed_row_fft_ref(y, pad_h, row0, keep_half)
     from pbmm_tpu_torch.kernels.build import check_launch, library
@@ -350,7 +351,7 @@ def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
                          f"{_MAX_TILES * _LANE} lanes, got {w}")
     check_cuda("windowed_row_fft", (b, h, w), y)
     wy, wx = device_arrays(_hann_pair, (pad_h, w), y.device)
-    twr, twi = device_arrays(_dif_twiddles, (w, False), y.device)
+    twr, twi = device_arrays(compact_twiddles, (w, False), y.device)
     out_re = torch.empty((b, h, wk), dtype=torch.float32, device=y.device)
     out_im = torch.empty_like(out_re)
     err = library().pbmm_row_fft(
@@ -464,13 +465,24 @@ _MASK_KINDS = ("zero", "high", "low", "band")
 
 
 def col_strip(h: int) -> int:
-    """Columns a block of the strip kernels (2, 6, 12) holds at column
+    """Columns a block of the strip kernels (6, 12) holds at column
     height h: 4 up to 2048 rows, 2 above (csrc/common.cuh)."""
     return _COL_STRIP if h <= 2048 else _COL_STRIP_TALL
 
 
+def colspec_strip(h: int) -> int:
+    """Columns a block of kernel 2 holds at column height h, the most
+    whose strip fits a block's 227 KB, up to 16: 16 to 1024 rows (pow-2)
+    or m = 14 (tight), 8 to 2048 or m = 28, 4 above
+    (csrc/colspec_chunk.cu::cs_strip); its widths are multiples of it."""
+    m = h // _LANE
+    if _is_pow2(h):
+        return 16 if h <= 1024 else 8 if h <= 2048 else 4
+    return 16 if m <= 14 else 8 if m <= 28 else 4
+
+
 def _check_col_height(pad_h: int, limit: int = _COLSPEC_MAX_H,
-                      what: str = "the CUDA strip kernels (2, 6, 12) hold "
+                      what: str = "the CUDA column kernels (2, 6, 12) hold "
                                   "columns") -> None:
     if pad_h > limit:
         raise ValueError(f"{what} up to {limit} rows, got {pad_h}")
@@ -785,7 +797,11 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     (planes, H, Wk)[, new_lp_fast, new_lp_slow]).
 
     CPU tensors take `colspec_chunk_ref`; CUDA tensors launch
-    `csrc/colspec_chunk.cu`."""
+    `csrc/colspec_chunk.cu`: outside the IIR branch the forward spectra
+    of all frames go to a scratch tensor first and the frames' phase
+    passes and inverses then run in parallel (two launches, counted as
+    one call; planes that do not start on 16 bytes are refused); the IIR
+    branch runs the frames in order."""
     if rows_re.device.type == "cpu":
         return colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg,
                                  pad_h, row0, lp_fast, lp_slow, out_rows,
@@ -796,6 +812,9 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
                            lp_fast, lp_slow)
     n, hc, w = rows_re.shape
     _check_col_height(pad_h)
+    if w % colspec_strip(pad_h):
+        raise ValueError(f"the CUDA kernel 2 takes widths that are multiples "
+                         f"of {colspec_strip(pad_h)} at H = {pad_h}, got {w}")
     check_cuda("colspec_chunk", (n, hc, w), rows_re, rows_im)
     taps = (lp_fast, lp_slow) if lp_fast is not None else ()
     check_cuda("colspec_chunk", (planes, pad_h, w), prev_re, prev_im, *taps)
@@ -806,24 +825,30 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
                               dev) if host is not None else ())
     planes_d = planes_d + (None,) * (2 - len(planes_d))
     fy, fx = device_arrays(_freq_tables, (pad_h, w, full_w), dev)
+    # Twiddles: the frame-serial IIR kernel reads the (log2 n, n) tables,
+    # the frame-parallel ones the compact table; n = 128 at tight heights.
+    n_tw = pad_h if _is_pow2(pad_h) else _LANE
+    table = _dif_twiddles if plan.iir else compact_twiddles
+    tw = (device_arrays(table, (n_tw, False), dev)
+          + device_arrays(table, (n_tw, True), dev))
     if _is_pow2(pad_h):
-        fs = cw = (None, None)
-        tw = (device_arrays(_dif_twiddles, (pad_h, False), dev)
-              + device_arrays(_dif_twiddles, (pad_h, True), dev))
+        fs, cw = (None, None), (None, None)
     else:
         fs = device_arrays(_fourstep_twiddle, (pad_h, False), dev)
-        cw = device_arrays(_combine_matrix, (pad_h // _LANE,), dev)
-        tw = (device_arrays(_dif_twiddles, (_LANE, False), dev)
-              + device_arrays(_dif_twiddles, (_LANE, True), dev))
+        cw = tuple(c_floats(a.ravel())  # host arrays: passed by value
+                   for a in _combine_matrix(pad_h // _LANE))
+    spec = ((None, None) if plan.iir else tuple(
+        torch.empty((n, pad_h, w), dtype=torch.float32, device=dev)
+        for _ in range(2)))
     outs = [torch.empty((n, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]
     outs += [torch.empty((planes, pad_h, w), dtype=torch.float32, device=dev)
              for _ in range(2 + len(taps))]
     ints, floats = _phase_args(plan, host is not None)
     ins = ((rows_re, rows_im, prev_re, prev_im) + (taps or (None, None))
-           + planes_d + (fy, fx) + fs + cw + tw)
+           + planes_d + (fy, fx) + fs + cw + tw + spec)
     err = library().pbmm_colspec_chunk(
-        *(None if x is None else x.data_ptr()
+        *(x.data_ptr() if torch.is_tensor(x) else x
           for x in ins + tuple(outs) + (None,) * (6 - len(outs))),
         c_ints(ints), c_floats(floats), n // planes, planes, hc, pad_h, w,
         row0, r0, r1, stream_handle(dev))

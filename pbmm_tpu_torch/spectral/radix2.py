@@ -11,7 +11,8 @@ decimation in time (bit-reversed in, natural out), so the permutations
 cancel across forward -> phase -> inverse and never run as a gather.
 
 The CUDA kernels of this package read `_dif_twiddles` as their twiddle
-tables (the row engine of kernels 4 and 7 its `compact_twiddles`), so
+tables (the row engine of kernels 1, 4 and 7, and kernel 2, its
+`compact_twiddles`), so
 both packages use the same f64-derived f32 constants.  The
 TPU kernel's 128 x 128 group matmul and its bf16 split work around the
 TPU's matmul precision; here every stage is an f32 butterfly, and
@@ -86,7 +87,8 @@ def compact_twiddles(n: int, inverse: bool) -> Tuple[np.ndarray, np.ndarray]:
     """The n - 1 distinct words of `_dif_twiddles(n, inverse)`, (n - 1,)
     f32 re/im: the row of span d holds W_{2d}^{i mod d}, periodic with
     period d, so word d - 1 + j (j < d) is its entry j.  The twiddle table
-    of the row engine (`csrc/row_pass.cuh`, kernels 4 and 7), which reads
+    of the row engine (`csrc/row_pass.cuh`, kernels 1, 4 and 7) and of
+    kernel 2's in-block column passes (`csrc/col_pass.cuh`), which reads
     word d - 1 + (i1 mod d) for the bottom element i1 of a butterfly."""
     re, im = _dif_twiddles(n, inverse)
     stages = n.bit_length() - 1

@@ -1,0 +1,436 @@
+"""Kernel 2's frame-parallel schedule (`pbmm_tpu_torch/csrc/colspec_chunk.cu`
+on `csrc/col_pass.cuh`'s in-block passes), checked on the CPU.
+
+- The frame-parallel form (every frame's forward spectrum first, then each
+  frame's phase pass against the unmodified spectrum of the frame before
+  it) equals the frame-serial `colspec_chunk_ref` bit for bit on every
+  branch but the IIR taps, at a pow-2 and a four-step height, one plane
+  and three.
+- The in-block plans (`pbmm_cb_k`, the passes' strides) and a numpy-f32
+  model of the passes (groups {base + q st} of each (group, column) task,
+  the compact twiddle words, `row_pass.cuh`'s butterflies, each product
+  and sum rounded on its own) equal the stage-by-stage radix-2
+  (`common.cuh::pbmm_radix2`) bit for bit at every height, forward and
+  inverse, on one sequence (pow-2 heights) and on m stacked 128-point
+  sequences (the four-step factor).
+- The strip's shared-memory layout (`pbmm_cb_swz`): one-to-one, point q of
+  a group at the group's word XOR a constant, and every access of a warp
+  (the passes, the phase loop, the m-point loops) on 32 distinct banks.
+- The model of the whole schedule (the m-point DFT with the combine
+  matrix, the four-step twiddle, the passes, the phase pass, the inverse)
+  against the JAX kernel in interpret mode at H = 256 (pow-2) and 384
+  (m = 3), T = 4, Wk = 128 and 256, max error / max magnitude < 1e-4 (the
+  bar of tests/test_torch_branches.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pbmm_tpu.config import MagnifyConfig as JCfg
+from pbmm_tpu.spectral import fused as jfused
+from pbmm_tpu.spectral.pallas_fft import set_gm_precision
+from pbmm_tpu_torch.config import MagnifyConfig as TCfg
+from pbmm_tpu_torch.spectral import fused, radix2
+
+KMAX = 4  # PBMM_RP_KMAX
+LANE = 128
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs (the suite runs in
+    parallel worker processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_highest_traces():
+    """Drop the JAX traces made at gm_precision "highest" when the module
+    ends, so later tests of the process trace the default anew."""
+    yield
+    set_gm_precision("")
+    jax.clear_caches()
+
+
+# -- the plans and the layout (col_pass.cuh's in-block form) ---------------
+
+
+def cb_plan(nlog, inverse):
+    """[(k, lst)] of each pass of a 2^nlog transform: `pbmm_cb_k` (an even
+    split, the longer first) and the pass's stride."""
+    np_ = -(-nlog // KMAX)
+    ks = [nlog // np_ + (1 if i < nlog % np_ else 0) for i in range(np_)]
+    out, s0 = [], 0
+    for k in ks:
+        out.append((k, s0 if inverse else nlog - s0 - k))
+        s0 += k
+    return out
+
+
+def swz(p, s):
+    """`pbmm_cb_swz<S>`: the low B = log2(32 / S) bits of p XOR the XOR of
+    its higher B-bit digits."""
+    b = 5 - (s.bit_length() - 1)
+    f = np.zeros_like(p)
+    for sh in range(b, 15, b):
+        f ^= p >> sh
+    return p ^ (f & ((1 << b) - 1))
+
+
+def idx(p, c, s):
+    """`pbmm_cb_idx<S>`: the shared-memory word of (row p, column c)."""
+    return (swz(p, s) << (s.bit_length() - 1)) | c
+
+
+def tasks(nlog, nseq, s, k, lst):
+    """(column, base, lo) of every task e of a pass (`PbmmCbGroup`)."""
+    e = np.arange((nseq << (nlog - k)) * s)
+    c = e & (s - 1)
+    g = e >> (s.bit_length() - 1)
+    gl = g & ((1 << (nlog - k)) - 1)
+    lo = gl & ((1 << lst) - 1)
+    base = ((g >> (nlog - k)) << nlog) | ((gl >> lst) << (lst + k)) | lo
+    return c, base, lo
+
+
+def _butterfly(xr, xi, ur, ui, tr, ti, inverse):
+    if not inverse:
+        br, bi = xr - ur, xi - ui
+        return (xr + ur, xi + ui, br * tr - bi * ti, br * ti + bi * tr)
+    zr, zi = ur * tr - ui * ti, ur * ti + ui * tr
+    return xr + zr, xi + zi, xr - zr, xi - zi
+
+
+def stage_by_stage(re, im, nlog, inverse):
+    """`pbmm_radix2` on (cols, nseq 2^nlog) f32, each 2^nlog sequence on
+    its own: every stage over the whole sequence, the twiddle of the
+    bottom element from row s of `_dif_twiddles`."""
+    n = 1 << nlog
+    tw_re, tw_im = radix2._dif_twiddles(n, inverse)
+    re, im = re.copy(), im.copy()
+    k = np.arange(re.shape[-1] // 2)
+    for s in range(nlog):
+        d = 1 << s if inverse else n >> (s + 1)
+        kk = k % (n // 2)
+        j = kk & (d - 1)
+        i0 = (k // (n // 2)) * n + ((kk - j) << 1) + j
+        i1 = i0 + d
+        re[:, i0], im[:, i0], re[:, i1], im[:, i1] = _butterfly(
+            re[:, i0], im[:, i0], re[:, i1], im[:, i1], tw_re[s, i1 % n],
+            tw_im[s, i1 % n], inverse)
+    return re, im
+
+
+def cb_passes(re, im, nlog, inverse):
+    """The in-block schedule on (cols, nseq 2^nlog) f32: per pass, each
+    group's points gathered, the pass's stages run on them with the
+    compact twiddle words, scattered back."""
+    cre, cim = radix2.compact_twiddles(1 << nlog, inverse)
+    re, im = re.copy(), im.copy()
+    nseq = re.shape[-1] >> nlog
+    for k, lst in cb_plan(nlog, inverse):
+        st, L = 1 << lst, 1 << k
+        c, base, lo = tasks(nlog, nseq, 1, k, lst)
+        pos = base[:, None] + np.arange(L)[None, :] * st
+        xr, xi = re[:, pos], im[:, pos]  # (cols, groups, L)
+        for t in range(k):
+            tt = t if inverse else k - 1 - t
+            dl = 1 << tt
+            for q in range(L):
+                if q & dl:
+                    continue
+                w = (st << tt) - 1 + lo + (q & (dl - 1)) * st
+                (xr[..., q], xi[..., q], xr[..., q + dl],
+                 xi[..., q + dl]) = _butterfly(
+                    xr[..., q], xi[..., q], xr[..., q + dl], xi[..., q + dl],
+                    cre[w], cim[w], inverse)
+        re[:, pos], im[:, pos] = xr, xi
+    return re, im
+
+
+def _bits(*arrays):
+    return [np.ascontiguousarray(a, np.float32).view(np.uint32)
+            for a in arrays]
+
+
+# (nlog, nseq, S): every pow-2 height the kernel takes, and the four-step
+# factor at m = 1, 3, 9 (1080p), 14, 17 (2160p), 28 and 32, each on its
+# strip (`fused.colspec_strip`).
+_POW2 = [(nlog, 1, fused.colspec_strip(1 << nlog)) for nlog in range(1, 13)]
+_TIGHT = [(7, m, fused.colspec_strip(m * LANE))
+          for m in (1, 3, 9, 14, 17, 28, 32)]
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("nlog,nseq,s", _POW2 + _TIGHT,
+                         ids=[f"n{1 << a}x{b}" for a, b, _ in _POW2 + _TIGHT])
+def test_in_block_passes_match_stage_by_stage(nlog, nseq, s, inverse):
+    plan = cb_plan(nlog, inverse)
+    assert sum(k for k, _ in plan) == nlog
+    assert all(1 <= k <= KMAX for k, _ in plan)
+    # No stride between 1 and the bank sweep 2^B: the warp's rows then
+    # differ in bits 0 .. B - 1 (st >= 2^B) or K .. K + B - 1 (st = 1).
+    b = 5 - (s.bit_length() - 1)
+    if nlog >= 5:
+        assert all(lst == 0 or lst >= b for _, lst in plan), plan
+    rng = np.random.default_rng(nlog * 64 + nseq + inverse)
+    n = nseq << nlog
+    re, im = (rng.standard_normal((3, n)).astype(np.float32)
+              for _ in range(2))
+    im[0] = 0.0  # a real column: no shortcut taken
+    want = stage_by_stage(re, im, nlog, inverse)
+    got = cb_passes(re, im, nlog, inverse)
+    for g, w in zip(_bits(*got), _bits(*want)):
+        np.testing.assert_array_equal(g, w)
+    # And each sequence is the DFT: bit-reversed out (DIF) or in (DIT).
+    rev = radix2.bit_reverse_permutation(1 << nlog) if nlog else [0]
+    x = (re.astype(np.float64) + 1j * im).reshape(3, nseq, 1 << nlog)
+    ref = (np.fft.fft(x)[..., rev] if not inverse
+           else np.fft.ifft(x[..., rev], norm="forward"))
+    z = (got[0] + 1j * got[1].astype(np.float64)).reshape(ref.shape)
+    assert np.abs(z - ref).max() < 1e-5 * np.abs(ref).max()
+
+
+def _warps_conflict_free(words):
+    """Each warp of 32 consecutive tasks on 32 distinct banks."""
+    words = np.asarray(words)
+    for w0 in range(0, len(words), 32):
+        banks = words[w0:w0 + 32] % 32
+        if len(np.unique(banks)) != len(banks):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("nlog,nseq,s", [c for c in _POW2 if c[0] >= 7]
+                         + _TIGHT)
+def test_strip_layout_offsets_and_banks(nlog, nseq, s, inverse):
+    n = nseq << nlog
+    p = np.arange(n)
+    words = idx(p[:, None], np.arange(s)[None, :], s).reshape(-1)
+    assert sorted(words) == list(range(n * s))  # one-to-one into n S words
+    ls = s.bit_length() - 1
+    for k, lst in cb_plan(nlog, inverse):
+        c, base, _ = tasks(nlog, nseq, s, k, lst)
+        w0 = idx(base, c, s)
+        for q in range(1 << k):
+            at = w0 ^ (swz(np.array(q << lst), s) << ls)
+            np.testing.assert_array_equal(at, idx(base + q * (1 << lst), c,
+                                                  s))
+            assert _warps_conflict_free(at), (k, lst, q)
+    # The phase loop (task e -> row e >> log2 S, column e mod S) and, at
+    # tight heights, the m-point loops (rows k1 128 + n2).
+    e = np.arange(n * s)
+    assert _warps_conflict_free(idx(e >> ls, e & (s - 1), s))
+    if nlog == 7:
+        e = np.arange(LANE * s)
+        for k1 in range(nseq):
+            assert _warps_conflict_free(
+                idx(k1 * LANE + (e >> ls), e & (s - 1), s))
+
+
+# -- the frame-parallel form against the frame-serial plain version ---------
+
+_BRANCHES = {
+    "main": dict(),
+    "rgb": dict(chroma="rgb"),
+    "standard": dict(mode="standard"),
+    "steerable": dict(orientations=4),
+    "overlapping": dict(pyramid_levels=6, orientations=3),
+    "non_integer": dict(phase_scale=2.5),
+}
+
+
+def _spectra(rng, shape):
+    a = rng.standard_normal(shape).astype(np.float32)
+    a[..., :8, :] = 0.0
+    a[..., 8:16, :] = -0.0
+    return torch.from_numpy(a)
+
+
+def frame_parallel(rows_re, rows_im, prev_re, prev_im, cfg, pad_h, row0,
+                   out_rows, full_w, planes):
+    """`colspec_chunk` as the CUDA kernel schedules it, in torch: the
+    forward spectra of all frames (launch 1), then each frame's phase pass
+    against frame n - planes's spectrum, or the carried state, and the
+    inverse (launch 2); new_prev is the last frame's spectrum."""
+    n, _, w = rows_re.shape
+    r0, r1 = out_rows
+    order = torch.as_tensor(fused._col_order(pad_h))
+    spec = [fused._col_fft_ref(rows_re[f], rows_im[f], pad_h, row0, order)
+            for f in range(n)]
+    host = fused._static_phase_planes(cfg, pad_h, w, full_w)
+    host = None if host is None else tuple(map(torch.from_numpy, host))
+    fy, fx = map(torch.from_numpy, fused._freq_tables(pad_h, w, full_w))
+    outs = []
+    for f in range(n):
+        cr, ci = spec[f].real, spec[f].imag
+        pr, pi_ = ((spec[f - planes].real, spec[f - planes].imag)
+                   if f >= planes else (prev_re[f], prev_im[f]))
+        res = fused._phase_block_ref(cr, ci, pr, pi_, fy, fx, cfg,
+                                     static_planes=host)
+        nat = torch.empty_like(spec[f])
+        nat[order] = torch.complex(res[0], res[1])
+        outs.append(torch.fft.ifft(nat, dim=0, norm="forward")[r0:r1])
+    z = torch.stack(outs)
+    last = spec[n - planes:]
+    return (z.real, z.imag, torch.stack([s.real for s in last]),
+            torch.stack([s.imag for s in last]))
+
+
+@pytest.mark.parametrize("pad_h", [512, 384])
+@pytest.mark.parametrize("name", sorted(_BRANCHES))
+def test_frame_parallel_equals_frame_serial(name, pad_h):
+    cfg = TCfg(phase_scale=10.0).tuned_for_tpu().replace(**_BRANCHES[name])
+    planes = 3 if cfg.chroma == "rgb" else 1
+    w, hc, row0, rows, t = 512, 256, 64, (64, 320), 3
+    wk = fused.hermitian_kept_width(w)
+    rng = np.random.default_rng(40)
+    args = [_spectra(rng, (t * planes, hc, wk)) for _ in range(2)]
+    args += [_spectra(rng, (planes, pad_h, wk)) for _ in range(2)]
+    want = fused.colspec_chunk_ref(*args, cfg, pad_h, row0, out_rows=rows,
+                                   full_w=w, planes=planes)
+    got = frame_parallel(*args, cfg, pad_h, row0, rows, w, planes)
+    assert len(got) == len(want) == 4
+    for g, x in zip(got, want):
+        assert g.shape == x.shape
+        assert torch.equal(g, x)
+
+
+# -- the whole schedule against the JAX kernel -------------------------------
+
+
+def _cs_row(p, pow2):
+    """`cs_row`: the JAX row of block row p."""
+    if pow2:
+        return p
+    return (p & ~127) | radix2.bit_reverse_permutation(LANE)[p & 127]
+
+
+def _f32_sum(terms):
+    """sr += term, in f32, in order (the kernel's accumulation)."""
+    acc = np.zeros_like(terms[0])
+    for x in terms:
+        acc = (acc + x).astype(np.float32)
+    return acc
+
+
+def model_forward(re, im, pad_h, row0):
+    """Launch 1 on one frame's (Hc, W) content rows: the zero-embed, then
+    the DIF passes (pow-2) or the m-point DFT, the four-step twiddle and
+    the 128-point DIF passes (tight); (W, H) in the JAX row order."""
+    w = re.shape[1]
+    xr = np.zeros((w, pad_h), np.float32)
+    xi = np.zeros((w, pad_h), np.float32)
+    xr[:, row0:row0 + re.shape[0]] = re.T
+    xi[:, row0:row0 + re.shape[0]] = im.T
+    pow2 = fused._is_pow2(pad_h)
+    if pow2:
+        zr, zi = cb_passes(xr, xi, pad_h.bit_length() - 1, False)
+    else:
+        m = pad_h // LANE
+        cwr, cwi = fused._combine_matrix(m)
+        fsr, fsi = (a[:, 0] for a in fused._fourstep_twiddle(pad_h, False))
+        ar = xr.reshape(w, m, LANE)
+        ai = xi.reshape(w, m, LANE)
+        br = np.empty_like(ar)
+        bi = np.empty_like(ai)
+        for k1 in range(m):
+            sr = _f32_sum([ar[:, n1] * cwr[k1, n1] - ai[:, n1] * cwi[k1, n1]
+                           for n1 in range(m)])
+            si = _f32_sum([ar[:, n1] * cwi[k1, n1] + ai[:, n1] * cwr[k1, n1]
+                           for n1 in range(m)])
+            tr, ti = fsr[k1 * LANE:(k1 + 1) * LANE], fsi[k1 * LANE:
+                                                        (k1 + 1) * LANE]
+            br[:, k1] = sr * tr - si * ti
+            bi[:, k1] = sr * ti + si * tr
+        zr, zi = cb_passes(br.reshape(w, -1), bi.reshape(w, -1), 7, False)
+    rows = _cs_row(np.arange(pad_h), pow2)
+    outr, outi = np.empty_like(zr), np.empty_like(zi)
+    outr[:, rows], outi[:, rows] = zr, zi
+    return outr, outi
+
+
+def model_inverse(zr, zi, pad_h):
+    """Launch 2's inverse on one frame's (W, H) modified spectrum in the
+    JAX row order: the DIT passes (pow-2), or the 128-point DIT passes,
+    the conjugate twiddle and the conjugate m-point combine (tight);
+    natural rows out."""
+    pow2 = fused._is_pow2(pad_h)
+    rows = _cs_row(np.arange(pad_h), pow2)
+    xr, xi = zr[:, rows], zi[:, rows]  # block order
+    if pow2:
+        return cb_passes(xr, xi, pad_h.bit_length() - 1, True)
+    m = pad_h // LANE
+    w = zr.shape[0]
+    xr, xi = cb_passes(xr, xi, 7, True)
+    cwr, cwi = fused._combine_matrix(m)
+    fsr, fsi = (a[:, 0] for a in fused._fourstep_twiddle(pad_h, False))
+    ar, ai = xr.reshape(w, m, LANE), xi.reshape(w, m, LANE)
+    tr, ti = fsr.reshape(m, LANE), -fsi.reshape(m, LANE)
+    ur, ui = ar * tr - ai * ti, ar * ti + ai * tr
+    out_r, out_i = np.empty_like(ar), np.empty_like(ai)
+    for n1 in range(m):
+        out_r[:, n1] = _f32_sum([ur[:, k1] * cwr[n1, k1]
+                                 - ui[:, k1] * -cwi[n1, k1]
+                                 for k1 in range(m)])
+        out_i[:, n1] = _f32_sum([ur[:, k1] * -cwi[n1, k1]
+                                 + ui[:, k1] * cwr[n1, k1]
+                                 for k1 in range(m)])
+    return out_r.reshape(w, -1), out_i.reshape(w, -1)
+
+
+def model_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h, row0,
+                out_rows):
+    """The kernel's schedule on one plane: every forward spectrum first,
+    then each frame's phase pass (the port's `_phase_block_ref`) against
+    the frame before it, and the inverse."""
+    n, _, w = rows_re.shape
+    r0, r1 = out_rows
+    spec = [model_forward(rows_re[f], rows_im[f], pad_h, row0)
+            for f in range(n)]
+    host = fused._static_phase_planes(cfg, pad_h, w, None)
+    host = None if host is None else tuple(map(torch.from_numpy, host))
+    fy, fx = map(torch.from_numpy, fused._freq_tables(pad_h, w, None))
+    outs = []
+    for f in range(n):
+        cur = spec[f]
+        prv = spec[f - 1] if f else (prev_re[0].T, prev_im[0].T)
+        res = fused._phase_block_ref(
+            *(torch.from_numpy(np.ascontiguousarray(a.T))
+              for a in cur + tuple(prv)), fy, fx, cfg, static_planes=host)
+        zr, zi = model_inverse(res[0].numpy().T, res[1].numpy().T, pad_h)
+        outs.append((zr.T[r0:r1], zi.T[r0:r1]))
+    return (np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs]),
+            spec[-1][0].T[None], spec[-1][1].T[None])
+
+
+@pytest.mark.parametrize("wk", [128, 256])
+@pytest.mark.parametrize("pad_h", [256, 384])
+def test_schedule_model_matches_jax(pad_h, wk):
+    t, hc, row0, rows = 4, 192, 32, (32, 224)
+    rng = np.random.default_rng(pad_h + wk)
+    args = [rng.standard_normal((t, hc, wk)).astype(np.float32)
+            for _ in range(2)]
+    args += [rng.standard_normal((1, pad_h, wk)).astype(np.float32)
+             for _ in range(2)]
+    jc = JCfg(phase_scale=10.0).tuned_for_tpu()
+    tc = TCfg(phase_scale=10.0).tuned_for_tpu()
+    set_gm_precision("highest")
+    try:
+        want = jfused.colspec_chunk(
+            *map(jnp.asarray, args), jc.replace(gm_precision="highest"),
+            pad_h=pad_h, row0=row0, out_rows=rows, interpret=True)
+    finally:
+        set_gm_precision("")
+    got = model_chunk(*args, tc, pad_h, row0, rows)
+    for k in range(0, 4, 2):
+        w = np.asarray(want[k]) + 1j * np.asarray(want[k + 1])
+        g = got[k] + 1j * got[k + 1].astype(np.float64)
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() < 1e-4 * np.abs(w).max()

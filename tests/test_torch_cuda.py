@@ -37,7 +37,16 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
 - blur radii 3, 5 and 13: kernels 3, 10 (f32 and uint8 chroma) and 11,
   kernel 3's route through kernels 7 + 10, `magnify_video` at 1080p in
   y_only, uint8 -> planar_u8 and rgb against the CPU, and the CLI's
-  `--fast --blur-size 1.5` at 1080p.
+  `--fast --blur-size 1.5` at 1080p;
+- kernel 1 on the row engine at 128 to 8192 lanes, kept and full, on a
+  part-filled last block: against its plain version and bit for bit
+  against kernel 8's stage-by-stage row pass on the same windowed rows;
+- kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
+  1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
+  and three, T = 1, 3 and 16, on row spectra that turn smoothly from
+  frame to frame (clear of atan2's branch cut); kernel 5 = its forward
+  half, kernel 6 = its rows and kernel 12 = kernel 6 at H = 512 to 4096;
+  two chunks equal to one at tight and pow-2 heights.
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
@@ -1067,3 +1076,149 @@ def test_cli_fast_blur_size_1_5_at_1080p(dev, tmp_path):
                      "--blur-size", "1.5"]) == 0
     got = np.load(out)
     assert got.shape == clip.shape and np.isfinite(got).all()
+
+
+# -- kernel 1 on the row engine; kernel 2's frame-parallel schedule ----------
+
+
+@pytest.mark.parametrize("keep", [True, False], ids=["kept", "full"])
+@pytest.mark.parametrize("w", [128, 256, 512, 1024, 2048, 4096, 8192])
+def test_row_fft_kernel_on_the_row_engine(dev, w, keep):
+    """Kernel 1 (csrc/row_pass.cuh) at every row length, on a row count
+    that leaves the last block part-filled (37 x 3 rows; blocks of 16 rows
+    at 128 lanes): against its plain version, and bit for bit against the
+    stage-by-stage DIF on the same windowed rows (kernel 8's row pass on
+    a zero imaginary plane: pbmm_radix2's butterflies), kept tiles."""
+    from pbmm_tpu_torch.spectral import radix2
+    from pbmm_tpu_torch.spectral.hermitian import kept_tiles
+
+    hc, pad_h, row0 = 37 if w <= 2048 else 5, 160, 64
+    y = torch.rand((3, hc, w), generator=torch.Generator().manual_seed(w))
+    y = y.to(dev)
+    n = fused.windowed_row_fft.launches
+    got = fused.windowed_row_fft(y, pad_h, row0, keep)
+    assert fused.windowed_row_fft.launches == n + 1
+    assert _rel(got, fused.windowed_row_fft_ref(y, pad_h, row0, keep)) < 1e-4
+    wy, wx = (torch.from_numpy(a).to(dev)
+              for a in fused._hann_pair(pad_h, w))
+    yw = (y * wy[row0:row0 + hc, None]) * wx
+    zr, zi = radix2._fft_axis(yw, torch.zeros_like(yw), 2, False)
+    tiles = kept_tiles(w) if keep else range(w // 128)
+    lanes = torch.as_tensor(np.concatenate(
+        [np.arange(t * 128, (t + 1) * 128) for t in tiles]), device=dev)
+    assert torch.equal(got[0], zr[..., lanes])
+    assert torch.equal(got[1], zi[..., lanes])
+
+
+def _smooth_rows(rng, n, hc, wk, dev, step=0.05):
+    """Row spectra of n rows turning by e^{i step} a row (a random base):
+    prev * conj(cur) stays near one angle, far from atan2's branch cut, so
+    the atan2 branches compare on any height and frame count."""
+    base = (rng.standard_normal((hc, wk))
+            + 1j * rng.standard_normal((hc, wk)))
+    z = np.stack([base * np.exp(1j * step * f) for f in range(n)])
+    z = z.astype(np.complex64)
+    return (torch.from_numpy(np.ascontiguousarray(z.real)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(z.imag)).to(dev))
+
+
+_K2 = {"main": dict(), "standard": dict(mode="standard"),
+       "steerable": dict(orientations=4),
+       "overlapping": dict(pyramid_levels=6, orientations=3),
+       "non_integer": dict(phase_scale=2.5)}
+
+
+@pytest.mark.parametrize("h", [512, 1152, 2048, 2176, 4096])
+@pytest.mark.parametrize("name", sorted(_K2))
+def test_colspec_frame_parallel_branches(dev, name, h):
+    """Kernel 2's frame-parallel schedule on every non-IIR branch at pow-2
+    and four-step heights (strips of 8 to 2048 rows, 4 above), one plane
+    and three, T = 1, 3 and 16, against its plain version; the state it
+    carries out is the last frame's spectrum."""
+    cfg = _cfg().replace(pad_mode="square_pow2" if h in (512, 2048, 4096)
+                         else "tight", **_K2[name])
+    fw = 512
+    wk = hermitian_kept_width(fw)
+    pow2 = h & (h - 1) == 0
+    hc, row0 = (h // 2 + 40, h // 4) if pow2 else (h - 64, 32)
+    rows = (h // 8, h - h // 8)
+    rng = np.random.default_rng(h)
+    order = torch.as_tensor(fused._col_order(h), device=dev)
+    for planes, t in ((1, 1), (1, 16), (3, 3)):
+        rr, ri = _smooth_rows(rng, (t + 1) * planes, hc, wk, dev)
+        # Frame -1 of each plane gives the carried state (torch.fft).
+        prev = [fused._col_fft_ref(rr[c], ri[c], h, row0, order)
+                for c in range(planes)]
+        args = (rr[planes:].contiguous(), ri[planes:].contiguous(),
+                torch.stack([p.real for p in prev]).contiguous(),
+                torch.stack([p.imag for p in prev]).contiguous(), cfg, h,
+                row0)
+        kw = dict(out_rows=rows, full_w=fw, planes=planes)
+        n = fused.colspec_chunk.launches
+        got = fused.colspec_chunk(*args, **kw)
+        assert fused.colspec_chunk.launches == n + 1
+        want = fused.colspec_chunk_ref(*args, **kw)
+        assert got[0].shape == (t * planes, rows[1] - rows[0], wk)
+        for k in range(0, 4, 2):
+            assert _rel(got[k:k + 2], want[k:k + 2]) < 1e-4, (planes, t, k)
+        if pow2:  # the state is kernel 5's spectrum of the last frame
+            k5 = fused.col_fft_zero_padded(args[0][-planes:],
+                                           args[1][-planes:], h, row0)
+            assert torch.equal(got[2], k5[0]) and torch.equal(got[3], k5[1])
+
+
+@pytest.mark.parametrize("h", [512, 1024, 2048, 4096])
+def test_colspec_pow2_identities(dev, h):
+    """At pow-2 heights: kernel 5 = kernel 2's forward half (the state
+    after each frame), kernel 6 on kernel 5's spectra = kernel 2's rows,
+    kernel 12's full variant = kernel 6, bit for bit, over 3 frames."""
+    cfg = _cfg().replace(pad_mode="square_pow2")
+    fw, t = 512, 3
+    wk = hermitian_kept_width(fw)
+    hc, row0, rows = h // 2 + 40, h // 4 - 8, (h // 8, h - h // 8)
+    rng = np.random.default_rng(h + 1)
+    rows_in = [_spectra(rng, (t, hc, wk), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, wk), dev) for _ in range(2)]
+    kw = dict(out_rows=rows, full_w=fw)
+    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, h, row0, **kw)
+    k5 = fused.col_fft_zero_padded(*rows_in, h, row0)
+    assert torch.equal(k2[2][0], k5[0][-1]) and torch.equal(k2[3][0],
+                                                            k5[1][-1])
+    prv = [torch.cat([p, c[:-1]]) for p, c in zip(prev, k5)]
+    k6 = fused.phase_col_ifft(*k5, *prv, cfg, **kw)
+    assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg, kdecomp.VARIANTS[-1][1],
+                                  rows, full_w=fw)
+    assert all(torch.equal(a, b) for a, b in zip(k12, k6))
+
+
+@pytest.mark.parametrize("planes", [1, 3])
+@pytest.mark.parametrize("h", [1152, 2048, 2176, 4096])
+def test_colspec_two_chunks_equal_one(dev, h, planes):
+    """Two chunks of 8 frames, the state threaded, equal one chunk of 16
+    bit for bit (rows and state), at tight and pow-2 heights."""
+    cfg = _cfg().replace(pad_mode="tight" if h in (1152, 2176)
+                         else "square_pow2")
+    fw = 256
+    wk = hermitian_kept_width(fw)
+    hc, row0 = (h - 64, 32) if h in (1152, 2176) else (h // 2, h // 4)
+    rng = np.random.default_rng(h + planes)
+    rows_in = [_spectra(rng, (16 * planes, hc, wk), dev) for _ in range(2)]
+    prev = [_spectra(rng, (planes, h, wk), dev) for _ in range(2)]
+    kw = dict(out_rows=(16, h - 16), full_w=fw, planes=planes)
+    one = fused.colspec_chunk(*rows_in, *prev, cfg, h, row0, **kw)
+    half = 8 * planes
+    a = fused.colspec_chunk(*(r[:half] for r in rows_in), *prev, cfg, h,
+                            row0, **kw)
+    b = fused.colspec_chunk(*(r[half:].contiguous() for r in rows_in),
+                            *a[2:], cfg, h, row0, **kw)
+    assert all(torch.equal(torch.cat([x, y]), z)
+               for x, y, z in zip(a[:2], b[:2], one[:2]))
+    assert all(torch.equal(x, z) for x, z in zip(b[2:], one[2:]))
+
+
+def test_colspec_refuses_a_width_off_its_strip(dev):
+    z = torch.zeros((1, 64, 100), device=dev)
+    zp = torch.zeros((1, 512, 100), device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fused.colspec_chunk(z, z, zp, zp, _cfg(), 512, 0)

@@ -18,6 +18,7 @@ Per case:
 
 The JAX package runs with full-f32 matmuls (gm_precision "highest")."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from pbmm_tpu.oracle.reference import (
     oracle_magnify_video_iir,
 )
 from pbmm_tpu.oracle.synthetic import oscillating_bar
+from pbmm_tpu.spectral.pallas_fft import set_gm_precision
 from pbmm_tpu.utils.metrics import psnr
 from pbmm_tpu_torch import MagnifyConfig, TemporalConfig, magnify_video
 
@@ -47,7 +49,19 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
-# name -> (config changes on the tight main-path config, oracle covers it)
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_highest_traces():
+    """The JAX traces this module makes at gm_precision "highest" stay in
+    JAX's caches, and a later test of the same process that traces the
+    same inner kernels at the default would reuse some of them; drop them
+    when the module ends."""
+    yield
+    set_gm_precision("")
+    jax.clear_caches()
+
+
+# name ->(config changes on the tight main-path config, oracle covers it)
 ROWS = {
     "square_pow2": (dict(pad_mode="square_pow2"), True),
     "rect_pow2": (dict(pad_mode="rect_pow2"), True),

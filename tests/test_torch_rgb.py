@@ -14,6 +14,7 @@ by the magnitude of the bin each rotates; against the oracle no worse
 than the JAX package less 1 dB.  The JAX package runs with full-f32
 matmuls (gm_precision "highest")."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from pbmm_tpu.oracle.reference import (
 )
 from pbmm_tpu.oracle.synthetic import oscillating_bar
 from pbmm_tpu.phase.temporal import TemporalState as JTemporalState
+from pbmm_tpu.spectral.pallas_fft import set_gm_precision
 from pbmm_tpu.utils.metrics import psnr
 from pbmm_tpu_torch import MagnifyConfig, TemporalConfig, magnify_video
 from pbmm_tpu_torch.engine import state as tstate_io
@@ -48,6 +50,17 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_highest_traces():
+    """The JAX traces this module makes at gm_precision "highest" stay in
+    JAX's caches, and a later test of the same process that traces the
+    same inner kernels at the default would reuse some of them; drop them
+    when the module ends."""
+    yield
+    set_gm_precision("")
+    jax.clear_caches()
 
 
 def _cfgs(**change):

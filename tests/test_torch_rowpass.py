@@ -1,4 +1,4 @@
-"""The row engine of kernels 4 and 7 (`pbmm_tpu_torch/csrc/row_pass.cuh`),
+"""The row engine of kernels 1, 4 and 7 (`pbmm_tpu_torch/csrc/row_pass.cuh`),
 checked on the CPU: its twiddle words against the JAX package, and a
 numpy-f32 model of its register-pass schedule against the stage-by-stage
 radix-2 that kernels 1, 3 and 8 run (`common.cuh::pbmm_radix2`).
@@ -283,5 +283,34 @@ def test_engine_model_of_kernel4_matches_jax():
     want = jfused.windowed_row_fft_u8planar(
         jnp.asarray(frames), luma, pad_h=g.pad_h, pad_w=g.pad_w, y0=g.y0,
         x0=g.x0, row0=r0, keep_half=True, interpret=True)
+    want = (np.asarray(want[0]) + 1j * np.asarray(want[1])).reshape(got.shape)
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("keep_half", [True, False], ids=["kept", "full"])
+@pytest.mark.parametrize("w", [256, 512])
+def test_engine_model_of_kernel1_matches_jax(w, keep_half):
+    # Kernel 1's function as the engine computes it (y * wy[row] * wx
+    # rounded in f32 in the pre stage's order, the register passes with
+    # the unkept tiles' last 7 stages skipped, the kept lanes): bit for bit
+    # the stage-by-stage DIF on the same windowed rows (kernel 8's row pass,
+    # the identity chip_smoke.py holds on the card), and against the JAX
+    # kernel in interpret mode.
+    pad_h, hc, row0 = 384, 192, 64
+    rng = np.random.default_rng(w + keep_half)
+    y = rng.random((2, hc, w)).astype(np.float32)
+    wy, wx = fused._hann_pair(pad_h, w)
+    x = ((y * wy[row0:row0 + hc, None]) * wx).reshape(-1, w)
+    keep = kept_tiles(w) if keep_half else list(range(w // LANE))
+    zr, zi = register_passes(x, np.zeros_like(x), False, keep)
+    lanes = np.concatenate([np.arange(t * LANE, (t + 1) * LANE)
+                            for t in keep])
+    sr, si = stage_by_stage(x, np.zeros_like(x), False)
+    for g, s in zip(_bits(zr[:, lanes], zi[:, lanes]),
+                    _bits(sr[:, lanes], si[:, lanes])):
+        np.testing.assert_array_equal(g, s)
+    got = zr[:, lanes] + 1j * zi[:, lanes].astype(np.float64)
+    want = jfused.windowed_row_fft(jnp.asarray(y), pad_h=pad_h, row0=row0,
+                                   keep_half=keep_half, interpret=True)
     want = (np.asarray(want[0]) + 1j * np.asarray(want[1])).reshape(got.shape)
     assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()

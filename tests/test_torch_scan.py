@@ -21,6 +21,7 @@ sizes of tests/test_post_pallas.py, spectra to max error / max magnitude
 kernels in interpret mode with full-f32 matmuls (gm_precision
 "highest")."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,6 +67,17 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_highest_traces():
+    """The JAX traces this module makes at gm_precision "highest" stay in
+    JAX's caches, and a later test of the same process that traces the
+    same inner kernels at the default would reuse some of them; drop them
+    when the module ends."""
+    yield
+    set_gm_precision("")
+    jax.clear_caches()
 
 
 def _cfgs(change):
