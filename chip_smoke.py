@@ -39,12 +39,15 @@ non-zero without the final line:
      1 and 64, strips of 4, 8 and 32 columns, bit for bit) and kernel 14
      (the trig probe: every op code against its plain version and fp64,
      with the JAX probe's tolerances, signed and exact zeros included);
-     blur radii 5 and 13 (kernels 3, 11, 10 with the uint8 chroma, and
-     kernel 3's route through kernels 7 + 10 where its block does not
-     fit); 2160p's heights: kernel 2 at H = 4096 and at tight m = 17,
-     kernels 5, 6 and 12 at H = 4096 (the IIR branch at 4096 is held by
-     the card-only tests), with kernel 6 bit for bit against kernel 2's
-     rows and kernel 12 against kernel 6;
+     blur radii 5, 13 and 15 (kernels 3, 11, 10 with the uint8 chroma,
+     and kernel 3's route through kernels 7 + 10 where its block does not
+     fit); kernel 3 bit for bit against kernel 7 + kernel 10 on the same
+     rows at radii 2 and 5, f32 and uint8 chroma, tuple3 and planar_u8;
+     2160p's heights: kernel 2 at H = 4096 and at tight m = 17, kernels
+     5, 6 and 12 at H = 4096 (the IIR branch at 4096 is held by the
+     card-only tests); kernel 6, one frame a launch and all frames in one,
+     bit for bit against kernel 2's rows at H = 2048 and 4096, and kernel
+     12 against kernel 6;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -86,7 +89,7 @@ non-zero without the final line:
        against the oracle; 2160p tight (H = 2176, m = 17): kernels 1, 2,
        3; the scan engine at 4096 (3 frames): kernels 1, 5, 6, 7, > 100
        dB;
-     - (k) 1080p tight at blur_size 4.0 (radius 13), the bench clip: no
+     - (k) 1080p tight at blur_size 4.5 (radius 15), the bench clip: no
        kernel-3 block fits, so kernels 1, 2, 7, 10 (and 4, 2, 7, 10 from
        planar uint8 to planar_u8), > 100 dB; and at blur_size 1.5
        (radius 5): kernels 1, 2, 3;
@@ -105,8 +108,10 @@ non-zero without the final line:
      one `torch.fft` call on the same shape and axis (the copy probe:
      one `Tensor.copy_`; the trig probe's atan2: `torch.atan2`; kernel
      8's row pass beside `torch.fft` along dim -1; kernels 7, 4 and 1, the
-     row engine's, each on a line of its own beside its call), and the
-     y4m stream's frames/s with the host's parse share.  Kernels, plain
+     row engine's, each on a line of its own beside its call), the
+     designs' alternatives (kernel 6 on half its strip, kernel 3 with 1, 2
+     and 4 region rows in flight at radii 2 and 5), and the y4m stream's
+     frames/s with the host's parse share.  Kernels, plain
      versions and library calls are timed by the device's time alone
      (`tools.kexp.timed`: a spin of the card ahead of each event pair
      covers the host's enqueue), each kernel warm (relaunched on the same
@@ -420,13 +425,18 @@ def main():
     rec1 = rec3[0::3].contiguous()  # (T, Hr, W) Y rows for kernel 10
     yonly_post_args = (rec1, i_pl, q_pl, win, cfg, rows[0], H, W, "tight")
 
-    # Blur radii 5 and 13 (blur_size 1.5 and 4.0): kernel 3 with fewer
-    # free rows, and at 13 (no kernel-3 block fits 2048 lanes) kernels 7 +
-    # 10 in its place; kernels 11 and 10 with 11 and 27 taps a row.
-    cfg_b15, cfg_b40 = (cfg.replace(blur_size=b) for b in (1.5, 4.0))
-    assert all(blur_row_window(geom, c) == rows for c in (cfg_b15, cfg_b40))
-    assert not post_fused.kernel3_serves(post_fused._radius(cfg_b40),
-                                         geom.pad_w)
+    # Blur radii 5, 13 and 15 (blur_size 1.5, 4.0 and 4.5): kernel 3 with
+    # a longer ring, and at 15 (no kernel-3 block fits 2048 lanes and
+    # 1920 columns) kernels 7 + 10 in its place; kernels 11 and 10 with 11
+    # and 27 taps a row.
+    cfg_b15, cfg_b40, cfg_b45 = (cfg.replace(blur_size=b)
+                                 for b in (1.5, 4.0, 4.5))
+    assert all(blur_row_window(geom, c) == rows
+               for c in (cfg_b15, cfg_b40, cfg_b45))
+    assert post_fused.kernel3_serves(post_fused._radius(cfg_b40),
+                                     geom.pad_w, W)
+    assert not post_fused.kernel3_serves(post_fused._radius(cfg_b45),
+                                         geom.pad_w, W)
     # 2160p: square_pow2 (H = 4096, kernel 5's two passes, kernels 2 and 6
     # on strips of 4 and 2) and tight (H = 2176, four-step m = 17), a chunk
     # of 8.
@@ -575,14 +585,18 @@ def main():
         "post_fused[compensate, gains]": both(
             post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_str, rows[0],
             H, W, "tight"),
-        # Blur radii 5 and 13 (kernels 3, 11, 10; kernel 3's route).
+        # Blur radii 5, 13 and 15 (kernels 3, 11, 10; kernel 3's route).
         "rowifft_post_fused[blur 1.5, radius 5]": both(
             post_fused.rowifft_post_fused, rre, rim, i_pl, q_pl, win,
             cfg_b15, rows[0], H, W, "tight", full_w=geom.pad_w),
-        "rowifft_post_fused[blur 4.0, radius 13: kernels 7 + 10, u8, "
-        "planar_u8]": both(
+        "rowifft_post_fused[blur 4.0, radius 13, u8, planar_u8]": both(
             post_fused.rowifft_post_fused, rre, rim, None, None, win,
             cfg_b40, rows[0], H, W, "tight", full_w=geom.pad_w,
+            rgb_u8=u8_frames, out_layout="planar_u8"),
+        "rowifft_post_fused[blur 4.5, radius 15: kernels 7 + 10, u8, "
+        "planar_u8]": both(
+            post_fused.rowifft_post_fused, rre, rim, None, None, win,
+            cfg_b45, rows[0], H, W, "tight", full_w=geom.pad_w,
             rgb_u8=u8_frames, out_layout="planar_u8"),
         "post_fused_rgb[blur 1.5, radius 5]": both(
             post_fused.post_fused_rgb, rec3, win,
@@ -666,8 +680,8 @@ def main():
         "post_fused_rgb": (
             f4 * (rec3.numel() + H * W) + 3 * T * H * W,
             (3 * blur + 20) * T * H * W, None),
-        "phase_col_ifft": (
-            f4 * (4 * k6_cur[0].numel() + 2 * hr_sq * wk),
+        "phase_col_ifft": (  # + the two host planes of the main branch
+            f4 * (6 * k6_cur[0].numel() + 2 * hr_sq * wk),
             fft_ops(g_sq.pad_h, wk) + 40 * g_sq.pad_h * wk, None),
         "_fft_axis": (
             f4 * 4 * n_sq, fft_ops(g_sq.pad_h, g_sq.pad_w),
@@ -819,39 +833,73 @@ def main():
                                  f"+ torch at {what}")
         del got, zr, zi, want
     del r4k
-    # Kernel 6 = kernel 2's phase pass and inverse: on the spectra kernel 5
-    # gives, its rows equal kernel 2's bit for bit (1080p square_pow2).
-    k5 = fused.col_fft_zero_padded(sq_re, sq_im, g_sq.pad_h, r0_sq)
-    k2 = fused.colspec_chunk(sq_re, sq_im, *sq_prev, cfg_sq, g_sq.pad_h,
-                             r0_sq, **k6_kw)
-    k6 = fused.phase_col_ifft(
-        *k5, *(torch.cat([p, c[:-1]]) for p, c in zip(sq_prev, k5)), cfg_sq,
-        **k6_kw)
-    same = torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
-    log(f"[2] phase_col_ifft on kernel 5's spectra == colspec_chunk's output "
-        f"rows, (16, {hr_sq}, {wk}) at 1080p square_pow2: {same}")
-    if not same:
-        raise AssertionError("kernel 6 differs from kernel 2's output rows")
-    del k5, k2, k6
-    # The same at 2160p square_pow2 (H = 4096: kernel 5's passes, kernels
-    # 2 and 6 on strips of 4 and 2), and kernel 12 = kernel 6 there.
-    k5 = fused.col_fft_zero_padded(k4_re, k4_im, g4k.pad_h, r0_4k)
-    k2 = fused.colspec_chunk(k4_re, k4_im, *k4_prev, cfg_j, g4k.pad_h,
-                             r0_4k, **k4_kw)
-    prv = [torch.cat([p, c[:-1]]) for p, c in zip(k4_prev, k5)]
-    k6 = fused.phase_col_ifft(*k5, *prv, cfg_j, **k4_kw)
-    k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg_j, kdecomp.VARIANTS[-1][1],
-                                  rows_4k, full_w=g4k.pad_w)
-    same = (torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
-            and all(torch.equal(a, b) for a, b in zip(k12, k6)))
-    log(f"[2] at H = 4096, (8, {rows_4k[1] - rows_4k[0]}, {wk4}): "
-        f"phase_col_ifft on kernel 5's spectra == colspec_chunk's output "
-        f"rows, and kdecomp_variant (phase + gm + rolls) == "
-        f"phase_col_ifft: {same}")
-    if not same:
-        raise AssertionError("at H = 4096 kernel 6 differs from kernel 2's "
-                             "rows or kernel 12 from kernel 6")
-    del k5, k2, k6, k12, prv
+    # Kernel 6 runs kernel 2's phase pass and inverse (csrc/phase_inv.cuh):
+    # on the spectra kernel 5 gives, its rows equal kernel 2's bit for bit,
+    # all frames in one launch and one frame a launch (a grid of strips x
+    # frames), at 1080p square_pow2 (H = 2048) and 2160p
+    # (H = 4096), 16 frames each; and kernel 12 = kernel 6 at H = 4096.
+    rng6 = np.random.default_rng(6)
+    k6_cases = (
+        ("1080p square_pow2", (sq_re, sq_im), sq_prev, cfg_sq, g_sq, r0_sq,
+         k6_kw),
+        ("2160p square_pow2", [dev_t(rng6.standard_normal(
+            (T, r1_4k - r0_4k, wk4))) for _ in range(2)], k4_prev, cfg_j,
+         g4k, r0_4k, k4_kw))
+    for what, (cre, cim), prv0, c, g, c_r0, kw in k6_cases:
+        k5 = fused.col_fft_zero_padded(cre, cim, g.pad_h, c_r0)
+        k2 = fused.colspec_chunk(cre, cim, *prv0, c, g.pad_h, c_r0, **kw)
+        prv = [torch.cat([p, x[:-1]]) for p, x in zip(prv0, k5)]
+        k6 = fused.phase_col_ifft(*k5, *prv, c, **kw)
+        all_frames = all(torch.equal(a, b) for a, b in zip(k6, k2))
+        ones = [fused.phase_col_ifft(*(x[i:i + 1] for x in (*k5, *prv)), c,
+                                     **kw) for i in range(T)]
+        one_frame = all(torch.equal(o[k][0], k2[k][i])
+                        for i, o in enumerate(ones) for k in range(2))
+        log(f"[2] phase_col_ifft on kernel 5's spectra == colspec_chunk's "
+            f"output rows, {tuple(k6[0].shape)} at {what} (H = {g.pad_h}, "
+            f"strips of {fused.phase_col_strip(g.pad_h, k5[0].shape[-1])}"
+            f"): {T} frames a launch {all_frames}, one frame a launch "
+            f"{one_frame}")
+        if not (all_frames and one_frame):
+            raise AssertionError(f"kernel 6 differs from kernel 2's output "
+                                 f"rows at {what}")
+        if g.pad_h == g4k.pad_h:
+            k12 = kdecomp.kdecomp_variant(*k5, *prv, c,
+                                          kdecomp.VARIANTS[-1][1], kw[
+                                              "out_rows"], full_w=g.pad_w)
+            same = all(torch.equal(a, b) for a, b in zip(k12, k6))
+            log(f"[2] at H = {g.pad_h}: kdecomp_variant (phase + gm + rolls)"
+                f" == phase_col_ifft: {same}")
+            if not same:
+                raise AssertionError("at H = 4096 kernel 12 differs from "
+                                     "kernel 6")
+        del k5, k2, k6, prv, ones
+    del k6_cases
+    # Kernel 3 = kernel 7 + kernel 10, bit for bit: the same |z| rows (the
+    # row engine, kernel 7's load and rounding) and the blur, chroma and
+    # epilogue in kernel 10's order, at radii 2 and 5, f32 and uint8
+    # chroma, tuple3 and planar_u8, on the 1080p region rows.
+    for c in (cfg, cfg_b15):
+        rec = fused.row_ifft_magnitude(rre, rim, pad_h=geom.pad_h,
+                                       full_w=geom.pad_w)
+        for chroma, u8 in (((i_pl, q_pl), None), ((None, None), u8_frames)):
+            for lay in ("tuple3", "planar_u8"):
+                k3 = post_fused.rowifft_post_fused(
+                    rre, rim, *chroma, win, c, rows[0], H, W, "tight",
+                    full_w=geom.pad_w, rgb_u8=u8, out_layout=lay)
+                k10 = post_fused.post_fused(rec, *chroma, win, c, rows[0], H,
+                                            W, "tight", lay, rgb_u8=u8)
+                k3, k10 = ((x,) if torch.is_tensor(x) else x
+                           for x in (k3, k10))
+                same = all(torch.equal(a, b) for a, b in zip(k3, k10))
+                log(f"[2] rowifft_post_fused == row_ifft_magnitude + "
+                    f"post_fused at radius {post_fused._radius(c)}, "
+                    f"{'u8' if u8 is not None else 'f32'} chroma, {lay}: "
+                    f"{same}")
+                if not same:
+                    raise AssertionError("kernel 3 differs from kernel 7 + "
+                                         "kernel 10")
+        del rec, k3, k10
     # Kernel 12's full variant = kernel 6, bit for bit: on kdecomp's
     # planes (tuned_for_tpu(), rows (384, 1600)) and on the bar's spectra.
     full = kdecomp.VARIANTS[-1][1]
@@ -987,7 +1035,7 @@ def main():
     frames4k = np.stack([np.roll(base4k, shift=i, axis=1)
                          * (0.95 + 0.01 * i) for i in range(T4K)])
     frames4k_d = torch.from_numpy(frames4k).to(dev)
-    cfg_k = cfg_b40
+    cfg_k = cfg_b45
     jobs = {"f32": oracle_job(frames, cfg),
             "j": oracle_job(frames4k, cfg_j, n=2),
             "k": oracle_job(frames, cfg_k),
@@ -1226,9 +1274,9 @@ def main():
     check_frames(path_js, (js1,), (3, H4K, W4K, 3), torch.float32)
     psnr_js, = vs_oracle([(path_js, js1)], jobs["j"])
 
-    # (k) 1080p tight at blur_size 4.0 (radius 13): no kernel-3 block
+    # (k) 1080p tight at blur_size 4.5 (radius 15): no kernel-3 block
     # fits, so kernel 7 and kernel 10 take the tail; f32 and u8 in.
-    path_k = "(k) 1080p blur 4.0 (kernels 7 + 10)"
+    path_k = "(k) 1080p blur 4.5 (kernels 7 + 10)"
     k_kernels = ("colspec_chunk", "row_ifft_magnitude", "post_fused")
     k1, sk1, k2_, _ = run_path(
         path_k, ("windowed_row_fft",) + k_kernels,
@@ -1428,6 +1476,38 @@ def main():
                 f"ms; library call "
                 + (f"{records[name]['library_ms']:.4f} ms" if lib
                    else "none"))
+        # The designs' alternatives, for the record: kernel 6 on half its
+        # strip (at one 1080p frame, 288 blocks: one wave of 3 an SM would
+        # hold at 64 KB, were the block smaller), and kernel 3 with 1, 2
+        # and 4 region rows in flight at radii 2 and 5.
+        strip = fused.phase_col_strip
+        try:
+            fused.phase_col_strip = lambda h, w: strip(h, w) // 2
+            half = kexp.timed(calls["phase_col_ifft"][0], device=dev)
+        finally:
+            fused.phase_col_strip = strip
+        log(f"[4] {card}: phase_col_ifft on half its strip "
+            f"({strip(g_sq.pad_h, wk) // 2} columns) {half[0]:.4f} ms warm, "
+            f"{half[1]:.4f} ms cold, against {records['phase_col_ifft']['ms']:.4f} "
+            f"/ {records['phase_col_ifft']['ms_cold']:.4f} on "
+            f"{strip(g_sq.pad_h, wk)}")
+        records["phase_col_ifft"]["half_strip_ms"] = half
+        threads = post_fused._KERNEL3_THREADS
+        for c in (cfg, cfg_b15):
+            for n in (128, 256, 512):
+                try:
+                    post_fused._KERNEL3_THREADS = n
+                    rows_in = post_fused.kernel3_rows(post_fused._radius(c),
+                                                      geom.pad_w, W)
+                    ms = kexp.timed(lambda: post_fused.rowifft_post_fused(
+                        rre, rim, i_pl, q_pl, win, c, rows[0], H, W, "tight",
+                        full_w=geom.pad_w), device=dev)
+                finally:
+                    post_fused._KERNEL3_THREADS = threads
+                log(f"[4] {card}: rowifft_post_fused at radius "
+                    f"{post_fused._radius(c)}, {rows_in} region rows in "
+                    f"flight ({n} threads): {ms[0]:.4f} ms warm, {ms[1]:.4f} "
+                    "ms cold")
         # Kernel 8's row pass beside one torch.fft call along the rows.
         for name, lib in (
                 ("_fft_axis[inverse, axis 2, scale]",

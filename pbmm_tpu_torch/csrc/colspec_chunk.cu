@@ -57,10 +57,11 @@
 // (CsCombine: with both loops unrolled each weight is an FMA operand),
 // applies the four-step twiddle, and the 128-point factor runs as passes
 // of 4 + 3 stages; the inverse mirrors it.  The pow-2 passes run kernel
-// 5's butterflies (the forward, kernel 5 bit for bit) and kernel 6's (the
-// phase pass phase_pass.cuh's pbmm_phase_bin, the same for both; kernel
-// 6 bit for bit on kernel 5's spectra).  A frame's forward transform is
-// one code path whichever chunk it falls in, so two chunks equal one.
+// 5's butterflies (the forward, kernel 5 bit for bit), and launch 2's
+// pow-2 phase pass and inverse are phase_inv.cuh's device functions,
+// which kernel 6 runs too (kernel 6 bit for bit on kernel 5's spectra).
+// A frame's forward transform is one code path whichever chunk it falls
+// in, so two chunks equal one.
 // The four-step combine sums in plain C++ (nvcc may contract it to FMA),
 // held to the plain version at 1e-4 of the spectrum's magnitude.  On an
 // NVIDIA H100 80GB HBM3 at its 700 W limit (chip_smoke.py) a 1080p tight
@@ -84,7 +85,7 @@
 
 #include "col_pass.cuh"
 #include "common.cuh"
-#include "phase_pass.cuh"
+#include "phase_inv.cuh"
 
 
 // Pointers and sizes of one launch (device pointers; null where a branch
@@ -139,13 +140,6 @@ static CsCombine<M> cs_combine(const float* re, const float* im, int m) {
       }
   }
   return w;
-}
-
-// JAX row of block row p: identity at pow-2 heights, the in-block
-// bit reversal of the four-step's 128-point factor otherwise.
-template <bool POW2>
-__device__ __forceinline__ int cs_row(int p) {
-  return POW2 ? p : ((p & ~127) | pbmm_rev7(p & 127));
 }
 
 // The IIR branch, frame-serial: a block owns a strip of CS_S kept columns
@@ -455,9 +449,9 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
 // Launch 2: frame n's phase pass against frame n - C's scratch spectrum
 // (the carried state for the first frame of each plane), element by
 // element into the strip, then the inverse: at pow-2 heights (MAXM = 0)
-// the radix-2 DIT of 2^NLOG rows (kernel 6's butterflies), at tight
-// heights the 128-point DIT of each block, the conjugate twiddle and the
-// conjugate m-point combine; rows [r0, r1) out.
+// the radix-2 DIT of 2^NLOG rows (phase_inv.cuh, the body kernel 6 runs),
+// at tight heights the 128-point DIT of each block, the conjugate twiddle
+// and the conjugate m-point combine; rows [r0, r1) out.
 template <int NLOG, int S, int MAXM, bool GENERAL>
 __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
     cs_inv_kernel(ColspecIO io, PhaseArgs pa,
@@ -472,54 +466,25 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
   const int col0 = blockIdx.x * S;
   const int n = blockIdx.y;
   const size_t hw = (size_t)h * wk;
-  const float* src[4] = {
+  const bool first = n < io.c;
+  pbmm_phase_strip<S, POW2, GENERAL, false>(
       io.spec_re + n * hw, io.spec_im + n * hw,
-      n >= io.c ? io.spec_re + (n - io.c) * hw : io.prev_re + n * hw,
-      n >= io.c ? io.spec_im + (n - io.c) * hw : io.prev_im + n * hw};
-  // The phase pass, element by element into the strip.  (Staging cur
-  // and prev through shared memory by asynchronous copies, or loading a
-  // few elements ahead of their arithmetic, measured slower; the latter
-  // also changed how nvcc contracts the main branch's products, and
-  // kernel 6's bits need this loop as it is.)
-  for (int e = threadIdx.x; e < h * S; e += blockDim.x) {
-    const int p = e >> LS, c = e & (S - 1);
-    const int P = cs_row<POW2>(p);
-    const size_t g = (size_t)P * wk + col0 + c;  // shared by the frames
-    float o_r, o_i;
-    pbmm_phase_bin<GENERAL, false>(__ldg(src[0] + g), __ldg(src[1] + g),
-                                   __ldg(src[2] + g), __ldg(src[3] + g),
-                                   io.plane0, io.plane1, g, io.fy, P, io.fx,
-                                   col0 + c, nullptr, nullptr, pa, o_r, o_i);
-    const int i = pbmm_cb_idx<S>(p, c);
-    sre[i] = o_r;
-    sim[i] = o_i;
-  }
-  __syncthreads();
+      first ? io.prev_re + n * hw : io.spec_re + (n - io.c) * hw,
+      first ? io.prev_im + n * hw : io.spec_im + (n - io.c) * hw, nullptr,
+      nullptr, nullptr, nullptr, io.plane0, io.plane1, io.fy, io.fx, pa, h,
+      wk, col0, sre, sim);
 
   const int r0 = io.r0, hr = io.r1 - io.r0;
   float* dre = io.out_re + (size_t)n * hr * wk + col0;
   float* dim = io.out_im + (size_t)n * hr * wk + col0;
-  auto read = [&](const auto& gr, float (&xr)[PBMM_RP_P],
-                  float (&xi)[PBMM_RP_P]) {
-    pbmm_cb_read(gr, xr, xi, sre, sim);
-  };
   if constexpr (POW2) {
-    auto last = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
-                    const float (&xi)[PBMM_RP_P]) {
-      using G = PbmmRpOf<decltype(gr)>;
-#pragma unroll
-      for (int q = 0; q < G::L; ++q) {
-        const int r = gr.pos(q) - r0;
-        if ((unsigned)r < (unsigned)hr) {
-          const size_t o = (size_t)r * wk + gr.c;
-          dre[o] = xr[q];
-          dim[o] = xi[q];
-        }
-      }
-    };
-    pbmm_cb_transform<NLOG, S, true>(1, sre, sim, io.tw_ire, io.tw_iim, read,
-                                     last);
+    pbmm_inv_rows_pow2<NLOG, S>(sre, sim, io.tw_ire, io.tw_iim, dre, dim, wk,
+                                r0, hr);
   } else {
+    auto read = [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                    float (&xi)[PBMM_RP_P]) {
+      pbmm_cb_read(gr, xr, xi, sre, sim);
+    };
     auto write = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
                      const float (&xi)[PBMM_RP_P]) {
       pbmm_cb_write(gr, xr, xi, sre, sim);

@@ -7,7 +7,7 @@
 // Widest padded row the kernels take: 64 tiles of 128 lanes (W = 8192).
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
-// Columns a block of the strip kernels (6, 12 and kernel 2's IIR branch)
+// Columns a block of the strip kernels (12 and kernel 2's IIR branch)
 // holds in shared memory:
 // 4 up to H = 2048, 2 above (PBMM_COL_S_TALL), up to H = 4096.
 #define PBMM_COL_S 4
@@ -103,43 +103,6 @@ struct PbmmLanePlan {
   int src[PBMM_MAX_TILES];
   int rev[PBMM_MAX_TILES];
 };
-
-// The load -> rebuild -> row IFFT -> |z| (or Re z) step shared by kernels
-// 3 and 7: one row of wk bit-reversed kept lanes (src_re/src_im) is
-// rebuilt to w lanes in xre/xim (shared memory, w floats each) by the
-// plan, taken to natural order by the DIT inverse, and |z| * scale (or,
-// with magnitude false, Re z * scale: reconstruct="real") is written to
-// out (w values, shared or device memory).  Ends synchronised, so
-// xre/xim can take the next row.
-__device__ __forceinline__ void pbmm_row_ifft_mag(
-    const float* __restrict__ src_re, const float* __restrict__ src_im,
-    const PbmmLanePlan& plan, int w, const float* __restrict__ tw_re,
-    const float* __restrict__ tw_im, float* xre, float* xim, float* out,
-    float scale, bool magnitude) {
-  for (int p = threadIdx.x; p < w; p += blockDim.x) {
-    const int tile = p / PBMM_LANE, l = p % PBMM_LANE;
-    const int kp = plan.src[tile];
-    if (plan.rev[tile]) {
-      const int g = kp * PBMM_LANE + (PBMM_LANE - 1 - l);
-      xre[p] = src_re[g];
-      xim[p] = -src_im[g];
-    } else {
-      const int g = kp * PBMM_LANE + l;
-      xre[p] = src_re[g];
-      xim[p] = src_im[g];
-    }
-  }
-  __syncthreads();
-  pbmm_radix2(xre, xim, w, 1, 1, 0, 0, 1, tw_re, tw_im, true);
-  for (int p = threadIdx.x; p < w; p += blockDim.x) {
-    const float a = xre[p], b = xim[p];
-    out[p] = magnitude
-                 ? __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b))),
-                             scale)
-                 : __fmul_rn(a, scale);
-  }
-  __syncthreads();
-}
 
 // Zero-embed of a strip of S columns from col0 of an h-row column: rows
 // [row0, row0 + hc) take the content rows' spectra (src, row stride wk),

@@ -11,14 +11,16 @@
 //   HI     the stages of span 128 and more (_run_roll_stages, :88-110).
 // Rows [r0, r1) of the result go out.
 //
-// Design: kernel 6's layout exactly (csrc/phase_col_ifft.cu): a strip of
-// S columns of one frame a block (4 up to H = 2048, 2 above, up to 4096,
-// as kernel 6 takes them), cur and prev in shared memory (128 KB at
-// H = 2048 or 4096), the same loads, the same phase call
-// and the same pbmm_radix2_stage calls on the twiddle rows pbmm_radix2
-// uses.  So the full variant (PHASE, LO, HI) computes kernel 6's bits,
-// and the other variants differ from it only by the pieces they leave
-// out.  IIR taps are not taken (kdecomp times the two-frame pass).
+// Design: kernel 6's first layout (a probe keeps the design it measures):
+// a strip of S columns of one frame a block (4 up to H = 2048, 2 above,
+// up to 4096), cur and prev in shared memory (128 KB at H = 2048 or
+// 4096), the phase pass's pbmm_phase_bin and the stage-by-stage
+// pbmm_radix2_stage calls on the twiddle rows pbmm_radix2 uses.  Kernel 6
+// now runs kernel 2's in-block register passes (csrc/phase_inv.cuh), which
+// compute pbmm_radix2's bits, so the full variant (PHASE, LO, HI) still
+// equals kernel 6 bit for bit (chip_smoke.py), and the other variants
+// differ from it only by the pieces they leave out.  IIR taps are not
+// taken (kdecomp times the two-frame pass).
 //
 // What bounds it on an H100: the same bytes as kernel 6: 4 planes of
 // H x W f32 in, 2 x (r1 - r0) x W out; at H = 2048, W = 1152, rows

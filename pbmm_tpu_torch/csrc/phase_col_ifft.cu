@@ -1,5 +1,5 @@
-// Kernel 6: one frame's band/phase pass against its previous frame, then
-// the radix-2 column IFFT, rows [r0, r1) out.
+// Kernel 6: each frame's band/phase pass against its own previous frame,
+// then the radix-2 column IFFT, rows [r0, r1) out.
 //
 // Replaces pbmm_tpu/spectral/fused.py:1022 phase_col_ifft (the Pallas
 // kernel launched at :1168): the per-frame scan engine's fused
@@ -13,25 +13,35 @@
 // taps; the sharded engines' fx_values and the benchmark-only pair_offset
 // are not ported.
 //
-// Design: kernel 2's pow-2 branch without its forward half.  A block owns
-// a strip of S columns of one frame, S a template parameter as in kernel
-// 2: 4 up to H = 2048, 2 above, up to 4096; cur and prev (4 x H x S f32,
-// 128 KB at H = 2048 or 4096) and the taps (2 more planes, 192 KB) sit in
-// shared memory.  The phase pass is phase_pass.cuh's pbmm_phase_bin and the
-// inverse is common.cuh's pbmm_radix2 with kernel 2's arguments, so on
-// the spectra kernel 5 gives, this kernel's rows equal kernel 2's bit for
-// bit (checked on the card by chip_smoke.py).
+// Design: kernel 2's launch 2 at pow-2 heights, frame-parallel.  A block
+// owns a strip of S columns of one frame (grid: W / S strips x B frames)
+// and runs phase_inv.cuh's pbmm_phase_strip (the phase pass element by
+// element from device memory into the swizzled strip; with IIR the bin's
+// taps read, updated in registers and written back) and
+// pbmm_inv_rows_pow2 (col_pass.cuh's in-block register passes, the last
+// one writing the output rows), the very body of kernel 2's launch 2: on
+// the spectra kernel 5 gives, the rows are kernel 2's bit for bit.  Nothing
+// recurs inside a launch, so there is no frame loop and no tap plane in
+// shared memory (2 H S floats a block).  The launch is kernel 2's too:
+// 512 threads, one block an SM, the strip of colspec_chunk.cu::cs_strip
+// (16 columns to H = 1024, 8 to 2048, 4 above), or the widest half of it
+// that divides the width, down to 4 (2 above H = 2048)
+// (spectral/fused.py::phase_col_strip).  Narrower strips and smaller
+// blocks that fill the SMs in one wave at B = 1 (4 columns, 256 threads,
+// 3 blocks an SM: 288 blocks at 1080p's H = 2048) measured no faster, and
+// slower at H = 4096 and B = 16 (PERF.md).
 //
 // What bounds it on an H100: it reads 4 (IIR 6) planes of B x H x W f32
-// once and writes 2 x B x (r1 - r0) x W (+ 2 tap planes); at 1080p
-// square_pow2 (H = 2048, W = 1152) that is ~38 MB in and ~18 MB out per
-// frame, against 5 H log2(H) flops per column plus the phase chain:
-// bytes bound.  The strip of 4 columns reads 16 bytes of each row, half
-// a 32-byte sector; simple and right first.
+// (and the two host planes of H x W) once and writes 2 x B x (r1 - r0) x W
+// (+ 2 tap planes); at 1080p square_pow2 (H = 2048, W = 1152 kept lanes,
+// rows 1152) 67 MB a frame, 0.020 ms at 3.35 TB/s, against 5 H log2(H)
+// flops a column plus the phase chain: bytes bound.  On an NVIDIA H100
+// 80GB HBM3 at its 700 W limit (chip_smoke.py) one such frame takes
+// 0.090 ms warm (0.105 on strips of 4), one frame at H = 4096 0.258 (the
+// stage-by-stage design before it: 0.239 and 0.933).
 
 #include "common.cuh"
-#include "phase_pass.cuh"
-
+#include "phase_inv.cuh"
 
 struct PhaseColIO {
   const float* cur_re;
@@ -44,121 +54,88 @@ struct PhaseColIO {
   const float* plane1;  // m_amp (pyramid)
   const float* fy;      // row frequency, (H,)
   const float* fx;      // lane frequency, (W,)
-  const float* tw_re;   // _dif_twiddles(H, inverse)
+  const float* tw_re;   // compact_twiddles(H, inverse)
   const float* tw_im;
   float* out_re;
   float* out_im;
   float* lpf_out;
   float* lps_out;
-  int h, w, r0, r1;
+  int w, r0, r1;
 };
 
-template <bool GENERAL, bool IIR, int PC_S>
-__global__ void __launch_bounds__(256)
+template <int NLOG, int S, bool GENERAL, bool IIR>
+__global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
     phase_col_ifft_kernel(PhaseColIO io, PhaseArgs pa) {
   extern __shared__ float smem[];
-  const int h = io.h, w = io.w;
-  const int hs = h * PC_S;
-  float* a_re = smem;  // current frame
-  float* a_im = smem + hs;
-  float* b_re = smem + 2 * hs;  // previous frame, then the modified one
-  float* b_im = smem + 3 * hs;
-  float* l_f = smem + 4 * hs;  // IIR taps
-  float* l_s = smem + 5 * hs;
-  const int col0 = blockIdx.x * PC_S;
-  const size_t fo = (size_t)blockIdx.y * h * w;  // this frame's planes
-  const int nt = blockDim.x;
-
-  for (int e = threadIdx.x; e < hs; e += nt) {
-    const int p = e / PC_S, c = e % PC_S;
-    const size_t g = fo + (size_t)p * w + col0 + c;
-    a_re[e] = io.cur_re[g];
-    a_im[e] = io.cur_im[g];
-    b_re[e] = io.prev_re[g];
-    b_im[e] = io.prev_im[g];
-    if (IIR) {
-      l_f[e] = io.lpf_in[g];
-      l_s[e] = io.lps_in[g];
-    }
-  }
-  __syncthreads();
-
-  // The phase pass (kernel 2's step 4); the result replaces prev.
-  for (int e = threadIdx.x; e < hs; e += nt) {
-    const int p = e / PC_S, c = e % PC_S;
-    const size_t g = (size_t)p * w + col0 + c;  // host-plane index
-    const float cr = a_re[e], ci = a_im[e];
-    const float pr = b_re[e], pi = b_im[e];
-    float o_r, o_i;
-    pbmm_phase_bin<GENERAL, IIR>(cr, ci, pr, pi, io.plane0, io.plane1, g,
-                                 io.fy, p, io.fx, col0 + c, l_f + e, l_s + e,
-                                 pa, o_r, o_i);
-    b_re[e] = o_r;
-    b_im[e] = o_i;
-  }
-  __syncthreads();
-
-  // The DIT inverse: bit-reversed rows in, natural rows out, unnormalised.
-  pbmm_radix2(b_re, b_im, h, PC_S, PC_S, 0, 1, PC_S, io.tw_re, io.tw_im,
-              true);
-
+  constexpr int N = 1 << NLOG;
+  float* sre = smem;
+  float* sim = smem + N * S;
+  const size_t wk = io.w;
+  const int col0 = blockIdx.x * S;
+  const size_t fo = (size_t)blockIdx.y * N * wk;  // this frame's planes
+  pbmm_phase_strip<S, true, GENERAL, IIR>(
+      io.cur_re + fo, io.cur_im + fo, io.prev_re + fo, io.prev_im + fo,
+      IIR ? io.lpf_in + fo : nullptr, IIR ? io.lps_in + fo : nullptr,
+      IIR ? io.lpf_out + fo : nullptr, IIR ? io.lps_out + fo : nullptr,
+      io.plane0, io.plane1, io.fy, io.fx, pa, N, wk, col0, sre, sim);
   const int hr = io.r1 - io.r0;
-  const size_t obase = (size_t)blockIdx.y * hr * w;
-  for (int e = threadIdx.x; e < hr * PC_S; e += nt) {
-    const int p = e / PC_S, c = e % PC_S;
-    const size_t g = obase + (size_t)p * w + col0 + c;
-    io.out_re[g] = b_re[(p + io.r0) * PC_S + c];
-    io.out_im[g] = b_im[(p + io.r0) * PC_S + c];
-  }
-  if (IIR) {
-    for (int e = threadIdx.x; e < hs; e += nt) {
-      const int p = e / PC_S, c = e % PC_S;
-      const size_t g = fo + (size_t)p * w + col0 + c;
-      io.lpf_out[g] = l_f[e];
-      io.lps_out[g] = l_s[e];
-    }
-  }
+  const size_t ob = (size_t)blockIdx.y * hr * wk + col0;
+  pbmm_inv_rows_pow2<NLOG, S>(sre, sim, io.tw_re, io.tw_im, io.out_re + ob,
+                              io.out_im + ob, wk, io.r0, hr);
 }
 
-template <bool GENERAL, bool IIR, int S>
+template <int NLOG, int S, bool GENERAL, bool IIR>
 static cudaError_t pc_launch(const PhaseColIO& io, const PhaseArgs& pa,
                              int b, cudaStream_t stream) {
-  const size_t smem = (IIR ? 6 : 4) * (size_t)io.h * S * sizeof(float);
+  const size_t smem = 2 * ((size_t)S << NLOG) * sizeof(float);
   cudaError_t err =
-      pbmm_smem_opt_in(phase_col_ifft_kernel<GENERAL, IIR, S>, smem);
+      pbmm_smem_opt_in(phase_col_ifft_kernel<NLOG, S, GENERAL, IIR>, smem);
   if (err != cudaSuccess) return err;
-  phase_col_ifft_kernel<GENERAL, IIR, S>
-      <<<dim3(io.w / S, b), 256, smem, stream>>>(io, pa);
+  phase_col_ifft_kernel<NLOG, S, GENERAL, IIR>
+      <<<dim3(io.w / S, b), PBMM_CB_THREADS, smem, stream>>>(io, pa);
   return cudaGetLastError();
 }
 
-template <int S>
+template <int NLOG, int S>
 static cudaError_t pc_branch(const PhaseColIO& io, const PhaseArgs& pa,
                              bool general, int b, cudaStream_t stream) {
-  return pa.iir   ? pc_launch<true, true, S>(io, pa, b, stream)
-         : general ? pc_launch<true, false, S>(io, pa, b, stream)
-                   : pc_launch<false, false, S>(io, pa, b, stream);
+  return pa.iir   ? pc_launch<NLOG, S, true, true>(io, pa, b, stream)
+         : general ? pc_launch<NLOG, S, true, false>(io, pa, b, stream)
+                   : pc_launch<NLOG, S, false, false>(io, pa, b, stream);
+}
+
+// The strips a height takes (phase_col_strip's candidates): kernel 2's
+// strip S2, S2 / 2 and 4 (2 above H = 2048).
+template <int NLOG, int S2>
+static cudaError_t pc_strip(const PhaseColIO& io, const PhaseArgs& pa,
+                            bool general, int b, int s, cudaStream_t st) {
+  constexpr int S4 = NLOG > 11 ? 2 : 4;
+  if (s == S2) return pc_branch<NLOG, S2>(io, pa, general, b, st);
+  if (s == S2 / 2) return pc_branch<NLOG, S2 / 2>(io, pa, general, b, st);
+  if (s == S4 && S4 < S2 / 2)
+    return pc_branch<NLOG, (S4 < S2 / 2 ? S4 : S2)>(io, pa, general, b, st);
+  return cudaErrorInvalidValue;
 }
 
 // iargs, fargs: the phase pass's branch and constants (host arrays, as
 // for pbmm_colspec_chunk).  lpf/lps pointers are null without IIR,
-// plane0/plane1 without host planes, fy/fx on the main branch.
+// plane0/plane1 without host planes, fy/fx on the main branch; tw_re /
+// tw_im: compact_twiddles(h, inverse=True); s: the strip
+// (spectral/fused.py::phase_col_strip).
 extern "C" int pbmm_phase_col_ifft(
     const float* cur_re, const float* cur_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
     const float* plane0, const float* plane1, const float* fy,
     const float* fx, const float* tw_re, const float* tw_im, float* out_re,
     float* out_im, float* lpf_out, float* lps_out, const int* iargs,
-    const float* fargs, int b, int h, int w, int r0, int r1,
+    const float* fargs, int b, int h, int w, int r0, int r1, int s,
     void* stream) {
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool general = pbmm_phase_general(pa);
-  const bool tall = h > PBMM_COL_MAXH;
-  const int s = tall ? PBMM_COL_S_TALL : PBMM_COL_S;
   if (!args_ok || b < 1 || b > 65535 || h < 2 || (h & (h - 1)) != 0 ||
-      h > PBMM_COL_MAXH_TALL || w < s || w % s != 0 || r0 < 0 || r1 <= r0 ||
-      r1 > h || (pa.host_planes && plane0 == nullptr) ||
+      h > PBMM_COL_MAXH_TALL || s < 2 || w < s || w % s != 0 || r0 < 0 ||
+      r1 <= r0 || r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (!general && (plane0 == nullptr || plane1 == nullptr)) ||
       (pa.iir && (lpf_in == nullptr || lps_in == nullptr ||
@@ -166,11 +143,19 @@ extern "C" int pbmm_phase_col_ifft(
       (general && (fy == nullptr || fx == nullptr)))
     return (int)cudaErrorInvalidValue;
   const PhaseColIO io = {cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in,
-                         plane0, plane1, fy, fx, tw_re, tw_im, out_re,
-                         out_im, lpf_out, lps_out, h, w, r0, r1};
+                         plane0, plane1, fy,      fx,      tw_re,  tw_im,
+                         out_re, out_im, lpf_out, lps_out, w,      r0,
+                         r1};
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t err =
-      tall ? pc_branch<PBMM_COL_S_TALL>(io, pa, general, b, st)
-           : pc_branch<PBMM_COL_S>(io, pa, general, b, st);
+  cudaError_t err;
+  switch (h) {
+#define PC_H(NLOG, S2) \
+  case 1 << NLOG: err = pc_strip<NLOG, S2>(io, pa, general, b, s, st); break;
+    PC_H(1, 16) PC_H(2, 16) PC_H(3, 16) PC_H(4, 16) PC_H(5, 16) PC_H(6, 16)
+    PC_H(7, 16) PC_H(8, 16) PC_H(9, 16) PC_H(10, 16) PC_H(11, 8)
+    PC_H(12, 4)
+#undef PC_H
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)err;
 }

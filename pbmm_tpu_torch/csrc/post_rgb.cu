@@ -10,7 +10,7 @@
 // and cropped the same way, and I, Q are the original chroma planes
 // times the crop-region Hann window (post_pallas.py:164-178).  The port
 // also reaches it after kernel 7 where kernel 3's block does not fit
-// shared memory (a blur radius of 13 or more at W = 2048, 6 or more at
+// shared memory (a blur radius of 15 or more at W = 2048, 7 or more at
 // 4096: engine/post_fused.py::kernel3_serves), so it takes kernel 3's
 // chroma sources too: the f32 I/Q planes, or the (T, 3, H, W) uint8
 // source frames, from which it forms I and Q as kernel 3 does,

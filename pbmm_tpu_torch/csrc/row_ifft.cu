@@ -22,10 +22,12 @@
 // exchange through shared memory (two barriers at W = 2048); the last DIT
 // pass holds points W / 2^K apart, so each of its stores of |z| is a
 // 128-byte row segment of a warp.  The compact twiddle table (W - 1 words)
-// stays in L1.  The butterflies, their order and |z|'s rounding are those
-// of pbmm_row_ifft_mag (common.cuh), which kernel 3 keeps: the output is
-// bit for bit kernel 8's row pass followed by torch's sqrt(re re + im im)
-// * scale (tests/test_torch_cuda.py, chip_smoke.py).  On an NVIDIA H100
+// stays in L1.  The butterflies and their order are pbmm_radix2's (the
+// stage-by-stage transform of kernel 8's row pass), and |z| is rounded as
+// torch rounds sqrt(re re + im im) * scale: the output is bit for bit
+// kernel 8's row pass followed by torch's |z| (tests/test_torch_cuda.py,
+// chip_smoke.py).  Kernel 3 (rowifft_post.cu) runs this load, transform
+// and rounding on the same engine, so its |z| rows are these.  On an NVIDIA H100
 // 80GB HBM3 at its 700 W limit (chip_smoke.py) it takes 0.156 ms warm at
 // the 1080p shape (16 x 1152 rows, 1152 -> 2048 lanes: 321 MB, 2.1 TB/s),
 // against 0.313 for torch.fft.irfft and 0.565 for the one-block-a-row

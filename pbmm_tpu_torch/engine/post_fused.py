@@ -43,7 +43,7 @@ from pbmm_tpu_torch.spectral.fused import (
     rebuilt_row_ifft,
     row_ifft_magnitude,
 )
-from pbmm_tpu_torch.spectral.radix2 import _dif_twiddles, check_pow2
+from pbmm_tpu_torch.spectral.radix2 import check_pow2, compact_twiddles
 
 _LANE = 128
 
@@ -93,25 +93,45 @@ _LAYOUTS = ("tuple3", "planar", "planar_u8")  # csrc/rowifft_post.cu order
 # `post_pallas_ok` admits 2 r <= ob with the output block ob <= 192.
 _MAX_BLUR_R = 96
 _SMEM_BYTES = 232448  # shared memory a block may use on an H100
-_KERNEL3_OB = 8  # output rows a kernel-3 block holds where they fit
+_KERNEL3_THREADS = 256  # the most threads a kernel-3 block runs
+_RP_POINTS = 16  # points a thread of the row engine holds (PBMM_RP_P)
 
 
-def kernel3_rows(radius: int, pad_w: int) -> int:
-    """Output rows a block of kernel 3 (`csrc/rowifft_post.cu`) holds at
-    this blur radius and padded width: 8, or fewer where the block's
-    (2 + rows + 2 r) rows of `pad_w` f32 would pass 227 KB of shared
-    memory; 0 where not even one output row fits."""
-    fit = _SMEM_BYTES // (4 * pad_w) - 2 - 2 * radius
-    return max(0, min(_KERNEL3_OB, fit))
+def _widest_crop(radius: int, pad_w: int) -> int:
+    """The widest crop `post_pallas_ok` admits in a padded width at a
+    blur radius: a multiple of 128 with the radius free on each side."""
+    return max(0, (pad_w - 2 * radius) // _LANE * _LANE)
 
 
-def kernel3_serves(radius: int, pad_w: int) -> bool:
+def kernel3_smem(rows: int, radius: int, pad_w: int, in_w: int) -> int:
+    """Bytes of shared memory a kernel-3 block takes
+    (`csrc/rowifft_post.cu`): the row engine's two planes of
+    pad_w + pad_w / 16 f32 for each of `rows` region rows in flight, and
+    the ring of the 2 r previous horizontally blurred rows of `in_w` f32."""
+    row_floats = 2 * (pad_w + pad_w // 16)  # pbmm_rp_row_floats
+    return 4 * (rows * row_floats + 2 * radius * in_w)
+
+
+def kernel3_rows(radius: int, pad_w: int, in_w=None) -> int:
+    """Region rows a block of kernel 3 transforms at once at this blur
+    radius, padded width and crop width (default: the widest crop
+    `post_pallas_ok` admits): the most, up to `_KERNEL3_THREADS` threads
+    (pad_w / 16 a row, at least one row), whose block fits 227 KB of
+    shared memory (`kernel3_smem`); 0 where not even one row fits."""
+    in_w = _widest_crop(radius, pad_w) if in_w is None else in_w
+    rows = max(1, _KERNEL3_THREADS // (pad_w // _RP_POINTS))
+    while rows and kernel3_smem(rows, radius, pad_w, in_w) > _SMEM_BYTES:
+        rows -= 1
+    return rows
+
+
+def kernel3_serves(radius: int, pad_w: int, in_w=None) -> bool:
     """Which kernels take the y_only tail on the card: kernel 3 where one
     of its blocks fits (`kernel3_rows` > 0), else kernel 7 (row IFFT +
     |z|) then kernel 10 (blur, crop, chroma, RGB) on its rows, the same
-    arithmetic in two launches.  At `pad_w` 2048 kernel 3 serves r <= 12,
-    at 4096 r <= 5."""
-    return kernel3_rows(radius, pad_w) > 0
+    arithmetic in two launches.  At the widest crops kernel 3 serves
+    r <= 14 at `pad_w` 2048, r <= 6 at 4096 and r <= 2 at 8192."""
+    return kernel3_rows(radius, pad_w, in_w) > 0
 
 
 def _check_radius(r: int) -> None:
@@ -244,8 +264,9 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     served as in the JAX kernel.
 
     CPU tensors take `rowifft_post_fused_ref`; CUDA tensors launch
-    `csrc/rowifft_post.cu`, or, where `kernel3_serves` is False,
-    `row_ifft_magnitude` (kernel 7) and `post_fused` (kernel 10)."""
+    `csrc/rowifft_post.cu` (crop widths that are multiples of 4), or,
+    where `kernel3_serves` is False, `row_ifft_magnitude` (kernel 7) and
+    `post_fused` (kernel 10), which compute the same bits."""
     if rre.device.type == "cpu":
         return rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg,
                                       rows0, in_h, in_w, pad_mode, full_w,
@@ -257,12 +278,15 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     t, hr, wk = rre.shape
     r = _radius(cfg)
     _check_radius(r)
-    if not kernel3_serves(r, wp):
+    if not kernel3_serves(r, wp, in_w):
         rec = row_ifft_magnitude(rre, rim,
                                  magnitude=(cfg.reconstruct == "magnitude"),
                                  pad_h=geom.pad_h, full_w=wp)
         return post_fused(rec, i_plane, q_plane, win, cfg, rows0, in_h, in_w,
                           pad_mode, out_layout, rgb_u8=rgb_u8)
+    if in_w % 4:
+        raise ValueError(f"the CUDA kernel 3 takes crop widths that are "
+                         f"multiples of 4, got {in_w}")
     check_cuda("rowifft_post_fused", (t, hr, wk), rre, rim)
     check_cuda("rowifft_post_fused", (in_h, in_w), win)
     if rgb_u8 is None:
@@ -274,14 +298,14 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
         chroma = (None, None, rgb_u8.data_ptr())
     dev = rre.device
     outs, ptrs = _outputs(t, in_h, in_w, out_layout, dev)
-    twr, twi = device_arrays(_dif_twiddles, (wp, True), dev)
+    twr, twi = device_arrays(compact_twiddles, (wp, True), dev)
     plan = lane_plan(wk, wp)
     err = library().pbmm_rowifft_post(
         rre.data_ptr(), rim.data_ptr(), *chroma, win.data_ptr(),
         twr.data_ptr(), twi.data_ptr(), *ptrs,
         c_ints(kp for kp, _ in plan), c_ints(rev for _, rev in plan),
         len(plan), c_floats(blur_taps(cfg.blur_size)), r,
-        kernel3_rows(r, wp), c_floats(YIQ_TO_RGB.reshape(-1)),
+        kernel3_rows(r, wp, in_w), c_floats(YIQ_TO_RGB.reshape(-1)),
         c_floats(_u8_chroma_coeffs()),
         _LAYOUTS.index(out_layout), t, hr, wk, wp, in_h, in_w,
         geom.y0 - rows0, geom.x0, float(1.0 / (geom.pad_h * wp)),

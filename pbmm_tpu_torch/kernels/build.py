@@ -56,7 +56,7 @@ SIGNATURES = {
     "pbmm_col_fft": [_P] * 6 + [_I] * 5 + [_P],
     # rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
     # out2, plan_src(host), plan_rev(host), n_tiles, taps(host), radius,
-    # ob, yiq_to_rgb(host), iq_u8(host), layout, t, hr, wk, w, in_h, in_w,
+    # rows, yiq_to_rgb(host), iq_u8(host), layout, t, hr, wk, w, in_h, in_w,
     # yrow0, x0, scale, magnitude, comp, gain, g_y, g_i, g_q, stream
     "pbmm_rowifft_post": [_P] * 13 + [_I, _P, _I, _I, _P, _P] + [_I] * 9
     + [_F, _I, _I, _I, _F, _F, _F, _P],
@@ -73,8 +73,8 @@ SIGNATURES = {
     "pbmm_post_yonly": [_P] * 10 + [_I, _P] + [_I] * 10 + [_F] * 3 + [_P],
     # cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
     # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, phase
-    # ints(host), phase floats(host), batch, h, w, r0, r1, stream
-    "pbmm_phase_col_ifft": [_P] * 18 + [_I] * 5 + [_P],
+    # ints(host), phase floats(host), batch, h, w, r0, r1, strip, stream
+    "pbmm_phase_col_ifft": [_P] * 18 + [_I] * 6 + [_P],
     # re, im (null: real), tw_re, tw_im, out_re, out_im, batch, h, w,
     # axis, inverse, scale, stream
     "pbmm_fft_axis": [_P] * 6 + [_I] * 5 + [_F, _P],

@@ -68,8 +68,8 @@ from pbmm_tpu_torch.spectral.radix2 import (
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
-_COL_STRIP = 4  # columns a block of the CUDA strip kernels (6, 12)
-_COL_STRIP_TALL = 2  # ... holds above H = 2048 (PBMM_COL_S_TALL)
+_COL_STRIP = 4  # columns a block of the CUDA strip kernel 12 holds
+_COL_STRIP_TALL = 2  # ... above H = 2048 (PBMM_COL_S_TALL)
 _MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
 
 
@@ -465,8 +465,9 @@ _MASK_KINDS = ("zero", "high", "low", "band")
 
 
 def col_strip(h: int) -> int:
-    """Columns a block of the strip kernels (6, 12) holds at column
-    height h: 4 up to 2048 rows, 2 above (csrc/common.cuh)."""
+    """Columns a block of kernel 12 holds at column height h, and the
+    narrowest strip of kernel 6: 4 up to 2048 rows, 2 above
+    (csrc/common.cuh); their widths are multiples of it."""
     return _COL_STRIP if h <= 2048 else _COL_STRIP_TALL
 
 
@@ -479,6 +480,16 @@ def colspec_strip(h: int) -> int:
     if _is_pow2(h):
         return 16 if h <= 1024 else 8 if h <= 2048 else 4
     return 16 if m <= 14 else 8 if m <= 28 else 4
+
+
+def phase_col_strip(h: int, w: int) -> int:
+    """Columns a block of kernel 6 holds at column height h and width w:
+    kernel 2's strip (`colspec_strip`), or the widest half of it that
+    divides w, down to `col_strip(h)` (csrc/phase_col_ifft.cu)."""
+    s = colspec_strip(h)
+    while w % s and s > col_strip(h):
+        s //= 2
+    return s
 
 
 def _check_col_height(pad_h: int, limit: int = _COLSPEC_MAX_H,
@@ -929,7 +940,8 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     ported.
 
     CPU tensors take `phase_col_ifft_ref`; CUDA tensors launch
-    `csrc/phase_col_ifft.cu`."""
+    `csrc/phase_col_ifft.cu`, kernel 2's phase pass and inverse on strips
+    of `phase_col_strip(H, W)` columns, all frames at once."""
     if cur_re.device.type == "cpu":
         return phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg,
                                   out_rows, full_w, fx_values, lp_fast,
@@ -952,7 +964,7 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
                               dev) if host is not None else ())
     planes_d = planes_d + (None,) * (2 - len(planes_d))
     fy, fx = device_arrays(_freq_tables, (h, w, full_w), dev)
-    twr, twi = device_arrays(_dif_twiddles, (h, True), dev)
+    twr, twi = device_arrays(compact_twiddles, (h, True), dev)
     outs = [torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]
     outs += [torch.empty((b, h, w), dtype=torch.float32, device=dev)
@@ -964,7 +976,7 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
         *(None if x is None else x.data_ptr()
           for x in ins + tuple(outs) + (None,) * (4 - len(outs))),
         c_ints(ints), c_floats(floats), b, h, w, r0, r1,
-        stream_handle(dev))
+        phase_col_strip(h, w), stream_handle(dev))
     check_launch(err, "phase_col_ifft")
     phase_col_ifft.launches += 1
     return tuple(outs)

@@ -16,8 +16,11 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   and planar uint8 in, on both tails;
 - kernel 2's branches, kernels 5 and 11, the quirk switches of kernels 3
   and 7 and the config matrix's paths;
-- kernel 6 in every branch at three heights (and bit for bit against
-  kernel 2), kernel 8 on both axes from 8 to 8192 points, kernel 9 in
+- kernel 6 in every branch at three heights and 1, 3 and 16 frames a
+  launch, and bit for bit against kernel 2's rows (with kernel 12 = 6)
+  at H = 512, 2048 and 4096, 1, 3 and 16 frames a launch, in every
+  frame-parallel branch; kernel 8 on both axes from 8 to 8192 points,
+  kernel 9 in
   both layouts, kernel 10 in every layout, the scan engine's paths on the
   card against the CPU (numpy input landing on the card), and
   `load_state` defaulting to the card;
@@ -34,8 +37,11 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   in every kind at lengths 2 to 8192 on ragged widths, kernel 5 bit for
   bit against kernel 2's forward half at H = 512 to 4096 and against
   its plain version at 8192;
-- blur radii 3, 5 and 13: kernels 3, 10 (f32 and uint8 chroma) and 11,
-  kernel 3's route through kernels 7 + 10, `magnify_video` at 1080p in
+- blur radii 3, 5, 13 and 15: kernels 3, 10 (f32 and uint8 chroma) and
+  11, kernel 3's route through kernels 7 + 10 (radius 15), kernel 3 bit
+  for bit against kernel 7 + kernel 10 at radii 0-12 at 1080p and 0-6 at
+  2160p (4096 lanes) in both chroma sources, the three layouts and the
+  quirks, `magnify_video` at 1080p in
   y_only, uint8 -> planar_u8 and rgb against the CPU, and the CLI's
   `--fast --blur-size 1.5` at 1080p;
 - kernel 1 on the row engine at 128 to 8192 lanes, kept and full, on a
@@ -649,17 +655,20 @@ _K6 = {
 }
 
 
+@pytest.mark.parametrize("b", [1, 3, 16])
 @pytest.mark.parametrize("name", sorted(_K6))
 @pytest.mark.parametrize("h,fw,kept", [(256, 512, True), (1024, 2048, False),
                                        (2048, 256, True)])
-def test_phase_col_ifft_kernel(dev, name, h, fw, kept):
-    """Kernel 6 against its plain version in every branch and at three
-    heights, with signed zeros in the spectra."""
+def test_phase_col_ifft_kernel(dev, name, h, fw, kept, b):
+    """Kernel 6 against its plain version in every branch, at three
+    heights and B = 1, 3 and 16 frames a launch (a grid of strips x
+    frames), with signed zeros in the spectra; with the IIR taps, each
+    frame's taps written back."""
     cfg = _cfg().replace(pad_mode="square_pow2", **_K6[name])
     w = hermitian_kept_width(fw) if kept else fw
     rng = np.random.default_rng(18)
-    spec = [_spectra(rng, (2, h, w), dev, True) for _ in range(4)]
-    taps = ([0.1 * _spectra(rng, (2, h, w), dev) for _ in range(2)]
+    spec = [_spectra(rng, (b, h, w), dev, True) for _ in range(4)]
+    taps = ([0.1 * _spectra(rng, (b, h, w), dev) for _ in range(2)]
             if cfg.temporal.mode == "iir_bandpass" else [])
     kw = dict(out_rows=(h // 4, 3 * h // 4), full_w=fw,
               **dict(zip(("lp_fast", "lp_slow"), taps)))
@@ -671,23 +680,48 @@ def test_phase_col_ifft_kernel(dev, name, h, fw, kept):
         **{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in kw.items()})
     assert len(got) == len(want) == 2 + len(taps)
     assert _rel([g.cpu() for g in got[:2]], want[:2]) < 1e-4
+    if taps:  # the taps, weighted by the magnitude of the bin each rotates
+        mag = torch.complex(*[x.cpu() for x in spec[:2]]).abs()
+        for g, w_ in zip(got[2:], want[2:]):
+            assert float(((g.cpu() - w_).abs() * mag).max()) < 1e-4 * float(
+                (w_.abs() * mag).max())
 
 
-def test_phase_col_ifft_kernel_equals_colspec(dev):
+_K6_EQ = {"main": dict(), "standard": dict(mode="standard"),
+          "steerable_overlapping": dict(orientations=4, pyramid_levels=6),
+          "non_integer": dict(phase_scale=2.5)}
+
+
+@pytest.mark.parametrize("name", sorted(_K6_EQ))
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("h", [512, 2048, 4096])
+def test_phase_col_ifft_kernel_equals_colspec(dev, h, b, name):
     """On the spectra kernel 5 gives, kernel 6's rows equal kernel 2's bit
-    for bit (the shared phase pass and inverse)."""
-    cfg = _cfg().replace(pad_mode="square_pow2")
-    wk = hermitian_kept_width(512)
-    rng = np.random.default_rng(19)
-    rows_in = [_spectra(rng, (4, 192, wk), dev) for _ in range(2)]
-    prev = [_spectra(rng, (1, 512, wk), dev) for _ in range(2)]
-    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, 512, 64,
-                             out_rows=(64, 448), full_w=512)
-    cur = fused.col_fft_zero_padded(*rows_in, 512, 64)
+    for bit over 16 frames (the shared phase pass and inverse of
+    csrc/phase_inv.cuh), launched b frames at a time (a grid of strips x
+    b frames), in every branch kernel 2 runs frame-parallel, at the
+    1080p kept width; and kernel 12's full variant equals kernel 6."""
+    cfg = _cfg().replace(pad_mode="square_pow2", **_K6_EQ[name])
+    fw, t = 2048, 16
+    wk = hermitian_kept_width(fw)
+    hc, row0, rows = h // 2 + 40, h // 4 - 8, (h // 8, h - h // 8)
+    rng = np.random.default_rng(19 + h)
+    rows_in = [_spectra(rng, (t, hc, wk), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, wk), dev) for _ in range(2)]
+    kw = dict(out_rows=rows, full_w=fw)
+    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, h, row0, **kw)
+    cur = fused.col_fft_zero_padded(*rows_in, h, row0)
     prv = [torch.cat([p, c[:-1]]) for p, c in zip(prev, cur)]
-    k6 = fused.phase_col_ifft(*cur, *prv, cfg, out_rows=(64, 448),
-                              full_w=512)
-    assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    n = fused.phase_col_ifft.launches
+    for f0 in range(0, t, b):
+        part = [x[f0:f0 + b] for x in (*cur, *prv)]
+        k6 = fused.phase_col_ifft(*part, cfg, **kw)
+        assert torch.equal(k6[0], k2[0][f0:f0 + b])
+        assert torch.equal(k6[1], k2[1][f0:f0 + b])
+        k12 = kdecomp.kdecomp_variant(*part, cfg, kdecomp.VARIANTS[-1][1],
+                                      rows, full_w=fw)
+        assert all(torch.equal(a, c) for a, c in zip(k12, k6))
+    assert fused.phase_col_ifft.launches == n + -(-t // b)
 
 
 @pytest.mark.parametrize("kind", ["forward_real", "forward_complex",
@@ -949,15 +983,16 @@ def _blur_cfg(blur_size, **change):
     return _cfg().replace(blur_size=blur_size, **change)
 
 
-@pytest.mark.parametrize("blur_size", [0.75, 1.5, 4.0])
+@pytest.mark.parametrize("blur_size", [0.75, 1.5, 4.0, 4.5])
 @pytest.mark.parametrize("src,layout", [("f32", "tuple3"),
                                         ("u8", "planar_u8"),
                                         ("u8", "planar"),
                                         ("f32", "planar_u8")])
 def test_post_kernel_blur_radius(dev, blur_size, src, layout):
-    """Kernel 3 at blur radii 3 and 5 (8 output rows a block) and, at 13,
-    the kernel 7 + kernel 10 route that replaces it at a padded width of
-    2048, each against kernel 3's plain version at 1080p tight."""
+    """Kernel 3 at blur radii 3, 5 and 13 (two rows in flight, then one)
+    and, at 15, the kernel 7 + kernel 10 route that replaces it at a
+    padded width of 2048 and 1920 columns, each against kernel 3's plain
+    version at 1080p tight."""
     cfg = _blur_cfg(blur_size)
     in_h, in_w = 1080, 1920
     g = geometry_for(in_h, in_w, "tight")
@@ -980,8 +1015,8 @@ def test_post_kernel_blur_radius(dev, blur_size, src, layout):
                                       fused.row_ifft_magnitude,
                                       post_fused.post_fused)}
     got = post_fused.rowifft_post_fused(*args, **kw)
-    routed = not post_fused.kernel3_serves(r, g.pad_w)
-    assert routed == (r == 13)
+    routed = not post_fused.kernel3_serves(r, g.pad_w, in_w)
+    assert routed == (r == 15)
     moved = {f: f.launches - n for f, n in counts.items()}
     assert moved == {post_fused.rowifft_post_fused: int(not routed),
                      fused.row_ifft_magnitude: int(routed),
@@ -1042,8 +1077,7 @@ def test_post_rgb_and_yonly_kernels_blur_radius(dev, blur_size, layout):
 def test_1080p_blur_radius_on_card_matches_cpu(dev, blur_size, mode):
     """`magnify_video` at 1080p, `tuned_for_tpu()`, at blur radii 3, 5 and
     13 in y_only f32, uint8 -> planar_u8 and rgb: it runs on the card
-    (kernel 3 or, at 13, kernels 7 + 10; kernel 11 for rgb) and matches
-    the CPU path."""
+    (kernel 3; kernel 11 for rgb) and matches the CPU path."""
     change = dict(chroma="rgb") if mode == "rgb" else (
         dict(output_layout="planar_u8") if mode == "planar_u8" else {})
     cfg = MagnifyConfig().tuned_for_tpu().replace(blur_size=blur_size,
@@ -1222,3 +1256,80 @@ def test_colspec_refuses_a_width_off_its_strip(dev):
     zp = torch.zeros((1, 512, 100), device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
         fused.colspec_chunk(z, z, zp, zp, _cfg(), 512, 0)
+
+
+_K3_GEOMS = {"1080p": (1080, 1920, (0, 2, 5, 12)),
+             "2160p": (2160, 3840, (0, 2, 5, 6))}
+
+
+@pytest.mark.parametrize("layout", ["tuple3", "planar", "planar_u8"])
+@pytest.mark.parametrize("src", ["f32", "u8"])
+@pytest.mark.parametrize("geom_name,ri", [(g, i) for g in sorted(_K3_GEOMS)
+                                          for i in range(4)])
+def test_post_kernel_equals_row_ifft_and_post_fused(dev, geom_name, ri, src,
+                                                    layout, monkeypatch):
+    """Kernel 3 = kernel 7 + kernel 10 bit for bit: on the same region
+    rows, kernel 3's output equals `post_fused(row_ifft_magnitude(...))`
+    (the same |z| rows of the row engine, the blur and epilogue in kernel
+    10's order), at radii 0, 2, 5 and 12 at 1080p tight (2048 lanes) and
+    0, 2, 5 and 6 at 2160p (4096 lanes), both chroma sources and the
+    three layouts; radius 0 from a one-tap blur no config gives."""
+    in_h, in_w, radii = _K3_GEOMS[geom_name]
+    radius = radii[ri]
+    if radius == 0:
+        monkeypatch.setattr(post_fused, "blur_taps", lambda b: (0.75,))
+    cfg = _cfg().replace(blur_size=max(radius - 0.5, 0.5) / 3.2307692308)
+    assert post_fused._radius(cfg) == radius
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, cfg)
+    wk, hr = hermitian_kept_width(g.pad_w), rows[1] - rows[0]
+    assert post_fused.kernel3_serves(radius, g.pad_w, in_w)
+    rng = np.random.default_rng(40 + radius)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    rre, rim = (_rand(rng, (2, hr, wk), dev, scale) for _ in range(2))
+    if src == "f32":
+        chroma = (_rand(rng, (2, in_h, in_w), dev, 0.3),
+                  _rand(rng, (2, in_h, in_w), dev, 0.3), None)
+    else:
+        chroma = (None, None, torch.from_numpy(rng.integers(
+            0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev))
+    win = hann2d_region(g, device=dev)
+    n3, n7 = (post_fused.rowifft_post_fused.launches,
+              fused.row_ifft_magnitude.launches)
+    got = post_fused.rowifft_post_fused(
+        rre, rim, chroma[0], chroma[1], win, cfg, rows[0], in_h, in_w,
+        "tight", full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout)
+    assert post_fused.rowifft_post_fused.launches == n3 + 1
+    assert fused.row_ifft_magnitude.launches == n7
+    rec = fused.row_ifft_magnitude(rre, rim, pad_h=g.pad_h, full_w=g.pad_w)
+    want = post_fused.post_fused(rec, chroma[0], chroma[1], win, cfg,
+                                 rows[0], in_h, in_w, "tight", layout,
+                                 rgb_u8=chroma[2])
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", ["tuple3", "planar_u8"])
+def test_post_kernel_quirks_equal_row_ifft_and_post_fused(dev, layout):
+    """The identity with Re z, the window compensation and the YIQ gains,
+    at radius 5 on 1080p's rows."""
+    cfg = _cfg().replace(blur_size=1.5, reconstruct="real",
+                         compensate_window=True, apply_yiq_gains=True,
+                         yiq_gains=(1.0, 1.2, 0.8))
+    g = geometry_for(1080, 1920, "tight")
+    rows = blur_row_window(g, cfg)
+    wk, hr = hermitian_kept_width(g.pad_w), rows[1] - rows[0]
+    rng = np.random.default_rng(47)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    rre, rim = (_rand(rng, (2, hr, wk), dev, scale) for _ in range(2))
+    iq = [_rand(rng, (2, 1080, 1920), dev, 0.3) for _ in range(2)]
+    win = hann2d_region(g, device=dev)
+    got = post_fused.rowifft_post_fused(
+        rre, rim, *iq, win, cfg, rows[0], 1080, 1920, "tight",
+        full_w=g.pad_w, out_layout=layout)
+    rec = fused.row_ifft_magnitude(rre, rim, magnitude=False, pad_h=g.pad_h,
+                                   full_w=g.pad_w)
+    want = post_fused.post_fused(rec, *iq, win, cfg, rows[0], 1080, 1920,
+                                 "tight", layout)
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
