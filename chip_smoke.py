@@ -31,17 +31,18 @@ non-zero without the final line:
      for bit against kernel 2's output rows on the spectra kernel 5
      gives), kernel 8 (forward real, forward complex and inverse with a
      scale, on both axes), kernel 9 ("centered" and "bitrev2d" layouts,
-     integer and 2.5 scale, steerable) and kernel 10 (which no entry
-     point reaches: it is held here only), at 1080p shapes; and the
+     integer and 2.5 scale, steerable) and kernel 10 (the y_only tail
+     after kernel 7, from blur radius 6 at 1080p), at 1080p shapes; and the
      measurement path's: kernel 12 (kdecomp, all six piece sets at H =
      2048, its full variant bit for bit against kernel 6 on kdecomp's
      planes and on the bar's spectra), kernel 13 (the copy probe, rows of
      1 and 64, strips of 4, 8 and 32 columns, bit for bit) and kernel 14
      (the trig probe: every op code against its plain version and fp64,
      with the JAX probe's tolerances, signed and exact zeros included);
-     blur radii 5, 13 and 15 (kernels 3, 11, 10 with the uint8 chroma,
-     and kernel 3's route through kernels 7 + 10 where its block does not
-     fit); kernel 3 bit for bit against kernel 7 + kernel 10 on the same
+     blur radii 5, 13 and 15 (kernels 3, 11, 10 with f32 and uint8
+     chroma, kernel 10 at path (k)'s call, and kernel 3's route through
+     kernels 7 + 10 where its block does not fit); kernel 3 bit for bit
+     against kernel 7 + kernel 10 on the same
      rows at radii 2 and 5, f32 and uint8 chroma, tuple3 and planar_u8;
      2160p's heights: kernel 2 at H = 4096 and at tight m = 17, kernels
      5, 6 and 12 at H = 4096 (the IIR branch at 4096 is held by the
@@ -90,7 +91,8 @@ non-zero without the final line:
        3; the scan engine at 4096 (3 frames): kernels 1, 5, 6, 7, > 100
        dB;
      - (k) 1080p tight at blur_size 4.5 (radius 15), the bench clip: no
-       kernel-3 block fits, so kernels 1, 2, 7, 10 (and 4, 2, 7, 10 from
+       kernel-3 block fits (and from radius 6 at 1080p the route takes
+       kernels 7 + 10 anyway), so kernels 1, 2, 7, 10 (and 4, 2, 7, 10 from
        planar uint8 to planar_u8), > 100 dB; and at blur_size 1.5
        (radius 5): kernels 1, 2, 3;
      - (i) the measurement path, through the tools: `roofline_table` at
@@ -110,7 +112,9 @@ non-zero without the final line:
      8's row pass beside `torch.fft` along dim -1; kernels 7, 4 and 1, the
      row engine's, each on a line of its own beside its call), the
      designs' alternatives (kernel 6 on half its strip, kernel 3 with 1, 2
-     and 4 region rows in flight at radii 2 and 5), and the y4m stream's
+     and 4 region rows in flight at radii 2 and 5, kernel 3 against
+     kernel 7 + kernel 10 at radii 2-14, f32 and uint8 chroma), and the
+     y4m stream's
      frames/s with the host's parse share.  Kernels, plain
      versions and library calls are timed by the device's time alone
      (`tools.kexp.timed`: a spin of the card ahead of each event pair
@@ -128,7 +132,8 @@ records: each kernel's launches on the path named beside it, its max abs
 error against its plain version, the kernel's, the plain version's and
 the library call's times, and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100
-SXM's published peaks), counted from this run's shapes.  Then the
+SXM's published peaks), counted from this run's shapes (the post
+kernels' variants carry theirs too).  Then the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}.  The script imports neither jax nor the JAX package: the oracle
 and the synthetic clips are the port's numpy copies.
@@ -277,7 +282,13 @@ def main():
     from pbmm_tpu_torch.spectral import fused, radix2
     from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
     from pbmm_tpu_torch import cli as port_cli
-    from pbmm_tpu_torch.tools import kdecomp, kexp, roofline, trig_probe
+    from pbmm_tpu_torch.tools import (
+        kdecomp,
+        kexp,
+        post_times,
+        roofline,
+        trig_probe,
+    )
     from pbmm_tpu_torch.utils.debug import debug_frame_view
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -426,17 +437,18 @@ def main():
     yonly_post_args = (rec1, i_pl, q_pl, win, cfg, rows[0], H, W, "tight")
 
     # Blur radii 5, 13 and 15 (blur_size 1.5, 4.0 and 4.5): kernel 3 with
-    # a longer ring, and at 15 (no kernel-3 block fits 2048 lanes and
-    # 1920 columns) kernels 7 + 10 in its place; kernels 11 and 10 with 11
-    # and 27 taps a row.
+    # a longer ring at 5; kernels 7 + 10 in its place at 13 (from radius
+    # 6 a kernel-3 block leaves one block an SM) and 15 (no kernel-3 block fits 2048 lanes
+    # and 1920 columns); kernels 11 and 10 with 11, 27 and 31 taps a row.
     cfg_b15, cfg_b40, cfg_b45 = (cfg.replace(blur_size=b)
                                  for b in (1.5, 4.0, 4.5))
     assert all(blur_row_window(geom, c) == rows
                for c in (cfg_b15, cfg_b40, cfg_b45))
-    assert post_fused.kernel3_serves(post_fused._radius(cfg_b40),
+    assert post_fused.kernel3_serves(post_fused._radius(cfg_b15),
                                      geom.pad_w, W)
-    assert not post_fused.kernel3_serves(post_fused._radius(cfg_b45),
-                                         geom.pad_w, W)
+    assert not any(post_fused.kernel3_serves(post_fused._radius(c),
+                                             geom.pad_w, W)
+                   for c in (cfg_b40, cfg_b45))
     # 2160p: square_pow2 (H = 4096, kernel 5's two passes, kernels 2 and 6
     # on strips of 4 and 2) and tight (H = 2176, four-step m = 17), a chunk
     # of 8.
@@ -589,7 +601,8 @@ def main():
         "rowifft_post_fused[blur 1.5, radius 5]": both(
             post_fused.rowifft_post_fused, rre, rim, i_pl, q_pl, win,
             cfg_b15, rows[0], H, W, "tight", full_w=geom.pad_w),
-        "rowifft_post_fused[blur 4.0, radius 13, u8, planar_u8]": both(
+        "rowifft_post_fused[blur 4.0, radius 13: kernels 7 + 10, u8, "
+        "planar_u8]": both(
             post_fused.rowifft_post_fused, rre, rim, None, None, win,
             cfg_b40, rows[0], H, W, "tight", full_w=geom.pad_w,
             rgb_u8=u8_frames, out_layout="planar_u8"),
@@ -609,6 +622,23 @@ def main():
         "post_fused[blur 4.0, radius 13, u8 chroma, planar_u8]": both(
             post_fused.post_fused, rec1, None, None, win, cfg_b40, rows[0],
             H, W, "tight", "planar_u8", rgb_u8=u8_frames),
+        "post_fused[u8 chroma, planar_u8]": both(
+            post_fused.post_fused, rec1, None, None, win, cfg, rows[0], H,
+            W, "tight", "planar_u8", rgb_u8=u8_frames),
+        "post_fused[blur 1.5, radius 5]": both(
+            post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_b15, rows[0],
+            H, W, "tight"),
+        # Path (k)'s calls: f32 frames (tuple3), u8 frames to planar_u8.
+        "post_fused[blur 4.5, radius 15]": both(
+            post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_b45, rows[0],
+            H, W, "tight"),
+        "post_fused[blur 4.5, radius 15, u8 chroma, planar_u8]": both(
+            post_fused.post_fused, rec1, None, None, win, cfg_b45, rows[0],
+            H, W, "tight", "planar_u8", rgb_u8=u8_frames),
+        "post_fused_rgb[blur 4.5, radius 15]": both(
+            post_fused.post_fused_rgb, rec3, win,
+            cfg_rgb.replace(blur_size=4.5), rows[0], H, W, "tight",
+            out_layout="planar_u8"),
         # 2160p: H = 4096 (kernel 2 on strips of 4; kernel 5's passes) and
         # m = 17.
         "colspec_chunk[pow-2, H 4096, 2160p square_pow2]": both(
@@ -637,21 +667,75 @@ def main():
                             ("lanes", 8), ("lanes", 32))
            if big or (pat, blk) != ("rows", 1)},
     }
+    # The post kernels' variants above: (kernel, config, uint8 chroma,
+    # layout), for their bounds (post_work below).
+    post_variants = {
+        "rowifft_post_fused[u8, planar_u8]": (3, cfg, True, "planar_u8"),
+        "rowifft_post_fused[f32, planar]": (3, cfg, False, "planar"),
+        "rowifft_post_fused[real, compensate, gains]": (3, cfg_str),
+        "post_fused_rgb[tuple3, compensate, gains]": (
+            11, cfg_str.replace(chroma="rgb")),
+        "post_fused[planar_u8]": (10, cfg, False, "planar_u8"),
+        "post_fused[compensate, gains]": (10, cfg_str),
+        "rowifft_post_fused[blur 1.5, radius 5]": (3, cfg_b15),
+        "rowifft_post_fused[blur 4.0, radius 13: kernels 7 + 10, u8, "
+        "planar_u8]": (
+            3, cfg_b40, True, "planar_u8"),
+        "rowifft_post_fused[blur 4.5, radius 15: kernels 7 + 10, u8, "
+        "planar_u8]": (3, cfg_b45, True, "planar_u8"),
+        "post_fused_rgb[blur 1.5, radius 5]": (
+            11, cfg_rgb.replace(blur_size=1.5), False, "planar_u8"),
+        "post_fused_rgb[blur 4.0, radius 13]": (
+            11, cfg_rgb.replace(blur_size=4.0), False, "planar_u8"),
+        "post_fused_rgb[blur 4.5, radius 15]": (
+            11, cfg_rgb.replace(blur_size=4.5), False, "planar_u8"),
+        "post_fused[blur 4.0, radius 13, u8 chroma, planar_u8]": (
+            10, cfg_b40, True, "planar_u8"),
+        "post_fused[u8 chroma, planar_u8]": (10, cfg, True, "planar_u8"),
+        "post_fused[blur 1.5, radius 5]": (10, cfg_b15),
+        "post_fused[blur 4.5, radius 15]": (10, cfg_b45),
+        "post_fused[blur 4.5, radius 15, u8 chroma, planar_u8]": (
+            10, cfg_b45, True, "planar_u8"),
+    }
+    assert set(post_variants) == {k for k in variants if k.startswith(
+        ("rowifft_post_fused", "post_fused"))}
     # What each kernel's call above must move and compute, and the one
     # torch call that computes the same transform (FFT kernels only):
     # name -> (bytes, f32 operations, library call or None).  Bytes: each
     # input read once, each output written once.  Operations: 5 n log2 n
     # per complex radix-2 transform of length n, and per element of the
     # other stages a count of their multiplies and adds (the phase pass
-    # ~40, a mask level ~15, a (2r + 1)^2 blur tap pair 2, the post
-    # epilogue ~20), so the bound is a floor.
+    # ~40, a mask level ~15, the separable blur 4 r + 1 products and sums
+    # a pixel and plane each way, the post epilogue ~20), so the bound is
+    # a floor.
     f4 = 4
     n_sq = g_sq.pad_h * g_sq.pad_w
 
     def fft_ops(n, count):
         return 5.0 * n * np.log2(n) * count
 
-    blur = 2 * (2 * post_fused._radius(cfg) + 1) ** 2
+    def post_work(kernel, c, u8=False, layout="tuple3"):
+        """(bytes, f32 operations) of one call of post kernel 3, 10 or 11
+        at the 1080p shapes under config c: the region rows the output
+        needs (the crop's H + 2 r rows; kernel 3: all kept lanes of each,
+        its row transform's input; 10 and 11: the W + 2 r columns the
+        blur reads), the chroma (f32 I/Q or the uint8 frames; none for
+        11), the window where the call reads it and the three output
+        planes; the blur 2 (4 r + 1) a pixel and plane (2 r + 1 products
+        and 2 r sums each way), the epilogue 20, kernel 3's row transform
+        5 W log2 W a region row."""
+        px, r = T * H * W, post_fused._radius(c)
+        planes = 3 if kernel == 11 else 1
+        rows_in = (2 * T * (H + 2 * r) * wk if kernel == 3
+                   else planes * T * (H + 2 * r) * (W + 2 * r))
+        chroma = 0 if kernel == 11 else (3 * px if u8 else 2 * f4 * px)
+        window = 0 if kernel == 11 and not c.compensate_window else H * W
+        out = 3 * px * (1 if layout == "planar_u8" else f4)
+        ops = (2 * (4 * r + 1) * planes + 20) * px
+        if kernel == 3:
+            ops += fft_ops(geom.pad_w, T * (H + 2 * r))
+        return f4 * (rows_in + window) + chroma + out, ops
+
     hc_sq = r1_sq - r0_sq
     u8_r0, u8_r1 = fused.aligned_row_window(geom.y0, geom.y0 + H, geom.pad_h)
     work = {
@@ -663,9 +747,7 @@ def main():
             f4 * (2 * rows_re.numel() + 4 * prev_re.numel()
                   + 2 * T * hr * wk),
             fft_ops(geom.pad_h, 2 * T * wk) + 40 * T * geom.pad_h * wk, None),
-        "rowifft_post_fused": (
-            f4 * (2 * rre.numel() + 2 * i_pl.numel() + H * W + 3 * T * H * W),
-            fft_ops(geom.pad_w, T * hr) + (blur + 20) * T * H * W, None),
+        "rowifft_post_fused": (*post_work(3, cfg), None),
         "windowed_row_fft_u8planar": (
             u8_frames.numel() + 2 * f4 * T * (u8_r1 - u8_r0) * wk,
             fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 8 * T * H * W,
@@ -677,9 +759,8 @@ def main():
         "col_fft_zero_padded": (
             2 * f4 * (hc_sq * wk + g_sq.pad_h * wk),
             fft_ops(g_sq.pad_h, wk), lambda: torch.fft.fft(col_in, dim=-2)),
-        "post_fused_rgb": (
-            f4 * (rec3.numel() + H * W) + 3 * T * H * W,
-            (3 * blur + 20) * T * H * W, None),
+        "post_fused_rgb": (*post_work(11, cfg_rgb, layout="planar_u8"),
+                           None),
         "phase_col_ifft": (  # + the two host planes of the main branch
             f4 * (6 * k6_cur[0].numel() + 2 * hr_sq * wk),
             fft_ops(g_sq.pad_h, wk) + 40 * g_sq.pad_h * wk, None),
@@ -689,9 +770,7 @@ def main():
         "amplify_procedural": (
             f4 * (6 * n_sq + g_sq.pad_h + g_sq.pad_w),
             (15 * cfg_g.pyramid_levels + 40) * n_sq, None),
-        "post_fused": (
-            f4 * (rec1.numel() + 2 * i_pl.numel() + H * W + 3 * T * H * W),
-            (blur + 20) * T * H * W, None),
+        "post_fused": (*post_work(10, cfg), None),
         "kdecomp_variant": (
             f4 * (4 * kd[0].numel() + 2 * (kd_rows[1] - kd_rows[0]) * wk),
             fft_ops(g_sq.pad_h, wk) + 40 * g_sq.pad_h * wk,
@@ -1464,11 +1543,15 @@ def main():
                 f"cold L2, plain PyTorch version {p_ms:.4f} ms (device "
                 f"medians, at its path's shapes); {enq_ms:.4f} ms with the "
                 "host's enqueue inside the event pair")
-        for name, (nbytes, ops, lib) in work.items():
+        def bound(name, nbytes, ops):
             byte_ms, op_ms = nbytes / 3.35e9, ops / 67e9
             records[name].update(
                 bound_ms=max(byte_ms, op_ms),
-                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                bound_by="bytes" if byte_ms >= op_ms else "operations")
+
+        for name, (nbytes, ops, lib) in work.items():
+            bound(name, nbytes, ops)
+            records[name].update(
                 library_ms=kexp.timed(lib, device=dev)[0] if lib else None)
             log(f"[4] {card}: {name}: bound {records[name]['bound_ms']:.4f} "
                 f"ms ({records[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
@@ -1501,13 +1584,33 @@ def main():
                                                       geom.pad_w, W)
                     ms = kexp.timed(lambda: post_fused.rowifft_post_fused(
                         rre, rim, i_pl, q_pl, win, c, rows[0], H, W, "tight",
-                        full_w=geom.pad_w), device=dev)
+                        full_w=geom.pad_w, route=False), device=dev)
                 finally:
                     post_fused._KERNEL3_THREADS = threads
                 log(f"[4] {card}: rowifft_post_fused at radius "
                     f"{post_fused._radius(c)}, {rows_in} region rows in "
                     f"flight ({n} threads): {ms[0]:.4f} ms warm, {ms[1]:.4f} "
                     "ms cold")
+        for name, spec in post_variants.items():
+            nbytes, ops = post_work(*spec)
+            bound(name, nbytes, ops)
+            log(f"[4] {card}: {name}: bound {records[name]['bound_ms']:.4f} "
+                f"ms ({records[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.2f} GFLOP), kernel {records[name]['ms']:.4f} "
+                f"ms warm, {records[name]['ms_cold']:.4f} ms cold")
+        # Kernel 3 against kernel 7 + kernel 10, which give the same bits,
+        # at radii 2-14 at 1080p (kernel 3 also where the route takes
+        # kernels 7 + 10): f32 I/Q to tuple3 and the uint8 frames to
+        # planar_u8.
+        route = {}
+        for name, (k3_fn, k7_10_fn) in post_times.route_calls(dev).items():
+            k3, k7_10 = (kexp.timed(fn, device=dev)
+                         for fn in (k3_fn, k7_10_fn))
+            route[name] = {"kernel3": k3, "kernels7_10": k7_10}
+            log(f"[4] {card}: {name}: kernel 3 {k3[0]:.4f} ms warm / "
+                f"{k3[1]:.4f} cold, kernel 7 + kernel 10 {k7_10[0]:.4f} / "
+                f"{k7_10[1]:.4f}")
+        records["rowifft_post_fused"]["route_vs_kernels7_10"] = route
         # Kernel 8's row pass beside one torch.fft call along the rows.
         for name, lib in (
                 ("_fft_axis[inverse, axis 2, scale]",

@@ -33,7 +33,7 @@
 //   2. the horizontal blur of each row, once, at the crop's columns only:
 //      a thread owns four neighbouring columns and keeps their taps' sum
 //      hb in registers (no modulo: the halo check puts x0 - r and
-//      x0 + in_w + r inside the row);
+//      x0 + in_w + r inside the row; x0 is a multiple of 4);
 //   3. the vertical taps: a ring of the 2 r previous hb rows in shared
 //      memory (2 r x in_w f32), to which the thread's own four columns
 //      alone are read and written, so the ring needs no barrier; once a
@@ -41,6 +41,8 @@
 //      16-byte loads of I/Q and the window (or 4-byte uchar4 loads of the
 //      uint8 frames), the windowed chroma, compensation, gains, YIQ->RGB
 //      and the clip, and 16-byte (planar_u8: 4-byte) stores.
+// Steps 2 and 3 and the epilogue are post_tail.cuh's, which kernels 10 and
+// 11 (post_rgb.cu) run on the rows they stage from device memory.
 // So each region row is transformed once a run (the halo twice at the
 // runs' ends), each blur product is taken once, and the blur sums in
 // kernel 3's order of products and sums, every product and sum rounded on
@@ -57,150 +59,41 @@
 // window), and writes 12 (f32) or 3 (u8) bytes a pixel: ~50 KB an output
 // row at 1080p with f32 I/Q in and out; the transform costs 5 W log2(W)
 // flops a region row: bytes bound.  On an NVIDIA H100 80GB HBM3 at its
-// 700 W limit (chip_smoke.py) it takes 0.468 ms warm at the 1080p shape
-// (16 x 1080 x 1920 out of 1152 x 1152 -> 2048 lanes, radius 2: 842 MB,
-// 1.8 TB/s, against a 0.251 ms bound), 0.513 with the uint8 chroma to
-// planar_u8 and 0.619 at radius 5 (the stage-by-stage design before it:
-// 2.176, 2.179 and 7.118).
+// 700 W limit (tools/post_times.py) it takes 0.411 ms warm at the 1080p
+// shape (16 x 1080 x 1920 out of 1152 x 1152 -> 2048 lanes, radius 2;
+// chip_smoke.py's bound for the 1084 rows the crop needs: 832 MB, 0.248
+// ms), 0.432 with the uint8 chroma to planar_u8 and 0.480 at radius 5
+// (the stage-by-stage design before it: 2.176, 2.179 and 7.118; the
+// horizontal sums' sliding 16-byte reads of post_tail.cuh took 0.468 to
+// 0.411).  From radius 6 one block fills an SM (256 threads) and kernels
+// 7 + 10 run faster (0.494 against 0.670 ms at 6; at 4096 lanes from
+// radius 3, 1.907 against 2.530), so the route takes them wherever a
+// block leaves an SM fewer than 512 threads
+// (engine/post_fused.py::kernel3_serves).
 
 #include "common.cuh"
+#include "post_tail.cuh"
 #include "row_pass.cuh"
 
 struct PostParams {
   PbmmLanePlan plan;
-  float taps[2 * PBMM_MAX_BLUR_R + 1];
-  float m[9];    // YIQ -> RGB, row-major
-  float iq[6];   // I and Q rows of RGB -> YIQ times 1/255 (u8 chroma)
-  float gains[3];  // YIQ gains
-  int magnitude;   // |z| (1) or Re z (0)
-  int comp;        // divide the Hann window back out
-  int gain;        // apply the gains
+  PbmmTailParams tail;  // taps, RGB matrix, u8 chroma rows, gains, flags
+  int magnitude;        // |z| (1) or Re z (0)
 };
 
 struct PostIO {
+  PbmmTailIO tail;   // chroma, window, outputs, in_h, in_w
   const float* rre;  // (T, hr, wk) bit-reversed kept lanes
   const float* rim;
-  const float* i_plane;  // (T, in_h, in_w) f32 chroma, or null (U8)
-  const float* q_plane;
-  const unsigned char* rgb_u8;  // (T, 3, in_h, in_w), or null
-  const float* win;             // (in_h, in_w) crop-region window
-  const float* tw_re;           // compact_twiddles(W, inverse)
+  const float* tw_re;  // compact_twiddles(W, inverse)
   const float* tw_im;
-  void* out0;
-  void* out1;
-  void* out2;
-  int radius, run, hr, wk, in_h, in_w, yrow0, x0;
+  int radius, run, hr, wk, yrow0, x0;
   float scale;
 };
 
 // Word of natural lane c in a row's |z| plane: one word of padding every
 // 32, so the four-column taps of a warp (stride 4) fall on distinct banks.
 __device__ __forceinline__ int pp_zpad(int c) { return c + (c >> 5); }
-
-// The epilogue's inputs of four pixels: the window and the f32 I/Q (or
-// the uint8 R, G, B).
-struct PpIn {
-  float4 w, a, b;
-  uchar4 r, g, bl;
-};
-
-template <bool U8>
-__device__ __forceinline__ PpIn pp_load(const PostIO& io, int f, int j,
-                                        int x) {
-  const size_t plane = (size_t)io.in_h * io.in_w;
-  const size_t pix = (size_t)j * io.in_w + x;
-  PpIn in;
-  in.w = __ldg(reinterpret_cast<const float4*>(io.win + pix));
-  if (U8) {
-    const unsigned char* px = io.rgb_u8 + (size_t)f * 3 * plane + pix;
-    in.r = *reinterpret_cast<const uchar4*>(px);
-    in.g = *reinterpret_cast<const uchar4*>(px + plane);
-    in.bl = *reinterpret_cast<const uchar4*>(px + 2 * plane);
-  } else {
-    const size_t o = (size_t)f * plane + pix;
-    in.a = __ldg(reinterpret_cast<const float4*>(io.i_plane + o));
-    in.b = __ldg(reinterpret_cast<const float4*>(io.q_plane + o));
-  }
-  return in;
-}
-
-// The epilogue on the four pixels (f, j, x .. x + 3): vb the blurred Y.
-template <bool U8, int LAYOUT>
-__device__ __forceinline__ void pp_epilogue(const PostIO& io,
-                                            const PostParams& prm,
-                                            const PpIn& in, int f, int j,
-                                            int x, float (&vb)[4]) {
-  const size_t plane = (size_t)io.in_h * io.in_w;
-  const size_t pix = (size_t)j * io.in_w + x;
-  const float wn[4] = {in.w.x, in.w.y, in.w.z, in.w.w};
-  float iw[4], qw[4];
-  if (U8) {
-    const unsigned char rc[4] = {in.r.x, in.r.y, in.r.z, in.r.w};
-    const unsigned char gc[4] = {in.g.x, in.g.y, in.g.z, in.g.w};
-    const unsigned char bc[4] = {in.bl.x, in.bl.y, in.bl.z, in.bl.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float ru = (float)rc[e], gu = (float)gc[e], bu = (float)bc[e];
-      iw[e] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(ru, prm.iq[0]),
-                                            __fmul_rn(gu, prm.iq[1])),
-                                  __fmul_rn(bu, prm.iq[2])),
-                        wn[e]);
-      qw[e] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(ru, prm.iq[3]),
-                                            __fmul_rn(gu, prm.iq[4])),
-                                  __fmul_rn(bu, prm.iq[5])),
-                        wn[e]);
-    }
-  } else {
-    const float iv[4] = {in.a.x, in.a.y, in.a.z, in.a.w};
-    const float qv[4] = {in.b.x, in.b.y, in.b.z, in.b.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      iw[e] = __fmul_rn(iv[e], wn[e]);
-      qw[e] = __fmul_rn(qv[e], wn[e]);
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if (prm.comp) {
-      const float inv = __fdiv_rn(1.0f, fmaxf(wn[e], 1e-3f));
-      vb[e] = __fmul_rn(vb[e], inv);
-      iw[e] = __fmul_rn(iw[e], inv);
-      qw[e] = __fmul_rn(qw[e], inv);
-    }
-    if (prm.gain) {
-      vb[e] = __fmul_rn(vb[e], prm.gains[0]);
-      iw[e] = __fmul_rn(iw[e], prm.gains[1]);
-      qw[e] = __fmul_rn(qw[e], prm.gains[2]);
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    float cl[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float v = __fadd_rn(__fadd_rn(__fmul_rn(vb[e], prm.m[3 * d]),
-                                          __fmul_rn(iw[e], prm.m[3 * d + 1])),
-                                __fmul_rn(qw[e], prm.m[3 * d + 2]));
-      cl[e] = fminf(fmaxf(v, 0.0f), 1.0f);
-    }
-    if (LAYOUT == 2) {
-      const size_t po = ((size_t)f * 3 + d) * plane + pix;
-      uchar4 u;
-      u.x = (unsigned char)rintf(__fmul_rn(cl[0], 255.0f));
-      u.y = (unsigned char)rintf(__fmul_rn(cl[1], 255.0f));
-      u.z = (unsigned char)rintf(__fmul_rn(cl[2], 255.0f));
-      u.w = (unsigned char)rintf(__fmul_rn(cl[3], 255.0f));
-      *reinterpret_cast<uchar4*>((unsigned char*)io.out0 + po) = u;
-    } else {
-      float* dst = LAYOUT == 0
-                       ? (d == 0 ? (float*)io.out0
-                                 : d == 1 ? (float*)io.out1 : (float*)io.out2) +
-                             (size_t)f * plane + pix
-                       : (float*)io.out0 + ((size_t)f * 3 + d) * plane + pix;
-      *reinterpret_cast<float4*>(dst) = make_float4(cl[0], cl[1], cl[2], cl[3]);
-    }
-  }
-}
 
 #define PP_MAX_THREADS 512  // a block: one row of 8192 lanes
 
@@ -215,10 +108,11 @@ __global__ void __launch_bounds__(PP_MAX_THREADS)
   float* sre = smem + rr * RF;
   float* sim = sre + pbmm_rp_pad(N);
   float* ring = smem + rows * RF;  // 2 r hb rows of in_w
-  const int r = io.radius, r2 = 2 * r, in_w = io.in_w;
+  constexpr int CH = U8 ? PBMM_CH_U8 : PBMM_CH_IQ;
+  const int r = io.radius, r2 = 2 * r, in_w = io.tail.in_w;
   const int f = blockIdx.y;
   const int j0 = blockIdx.x * io.run;  // the run's first output row
-  const int nreg = min(io.run, io.in_h - j0) + r2;  // its region rows
+  const int nreg = min(io.run, io.tail.in_h - j0) + r2;  // its region rows
   // Region row of the run's local row 0.
   const size_t reg0 = (size_t)f * io.hr + io.yrow0 + j0 - r;
 
@@ -292,61 +186,46 @@ __global__ void __launch_bounds__(PP_MAX_THREADS)
                                        load, store);
     __syncthreads();
 
-    // 2-3. Per four columns: each new row's hb, the vertical taps of the
-    //      output row it completes, the epilogue, and hb into the ring.
-    //      The epilogue's loads run one output row ahead of its
-    //      arithmetic (the next row of the quad, or the next quad's first).
+    // 2-3. Per four columns: each new row's hb (post_tail.cuh), the
+    //      vertical taps of the output row it completes, the epilogue, and
+    //      hb into the ring.  The epilogue's loads run one output row ahead
+    //      of its arithmetic (the next row of the quad, or the next quad's
+    //      first).
     const int nrow = min(rows, nreg - y0);
     const int i0 = max(0, r2 - y0);  // the first row completing an output
     const int xstep = 4 * blockDim.x;
-    PpIn next;
+    PbmmTailIn next;
     if (i0 < nrow && 4 * (int)threadIdx.x < in_w)
-      next = pp_load<U8>(io, f, j0 + y0 + i0 - r2, 4 * threadIdx.x);
+      next = pbmm_tail_load<CH>(io.tail, prm.tail, f, j0 + y0 + i0 - r2,
+                                4 * threadIdx.x);
     for (int x = 4 * threadIdx.x; x < in_w; x += xstep) {
+      int slot = r2 ? y0 % r2 : 0;  // ring slot of local row y0 + i
       for (int i = 0; i < nrow; ++i) {
         const int yy = y0 + i;  // local region row
         const float* z = smem + i * RF;
         float hb[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = io.x0 + x + e;
-          float h = __fmul_rn(z[pp_zpad(c)], prm.taps[r]);
-          for (int k = 1; k <= r; ++k)
-            h = __fadd_rn(h, __fadd_rn(__fmul_rn(z[pp_zpad(c - k)],
-                                                 prm.taps[r - k]),
-                                       __fmul_rn(z[pp_zpad(c + k)],
-                                                 prm.taps[r + k])));
-          hb[e] = h;
-        }
+        // Words q .. q + 3 (q a multiple of 4) share one padding offset.
+        pbmm_tail_hsum4(
+            [&](int q) {
+              const float* p = z + pp_zpad(q);
+              return make_float4(p[0], p[1], p[2], p[3]);
+            },
+            io.x0 + x, r, prm.tail, hb);
         if (i >= i0) {  // output row j0 + yy - 2 r: rows yy - 2 r .. yy
-          const PpIn in = next;
+          const PbmmTailIn in = next;
           if (i + 1 < nrow)
-            next = pp_load<U8>(io, f, j0 + yy + 1 - r2, x);
+            next = pbmm_tail_load<CH>(io.tail, prm.tail, f, j0 + yy + 1 - r2,
+                                      x);
           else if (x + xstep < in_w)
-            next = pp_load<U8>(io, f, j0 + y0 + i0 - r2, x + xstep);
-          float vb[4];
-          int slot = yy % (r2 ? r2 : 1);  // ring slot of row yy - 2 r
-          for (int ky = 0; ky < r2; ++ky) {
-            const float4 v =
-                *reinterpret_cast<const float4*>(ring + slot * in_w + x);
-            const float tk = prm.taps[ky];
-            const float tv[4] = {__fmul_rn(v.x, tk), __fmul_rn(v.y, tk),
-                                 __fmul_rn(v.z, tk), __fmul_rn(v.w, tk)};
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              vb[e] = ky == 0 ? tv[e] : __fadd_rn(vb[e], tv[e]);
-            slot = slot + 1 == r2 ? 0 : slot + 1;
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float tv = __fmul_rn(hb[e], prm.taps[r2]);
-            vb[e] = r2 == 0 ? tv : __fadd_rn(vb[e], tv);
-          }
-          pp_epilogue<U8, LAYOUT>(io, prm, in, f, j0 + yy - r2, x, vb);
+            next = pbmm_tail_load<CH>(io.tail, prm.tail, f,
+                                      j0 + y0 + i0 - r2, x + xstep);
+          float v[3][4];
+          pbmm_tail_vsum4(ring + x, in_w, slot, r2, prm.tail, hb, v[0]);
+          pbmm_tail_epilogue<CH, LAYOUT>(io.tail, prm.tail, in, f,
+                                         j0 + yy - r2, x, v);
         }
-        if (r2)  // the slot of row yy - 2 r, whose last reader was above
-          *reinterpret_cast<float4*>(ring + (yy % r2) * in_w + x) =
-              make_float4(hb[0], hb[1], hb[2], hb[3]);
+        pbmm_tail_ring_put(ring + x, in_w, slot, r2, hb);
+        slot = pbmm_tail_next_slot(slot, r2);
       }
     }
     __syncthreads();  // the |z| planes are read; the next rows may come
@@ -361,7 +240,7 @@ static cudaError_t launch_post(PostIO io, const PostParams& prm, int rows,
   const auto kernel = rowifft_post_kernel<N, U8, LAYOUT>;
   const int threads = rows * (N / PBMM_RP_P);
   const size_t smem = ((size_t)rows * pbmm_rp_row_floats(N) +
-                       2 * (size_t)io.radius * io.in_w) *
+                       2 * (size_t)io.radius * io.tail.in_w) *
                       sizeof(float);
   if (threads > PP_MAX_THREADS) return cudaErrorInvalidValue;
   cudaError_t err = pbmm_smem_opt_in(kernel, smem);
@@ -376,8 +255,8 @@ static cudaError_t launch_post(PostIO io, const PostParams& prm, int rows,
   if (err != cudaSuccess) return err;
   const int slots = sms * (per_sm > 1 ? per_sm : 1);
   const int runs = slots > t ? slots / t : 1;  // runs a frame
-  io.run = (io.in_h + runs - 1) / runs;
-  const dim3 grid((io.in_h + io.run - 1) / io.run, t);
+  io.run = (io.tail.in_h + runs - 1) / runs;
+  const dim3 grid((io.tail.in_h + io.run - 1) / io.run, t);
   rowifft_post_kernel<N, U8, LAYOUT><<<grid, threads, smem, stream>>>(io,
                                                                        prm);
   return cudaGetLastError();
@@ -416,7 +295,7 @@ extern "C" int pbmm_rowifft_post(
       n_tiles * PBMM_LANE != w || !pbmm_rp_length_ok(w) ||
       wk < PBMM_LANE || wk > w || radius < 0 ||
       radius > PBMM_MAX_BLUR_R || rows < 1 || in_h < 1 ||
-      in_w < 4 || in_w % 4 != 0 || yrow0 - radius < 0 ||
+      in_w < 4 || in_w % 4 != 0 || x0 % 4 != 0 || yrow0 - radius < 0 ||
       yrow0 + in_h + radius > hr || x0 < radius || x0 + in_w + radius > w ||
       layout < 0 || layout > 2 ||
       (!u8 && (i_plane == nullptr || q_plane == nullptr)) ||
@@ -437,19 +316,18 @@ extern "C" int pbmm_rowifft_post(
     prm.plan.src[i] = plan_src[i];
     prm.plan.rev[i] = plan_rev[i];
   }
-  for (int i = 0; i <= 2 * radius; ++i) prm.taps[i] = taps[i];
-  for (int i = 0; i < 9; ++i) prm.m[i] = yiq_to_rgb[i];
-  for (int i = 0; i < 6; ++i) prm.iq[i] = iq_u8[i];
-  prm.gains[0] = g_y;
-  prm.gains[1] = g_i;
-  prm.gains[2] = g_q;
+  for (int i = 0; i <= 2 * radius; ++i) prm.tail.taps[i] = taps[i];
+  for (int i = 0; i < 9; ++i) prm.tail.m[i] = yiq_to_rgb[i];
+  for (int i = 0; i < 6; ++i) prm.tail.iq[i] = iq_u8[i];
+  prm.tail.gains[0] = g_y;
+  prm.tail.gains[1] = g_i;
+  prm.tail.gains[2] = g_q;
+  prm.tail.comp = comp;
+  prm.tail.gain = gain;
   prm.magnitude = magnitude;
-  prm.comp = comp;
-  prm.gain = gain;
-  const PostIO io = {rre,   rim,  i_plane, q_plane, rgb_u8, win,
-                     tw_re, tw_im, out0,   out1,    out2,   radius,
-                     0,     hr,   wk,      in_h,    in_w,   yrow0,
-                     x0,    scale};
+  const PostIO io = {
+      {i_plane, q_plane, rgb_u8, win, out0, out1, out2, in_h, in_w},
+      rre, rim, tw_re, tw_im, radius, 0, hr, wk, yrow0, x0, scale};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
 #define PP_LAUNCH(N) \

@@ -11,7 +11,8 @@ three output layouts, at every blur radius `post_pallas_ok` admits.
 Like the JAX package's, the engines reach `post_fused` through
 `engine.video._post_block`, where kernel 3 serves first; on the card
 `rowifft_post_fused` also runs kernel 7 + kernel 10 in place of kernel 3
-where kernel 3's block does not fit shared memory (`kernel3_serves`).
+where kernel 3's ring would leave an SM too few threads, or does not fit
+shared memory (`kernel3_serves`).
 
 Kernel 3's chain per frame: rebuild the missing Hermitian tiles, row
 IFFT (bit-reversed lanes in, natural out), |z| (or Re z) / (pad_h *
@@ -20,10 +21,15 @@ crop, the windowed original I/Q, the optional window compensation and
 YIQ gains, YIQ -> RGB and the [0, 1] clip
 (`MotionMagnificationProcessor.cs:196-205`).  The reconstruction never
 leaves the kernel.  Kernel 11 runs the same blur, crop and epilogue on
-the three reconstructed YIQ planes.
+the three reconstructed YIQ planes.  The three CUDA kernels share the
+blur's sums, its ring of horizontally blurred rows and the epilogue
+(`csrc/post_tail.cuh`); kernels 10 and 11 stage their region rows by
+column strips and runs of rows, a tile `post_tile` plans.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -89,11 +95,18 @@ def post_pallas_ok(geom: Geometry, cfg, rows0: int, region_h: int) -> bool:
 
 
 _LAYOUTS = ("tuple3", "planar", "planar_u8")  # csrc/rowifft_post.cu order
+_CH_IQ, _CH_U8, _CH_RGB = 0, 1, 2  # the epilogue's chroma (post_tail.cuh)
 # Largest blur radius of the CUDA post kernels (PBMM_MAX_BLUR_R):
 # `post_pallas_ok` admits 2 r <= ob with the output block ob <= 192.
 _MAX_BLUR_R = 96
 _SMEM_BYTES = 232448  # shared memory a block may use on an H100
+_SM_BLOCK_BYTES = 233472  # shared memory of an SM: 227 KB + 1 KB a block
+_SM_THREADS = 2048  # threads an H100 SM holds
 _KERNEL3_THREADS = 256  # the most threads a kernel-3 block runs
+# Kernel 3 serves while its blocks keep this many threads on an SM: at
+# 1080p (2048 lanes, 1920 columns) two blocks of 256 fit to radius 5, one
+# from 6, and there kernels 7 + 10 run faster (tools/post_times.py).
+_KERNEL3_MIN_THREADS = 512
 _RP_POINTS = 16  # points a thread of the row engine holds (PBMM_RP_P)
 
 
@@ -126,18 +139,104 @@ def kernel3_rows(radius: int, pad_w: int, in_w=None) -> int:
 
 
 def kernel3_serves(radius: int, pad_w: int, in_w=None) -> bool:
-    """Which kernels take the y_only tail on the card: kernel 3 where one
-    of its blocks fits (`kernel3_rows` > 0), else kernel 7 (row IFFT +
-    |z|) then kernel 10 (blur, crop, chroma, RGB) on its rows, the same
-    arithmetic in two launches.  At the widest crops kernel 3 serves
-    r <= 14 at `pad_w` 2048, r <= 6 at 4096 and r <= 2 at 8192."""
-    return kernel3_rows(radius, pad_w, in_w) > 0
+    """Which kernels take the y_only tail on the card: kernel 3 where its
+    blocks (`kernel3_rows`, `kernel3_smem`) keep `_KERNEL3_MIN_THREADS`
+    threads on an SM, else kernel 7 (row IFFT + |z|) then kernel 10 (blur,
+    crop, chroma, RGB) on its rows, the same arithmetic in two launches.
+    The ring grows with the radius and the crop, so at the widest crops
+    kernel 3 serves r <= 11 at `pad_w` 1024, r <= 5 at 2048, r <= 2 at
+    4096 and 8192 (there one block of 512 threads)."""
+    in_w = _widest_crop(radius, pad_w) if in_w is None else in_w
+    rows = kernel3_rows(radius, pad_w, in_w)
+    if not rows:
+        return False
+    threads = rows * (pad_w // _RP_POINTS)
+    blocks = min(_SM_THREADS // threads, _SM_BLOCK_BYTES // (
+        kernel3_smem(rows, radius, pad_w, in_w) + 1024))
+    return blocks * threads >= _KERNEL3_MIN_THREADS
+
+
+_TILE_WIDTHS = (256, 128, 64, 32)  # kernels 10, 11: strips, 4 columns a thread
+# Region rows a staged group, the most that fit first; kernel 11's
+# epilogue spreads a group of 3 rows evenly over its 3 threads a quad.
+_TILE_ROWS = {1: (4, 2, 1), 3: (3, 2, 1)}
+
+
+def post_tile_smem(sw: int, rows: int, radius: int, planes: int) -> int:
+    """Bytes of shared memory a block of kernel 10 (1 plane) or 11 (3
+    planes) takes: the ring of the 2 r previous horizontally blurred rows
+    of its `sw` columns, two groups of `rows` staged region rows, each a
+    segment of sw + 2 r4 f32 (r4: the radius rounded up to 4), and for
+    three planes a group's blurred rows.  The wrappers pass it to the
+    launch, which refuses any size but that of the kernel's own carve-up
+    (`csrc/post_rgb.cu::tile_smem`)."""
+    r4 = -(-radius // 4) * 4
+    sums = rows * sw if planes > 1 else 0
+    return 4 * planes * (2 * radius * sw + 2 * rows * (sw + 2 * r4) + sums)
+
+
+def _tile_blocks_per_sm(smem: int, threads: int, regs: int) -> int:
+    """Blocks of kernel 10 or 11 an H100 SM holds: by shared memory, warps,
+    registers (`regs` a thread, allocated 8 at a time; 65,536 an SM) and
+    the 32-block limit."""
+    warps = -(-threads // 32)
+    regs = -(-regs // 8) * 8
+    return min(32, 64 // warps, _SM_BLOCK_BYTES // (smem + 1024),
+               65536 // (regs * 32 * warps))
+
+
+def post_tile(radius: int, in_w: int, in_h: int, t: int, planes: int,
+              regs: int, sms: int = 132):
+    """The tile of kernels 10 and 11: (sw, rows, run), a block's strip of
+    output columns (planes x sw / 4 threads), its region rows a staged
+    group and its run of output rows.  For each strip width up to 256
+    (narrower where the crop is), the most rows a group (`_TILE_ROWS`) whose
+    ring and staged rows fit 227 KB (`post_tile_smem`); of those, the
+    strip whose blocks give an SM the most threads (`regs` registers a
+    thread, the kernel's own count on the card), the widest on a tie.
+    Then runs that give about two blocks for each the `sms` SMs hold at
+    once, but no shorter than 8 r rows (8 at radius 0), so the halo rows
+    redone at the runs' ends cost at most ~25 % of the horizontal work,
+    and one run a frame where the height is short."""
+    best = None
+    for sw in _TILE_WIDTHS:
+        if sw > max(in_w, _TILE_WIDTHS[-1]):
+            continue
+        rows = next((n for n in _TILE_ROWS[planes]
+                     if post_tile_smem(sw, n, radius, planes) <= _SMEM_BYTES),
+                    0)
+        if not rows:
+            continue
+        threads = planes * sw // 4
+        per_sm = _tile_blocks_per_sm(post_tile_smem(sw, rows, radius, planes),
+                                     threads, regs)
+        if best is None or per_sm * threads > best[0]:
+            best = per_sm * threads, sw, rows, per_sm
+    if best is None:
+        raise ValueError(f"no tile of the post kernels fits blur radius "
+                         f"{radius} with {planes} planes")
+    _, sw, rows, per_sm = best
+    strips = -(-in_w // sw)
+    runs = -(-2 * sms * per_sm // (strips * t))
+    runs = max(1, min(runs, in_h // max(8 * radius, 8)))
+    return sw, rows, -(-in_h // runs)
 
 
 def _check_radius(r: int) -> None:
     if r > _MAX_BLUR_R:
         raise ValueError(f"the CUDA post kernels take blur radii up to "
                          f"{_MAX_BLUR_R}, got {r}")
+
+
+def _check_quads(geom, name: str) -> None:
+    """The CUDA post kernels blur and write four neighbouring columns a
+    thread from 16-byte words: the crop's width and left edge must be
+    multiples of 4 (always so where `post_pallas_ok` holds: both are
+    multiples of 64)."""
+    if geom.in_w % 4 or geom.x0 % 4:
+        raise ValueError(f"the CUDA {name} takes crops whose width and left "
+                         f"edge are multiples of 4, got {geom.in_w} at "
+                         f"{geom.x0}")
 
 
 def _u8_chroma_coeffs():
@@ -219,6 +318,32 @@ def _epilogue_args(cfg):
             *(float(g) for g in cfg.yiq_gains))
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_regs(chroma: int, layout: int, dev) -> int:
+    """Registers a thread of kernels 10 and 11's instantiation for a
+    chroma source (`csrc/post_tail.cuh`: 0 f32 I/Q, 1 uint8 frames, 2
+    three blurred planes) and layout, as the card's runtime reports them."""
+    from pbmm_tpu_torch.kernels.build import library
+
+    with torch.cuda.device(dev):
+        regs = library().pbmm_post_tile_regs(chroma, layout)
+    if regs <= 0:
+        raise RuntimeError(f"pbmm_post_tile_regs: cudaError {-regs}")
+    return regs
+
+
+def _tile_args(r, in_w, in_h, t, planes, chroma, layout, dev):
+    """The tile (sw, rows, run) and its shared-memory bytes, as the C
+    entry points of kernels 10 and 11 take them."""
+    sw, rows, run = post_tile(r, in_w, in_h, t, planes,
+                              _tile_regs(chroma, layout, dev), _sm_count(dev))
+    return sw, rows, run, post_tile_smem(sw, rows, r, planes)
+
+
 def _outputs(t, in_h, in_w, out_layout, dev):
     """The output tensors of a layout and their three pointers."""
     if out_layout == "tuple3":
@@ -249,7 +374,8 @@ def rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
 @checked
 def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
                        in_h: int, in_w: int, pad_mode: str, full_w=None,
-                       rgb_u8=None, out_layout: str = "tuple3"):
+                       rgb_u8=None, out_layout: str = "tuple3",
+                       route: bool = True):
     """(T, Hr, Wk) column-IFFT output rows (region rows from `rows0`,
     bit-reversed kept lanes) + the original chroma + (H, W) crop-region
     Hann -> RGB in [0, 1].
@@ -266,7 +392,10 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     CPU tensors take `rowifft_post_fused_ref`; CUDA tensors launch
     `csrc/rowifft_post.cu` (crop widths that are multiples of 4), or,
     where `kernel3_serves` is False, `row_ifft_magnitude` (kernel 7) and
-    `post_fused` (kernel 10), which compute the same bits."""
+    `post_fused` (kernel 10), which compute the same bits.  With
+    `route=False` kernel 3 runs wherever one of its blocks fits
+    (`kernel3_rows`), to time or check the two routes against each
+    other."""
     if rre.device.type == "cpu":
         return rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg,
                                       rows0, in_h, in_w, pad_mode, full_w,
@@ -278,15 +407,14 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     t, hr, wk = rre.shape
     r = _radius(cfg)
     _check_radius(r)
-    if not kernel3_serves(r, wp, in_w):
+    if not (kernel3_serves(r, wp, in_w) if route
+            else kernel3_rows(r, wp, in_w) > 0):
         rec = row_ifft_magnitude(rre, rim,
                                  magnitude=(cfg.reconstruct == "magnitude"),
                                  pad_h=geom.pad_h, full_w=wp)
         return post_fused(rec, i_plane, q_plane, win, cfg, rows0, in_h, in_w,
                           pad_mode, out_layout, rgb_u8=rgb_u8)
-    if in_w % 4:
-        raise ValueError(f"the CUDA kernel 3 takes crop widths that are "
-                         f"multiples of 4, got {in_w}")
+    _check_quads(geom, "rowifft_post_fused")
     check_cuda("rowifft_post_fused", (t, hr, wk), rre, rim)
     check_cuda("rowifft_post_fused", (in_h, in_w), win)
     if rgb_u8 is None:
@@ -372,6 +500,7 @@ def post_fused_rgb(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
     t3, hr, wp = chans3.shape
     r = _radius(cfg)
     _check_radius(r)
+    _check_quads(geom, "post_fused_rgb")
     check_cuda("post_fused_rgb", (t3, hr, wp), chans3)
     check_cuda("post_fused_rgb", (in_h, in_w), win)
     dev = chans3.device
@@ -381,6 +510,8 @@ def post_fused_rgb(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
         c_floats(blur_taps(cfg.blur_size)), r,
         c_floats(YIQ_TO_RGB.reshape(-1)), _LAYOUTS.index(out_layout),
         t3 // 3, hr, wp, in_h, in_w, geom.y0 - rows0, geom.x0,
+        *_tile_args(r, in_w, in_h, t3 // 3, 3, _CH_RGB,
+                    _LAYOUTS.index(out_layout), dev),
         *_epilogue_args(cfg), stream_handle(dev))
     check_launch(err, "post_fused_rgb")
     post_fused_rgb.launches += 1
@@ -463,6 +594,7 @@ def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
     t, hr, wp = chans.shape
     r = _radius(cfg)
     _check_radius(r)
+    _check_quads(geom, "post_fused")
     check_cuda("post_fused", (t, hr, wp), chans)
     if rgb_u8 is None:
         check_cuda("post_fused", (t, in_h, in_w), i_plane, q_plane)
@@ -479,8 +611,10 @@ def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
         chans.data_ptr(), *chroma, win.data_ptr(), *ptrs,
         c_floats(blur_taps(cfg.blur_size)), r,
         c_floats(YIQ_TO_RGB.reshape(-1)), _LAYOUTS.index(out_layout), t, hr,
-        wp, in_h, in_w, geom.y0 - rows0, geom.x0, *_epilogue_args(cfg),
-        stream_handle(dev))
+        wp, in_h, in_w, geom.y0 - rows0, geom.x0,
+        *_tile_args(r, in_w, in_h, t, 1, _CH_IQ if rgb_u8 is None else _CH_U8,
+                    _LAYOUTS.index(out_layout), dev),
+        *_epilogue_args(cfg), stream_handle(dev))
     check_launch(err, "post_fused")
     post_fused.launches += 1
     return tuple(outs) if out_layout == "tuple3" else outs[0]

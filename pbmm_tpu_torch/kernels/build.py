@@ -64,13 +64,16 @@ SIGNATURES = {
     # batch, hb, wk, w, scale, magnitude, stream
     "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     # chans3, win, out0, out1, out2, taps(host), radius, yiq_to_rgb(host),
-    # layout, t, hr, w, in_h, in_w, yrow0, x0, comp, gain, g_y, g_i, g_q,
-    # stream
-    "pbmm_post_rgb": [_P] * 6 + [_I, _P] + [_I] * 10 + [_F] * 3 + [_P],
+    # layout, t, hr, w, in_h, in_w, yrow0, x0, sw, rows, run, smem, comp,
+    # gain, g_y, g_i, g_q, stream
+    "pbmm_post_rgb": [_P] * 6 + [_I, _P] + [_I] * 14 + [_F] * 3 + [_P],
     # chans, i_plane, q_plane, rgb_u8, iq_u8(host), win, out0, out1, out2,
     # taps(host), radius, yiq_to_rgb(host), then as pbmm_post_rgb from
     # layout on
-    "pbmm_post_yonly": [_P] * 10 + [_I, _P] + [_I] * 10 + [_F] * 3 + [_P],
+    "pbmm_post_yonly": [_P] * 10 + [_I, _P] + [_I] * 14 + [_F] * 3 + [_P],
+    # chroma (0 f32 I/Q, 1 uint8 frames, 2 three planes), layout -> the
+    # registers a thread of kernels 10 and 11's instantiation
+    "pbmm_post_tile_regs": [_I, _I],
     # cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
     # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, phase
     # ints(host), phase floats(host), batch, h, w, r0, r1, strip, stream

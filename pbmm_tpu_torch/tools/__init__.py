@@ -8,6 +8,7 @@ JAX package's `benchmarks/` scripts, one module per file of the same name:
     tools/trig_probe.py      the phase pass's transcendentals (kernel 14)
     tools/roofline.py        bytes and FLOPs per stage against the H100's peaks
     tools/profile_stages.py  per-stage time of the per-frame pipeline
+    tools/post_times.py      the y_only tail's two routes: kernel 3, kernels 7 + 10
 
 Each `main()` measures the card and exits non-zero without one; the byte
 counts and the plain versions underneath run on CPU tensors too."""

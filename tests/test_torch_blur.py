@@ -7,9 +7,10 @@
   radii 2, 3, 5 and 13): > 70 dB between the packages, the path bar of
   tests/test_fused.py.
 - The predicate that routes the y_only tail on the card
-  (`post_fused.kernel3_serves`): kernel 3 up to radius 14 at a padded
-  width of 2048, up to 6 at 4096 and 2 at 8192 (at the widest crops),
-  kernels 7 + 10 above; every pair it served before still served.
+  (`post_fused.kernel3_serves`): kernel 3 while its blocks keep 512
+  threads on an SM (at the widest crops up to radius 11 at a padded
+  width of 1024, 5 at 2048, 2 at 4096 and 8192), kernels 7 + 10 above;
+  kernel 3's block still fits every pair it served before.
 - Kernel 10's plain version with the uint8 chroma source against
   kernel 3's on the same rows.
 - The port's plain `colspec_chunk_ref` against the JAX `colspec_chunk`
@@ -95,21 +96,26 @@ def _served_before(radius, pad_w):
 
 
 @pytest.mark.parametrize("pad_w,radius,kernel3", [
-    (2048, 2, True), (2048, 3, True), (2048, 5, True), (2048, 12, True),
-    (2048, 13, True), (2048, 14, True), (2048, 15, False), (4096, 2, True),
-    (4096, 5, True), (4096, 6, True), (4096, 7, False), (4096, 13, False),
-    (1024, 13, True), (8192, 2, True), (8192, 3, False),
+    (2048, 2, True), (2048, 3, True), (2048, 5, True), (2048, 12, False),
+    (2048, 13, False), (2048, 14, False), (2048, 15, False), (4096, 2, True),
+    (4096, 5, False), (4096, 6, False), (4096, 7, False), (4096, 13, False),
+    (1024, 13, False), (8192, 2, True), (8192, 3, False),
 ])
 def test_kernel3_route(pad_w, radius, kernel3):
     """Kernel 3 holds its region rows in flight (two planes of the row
     engine each) and the ring of 2 r blurred rows of the crop in 227 KB
-    of shared memory: it serves while one row in flight fits, at the
-    widest crop `post_pallas_ok` admits, with up to 256 threads a block;
-    every pair the route served before still takes kernel 3."""
+    of shared memory, with up to 256 threads a block (one row of 512 at
+    8192 lanes): at the widest crop `post_pallas_ok` admits it serves
+    while its blocks keep 512 threads on an SM (from radius 6 at 1080p
+    one block of 256 is left, and kernels 7 + 10 run faster); its block
+    still fits every pair the route served before."""
     assert post_fused.kernel3_serves(radius, pad_w) is kernel3
     rows = post_fused.kernel3_rows(radius, pad_w)
     in_w = (pad_w - 2 * radius) // 128 * 128
-    assert (rows > 0) is kernel3
+    threads = rows * pad_w // 16
+    blocks = min(2048 // max(threads, 1), 233472 // (
+        post_fused.kernel3_smem(rows, radius, pad_w, in_w) + 1024))
+    assert (rows > 0 and blocks * threads >= 512) is kernel3
     assert rows * pad_w // 16 <= max(256, pad_w // 16)
     if kernel3:
         assert post_fused.kernel3_smem(rows, radius, pad_w, in_w) <= 232448
@@ -119,21 +125,23 @@ def test_kernel3_route(pad_w, radius, kernel3):
         assert post_fused.kernel3_smem(rows + 1, radius, pad_w,
                                        in_w) > 232448
     if _served_before(radius, pad_w):
-        assert kernel3
+        assert rows > 0
     assert post_fused.kernel3_rows(2, 2048) == 2
     assert post_fused.kernel3_rows(12, 2048) == 2
     assert post_fused.kernel3_rows(13, 2048) == 1
     # The crop of 1080p (1920 of 2048 lanes) at radius 14 fills 227 KB to
     # the byte; a crop a tile narrower leaves room at 15.
     assert post_fused.kernel3_smem(1, 14, 2048, 1920) == 232448
-    assert post_fused.kernel3_serves(15, 2048, in_w=1792)
-    assert not post_fused.kernel3_serves(15, 2048, in_w=1920)
+    assert post_fused.kernel3_rows(15, 2048, in_w=1792) > 0
+    assert post_fused.kernel3_rows(15, 2048, in_w=1920) == 0
+    assert not post_fused.kernel3_serves(15, 2048, in_w=1792)
 
 
 def test_kernel3_route_keeps_every_pair_served_before():
-    """Every (radius, pad_w) the route gave kernel 3 before, at every
-    crop width `post_pallas_ok` admits, still takes kernel 3, within 227
-    KB."""
+    """Every (radius, pad_w) the route's older predicate
+    (`_served_before`) gave kernel 3, at every crop width
+    `post_pallas_ok` admits, still has a kernel-3 block within 227 KB
+    (the route takes it where its blocks keep 512 threads an SM)."""
     for pad_w in (128, 256, 512, 1024, 2048, 4096, 8192):
         for radius in range(0, 97):
             if not _served_before(radius, pad_w):

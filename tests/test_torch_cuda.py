@@ -38,10 +38,12 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   bit against kernel 2's forward half at H = 512 to 4096 and against
   its plain version at 8192;
 - blur radii 3, 5, 13 and 15: kernels 3, 10 (f32 and uint8 chroma) and
-  11, kernel 3's route through kernels 7 + 10 (radius 15), kernel 3 bit
-  for bit against kernel 7 + kernel 10 at radii 0-12 at 1080p and 0-6 at
+  11, kernel 3's route through kernels 7 + 10 (radii 13, 15), kernel 3 bit
+  for bit against kernel 7 + kernel 10 at radii 0-14 at 1080p and 0-6 at
   2160p (4096 lanes) in both chroma sources, the three layouts and the
-  quirks, `magnify_video` at 1080p in
+  quirks; kernels 10 and 11's tile (csrc/post_rgb.cu) at radii 0, 1, 2,
+  5, 13, 15, 31 and 96, crop widths 128, 1152 and 1920, 1 and 16
+  frames; `magnify_video` at 1080p in
   y_only, uint8 -> planar_u8 and rgb against the CPU, and the CLI's
   `--fast --blur-size 1.5` at 1080p;
 - kernel 1 on the row engine at 128 to 8192 lanes, kept and full, on a
@@ -989,10 +991,10 @@ def _blur_cfg(blur_size, **change):
                                         ("u8", "planar"),
                                         ("f32", "planar_u8")])
 def test_post_kernel_blur_radius(dev, blur_size, src, layout):
-    """Kernel 3 at blur radii 3, 5 and 13 (two rows in flight, then one)
-    and, at 15, the kernel 7 + kernel 10 route that replaces it at a
-    padded width of 2048 and 1920 columns, each against kernel 3's plain
-    version at 1080p tight."""
+    """Kernel 3 at blur radii 3 and 5 and, at 13 and 15, the kernel 7 +
+    kernel 10 route that replaces it from radius 6 at 1080p (at 15 no kernel-3
+    block fits a padded width of 2048 and 1920 columns), each against
+    kernel 3's plain version at 1080p tight."""
     cfg = _blur_cfg(blur_size)
     in_h, in_w = 1080, 1920
     g = geometry_for(in_h, in_w, "tight")
@@ -1016,7 +1018,7 @@ def test_post_kernel_blur_radius(dev, blur_size, src, layout):
                                       post_fused.post_fused)}
     got = post_fused.rowifft_post_fused(*args, **kw)
     routed = not post_fused.kernel3_serves(r, g.pad_w, in_w)
-    assert routed == (r == 15)
+    assert routed == (r >= 13)
     moved = {f: f.launches - n for f, n in counts.items()}
     assert moved == {post_fused.rowifft_post_fused: int(not routed),
                      fused.row_ifft_magnitude: int(routed),
@@ -1072,12 +1074,134 @@ def test_post_rgb_and_yonly_kernels_blur_radius(dev, blur_size, layout):
             assert int((got.int() - want.int()).abs().max()) <= 1, name
 
 
+# Kernels 10 and 11's tile (csrc/post_rgb.cu): geometries whose halo admits
+# the radius; "r96" is one `post_pallas_ok` admits at radius 96 (output
+# blocks of 192 rows, the region from the blur's first row).
+_TILE_GEOMS = {"1080p": (1080, 1920, "tight"),
+               "w128": (136, 128, "square_pow2"),
+               "r96": (576, 1152, "square_pow2")}
+_QUIRK_ALL = dict(compensate_window=True, apply_yiq_gains=True,
+                  yiq_gains=(1.0, 1.2, 0.8))
+
+
+def _tile_case(dev, geom_name, radius, t, monkeypatch, seed):
+    if radius == 0:
+        monkeypatch.setattr(post_fused, "blur_taps", lambda b: (0.75,))
+    in_h, in_w, pad_mode = _TILE_GEOMS[geom_name]
+    cfg = _cfg().replace(pad_mode=pad_mode,
+                         blur_size=max(radius - 0.5, 0.5) / 3.2307692308)
+    assert post_fused._radius(cfg) == radius
+    g = geometry_for(in_h, in_w, pad_mode)
+    rows = blur_row_window(g, cfg)
+    hr = rows[1] - rows[0]
+    rng = np.random.default_rng(seed)
+    rec3 = torch.from_numpy(rng.uniform(
+        -0.2, 0.9, (3 * t, hr, g.pad_w)).astype(np.float32)).to(dev)
+    u8 = torch.from_numpy(rng.integers(0, 256, (t, 3, in_h, in_w),
+                                       dtype=np.uint8)).to(dev)
+    iq = [_rand(rng, (t, in_h, in_w), dev, 0.3) for _ in range(2)]
+    common = (hann2d_region(g, device=dev), rows[0], in_h, in_w, pad_mode)
+    return cfg, g, rows, rec3, u8, iq, common
+
+
+def _check_tile_kernels(cfg, rec3, u8, iq, common):
+    """Kernels 11, 10 (f32 I/Q) and 10 (uint8 frames), in tuple3 and,
+    with compensation and gains, planar and planar_u8, against their
+    plain versions: f32 max abs < 1e-5, uint8 1 code, planar_u8 =
+    rint(255 planar) bit for bit."""
+    win, rows0, in_h, in_w, pad_mode = common
+    y_rows = rec3[0::3].contiguous()
+    calls = {
+        "k11": (post_fused.post_fused_rgb, post_fused.post_fused_rgb_ref,
+                lambda c: (rec3, win, c.replace(chroma="rgb"), rows0, in_h,
+                           in_w, pad_mode), {}),
+        "k10_f32": (post_fused.post_fused, post_fused.post_fused_ref,
+                    lambda c: (y_rows, *iq, win, c, rows0, in_h, in_w,
+                               pad_mode), {}),
+        "k10_u8": (post_fused.post_fused, post_fused.post_fused_ref,
+                   lambda c: (y_rows, None, None, win, c, rows0, in_h, in_w,
+                              pad_mode), dict(rgb_u8=u8)),
+    }
+    for name, (kern, ref, args, kw) in calls.items():
+        for layout, c in (("tuple3", cfg), ("planar", cfg.replace(
+                **_QUIRK_ALL)), ("planar_u8", cfg.replace(**_QUIRK_ALL))):
+            n = kern.launches
+            got = kern(*args(c), out_layout=layout, **kw)
+            assert kern.launches == n + 1, name
+            want = ref(*args(c), out_layout=layout, **kw)
+            if layout == "tuple3":
+                for a, b in zip(got, want):
+                    assert float((a - b).abs().max()) < 1e-5, name
+            elif layout == "planar":
+                assert float((got - want).abs().max()) < 1e-5, name
+                planar = got
+            else:
+                assert got.dtype == torch.uint8
+                assert int((got.int() - want.int()).abs().max()) <= 1, name
+                assert torch.equal(got, torch.round(planar * 255.0).to(
+                    torch.uint8)), name
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 5, 13, 15, 31])
+@pytest.mark.parametrize("geom_name,t", [("1080p", 1), ("1080p", 16),
+                                         ("w128", 1), ("w128", 16)])
+def test_post_tile_kernels(dev, geom_name, t, radius, monkeypatch):
+    """Kernels 10 and 11 (`post_fused.post_tile`'s strips, rows a group
+    and runs) at radii 0-31, crop widths 1920 (strips of 256, the last of
+    128) and 128, one frame and 16, every chroma source and layout and
+    the quirks, against their plain versions."""
+    cfg, g, rows, rec3, u8, iq, common = _tile_case(
+        dev, geom_name, radius, t, monkeypatch, 50 + radius)
+    _check_tile_kernels(cfg, rec3, u8, iq, common)
+
+
+@pytest.mark.parametrize("t", [1, 16])
+def test_post_tile_kernels_radius_96(dev, t):
+    """Radius 96, the largest `post_pallas_ok` admits (576 x 1152 at
+    square_pow2, output blocks of 192 rows): kernel 11 on strips of 64
+    columns (a 147 KB ring), kernel 10 on strips of 256."""
+    cfg, g, rows, rec3, u8, iq, common = _tile_case(
+        dev, "r96", 96, t, None, 96)
+    assert post_fused.post_pallas_ok(g, cfg, rows[0], rows[1] - rows[0])
+    regs = post_fused._tile_regs(post_fused._CH_RGB, 0, dev)
+    assert post_fused.post_tile(96, g.in_w, g.in_h, t, 3, regs)[0] == 64
+    _check_tile_kernels(cfg, rec3, u8, iq, common)
+
+
+def test_post_tile_regs_and_smem_contract(dev, monkeypatch):
+    """Kernels 10 and 11's launch contract: each of the nine
+    instantiations reports its registers a thread (1-255) for the tile
+    planner, and a launch given any shared-memory size but that of the
+    kernel's carve-up (`post_tile_smem`) is refused with
+    cudaErrorInvalidValue (1) and counts no launch."""
+    for chroma in (post_fused._CH_IQ, post_fused._CH_U8, post_fused._CH_RGB):
+        for layout in range(3):
+            assert 1 <= post_fused._tile_regs(chroma, layout, dev) <= 255
+    cfg, g, rows, rec3, u8, iq, common = _tile_case(
+        dev, "w128", 2, 1, monkeypatch, 7)
+    smem = post_fused.post_tile_smem
+    for extra in (16, -16):
+        monkeypatch.setattr(post_fused, "post_tile_smem",
+                            lambda *a, extra=extra: smem(*a) + extra)
+        for kern, args in (
+                (post_fused.post_fused_rgb,
+                 (rec3, common[0], cfg.replace(chroma="rgb"), *common[1:])),
+                (post_fused.post_fused,
+                 (rec3[0::3].contiguous(), *iq, *common[:1], cfg,
+                  *common[1:]))):
+            n = kern.launches
+            with pytest.raises(RuntimeError, match="cudaError 1$"):
+                kern(*args)
+            assert kern.launches == n
+
+
 @pytest.mark.parametrize("blur_size", [0.75, 1.5, 4.0])
 @pytest.mark.parametrize("mode", ["y_only", "planar_u8", "rgb"])
 def test_1080p_blur_radius_on_card_matches_cpu(dev, blur_size, mode):
     """`magnify_video` at 1080p, `tuned_for_tpu()`, at blur radii 3, 5 and
     13 in y_only f32, uint8 -> planar_u8 and rgb: it runs on the card
-    (kernel 3; kernel 11 for rgb) and matches the CPU path."""
+    (kernel 3, kernels 7 + 10 at 13; kernel 11 for rgb) and matches the
+    CPU path."""
     change = dict(chroma="rgb") if mode == "rgb" else (
         dict(output_layout="planar_u8") if mode == "planar_u8" else {})
     cfg = MagnifyConfig().tuned_for_tpu().replace(blur_size=blur_size,
@@ -1258,22 +1382,25 @@ def test_colspec_refuses_a_width_off_its_strip(dev):
         fused.colspec_chunk(z, z, zp, zp, _cfg(), 512, 0)
 
 
-_K3_GEOMS = {"1080p": (1080, 1920, (0, 2, 5, 12)),
+_K3_GEOMS = {"1080p": (1080, 1920, tuple(range(15))),
              "2160p": (2160, 3840, (0, 2, 5, 6))}
 
 
 @pytest.mark.parametrize("layout", ["tuple3", "planar", "planar_u8"])
 @pytest.mark.parametrize("src", ["f32", "u8"])
-@pytest.mark.parametrize("geom_name,ri", [(g, i) for g in sorted(_K3_GEOMS)
-                                          for i in range(4)])
+@pytest.mark.parametrize("geom_name,ri", [
+    (g, i) for g in sorted(_K3_GEOMS) for i in range(len(_K3_GEOMS[g][2]))])
 def test_post_kernel_equals_row_ifft_and_post_fused(dev, geom_name, ri, src,
                                                     layout, monkeypatch):
     """Kernel 3 = kernel 7 + kernel 10 bit for bit: on the same region
     rows, kernel 3's output equals `post_fused(row_ifft_magnitude(...))`
-    (the same |z| rows of the row engine, the blur and epilogue in kernel
-    10's order), at radii 0, 2, 5 and 12 at 1080p tight (2048 lanes) and
-    0, 2, 5 and 6 at 2160p (4096 lanes), both chroma sources and the
-    three layouts; radius 0 from a one-tap blur no config gives."""
+    (the same |z| rows of the row engine, the blur and epilogue of
+    csrc/post_tail.cuh), at every radius a kernel-3 block fits at 1080p
+    tight (0-14, 2048 lanes; kernel 3 launched with route=False, as the
+    route takes it only to 5 there) and 0, 2, 5 and 6 at 2160p (4096
+    lanes), both chroma
+    sources and the three layouts; radius 0 from a one-tap blur no config
+    gives."""
     in_h, in_w, radii = _K3_GEOMS[geom_name]
     radius = radii[ri]
     if radius == 0:
@@ -1283,7 +1410,7 @@ def test_post_kernel_equals_row_ifft_and_post_fused(dev, geom_name, ri, src,
     g = geometry_for(in_h, in_w, "tight")
     rows = blur_row_window(g, cfg)
     wk, hr = hermitian_kept_width(g.pad_w), rows[1] - rows[0]
-    assert post_fused.kernel3_serves(radius, g.pad_w, in_w)
+    assert post_fused.kernel3_rows(radius, g.pad_w, in_w) > 0
     rng = np.random.default_rng(40 + radius)
     scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
     rre, rim = (_rand(rng, (2, hr, wk), dev, scale) for _ in range(2))
@@ -1298,7 +1425,8 @@ def test_post_kernel_equals_row_ifft_and_post_fused(dev, geom_name, ri, src,
               fused.row_ifft_magnitude.launches)
     got = post_fused.rowifft_post_fused(
         rre, rim, chroma[0], chroma[1], win, cfg, rows[0], in_h, in_w,
-        "tight", full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout)
+        "tight", full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout,
+        route=False)
     assert post_fused.rowifft_post_fused.launches == n3 + 1
     assert fused.row_ifft_magnitude.launches == n7
     rec = fused.row_ifft_magnitude(rre, rim, pad_h=g.pad_h, full_w=g.pad_w)

@@ -206,22 +206,27 @@ def test_kernel3_schedule_model_variants(radius, chroma, layout, quirks, run,
 def test_kernel3_smem_within_the_block_limit():
     """The launch's shared memory (rows in flight x the row engine's two
     padded planes + 2 r ring rows of the crop) fits 227 KB wherever
-    `kernel3_serves` admits a (radius, pad_w, crop width), with at most
-    512 threads and a whole number of rows a block."""
+    `kernel3_rows` gives a (radius, pad_w, crop width) a block, with at
+    most 512 threads and a whole number of rows a block; `kernel3_serves`
+    takes those whose blocks keep 512 threads on an SM (2048 threads and
+    233,472 bytes of shared memory an SM, 1 KB of it a block)."""
     for pad_w in (128, 256, 512, 1024, 2048, 4096, 8192):
         nt = pad_w // 16  # threads a row
         row_floats = 2 * (pad_w + pad_w // 16)  # pbmm_rp_row_floats
         for radius in range(0, 97):
             for in_w in range(128, pad_w - 2 * radius + 1, 128):
                 rows = post_fused.kernel3_rows(radius, pad_w, in_w)
-                assert post_fused.kernel3_serves(radius, pad_w,
-                                                 in_w) is (rows > 0)
                 if not rows:
+                    assert not post_fused.kernel3_serves(radius, pad_w, in_w)
                     assert 4 * (row_floats + 2 * radius * in_w) > 232448
                     continue
                 smem = 4 * (rows * row_floats + 2 * radius * in_w)
                 assert smem == post_fused.kernel3_smem(rows, radius, pad_w,
                                                        in_w) <= 232448
+                held = min(2048 // (rows * nt),
+                           233472 // (smem + 1024)) * rows * nt
+                assert post_fused.kernel3_serves(radius, pad_w, in_w) is (
+                    held >= 512)
                 assert rows * nt <= 512 and rows * nt >= nt
 
 

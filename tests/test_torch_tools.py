@@ -314,7 +314,8 @@ def test_profile_stages_run_on_cpu():
 
 
 @pytest.mark.parametrize("tool", ["kexp", "kdecomp", "trig_probe",
-                                  "roofline", "profile_stages", "parity"])
+                                  "roofline", "profile_stages", "parity",
+                                  "post_times"])
 def test_tools_need_a_card(tool, monkeypatch, capsys):
     import importlib
 
@@ -324,6 +325,29 @@ def test_tools_need_a_card(tool, monkeypatch, capsys):
         mod.main([])
     assert exc.value.code != 0
     assert "no CUDA card" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("pad_mode", ["tight", "square_pow2"])
+def test_post_times_route_calls_agree_on_cpu(pad_mode):
+    """`post_times.route_calls`: on CPU tensors kernel 3's plain version
+    and kernel 7 + kernel 10's give the same images (1e-6) at radii 2-14,
+    f32 I/Q to tuple3 and uint8 frames to planar_u8 (1 code), on frames
+    of the shape asked for, at both paddings `post_times` times."""
+    from pbmm_tpu_torch.tools import post_times
+
+    assert {m for _, _, m in post_times.SHAPES} == {"tight", "square_pow2"}
+    got = post_times.route_calls("cpu", 96, 384, pad_mode, radii=(2, 6, 14),
+                                 t=2)
+    assert len(got) == 6
+    for name, (k3, k7_10) in got.items():
+        a, b = k3(), k7_10()
+        if isinstance(a, tuple):
+            assert a[0].shape == (2, 96, 384)
+            assert max(float((x - y).abs().max())
+                       for x, y in zip(a, b)) < 1e-6, name
+        else:
+            assert a.dtype == torch.uint8 and a.shape == (2, 3, 96, 384)
+            assert int((a.int() - b.int()).abs().max()) <= 1, name
 
 
 def test_timed_needs_the_card():
