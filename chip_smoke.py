@@ -12,7 +12,8 @@ non-zero without the final line:
      shapes its path gives it, from inputs made with numpy from a seed
      (spectra: max error / max magnitude < 1e-4; images: max abs < 1e-4;
      uint8 images: 1 code): kernels 1-3 at 1080p (kernel 1, on the row
-     engine, also bit for bit against kernel 8's stage-by-stage row pass
+     engine, also bit for bit against kernel 8's row pass (the same
+     engine, since it runs rows of 128 points and more there)
      on the same windowed rows at 1080p, 960x540 and 4096 lanes; kernel
      2, frame-parallel, at the tight heights to 1e-4 of the spectrum),
      kernel 4 on (16, 3, 1080, 1920) uint8 frames (also bit for bit
@@ -46,9 +47,13 @@ non-zero without the final line:
      rows at radii 2 and 5, f32 and uint8 chroma, tuple3 and planar_u8;
      2160p's heights: kernel 2 at H = 4096 and at tight m = 17, kernels
      5, 6 and 12 at H = 4096 (the IIR branch at 4096 is held by the
-     card-only tests); kernel 6, one frame a launch and all frames in one,
-     bit for bit against kernel 2's rows at H = 2048 and 4096, and kernel
-     12 against kernel 6;
+     card-only tests); 4320p's: kernel 2 at H = 8192 and at tight m = 34
+     and 63 (m = 64 is H = 8192), kernels 5, 6 and 12 at H = 8192; kernel
+     8's row pass (the row engine) at 8192 points in its three kinds;
+     kernel 6, one frame a launch and all frames in one, bit for bit
+     against kernel 2's rows at H = 2048, 4096 and 8192 (kernel 5's last
+     spectrum = kernel 2's state), and kernel 12 against kernel 6 at 4096
+     and 8192;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -90,6 +95,12 @@ non-zero without the final line:
        against the oracle; 2160p tight (H = 2176, m = 17): kernels 1, 2,
        3; the scan engine at 4096 (3 frames): kernels 1, 5, 6, 7, > 100
        dB;
+     - (l) 7680x4320 `tuned_for_tpu()` (square_pow2, 8192x8192), chunks
+       of 2, shifted noise: kernels 5, 1, 2, 3 (or 7 + 10 where
+       `kernel3_serves` routes them); 4320p tight (H = 4352, m = 34):
+       kernels 1, 2 and the tail; the scan engine at 8192 (2 frames):
+       kernels 1, 5, 6, 7; each > 100 dB against the oracle on frames 0-1,
+       the batched two with chunks of 1 + 1 equal to one of 2;
      - (k) 1080p tight at blur_size 4.5 (radius 15), the bench clip: no
        kernel-3 block fits (and from radius 6 at 1080p the route takes
        kernels 7 + 10 anyway), so kernels 1, 2, 7, 10 (and 4, 2, 7, 10 from
@@ -123,7 +134,7 @@ non-zero without the final line:
      timing: its inputs out of L2), and also, as before, with the host's
      enqueue inside one event pair around one call (`ms_enqueued`);
   5. with --profile only: torch.profiler over a few steady-state chunks
-     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j), (k),
+     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j)-(l),
      printing where the device time of a chunk goes (each kernel's
      share) and the device's idle share with the profiler on.
 
@@ -158,6 +169,8 @@ H, W, T = 1080, 1920, 16
 H540, W540 = 540, 960  # a frame size outside post_pallas_ok
 H720, W720 = 720, 1280  # rect_pow2 pads it to 1024 x 2048
 H4K, W4K, T4K = 2160, 3840, 8  # square_pow2: 4096 x 4096; tight: 2176 rows
+H8K, W8K, T8K = 4320, 7680, 2  # square_pow2: 8192 x 8192; tight: 4352 rows
+M_TOP = 63  # the four-step's largest m (m = 64 is 8192 rows: radix-2)
 SPEC_TOL = 1e-4  # max error / max magnitude, spectra
 IMG_TOL = 1e-4  # max abs error, images in [0, 1]
 
@@ -471,6 +484,37 @@ def main():
     t4_prev = [dev_t(rng.standard_normal((1, g4t.pad_h, wk4)))
                for _ in range(2)]
     k4_kw = dict(out_rows=rows_4k, full_w=g4k.pad_w)
+    # 4320p: square_pow2 (H = 8192: kernel 5's three passes, kernels 2 and
+    # 6 on strips of 2, kernel 12 on strips of 1) and tight (H = 4352, the
+    # four-step at m = 34, its combine matrix in device memory), a chunk of
+    # 2 at 4320p's 4224 kept lanes; and the four-step's largest m, 63
+    # (8064 rows).
+    g8k = geometry_for(H8K, W8K, "square_pow2")
+    g8t = geometry_for(H8K, W8K, "tight")
+    wk8 = hermitian_kept_width(g8k.pad_w)
+    r0_8k, r1_8k = fused.aligned_row_window(g8k.y0, g8k.y0 + H8K, g8k.pad_h)
+    rows_8k = blur_row_window(g8k, cfg_j)
+    rows_8t = blur_row_window(g8t, cfg)
+    r0_8t, r1_8t = fused.aligned_row_window(g8t.y0, g8t.y0 + H8K, g8t.pad_h)
+    k8k_re, k8k_im = (dev_t(rng.standard_normal((T8K, r1_8k - r0_8k, wk8)))
+                      for _ in range(2))
+    k8k_prev = [dev_t(rng.standard_normal((1, g8k.pad_h, wk8)))
+                for _ in range(2)]
+    k8k_next = [dev_t(rng.standard_normal((1, g8k.pad_h, wk8)))
+                for _ in range(2)]
+    t8_re, t8_im = (dev_t(rng.standard_normal((T8K, r1_8t - r0_8t, wk8)))
+                    for _ in range(2))
+    t8_prev = [dev_t(rng.standard_normal((1, g8t.pad_h, wk8)))
+               for _ in range(2)]
+    h63 = M_TOP * 128
+    rows_63 = (32, h63 - 32)
+    t63_re, t63_im = (dev_t(rng.standard_normal((T8K, h63 - 64, wk8)))
+                      for _ in range(2))
+    t63_prev = [dev_t(rng.standard_normal((1, h63, wk8))) for _ in range(2)]
+    k8_kw = dict(out_rows=rows_8k, full_w=g8k.pad_w)
+    # Kernel 8's row pass at 8192 points on as many elements as at 2048.
+    k8w_re, k8w_im = (dev_t(rng.standard_normal((1, 512, 8192)))
+                      for _ in range(2))
 
     def both(fn, *a, **k):
         """(kernel call, plain-version call) of one wrapper."""
@@ -655,6 +699,32 @@ def main():
         "kdecomp_variant[phase + gm + rolls, H 4096]": both(
             kdecomp.kdecomp_variant, *k4_next, *k4_prev, cfg_j,
             kdecomp.VARIANTS[-1][1], rows_4k, full_w=g4k.pad_w),
+        # 4320p: H = 8192 (kernels 2 and 6 on strips of 2, 12 on strips of
+        # 1, kernel 5's three passes), tight m = 34 and m = 63.
+        "colspec_chunk[pow-2, H 8192, 4320p square_pow2]": both(
+            fused.colspec_chunk, k8k_re, k8k_im, *k8k_prev, cfg_j,
+            g8k.pad_h, r0_8k, **k8_kw),
+        "colspec_chunk[tight m 34, 4320p]": both(
+            fused.colspec_chunk, t8_re, t8_im, *t8_prev, cfg, g8t.pad_h,
+            r0_8t, out_rows=rows_8t, full_w=g8t.pad_w),
+        f"colspec_chunk[tight m {M_TOP}, {h63} rows]": both(
+            fused.colspec_chunk, t63_re, t63_im, *t63_prev, cfg, h63, 32,
+            out_rows=rows_63, full_w=g8k.pad_w),
+        "col_fft_zero_padded[H 8192, 4320p]": both(
+            fused.col_fft_zero_padded, k8k_re[:1], k8k_im[:1], g8k.pad_h,
+            r0_8k),
+        "phase_col_ifft[H 8192, 4320p]": both(
+            fused.phase_col_ifft, *k8k_next, *k8k_prev, cfg_j, **k8_kw),
+        "kdecomp_variant[phase + gm + rolls, H 8192]": both(
+            kdecomp.kdecomp_variant, *k8k_next, *k8k_prev, cfg_j,
+            kdecomp.VARIANTS[-1][1], rows_8k, full_w=g8k.pad_w),
+        # Kernel 8's row pass (the row engine) at 8192 points.
+        "_fft_axis[inverse, axis 2, scale, 8192]": both(
+            radix2._fft_axis, k8w_re, k8w_im, 2, True, 1.0 / (512 * 8192)),
+        "_fft_axis[forward real, axis 2, 8192]": both(
+            radix2._fft_axis, k8w_re, None, 2, False),
+        "_fft_axis[forward complex, axis 2, 8192]": both(
+            radix2._fft_axis, k8w_re, k8w_im, 2, False),
         # The measurement path's kernels: kdecomp's other piece sets, the
         # copy patterns at both sizes.
         **{f"kdecomp_variant[{name}]": both(
@@ -781,6 +851,55 @@ def main():
                        lambda: torch.atan2(*tp_in)),
     }
     assert set(work) == set(calls)
+
+    def colspec_bytes(rows_t, prev_t, n_rows, hr_, wk_, taps=False):
+        """Bytes one kernel 2 call must move: the content rows in, the
+        output rows out, the state (prev, with the IIR taps) in and out."""
+        state = (4 if taps else 2) * prev_t.numel()
+        return f4 * (2 * rows_t.numel() + 2 * state + 2 * n_rows * hr_ * wk_)
+
+    hr8k, hr8t = rows_8k[1] - rows_8k[0], rows_8t[1] - rows_8t[0]
+    n8k = 8192 * 512
+    # The variants' bounds, where this PR's kernels run: kernel 2's IIR
+    # call of path (b), the heights of 4320p, kernel 8's row pass.
+    variant_work = {
+        "colspec_chunk[rgb 3 planes, IIR]": (
+            colspec_bytes(rgb_rows[0], rgb_state[0], 3 * T, hr, wk, True),
+            fft_ops(geom.pad_h, 2 * 3 * T * wk)
+            + 40 * 3 * T * geom.pad_h * wk),
+        "colspec_chunk[pow-2, H 8192, 4320p square_pow2]": (
+            colspec_bytes(k8k_re, k8k_prev[0], T8K, hr8k, wk8),
+            fft_ops(g8k.pad_h, 2 * T8K * wk8) + 40 * T8K * g8k.pad_h * wk8),
+        "colspec_chunk[tight m 34, 4320p]": (
+            colspec_bytes(t8_re, t8_prev[0], T8K, hr8t, wk8),
+            fft_ops(g8t.pad_h, 2 * T8K * wk8) + 40 * T8K * g8t.pad_h * wk8),
+        f"colspec_chunk[tight m {M_TOP}, {h63} rows]": (
+            colspec_bytes(t63_re, t63_prev[0], T8K, rows_63[1] - rows_63[0],
+                          wk8),
+            fft_ops(h63, 2 * T8K * wk8) + 40 * T8K * h63 * wk8),
+        "col_fft_zero_padded[H 8192, 4320p]": (
+            2 * f4 * ((r1_8k - r0_8k) * wk8 + g8k.pad_h * wk8),
+            fft_ops(g8k.pad_h, wk8)),
+        "phase_col_ifft[H 8192, 4320p]": (
+            f4 * (6 * k8k_next[0].numel() + 2 * hr8k * wk8),
+            fft_ops(g8k.pad_h, wk8) + 40 * g8k.pad_h * wk8),
+        "kdecomp_variant[phase + gm + rolls, H 8192]": (
+            f4 * (4 * k8k_next[0].numel() + 2 * hr8k * wk8),
+            fft_ops(g8k.pad_h, wk8) + 40 * g8k.pad_h * wk8),
+        "_fft_axis[inverse, axis 2, scale]": (
+            f4 * 4 * n_sq, fft_ops(g_sq.pad_w, g_sq.pad_h)),
+        "_fft_axis[forward real, axis 2]": (
+            f4 * 3 * n_sq, fft_ops(g_sq.pad_w, g_sq.pad_h)),
+        "_fft_axis[forward complex, axis 2]": (
+            f4 * 4 * n_sq, fft_ops(g_sq.pad_w, g_sq.pad_h)),
+        "_fft_axis[inverse, axis 2, scale, 8192]": (
+            f4 * 4 * n8k, fft_ops(8192, 512)),
+        "_fft_axis[forward real, axis 2, 8192]": (
+            f4 * 3 * n8k, fft_ops(8192, 512)),
+        "_fft_axis[forward complex, axis 2, 8192]": (
+            f4 * 4 * n8k, fft_ops(8192, 512)),
+    }
+    assert set(variant_work) <= set(variants)
     irfft_in = torch.complex(rre[..., :geom.pad_w // 2 + 1].contiguous(),
                              rim[..., :geom.pad_w // 2 + 1].contiguous())
     col_in = torch.complex(sq_prev[0], sq_prev[1])
@@ -857,9 +976,10 @@ def main():
     if not same:
         raise AssertionError("kernel 4 differs from the pre stage + kernel 1")
     del k4, pre
-    # Kernel 1 on the row engine (csrc/row_pass.cuh) = the stage-by-stage
-    # DIF of kernel 8's row pass on a zero imaginary plane (pbmm_radix2's
-    # butterflies, the same twiddle words) on the same windowed rows, y *
+    # Kernel 1 on the row engine (csrc/row_pass.cuh) = the DIF of kernel
+    # 8's row pass (the same engine, its own load and store) on a zero
+    # imaginary plane (pbmm_radix2's butterflies, the same twiddle words)
+    # on the same windowed rows, y *
     # wy[row] * wx in kernel 1's op order, kept tiles, bit for bit: at
     # 1080p, 960x540 and 2160p's 4096 lanes.
     rng1 = np.random.default_rng(11)
@@ -880,11 +1000,12 @@ def main():
         log(f"[2] windowed_row_fft == _fft_axis's row pass on the windowed "
             f"rows, kept tiles, {tuple(yy.shape)} ({what}): {same}")
         if not same:
-            raise AssertionError(f"kernel 1 differs from the stage-by-stage "
-                                 f"DIF at {what}")
+            raise AssertionError(f"kernel 1 differs from kernel 8's row "
+                                 f"pass at {what}")
         del got, yw, zr, zi
     # Kernel 7 on the row engine (csrc/row_pass.cuh) = kernel 8's row pass
-    # (stage by stage in shared memory) on the rows the plan rebuilds,
+    # (the same engine, its own load and store) on the rows the plan
+    # rebuilds,
     # then torch's sqrt(re re + im im) * scale (or re * scale), bit for
     # bit: the same butterflies in the same order, |z| rounded as torch
     # rounds it.  At 1080p, 960x540, 2160p's 4096 lanes, and Re z.
@@ -915,34 +1036,42 @@ def main():
     # Kernel 6 runs kernel 2's phase pass and inverse (csrc/phase_inv.cuh):
     # on the spectra kernel 5 gives, its rows equal kernel 2's bit for bit,
     # all frames in one launch and one frame a launch (a grid of strips x
-    # frames), at 1080p square_pow2 (H = 2048) and 2160p
-    # (H = 4096), 16 frames each; and kernel 12 = kernel 6 at H = 4096.
+    # frames), at 1080p square_pow2 (H = 2048), 2160p (H = 4096), 16
+    # frames each, and 4320p (H = 8192, 2 frames); kernel 5's spectrum of
+    # the last frame is the state kernel 2 carries out; and kernel 12 =
+    # kernel 6 at H = 4096 and 8192.
     rng6 = np.random.default_rng(6)
     k6_cases = (
         ("1080p square_pow2", (sq_re, sq_im), sq_prev, cfg_sq, g_sq, r0_sq,
          k6_kw),
         ("2160p square_pow2", [dev_t(rng6.standard_normal(
             (T, r1_4k - r0_4k, wk4))) for _ in range(2)], k4_prev, cfg_j,
-         g4k, r0_4k, k4_kw))
+         g4k, r0_4k, k4_kw),
+        ("4320p square_pow2", [dev_t(rng6.standard_normal(
+            (T8K, r1_8k - r0_8k, wk8))) for _ in range(2)], k8k_prev, cfg_j,
+         g8k, r0_8k, k8_kw))
     for what, (cre, cim), prv0, c, g, c_r0, kw in k6_cases:
+        nf = cre.shape[0]
         k5 = fused.col_fft_zero_padded(cre, cim, g.pad_h, c_r0)
         k2 = fused.colspec_chunk(cre, cim, *prv0, c, g.pad_h, c_r0, **kw)
         prv = [torch.cat([p, x[:-1]]) for p, x in zip(prv0, k5)]
         k6 = fused.phase_col_ifft(*k5, *prv, c, **kw)
         all_frames = all(torch.equal(a, b) for a, b in zip(k6, k2))
         ones = [fused.phase_col_ifft(*(x[i:i + 1] for x in (*k5, *prv)), c,
-                                     **kw) for i in range(T)]
+                                     **kw) for i in range(nf)]
         one_frame = all(torch.equal(o[k][0], k2[k][i])
                         for i, o in enumerate(ones) for k in range(2))
+        state = all(torch.equal(k2[2 + k][0], k5[k][-1]) for k in range(2))
         log(f"[2] phase_col_ifft on kernel 5's spectra == colspec_chunk's "
             f"output rows, {tuple(k6[0].shape)} at {what} (H = {g.pad_h}, "
             f"strips of {fused.phase_col_strip(g.pad_h, k5[0].shape[-1])}"
-            f"): {T} frames a launch {all_frames}, one frame a launch "
-            f"{one_frame}")
-        if not (all_frames and one_frame):
-            raise AssertionError(f"kernel 6 differs from kernel 2's output "
-                                 f"rows at {what}")
-        if g.pad_h == g4k.pad_h:
+            f"): {nf} frames a launch {all_frames}, one frame a launch "
+            f"{one_frame}; kernel 5's last spectrum == kernel 2's state "
+            f"{state}")
+        if not (all_frames and one_frame and state):
+            raise AssertionError(f"kernel 6 or kernel 5 differs from kernel "
+                                 f"2 at {what}")
+        if g.pad_h >= g4k.pad_h:
             k12 = kdecomp.kdecomp_variant(*k5, *prv, c,
                                           kdecomp.VARIANTS[-1][1], kw[
                                               "out_rows"], full_w=g.pad_w)
@@ -950,8 +1079,8 @@ def main():
             log(f"[2] at H = {g.pad_h}: kdecomp_variant (phase + gm + rolls)"
                 f" == phase_col_ifft: {same}")
             if not same:
-                raise AssertionError("at H = 4096 kernel 12 differs from "
-                                     "kernel 6")
+                raise AssertionError(f"at H = {g.pad_h} kernel 12 differs "
+                                     "from kernel 6")
         del k5, k2, k6, prv, ones
     del k6_cases
     # Kernel 3 = kernel 7 + kernel 10, bit for bit: the same |z| rows (the
@@ -1114,8 +1243,16 @@ def main():
     frames4k = np.stack([np.roll(base4k, shift=i, axis=1)
                          * (0.95 + 0.01 * i) for i in range(T4K)])
     frames4k_d = torch.from_numpy(frames4k).to(dev)
+    base8k = np.random.default_rng(4).random((H8K, W8K, 3), np.float32)
+    frames8k = np.stack([np.roll(base8k, shift=i, axis=1)
+                         * (0.95 + 0.01 * i) for i in range(T8K)])
+    frames8k_d = torch.from_numpy(frames8k).to(dev)
+    del base8k
     cfg_k = cfg_b45
-    jobs = {"f32": oracle_job(frames, cfg),
+    # The 4320p oracles (fp64 FFTs of 8192 x 8192) first: the longest.
+    jobs = {"l": oracle_job(frames8k, cfg_j, n=2),
+            "lt": oracle_job(frames8k, cfg, n=2),
+            "f32": oracle_job(frames, cfg),
             "j": oracle_job(frames4k, cfg_j, n=2),
             "k": oracle_job(frames, cfg_k),
             "u8": oracle_job(np.moveaxis(frames_u8, 1, -1) / 255.0, cfg),
@@ -1353,6 +1490,46 @@ def main():
     check_frames(path_js, (js1,), (3, H4K, W4K, 3), torch.float32)
     psnr_js, = vs_oracle([(path_js, js1)], jobs["j"])
 
+    # (l) 4320p: 7680x4320 tuned_for_tpu() (square_pow2, H = 8192): the
+    # stream starts through kernel 5 (three passes), kernels 1 (8192
+    # lanes), 2 (strips of 2) and the tail `kernel3_serves` names (kernel
+    # 3, or kernels 7 + 10).  Then 4320p tight (H = 4352, the four-step at
+    # m = 34) and the scan engine at H = 8192 on 2 frames (kernel 6).
+    def tail_of(g):
+        return (("rowifft_post_fused",) if post_fused.kernel3_serves(
+            post_fused._radius(cfg), g.pad_w, W8K)
+            else ("row_ifft_magnitude", "post_fused"))
+
+    path_l = "(l) 4320p square_pow2"
+    l1, sl1, l2, _ = run_path(
+        path_l, ("col_fft_zero_padded", "windowed_row_fft", "colspec_chunk")
+        + tail_of(g8k), ("windowed_row_fft_u8planar", "post_fused_rgb"),
+        lambda: two_chunks(frames8k_d, cfg_j))
+    check_frames(path_l, (l1, l2), (T8K, H8K, W8K, 3), torch.float32)
+    check_split(frames8k_d, cfg_j, l1, sl1, path_l)
+    if tuple(sl1.prev_spec_re.shape) != (1, g8k.pad_h, wk8):
+        raise AssertionError(f"{path_l}: state "
+                             f"{tuple(sl1.prev_spec_re.shape)}")
+    path_lt = "(l) 4320p tight"
+    lt1, slt1, lt2, _ = run_path(
+        path_lt, ("windowed_row_fft", "colspec_chunk") + tail_of(g8t),
+        ("col_fft_zero_padded", "windowed_row_fft_u8planar",
+         "post_fused_rgb"),
+        lambda: two_chunks(frames8k_d, cfg))
+    check_frames(path_lt, (lt1, lt2), (T8K, H8K, W8K, 3), torch.float32)
+    check_split(frames8k_d, cfg, lt1, slt1, path_lt)
+    if tuple(slt1.prev_spec_re.shape) != (1, g8t.pad_h, wk8):
+        raise AssertionError(f"{path_lt}: state "
+                             f"{tuple(slt1.prev_spec_re.shape)}")
+    path_ls = "(l) 4320p tuned scan square_pow2"
+    ls1 = run_path(path_ls, scan_k, not_scan,
+                   lambda: pbmm_tpu_torch.magnify_video(
+                       frames8k_d, cfg_j.replace(engine="scan"))[0])
+    check_frames(path_ls, (ls1,), (T8K, H8K, W8K, 3), torch.float32)
+    psnr_l, psnr_ls = vs_oracle([(path_l, l1), (path_ls, ls1)], jobs["l"])
+    psnr_lt, = vs_oracle([(path_lt, lt1)], jobs["lt"])
+    del l2, lt2, ls1
+
     # (k) 1080p tight at blur_size 4.5 (radius 15): no kernel-3 block
     # fits, so kernel 7 and kernel 10 take the tail; f32 and u8 in.
     path_k = "(k) 1080p blur 4.5 (kernels 7 + 10)"
@@ -1505,7 +1682,7 @@ def main():
             fps_ = n / (ms / 1e3)
             log(f"[4] {card}: {what}: steady-state chunk of {n} frames "
                 f"{ms:.3f} ms median of {reps} -> {fps_:.2f} frames/s, "
-                f"{ms / T:.4f} ms/frame")
+                f"{ms / n:.4f} ms/frame")
             return chunk, ms, fps_
 
         chunk, chunk_ms, fps = steady(frames_d, cfg, "f32 1080p")
@@ -1520,6 +1697,8 @@ def main():
                             (path_d, frames_d, cfg_str),
                             (path_j, frames4k_d, cfg_j),
                             (path_jt, frames4k_d, cfg),
+                            (path_l, frames8k_d, cfg_j),
+                            (path_lt, frames8k_d, cfg),
                             (path_k, frames_d, cfg_k),
                             (path_k15, frames_d, cfg_b15)):
             matrix[what] = steady(fd, c, what)
@@ -1591,8 +1770,10 @@ def main():
                     f"{post_fused._radius(c)}, {rows_in} region rows in "
                     f"flight ({n} threads): {ms[0]:.4f} ms warm, {ms[1]:.4f} "
                     "ms cold")
-        for name, spec in post_variants.items():
-            nbytes, ops = post_work(*spec)
+        for name, spec in [*((n, post_work(*v)) for n, v in
+                             post_variants.items()),
+                           *variant_work.items()]:
+            nbytes, ops = spec
             bound(name, nbytes, ops)
             log(f"[4] {card}: {name}: bound {records[name]['bound_ms']:.4f} "
                 f"ms ({records[name]['bound_by']}: {nbytes / 1e6:.1f} MB, "
@@ -1611,14 +1792,22 @@ def main():
                 f"{k3[1]:.4f} cold, kernel 7 + kernel 10 {k7_10[0]:.4f} / "
                 f"{k7_10[1]:.4f}")
         records["rowifft_post_fused"]["route_vs_kernels7_10"] = route
-        # Kernel 8's row pass beside one torch.fft call along the rows.
+        # Kernel 8's row pass (the row engine) beside one torch.fft call
+        # along the rows, at 2048 and 8192 points.
+        fft_in8 = torch.complex(k8w_re, k8w_im)
         for name, lib in (
                 ("_fft_axis[inverse, axis 2, scale]",
                  lambda: torch.fft.ifft(fft_in, dim=-1)),
                 ("_fft_axis[forward complex, axis 2]",
                  lambda: torch.fft.fft(fft_in, dim=-1)),
                 ("_fft_axis[forward real, axis 2]",
-                 lambda: torch.fft.fft(k8_re, dim=-1))):
+                 lambda: torch.fft.fft(k8_re, dim=-1)),
+                ("_fft_axis[inverse, axis 2, scale, 8192]",
+                 lambda: torch.fft.ifft(fft_in8, dim=-1)),
+                ("_fft_axis[forward complex, axis 2, 8192]",
+                 lambda: torch.fft.fft(fft_in8, dim=-1)),
+                ("_fft_axis[forward real, axis 2, 8192]",
+                 lambda: torch.fft.fft(k8w_re, dim=-1))):
             records[name]["library_ms"] = kexp.timed(lib, device=dev)[0]
             log(f"[4] {card}: {name} {records[name]['ms']:.4f} ms warm "
                 f"against its library call (torch.fft along dim -1) "
@@ -1734,12 +1923,13 @@ def main():
                 {"psnr_vs_oracle_db": db} if db is not None else {})}
                for (what, (_, m, f)), db in zip(
                    matrix.items(), (psnr_a, psnr_b, psnr_c, None, psnr_j,
-                                    None, psnr_k, None))},
+                                    None, psnr_l, psnr_lt, psnr_k, None))},
             **{what: {"fps": f, "chunk_ms": m, "psnr_vs_oracle_db": db}
                for what, (_, m, f, db) in scan_paths.items()},
             path_h: {"pairs_per_s": 1e3 / pair_ms, "pair_ms": pair_ms,
                      "psnr_vs_oracle_db": psnr_h},
             path_js: {"psnr_vs_oracle_db": psnr_js},
+            path_ls: {"psnr_vs_oracle_db": psnr_ls},
             path_i: {"seconds": meas["seconds"],
                      "row_copy_ceiling_gbps": meas["copy_gbps"],
                      "roofline": meas["roofline"][1],

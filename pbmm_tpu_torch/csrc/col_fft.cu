@@ -10,9 +10,9 @@
 // last frame of a bypassed clip (video.py:466); the scan engine and the
 // unfused backends once a frame.  Heights H from 2 to 8192.
 //
-// The arithmetic is kernel 2's forward half (common.cuh's
-// pbmm_col_fft_pow2: the zero-embed, then the radix-2 DIF over the whole
-// column): the same butterflies on the same elements in the same stage
+// The arithmetic is kernel 2's forward half (colspec_chunk.cu's launch 1:
+// the zero-embed, then the radix-2 DIF over the whole column): the same
+// butterflies on the same elements in the same stage
 // order, the same twiddles, every product and sum rounded on its own.  So
 // the spectrum this kernel gives a frame is bit for bit the one kernel 2
 // carries for it, and a stream started here continues exactly as one

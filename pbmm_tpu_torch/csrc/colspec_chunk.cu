@@ -32,10 +32,11 @@
 // frequency axis are read and written through that permutation
 // (cs_row), and the DIT inverse undoes it.
 //
-// Design.  Outside the IIR branch a frame's phase pass reads the
-// unmodified forward spectrum of the frame before it (fused.py:1314-1324
-// carries it in VMEM only because the TPU grid runs in order), so once the
-// forward spectra exist the frames are independent.  Two launches:
+// Design.  A frame's phase pass reads the unmodified forward spectrum of
+// the frame before it (fused.py:1314-1324 carries it in VMEM only because
+// the TPU grid runs in order), so once the forward spectra exist the
+// frames are independent but for the IIR taps, whose recurrence is per
+// bin.  Outside the IIR branch, two launches:
 //   1. the forward column transform of every frame of every plane into a
 //      scratch tensor the wrapper allocates, in the state's layout
 //      (cs_fwd_*: one block a strip of S columns of one frame);
@@ -43,50 +44,71 @@
 //      frame before it (the carried state for the first), then the column
 //      IFFT, rows [r0, r1) out (cs_inv_kernel: one block a strip and a
 //      frame).
-// The last frame's spectrum leaves as new_prev (a device copy).  Each
-// block holds its strip in shared memory (512 threads, one block an SM)
-// and runs the transform as col_pass.cuh's in-block register passes (up
-// to four stages a pass, one barrier a pass boundary, addresses constant
-// offsets of one base a group).  The strip is as wide as 227 KB allows,
-// up to 16 columns (64-byte row segments; cs_strip): 16 to H = 1024
+// The last frame's spectrum leaves as new_prev (a device copy).  With the
+// IIR taps, three:
+//   1. launch 1 as above;
+//   2. the tap scan (cs_iir_scan_kernel): one thread a bin of one plane
+//      walks the T frames in order with the previous frame's spectrum and
+//      the two taps in registers, runs pbmm_phase_bin<true, true> (the
+//      bin's whole phase pass) once a frame and writes the rotated bin
+//      over its scratch slot; the unmodified value stays in registers as
+//      the next frame's prev, and new_prev and the taps leave at the end.
+//      Neighbouring threads take neighbouring kept columns, so every load
+//      and store is a row segment of a plane;
+//   3. launch 2's inverse on the rotated spectra, the phase pass compiled
+//      out (CS_PH_NONE).
+// Each block of launches 1 and 2 holds its strip in shared memory (512
+// threads, one block an SM; 256 above m = 32) and runs the transform as
+// col_pass.cuh's in-block register passes (up to four stages a pass, one
+// barrier a pass boundary, addresses constant offsets of one base a
+// group).  The strip is the widest power of two up to 16 columns whose
+// 2 H S floats fit the 227 KB a block may have (cs_strip): 16 to H = 1024
 // (pow-2) or m = 14 (144 KB at 1080p's 1152 rows), 8 to 2048 or m = 28, 4
-// above (to 4096, 128 KB).  Launch 1 brings the zero-embedded strip in by
-// 16-byte asynchronous copies, all in flight at once, then transforms it.
-// At tight heights a thread holds its column's m points {n2 + 128 n1}
-// for the m-point DFT, whose combine matrix is a kernel parameter
-// (CsCombine: with both loops unrolled each weight is an FMA operand),
-// applies the four-step twiddle, and the 128-point factor runs as passes
-// of 4 + 3 stages; the inverse mirrors it.  The pow-2 passes run kernel
-// 5's butterflies (the forward, kernel 5 bit for bit), and launch 2's
-// pow-2 phase pass and inverse are phase_inv.cuh's device functions,
-// which kernel 6 runs too (kernel 6 bit for bit on kernel 5's spectra).
-// A frame's forward transform is one code path whichever chunk it falls
-// in, so two chunks equal one.
+// to 4096 or m = 32, 2 above (to 8192, 128 KB; row segments of 8 bytes).
+// Launch 1 brings the zero-embedded strip in by asynchronous copies of up
+// to 16 bytes, all in flight at once, then transforms it.  At tight
+// heights a thread holds its column's m points {n2 + 128 n1} for the
+// m-point DFT, applies the four-step twiddle, and the 128-point factor
+// runs as passes of 4 + 3 stages; the inverse mirrors it.  The combine
+// matrix is a kernel parameter up to m = 32 (CsCombine: with both loops
+// unrolled each weight is an FMA operand); above, its 2 m^2 floats pass
+// the 32 764-byte parameter limit, so the kernel reads it from device
+// memory (CsCombineDev: every thread of a warp reads the same word), runs
+// the outer loop of the m-point DFT rolled and 256 threads a block, so a
+// thread may keep its 2 m points in up to 255 registers.  The pow-2
+// passes run kernel 5's butterflies (the forward, kernel 5 bit for bit),
+// and launch 2's pow-2 phase pass and inverse are phase_inv.cuh's device
+// functions, which kernel 6 runs too (kernel 6 bit for bit on kernel 5's
+// spectra).  A frame's forward transform is one code path whichever chunk
+// it falls in, and the tap scan walks a chunk's frames in the order the
+// state threads them, so two chunks equal one.
 // The four-step combine sums in plain C++ (nvcc may contract it to FMA),
 // held to the plain version at 1e-4 of the spectrum's magnitude.  On an
 // NVIDIA H100 80GB HBM3 at its 700 W limit (chip_smoke.py) a 1080p tight
 // chunk (16 frames, 1152 x 1152 kept) takes 0.847 ms against 2.674 for
-// the frame-serial design (strips of 4 columns, a barrier a stage).
-//
-// The IIR branch carries the taps from frame to frame, so it keeps the
-// frame-serial schedule (colspec_iir_kernel): a block owns a strip of 4
-// columns (2 above H = 2048) of one plane and loops over the frames, cur,
-// prev and the taps in shared memory (192 KB), every stage between
-// barriers.
+// the frame-serial design (strips of 4 columns, a barrier a stage); the
+// IIR branch's times, against the frame-serial kernel it replaced (6.006
+// ms for (b)'s rgb chunk), are in PERF.md.
 //
 // What bounds it on an H100: per frame it reads the Hc content rows and
-// writes r1 - r0 output rows (re and im), plus the scratch spectra (one
-// write, two reads) outside the IIR branch; against ~H (m + 7) complex
-// FMAs a column (tight) or 5 H log2(H) flops (pow-2) plus the phase chain:
-// bytes.  Times at each branch, on an NVIDIA H100 80GB HBM3 at its 700 W
-// limit, are in PERF.md (chip_smoke.py).
+// writes r1 - r0 output rows (re and im), and the state in and out; the
+// scratch spectra add one write and two reads (IIR: one write, two reads
+// and one more write) of H x Wk x 8 bytes a frame, against ~H (m + 7)
+// complex FMAs a column (tight) or 5 H log2(H) flops (pow-2) plus the
+// phase chain: bytes.  Times at each branch, on an NVIDIA H100 80GB HBM3
+// at its 700 W limit, are in PERF.md (chip_smoke.py).
 
 #include <cuda_pipeline.h>
+
+#include <type_traits>
 
 #include "col_pass.cuh"
 #include "common.cuh"
 #include "phase_inv.cuh"
 
+#define CS_MAXM_PARAM 32    // largest m whose combine is a kernel parameter
+#define CS_MAXM 64          // bound of m (m = 64 is H = 8192: radix-2)
+#define CS_SCAN_THREADS 256  // a block of the IIR tap scan
 
 // Pointers and sizes of one launch (device pointers; null where a branch
 // does not read them).
@@ -103,9 +125,11 @@ struct ColspecIO {
   const float* fx;      // lane frequency, (Wk,)
   const float* fs_re;   // four-step twiddle, (H,)
   const float* fs_im;
-  const float* tw_fre;  // radix-2 tables: the IIR branch's (log2 n, n)
-  const float* tw_fim;  // _dif_twiddles, else compact_twiddles (n - 1),
-  const float* tw_ire;  // n = 128 (tight) or H
+  const float* cwd_re;  // the m x m combine matrix on the device (m > 32)
+  const float* cwd_im;
+  const float* tw_fre;  // compact_twiddles(n), n = 128 (tight) or H
+  const float* tw_fim;
+  const float* tw_ire;
   const float* tw_iim;
   float* spec_re;  // scratch: every frame's forward spectrum, (T C, H, Wk)
   float* spec_im;
@@ -118,222 +142,111 @@ struct ColspecIO {
   int t, c, hc, h, wk, row0, r0, r1;
 };
 
-// The four-step combine matrix W_m^{-k1 n1} (fused.py:_combine_matrix),
-// by value: row k1 at k1 * M.  Kernel parameters live in the constant
-// bank, and with both loops of the m-point DFT unrolled every weight is an
-// operand of the FMAs it feeds, not a load.
+// The four-step combine matrix W_m^{-k1 n1} (fused.py:_combine_matrix).
+// Up to m = CS_MAXM_PARAM by value, row k1 at k1 * M: kernel parameters
+// live in the constant bank, and with both loops of the m-point DFT
+// unrolled every weight is an operand of the FMAs it feeds, not a load.
 template <int M>
 struct CsCombine {
   float re[M * M];
   float im[M * M];
+  __device__ __forceinline__ float wr(int k, int n) const {
+    return re[k * M + n];
+  }
+  __device__ __forceinline__ float wi(int k, int n) const {
+    return im[k * M + n];
+  }
 };
 
-// The m x m host matrices (re, im) into CsCombine<M> (null: pow-2, unused).
-template <int M>
-static CsCombine<M> cs_combine(const float* re, const float* im, int m) {
-  CsCombine<M> w = {};
-  if (re != nullptr && m <= M) {
-    for (int k1 = 0; k1 < m; ++k1)
-      for (int n1 = 0; n1 < m; ++n1) {
-        w.re[k1 * M + n1] = re[k1 * m + n1];
-        w.im[k1 * M + n1] = im[k1 * m + n1];
-      }
+// Above, the matrix in device memory, row k1 at k1 * m: the weight a loop
+// step reads is the same word for every thread (one L1 broadcast).
+struct CsCombineDev {
+  const float* re;
+  const float* im;
+  int m;
+  __device__ __forceinline__ float wr(int k, int n) const {
+    return __ldg(re + k * m + n);
   }
-  return w;
+  __device__ __forceinline__ float wi(int k, int n) const {
+    return __ldg(im + k * m + n);
+  }
+};
+
+template <int MAXM>
+using CsCombineOf =
+    std::conditional_t<(MAXM > CS_MAXM_PARAM), CsCombineDev,
+                       CsCombine<(MAXM > 0 ? MAXM : 1)>>;
+
+// The combine of a launch at m <= MAXM: the host matrices (re, im) copied
+// into the by-value form, or the device matrices (dre, dim).
+template <int MAXM>
+static CsCombineOf<MAXM> cs_combine(const float* re, const float* im,
+                                    const float* dre, const float* dim,
+                                    int m) {
+  if constexpr (MAXM > CS_MAXM_PARAM) {
+    return CsCombineDev{dre, dim, m};
+  } else {
+    constexpr int M = MAXM > 0 ? MAXM : 1;
+    CsCombine<M> w = {};
+    if (re != nullptr && m <= M) {
+      for (int k1 = 0; k1 < m; ++k1)
+        for (int n1 = 0; n1 < m; ++n1) {
+          w.re[k1 * M + n1] = re[k1 * m + n1];
+          w.im[k1 * M + n1] = im[k1 * m + n1];
+        }
+    }
+    return w;
+  }
 }
 
-// The IIR branch, frame-serial: a block owns a strip of CS_S kept columns
-// of one plane and loops over the T frames itself; cur and prev (4 x H x
-// CS_S f32) and the taps (2 more planes) stay in shared memory for the
-// whole chunk, and the two spectrum buffers swap roles each frame (the
-// phase pass overwrites prev with the modified spectrum in place).  CS_S =
-// 4, CS_MAXM = 16 up to H = 2048 (192 KB); CS_S = 2, CS_MAXM = 32 above,
-// up to H = 4096.  Twiddles: the (log2 n, n) _dif_twiddles tables.
-template <bool POW2, int CS_S, int CS_MAXM>
-__global__ void __launch_bounds__(256)
-    colspec_iir_kernel(ColspecIO io, PhaseArgs pa,
-                       const CsCombine<POW2 ? 1 : CS_MAXM> cw) {
-  extern __shared__ float smem[];
-  const int h = io.h, wk = io.wk;
-  const int hs = h * CS_S;
-  float* a_re = smem;  // current frame
-  float* a_im = smem + hs;
-  float* b_re = smem + 2 * hs;  // previous frame, then the modified one
-  float* b_im = smem + 3 * hs;
-  float* l_f = smem + 4 * hs;  // IIR taps
-  float* l_s = smem + 5 * hs;
-  const int m = h / PBMM_LANE;
-  const int col0 = blockIdx.x * CS_S;
-  const int nt = blockDim.x;
-  const int plane = blockIdx.y;
-  const size_t soff = (size_t)plane * h * wk;  // this plane's state
-  const int hr = io.r1 - io.r0;
+// Threads a block of the in-block kernels: 512, or 256 where a thread
+// holds more than 2 CS_MAXM_PARAM points of its column (up to 255
+// registers a thread).
+__host__ __device__ constexpr int cs_threads(int maxm) {
+  return maxm > CS_MAXM_PARAM ? 256 : PBMM_CB_THREADS;
+}
 
-  // Carried state in, through the JAX row order.
-  for (int e = threadIdx.x; e < hs; e += nt) {
-    const int p = e / CS_S, c = e % CS_S;
-    const size_t g = soff + (size_t)cs_row<POW2>(p) * wk + col0 + c;
-    b_re[e] = io.prev_re[g];
-    b_im[e] = io.prev_im[g];
-    l_f[e] = io.lpf_in[g];
-    l_s[e] = io.lps_in[g];
-  }
-
-  for (int f = 0; f < io.t; ++f) {
-    const size_t n = (size_t)f * io.c + plane;  // this plane's row of f
-    const size_t fbase = n * io.hc * wk;
-    if (POW2) {
-      // 1-3. Zero-embed and the radix-2 DIF (kernel 5's arithmetic).
-      pbmm_col_fft_pow2<CS_S>(io.rows_re + fbase, io.rows_im + fbase,
-                              io.hc, wk, col0, io.row0, h, io.tw_fre,
-                              io.tw_fim, a_re, a_im);
-    } else {
-      // 1. Zero-embed the content rows at row0.
-      pbmm_col_embed<CS_S>(io.rows_re + fbase, io.rows_im + fbase, io.hc,
-                           wk, col0, io.row0, h, a_re, a_im);
-
-      // 2. Cross-block m-point DFT, then the four-step twiddle.
-      for (int it = threadIdx.x; it < PBMM_LANE * CS_S; it += nt) {
-        const int n2 = it / CS_S, c = it % CS_S;
-        float xr[CS_MAXM], xi[CS_MAXM];
+// The m-point loop over k (< m) that writes an output a step: unrolled
+// with every weight a parameter operand up to CS_MAXM_PARAM, rolled above
+// (the weights are loads then, and 64 unrolled steps of 64 points would
+// only grow the code).
+template <int MAXM, class Step>
+__device__ __forceinline__ void cs_mpoint_loop(int m, Step&& step) {
+  if constexpr (MAXM > CS_MAXM_PARAM) {
+    for (int k = 0; k < m; ++k) step(k);
+  } else {
 #pragma unroll
-        for (int n1 = 0; n1 < CS_MAXM; ++n1) {
-          if (n1 < m) {
-            const int e = (n1 * PBMM_LANE + n2) * CS_S + c;
-            xr[n1] = a_re[e];
-            xi[n1] = a_im[e];
-          }
-        }
-        for (int k1 = 0; k1 < m; ++k1) {
-          float sr = 0.0f, si = 0.0f;
-#pragma unroll
-          for (int n1 = 0; n1 < CS_MAXM; ++n1) {
-            if (n1 < m) {
-              const float wr = cw.re[k1 * CS_MAXM + n1];
-              const float wi = cw.im[k1 * CS_MAXM + n1];
-              sr += xr[n1] * wr - xi[n1] * wi;
-              si += xr[n1] * wi + xi[n1] * wr;
-            }
-          }
-          const int p = k1 * PBMM_LANE + n2;
-          const float tr = __ldg(io.fs_re + p), ti = __ldg(io.fs_im + p);
-          a_re[p * CS_S + c] = sr * tr - si * ti;
-          a_im[p * CS_S + c] = sr * ti + si * tr;
-        }
-      }
-      __syncthreads();
-
-      // 3. 128-point DIF per block: m * S sequences, sequence (k1, c) at
-      //    row 128 k1, column c, element stride S.
-      pbmm_radix2(a_re, a_im, PBMM_LANE, m * CS_S, CS_S, PBMM_LANE * CS_S,
-                  1, CS_S, io.tw_fre, io.tw_fim, false);
+    for (int k = 0; k < MAXM; ++k) {
+      if (k >= m) break;
+      step(k);
     }
-
-    // 4. Phase pass against prev; the result replaces prev in place.
-    for (int e = threadIdx.x; e < hs; e += nt) {
-      const int p = e / CS_S, c = e % CS_S;
-      const int P = cs_row<POW2>(p);
-      const size_t g = (size_t)P * wk + col0 + c;  // shared by the planes
-      const float cr = a_re[e], ci = a_im[e];
-      const float pr = b_re[e], pi = b_im[e];
-      float o_r, o_i;
-      // The IIR taps take the general branch (pbmm_phase_general).
-      pbmm_phase_bin<true, true>(cr, ci, pr, pi, io.plane0, io.plane1, g,
-                                 io.fy, P, io.fx, col0 + c, l_f + e, l_s + e,
-                                 pa, o_r, o_i);
-      b_re[e] = o_r;
-      b_im[e] = o_i;
-    }
-    __syncthreads();
-
-    // 5. Inverse, natural rows out, unnormalised.
-    if (POW2) {
-      pbmm_radix2(b_re, b_im, h, CS_S, CS_S, 0, 1, CS_S, io.tw_ire,
-                  io.tw_iim, true);
-    } else {
-      // 128-point DIT per block, conj twiddle, conj combine.
-      pbmm_radix2(b_re, b_im, PBMM_LANE, m * CS_S, CS_S, PBMM_LANE * CS_S,
-                  1, CS_S, io.tw_ire, io.tw_iim, true);
-      for (int it = threadIdx.x; it < PBMM_LANE * CS_S; it += nt) {
-        const int n2 = it / CS_S, c = it % CS_S;
-        float xr[CS_MAXM], xi[CS_MAXM];
-#pragma unroll
-        for (int k1 = 0; k1 < CS_MAXM; ++k1) {
-          if (k1 < m) {
-            const int p = k1 * PBMM_LANE + n2;
-            const float zr = b_re[p * CS_S + c], zi = b_im[p * CS_S + c];
-            const float tr = __ldg(io.fs_re + p), ti = -__ldg(io.fs_im + p);
-            xr[k1] = zr * tr - zi * ti;
-            xi[k1] = zr * ti + zi * tr;
-          }
-        }
-        for (int n1 = 0; n1 < m; ++n1) {
-          float sr = 0.0f, si = 0.0f;
-#pragma unroll
-          for (int k1 = 0; k1 < CS_MAXM; ++k1) {
-            if (k1 < m) {
-              const float wr = cw.re[n1 * CS_MAXM + k1];
-              const float wi = -cw.im[n1 * CS_MAXM + k1];
-              sr += xr[k1] * wr - xi[k1] * wi;
-              si += xr[k1] * wi + xi[k1] * wr;
-            }
-          }
-          const int e = (n1 * PBMM_LANE + n2) * CS_S + c;
-          b_re[e] = sr;
-          b_im[e] = si;
-        }
-      }
-      __syncthreads();
-    }
-
-    // 6. Rows [r0, r1) of the inverse out.
-    const size_t obase = n * hr * wk;
-    for (int e = threadIdx.x; e < hr * CS_S; e += nt) {
-      const int p = e / CS_S, c = e % CS_S;
-      const size_t g = obase + (size_t)p * wk + col0 + c;
-      io.out_re[g] = b_re[(p + io.r0) * CS_S + c];
-      io.out_im[g] = b_im[(p + io.r0) * CS_S + c];
-    }
-    __syncthreads();
-
-    // This frame's spectrum is the next frame's prev.
-    float* sw;
-    sw = a_re; a_re = b_re; b_re = sw;
-    sw = a_im; a_im = b_im; b_im = sw;
-  }
-
-  // The last frame's spectrum leaves as new_prev (now in b after the
-  // swap), with the taps.
-  for (int e = threadIdx.x; e < hs; e += nt) {
-    const int p = e / CS_S, c = e % CS_S;
-    const size_t g = soff + (size_t)cs_row<POW2>(p) * wk + col0 + c;
-    io.np_re[g] = b_re[e];
-    io.np_im[g] = b_im[e];
-    io.lpf_out[g] = l_f[e];
-    io.lps_out[g] = l_s[e];
   }
 }
 
 // The zero-embedded content strip of one frame into the strip's shared
-// memory: rows [row0, row0 + hc) of the S columns by 16-byte asynchronous
-// copies, every copy of the block in flight at once, the other rows zero.
-// Ends synchronised.
+// memory: rows [row0, row0 + hc) of the S columns by asynchronous copies
+// of min(S, 4) floats (16 bytes, 8 on strips of 2), every copy of the
+// block in flight at once, the other rows zero.  Ends synchronised.
 template <int S>
 __device__ __forceinline__ void cs_load_strip(
     const float* __restrict__ src_re, const float* __restrict__ src_im,
     size_t wk, int hc, int row0, int h, float* sre, float* sim) {
-  constexpr int Q = S / 4;  // 16-byte runs of a row
+  constexpr int R = S < 4 ? S : 4;  // floats a copy moves
+  constexpr int Q = S / R;          // copies a row
   for (int i = threadIdx.x; i < h * Q; i += blockDim.x) {
     const int p = i / Q, j = i % Q;
-    const int w = pbmm_cb_idx<S>(p, 4 * j);
+    const int w = pbmm_cb_idx<S>(p, R * j);
     const int r = p - row0;
     if ((unsigned)r < (unsigned)hc) {
-      const size_t o = (size_t)r * wk + 4 * j;
-      __pipeline_memcpy_async(sre + w, src_re + o, 16);
-      __pipeline_memcpy_async(sim + w, src_im + o, 16);
+      const size_t o = (size_t)r * wk + R * j;
+      __pipeline_memcpy_async(sre + w, src_re + o, 4 * R);
+      __pipeline_memcpy_async(sim + w, src_im + o, 4 * R);
     } else {
-      *reinterpret_cast<float4*>(sre + w) = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(sim + w) = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        sre[w + k] = 0.0f;
+        sim[w + k] = 0.0f;
+      }
     }
   }
   __pipeline_commit();
@@ -379,12 +292,13 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
 
 // Launch 1 at a tight height H = m * 128: the zero-embedded strip, then
 // per (n2, column) the m-point DFT of the points {n2 + 128 n1} (in place)
-// against the combine matrix (a kernel parameter) and the four-step twiddle,
-// then the 128-point DIF of each of the m blocks; rows out in the
-// fourstep layout (cs_row) to the scratch.
+// against the combine matrix and the four-step twiddle, then the
+// 128-point DIF of each of the m blocks; rows out in the fourstep layout
+// (cs_row) to the scratch.
 template <int S, int MAXM>
-__global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
-    cs_fwd_tight_kernel(ColspecIO io, const CsCombine<MAXM> cw) {
+__global__ void __launch_bounds__(cs_threads(MAXM), 1)
+    cs_fwd_tight_kernel(ColspecIO io,
+                        const __grid_constant__ CsCombineOf<MAXM> cw) {
   extern __shared__ float smem[];
   const int h = io.h, m = h / PBMM_LANE;
   float* sre = smem;
@@ -406,14 +320,12 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
         xi[n1] = sim[i];
       }
     }
-#pragma unroll
-    for (int k1 = 0; k1 < MAXM; ++k1) {
-      if (k1 >= m) break;
+    cs_mpoint_loop<MAXM>(m, [&](int k1) {
       float sr = 0.0f, si = 0.0f;
 #pragma unroll
       for (int n1 = 0; n1 < MAXM; ++n1) {
         if (n1 < m) {
-          const float wr = cw.re[k1 * MAXM + n1], wi = cw.im[k1 * MAXM + n1];
+          const float wr = cw.wr(k1, n1), wi = cw.wi(k1, n1);
           sr += xr[n1] * wr - xi[n1] * wi;
           si += xr[n1] * wi + xi[n1] * wr;
         }
@@ -423,7 +335,7 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
       const int i = pbmm_cb_idx<S>(p, c);
       sre[i] = sr * tr - si * ti;
       sim[i] = sr * ti + si * tr;
-    }
+    });
   }
   __syncthreads();
   float* dre = io.spec_re + n * h * wk + col0;
@@ -446,16 +358,41 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
                                  last);
 }
 
+// The phase pass launch 2 runs before its inverse: the main path's branch
+// (host planes, integer power), every other branch, or none (the IIR
+// branch: the tap scan has rotated the scratch spectra already).
+enum CsPhase { CS_PH_MAIN = 0, CS_PH_GENERAL = 1, CS_PH_NONE = 2 };
+
+// One frame's rotated scratch spectrum (src, the state's row layout) into
+// the strip, element by element as pbmm_phase_strip reads it.  Ends
+// synchronised.
+template <int S, bool POW2>
+__device__ __forceinline__ void cs_copy_strip(const float* __restrict__ src_re,
+                                              const float* __restrict__ src_im,
+                                              int h, size_t wk, int col0,
+                                              float* sre, float* sim) {
+  constexpr int LS = pbmm_log2(S);
+  for (int e = threadIdx.x; e < h * S; e += blockDim.x) {
+    const int p = e >> LS, c = e & (S - 1);
+    const size_t g = (size_t)cs_row<POW2>(p) * wk + col0 + c;
+    const int i = pbmm_cb_idx<S>(p, c);
+    sre[i] = __ldg(src_re + g);
+    sim[i] = __ldg(src_im + g);
+  }
+  __syncthreads();
+}
+
 // Launch 2: frame n's phase pass against frame n - C's scratch spectrum
 // (the carried state for the first frame of each plane), element by
-// element into the strip, then the inverse: at pow-2 heights (MAXM = 0)
-// the radix-2 DIT of 2^NLOG rows (phase_inv.cuh, the body kernel 6 runs),
-// at tight heights the 128-point DIT of each block, the conjugate twiddle
-// and the conjugate m-point combine; rows [r0, r1) out.
-template <int NLOG, int S, int MAXM, bool GENERAL>
-__global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
+// element into the strip (or, CS_PH_NONE, its rotated spectrum as it is),
+// then the inverse: at pow-2 heights (MAXM = 0) the radix-2 DIT of 2^NLOG
+// rows (phase_inv.cuh, the body kernel 6 runs), at tight heights the
+// 128-point DIT of each block, the conjugate twiddle and the conjugate
+// m-point combine; rows [r0, r1) out.
+template <int NLOG, int S, int MAXM, int PH>
+__global__ void __launch_bounds__(cs_threads(MAXM), 1)
     cs_inv_kernel(ColspecIO io, PhaseArgs pa,
-                  const CsCombine<MAXM ? MAXM : 1> cw) {
+                  const __grid_constant__ CsCombineOf<MAXM> cw) {
   extern __shared__ float smem[];
   constexpr bool POW2 = MAXM == 0;
   constexpr int LS = pbmm_log2(S);
@@ -466,13 +403,18 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
   const int col0 = blockIdx.x * S;
   const int n = blockIdx.y;
   const size_t hw = (size_t)h * wk;
-  const bool first = n < io.c;
-  pbmm_phase_strip<S, POW2, GENERAL, false>(
-      io.spec_re + n * hw, io.spec_im + n * hw,
-      first ? io.prev_re + n * hw : io.spec_re + (n - io.c) * hw,
-      first ? io.prev_im + n * hw : io.spec_im + (n - io.c) * hw, nullptr,
-      nullptr, nullptr, nullptr, io.plane0, io.plane1, io.fy, io.fx, pa, h,
-      wk, col0, sre, sim);
+  if constexpr (PH == CS_PH_NONE) {
+    cs_copy_strip<S, POW2>(io.spec_re + n * hw, io.spec_im + n * hw, h, wk,
+                           col0, sre, sim);
+  } else {
+    const bool first = n < io.c;
+    pbmm_phase_strip<S, POW2, PH == CS_PH_GENERAL, false>(
+        io.spec_re + n * hw, io.spec_im + n * hw,
+        first ? io.prev_re + n * hw : io.spec_re + (n - io.c) * hw,
+        first ? io.prev_im + n * hw : io.spec_im + (n - io.c) * hw, nullptr,
+        nullptr, nullptr, nullptr, io.plane0, io.plane1, io.fy, io.fx, pa, h,
+        wk, col0, sre, sim);
+  }
 
   const int r0 = io.r0, hr = io.r1 - io.r0;
   float* dre = io.out_re + (size_t)n * hr * wk + col0;
@@ -507,16 +449,14 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
           xi[k1] = zr * ti + zi * tr;
         }
       }
-#pragma unroll
-      for (int n1 = 0; n1 < M; ++n1) {
-        if (n1 >= m) break;
+      cs_mpoint_loop<M>(m, [&](int n1) {
         const int r = n1 * PBMM_LANE + n2 - r0;
-        if ((unsigned)r >= (unsigned)hr) continue;
+        if ((unsigned)r >= (unsigned)hr) return;
         float sr = 0.0f, si = 0.0f;
 #pragma unroll
         for (int k1 = 0; k1 < M; ++k1) {
           if (k1 < m) {
-            const float wr = cw.re[n1 * M + k1], wi = -cw.im[n1 * M + k1];
+            const float wr = cw.wr(n1, k1), wi = -cw.wi(n1, k1);
             sr += xr[k1] * wr - xi[k1] * wi;
             si += xr[k1] * wi + xi[k1] * wr;
           }
@@ -524,20 +464,57 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
         const size_t o = (size_t)r * wk + c;
         dre[o] = sr;
         dim[o] = si;
-      }
+      });
     }
   }
 }
 
-// Columns a block of the frame-parallel kernels holds: the most, up to 16
-// (64-byte row segments), whose strip (2 H S floats) fits the 227 KB a
-// block may have: 16 to H = 1024 (pow-2) or m = 14 (tight), 8 to 2048 or
-// m = 28, 4 above.
+// The IIR branch's launch 2, the tap scan: thread i owns bin i of the
+// planes' (C, H, Wk) state, (row, lane) of plane i / (H Wk).  It walks the
+// T frames of its plane in order with the previous frame's unmodified
+// spectrum and the two taps in registers, runs the bin's phase pass
+// (pbmm_phase_bin<true, true>, the general branch with the taps) once a
+// frame against the scratch spectrum of that frame, and writes the rotated
+// bin over it for launch 2's inverse; the frame's unmodified value becomes
+// the next frame's prev.  new_prev and the taps leave at the end.
+__global__ void __launch_bounds__(CS_SCAN_THREADS)
+    cs_iir_scan_kernel(ColspecIO io, PhaseArgs pa) {
+  const size_t hw = (size_t)io.h * io.wk;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= hw * io.c) return;
+  const int plane = (int)(i / hw);
+  const size_t g = i - (size_t)plane * hw;  // element of the shared planes
+  const int row = (int)(g / io.wk), lane = (int)(g % io.wk);
+  float pr = io.prev_re[i], pi = io.prev_im[i];
+  float lf = io.lpf_in[i], ls = io.lps_in[i];
+  for (int f = 0; f < io.t; ++f) {
+    const size_t o = ((size_t)f * io.c + plane) * hw + g;
+    const float cr = io.spec_re[o], ci = io.spec_im[o];
+    float o_r, o_i;
+    pbmm_phase_bin<true, true>(cr, ci, pr, pi, io.plane0, io.plane1, g,
+                               io.fy, row, io.fx, lane, &lf, &ls, pa, o_r,
+                               o_i);
+    io.spec_re[o] = o_r;
+    io.spec_im[o] = o_i;
+    pr = cr;
+    pi = ci;
+  }
+  io.np_re[i] = pr;
+  io.np_im[i] = pi;
+  io.lpf_out[i] = lf;
+  io.lps_out[i] = ls;
+}
+
+// Columns a block of the in-block kernels holds: the widest power of two
+// up to 16 (64-byte row segments) whose strip (2 H S floats) fits the
+// 227 KB a block may have, 2 at least: 16 to H = 1024 (pow-2) or m = 14
+// (tight), 8 to 2048 or m = 28, 4 to 4096 or m = 32, 2 above (to 8192;
+// the tight heights above m = 32 take 2 for their 256-thread blocks).
 static int cs_strip(int h) {
   const bool pow2 = (h & (h - 1)) == 0;
   const int m = h / PBMM_LANE;
-  return pow2 ? (h <= 1024 ? 16 : h <= 2048 ? 8 : 4)
-              : (m <= 14 ? 16 : m <= 28 ? 8 : 4);
+  return pow2 ? (h <= 1024 ? 16 : h <= 2048 ? 8 : h <= 4096 ? 4 : 2)
+              : (m <= 14 ? 16 : m <= 28 ? 8 : m <= CS_MAXM_PARAM ? 4 : 2);
 }
 
 template <class K, class... Args>
@@ -549,131 +526,124 @@ static cudaError_t cs_run(K kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// The two launches at a pow-2 height 2^NLOG on strips of S columns.
+// Launch 2 (after the tap scan with the IIR taps) on strips of S columns.
+template <int NLOG, int S, int MAXM>
+static cudaError_t cs_second(const ColspecIO& io, const PhaseArgs& pa,
+                             const CsCombineOf<MAXM>& cw, int ph, dim3 grid,
+                             size_t smem, cudaStream_t st) {
+  const int nt = cs_threads(MAXM);
+  if (ph == CS_PH_MAIN)
+    return cs_run(cs_inv_kernel<NLOG, S, MAXM, CS_PH_MAIN>, grid, nt, smem,
+                  st, io, pa, cw);
+  if (ph == CS_PH_GENERAL)
+    return cs_run(cs_inv_kernel<NLOG, S, MAXM, CS_PH_GENERAL>, grid, nt,
+                  smem, st, io, pa, cw);
+  const size_t bins = (size_t)io.c * io.h * io.wk;
+  const dim3 scan((unsigned)((bins + CS_SCAN_THREADS - 1) / CS_SCAN_THREADS));
+  const cudaError_t err =
+      cs_run(cs_iir_scan_kernel, scan, CS_SCAN_THREADS, 0, st, io, pa);
+  if (err != cudaSuccess) return err;
+  return cs_run(cs_inv_kernel<NLOG, S, MAXM, CS_PH_NONE>, grid, nt, smem, st,
+                io, pa, cw);
+}
+
+// Every launch at a pow-2 height 2^NLOG on strips of S columns.
 template <int NLOG, int S>
-static cudaError_t cs_pow2(const ColspecIO& io, const PhaseArgs& pa,
-                           bool general, cudaStream_t st) {
+static cudaError_t cs_pow2(const ColspecIO& io, const PhaseArgs& pa, int ph,
+                           cudaStream_t st) {
   const dim3 grid(io.wk / S, io.t * io.c);
   const size_t smem = 2 * ((size_t)S << NLOG) * sizeof(float);
-  const int nt = PBMM_CB_THREADS;
-  const CsCombine<1> none = {};
-  cudaError_t err =
-      cs_run(cs_fwd_pow2_kernel<NLOG, S>, grid, nt, smem, st, io);
+  const cudaError_t err = cs_run(cs_fwd_pow2_kernel<NLOG, S>, grid,
+                                 PBMM_CB_THREADS, smem, st, io);
   if (err != cudaSuccess) return err;
-  return general ? cs_run(cs_inv_kernel<NLOG, S, 0, true>, grid, nt, smem,
-                          st, io, pa, none)
-                 : cs_run(cs_inv_kernel<NLOG, S, 0, false>, grid, nt, smem,
-                          st, io, pa, none);
+  return cs_second<NLOG, S, 0>(io, pa, CsCombine<1>{}, ph, grid, smem, st);
 }
 
-// The two launches at a tight height, m <= MAXM.
+// Every launch at a tight height, m <= MAXM.
 template <int S, int MAXM>
-static cudaError_t cs_tight(const ColspecIO& io, const PhaseArgs& pa,
-                            bool general, const float* cw_re,
-                            const float* cw_im, cudaStream_t st) {
+static cudaError_t cs_tight(const ColspecIO& io, const PhaseArgs& pa, int ph,
+                            const float* cw_re, const float* cw_im,
+                            cudaStream_t st) {
   const dim3 grid(io.wk / S, io.t * io.c);
   const size_t smem = 2 * (size_t)io.h * S * sizeof(float);
-  const int nt = PBMM_CB_THREADS;
-  const CsCombine<MAXM> cw =
-      cs_combine<MAXM>(cw_re, cw_im, io.h / PBMM_LANE);
-  cudaError_t err =
-      cs_run(cs_fwd_tight_kernel<S, MAXM>, grid, nt, smem, st, io, cw);
+  const CsCombineOf<MAXM> cw = cs_combine<MAXM>(
+      cw_re, cw_im, io.cwd_re, io.cwd_im, io.h / PBMM_LANE);
+  const cudaError_t err = cs_run(cs_fwd_tight_kernel<S, MAXM>, grid,
+                                 cs_threads(MAXM), smem, st, io, cw);
   if (err != cudaSuccess) return err;
-  return general ? cs_run(cs_inv_kernel<7, S, MAXM, true>, grid, nt, smem,
-                          st, io, pa, cw)
-                 : cs_run(cs_inv_kernel<7, S, MAXM, false>, grid, nt, smem,
-                          st, io, pa, cw);
+  return cs_second<7, S, MAXM>(io, pa, cw, ph, grid, smem, st);
 }
 
-template <bool POW2, int S, int MAXM>
-static cudaError_t cs_iir(const ColspecIO& io, const PhaseArgs& pa,
-                          const float* cw_re, const float* cw_im,
-                          cudaStream_t stream) {
-  const size_t smem = 6 * (size_t)io.h * S * sizeof(float);
-  const CsCombine<POW2 ? 1 : MAXM> cw =
-      cs_combine<POW2 ? 1 : MAXM>(cw_re, cw_im, io.h / PBMM_LANE);
-  return cs_run(colspec_iir_kernel<POW2, S, MAXM>, dim3(io.wk / S, io.c),
-                256, smem, stream, io, pa, cw);
-}
-
-// iargs, fargs: the phase pass's branch and constants (host arrays,
-// copied by value; phase_pass.cuh::pbmm_phase_unpack); cw_re / cw_im: the
-// m x m combine (host arrays; null at pow-2 heights).  spec_re /
-// spec_im: the scratch of the frame-parallel branches, (T C, H, Wk) each
-// (null with the IIR taps).
+// iargs, fargs: the phase pass's branch and constants (host arrays, copied
+// by value; phase_pass.cuh::pbmm_phase_unpack); cw_re / cw_im: the m x m
+// combine (host arrays; null at pow-2 heights) and cwd_re / cwd_im the
+// same on the device (read above m = 32); tw_*: compact_twiddles(n) with
+// n = 128 at tight heights, else H.  spec_re / spec_im: the scratch, (T
+// C, H, Wk) each.  Heights to PBMM_COL_MAXH (m <= 64).
 extern "C" int pbmm_colspec_chunk(
     const float* rows_re, const float* rows_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
     const float* plane0, const float* plane1, const float* fy,
     const float* fx, const float* fs_re, const float* fs_im,
-    const float* cw_re, const float* cw_im, const float* tw_fre,
-    const float* tw_fim, const float* tw_ire, const float* tw_iim,
-    float* spec_re, float* spec_im, float* out_re, float* out_im,
-    float* np_re, float* np_im, float* lpf_out, float* lps_out,
-    const int* iargs, const float* fargs, int t, int c, int hc, int h,
-    int wk, int row0, int r0, int r1, void* stream) {
+    const float* cw_re, const float* cw_im, const float* cwd_re,
+    const float* cwd_im, const float* tw_fre, const float* tw_fim,
+    const float* tw_ire, const float* tw_iim, float* spec_re,
+    float* spec_im, float* out_re, float* out_im, float* np_re,
+    float* np_im, float* lpf_out, float* lps_out, const int* iargs,
+    const float* fargs, int t, int c, int hc, int h, int wk, int row0,
+    int r0, int r1, void* stream) {
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool pow2 = h >= 2 && (h & (h - 1)) == 0;
   const int m = h / PBMM_LANE;
   const bool general = pbmm_phase_general(pa);
-  const bool tall = h > PBMM_COL_MAXH;
-  // Strip widths of the frame-parallel kernels (cs_strip), multiples of
-  // the IIR kernel's (4, 2 when tall).
   const int s = cs_strip(h);
   if (!args_ok || t < 1 || c < 1 || (long long)t * c > 65535 ||
-      h > PBMM_COL_MAXH_TALL ||
-      (!pow2 && (h != m * PBMM_LANE || m < 1)) || wk % s != 0 || hc < 1 ||
-      row0 < 0 || row0 + hc > h || r0 < 0 || r1 <= r0 || r1 > h ||
-      (pa.host_planes && plane0 == nullptr) ||
+      h > PBMM_COL_MAXH || (!pow2 && (h != m * PBMM_LANE || m < 1)) ||
+      wk % s != 0 || hc < 1 || row0 < 0 || row0 + hc > h || r0 < 0 ||
+      r1 <= r0 || r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (pa.iir && (lpf_in == nullptr || lps_in == nullptr ||
                   lpf_out == nullptr || lps_out == nullptr)) ||
-      (!pa.iir && (spec_re == nullptr || spec_im == nullptr)) ||
-      // 16-byte copies of the frame-parallel kernels
-      (!pa.iir && ((size_t)rows_re % 16 || (size_t)rows_im % 16 ||
-                   (size_t)prev_re % 16 || (size_t)prev_im % 16 ||
-                   (size_t)spec_re % 16 || (size_t)spec_im % 16)) ||
+      spec_re == nullptr || spec_im == nullptr ||
+      // the asynchronous strip copies
+      (size_t)rows_re % 16 || (size_t)rows_im % 16 ||
+      (size_t)prev_re % 16 || (size_t)prev_im % 16 ||
+      (size_t)spec_re % 16 || (size_t)spec_im % 16 ||
       (general && (fy == nullptr || fx == nullptr)) ||
-      (!pow2 && (fs_re == nullptr || cw_re == nullptr)))
+      (!pow2 && (fs_re == nullptr || cw_re == nullptr)) ||
+      (!pow2 && m > CS_MAXM_PARAM && (cwd_re == nullptr || cwd_im == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const ColspecIO io = {rows_re, rows_im, prev_re, prev_im, lpf_in, lps_in,
-                        plane0,  plane1,  fy,      fx,      fs_re,  fs_im,
-                        tw_fre,  tw_fim,  tw_ire,  tw_iim,  spec_re, spec_im,
-                        out_re,  out_im,  np_re,   np_im,   lpf_out, lps_out,
-                        t,       c,       hc,      h,       wk,      row0,
-                        r0,      r1};
+  const ColspecIO io = {rows_re, rows_im, prev_re, prev_im, lpf_in,  lps_in,
+                        plane0,  plane1,  fy,      fx,      fs_re,   fs_im,
+                        cwd_re,  cwd_im,  tw_fre,  tw_fim,  tw_ire,  tw_iim,
+                        spec_re, spec_im, out_re,  out_im,  np_re,   np_im,
+                        lpf_out, lps_out, t,       c,       hc,      h,
+                        wk,      row0,    r0,      r1};
+  const int ph = pa.iir ? CS_PH_NONE : general ? CS_PH_GENERAL : CS_PH_MAIN;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  if (pa.iir) {
-    // Four-step heights: m <= 16 at h <= 2048, m <= 32 at h <= 4096.
-    err = pow2 ? (tall ? cs_iir<true, PBMM_COL_S_TALL, 16>(io, pa, cw_re,
-                                                          cw_im, st)
-                       : cs_iir<true, PBMM_COL_S, 16>(io, pa, cw_re, cw_im,
-                                                      st))
-               : (tall ? cs_iir<false, PBMM_COL_S_TALL, 32>(io, pa, cw_re,
-                                                           cw_im, st)
-                       : cs_iir<false, PBMM_COL_S, 16>(io, pa, cw_re, cw_im,
-                                                       st));
-    return (int)err;
-  }
   if (!pow2) {
-    err = m <= 14   ? cs_tight<16, 14>(io, pa, general, cw_re, cw_im, st)
-          : m <= 28 ? cs_tight<8, 28>(io, pa, general, cw_re, cw_im, st)
-                    : cs_tight<4, 32>(io, pa, general, cw_re, cw_im, st);
+    err = m <= 14   ? cs_tight<16, 14>(io, pa, ph, cw_re, cw_im, st)
+          : m <= 28 ? cs_tight<8, 28>(io, pa, ph, cw_re, cw_im, st)
+          : m <= CS_MAXM_PARAM
+              ? cs_tight<4, CS_MAXM_PARAM>(io, pa, ph, cw_re, cw_im, st)
+              : cs_tight<2, CS_MAXM>(io, pa, ph, cw_re, cw_im, st);
   } else {
     switch (h) {
 #define CS_POW2(NLOG, S) \
-  case 1 << NLOG: err = cs_pow2<NLOG, S>(io, pa, general, st); break;
+  case 1 << NLOG: err = cs_pow2<NLOG, S>(io, pa, ph, st); break;
       CS_POW2(1, 16) CS_POW2(2, 16) CS_POW2(3, 16) CS_POW2(4, 16)
       CS_POW2(5, 16) CS_POW2(6, 16) CS_POW2(7, 16) CS_POW2(8, 16)
       CS_POW2(9, 16) CS_POW2(10, 16) CS_POW2(11, 8) CS_POW2(12, 4)
+      CS_POW2(13, 2)
 #undef CS_POW2
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (err != cudaSuccess) return (int)err;
-  // The last frame's spectrum of each plane is the next chunk's prev.
+  // With the IIR taps the scan wrote new_prev; else the last frame's
+  // spectrum of each plane is the next chunk's prev.
+  if (err != cudaSuccess || pa.iir) return (int)err;
   const size_t plane = (size_t)h * wk, bytes = c * plane * sizeof(float);
   const size_t last = (size_t)(t - 1) * c * plane;
   err = cudaMemcpyAsync(np_re, spec_re + last, bytes,

@@ -7,13 +7,16 @@
 // Widest padded row the kernels take: 64 tiles of 128 lanes (W = 8192).
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
-// Columns a block of the strip kernels (12 and kernel 2's IIR branch)
-// holds in shared memory:
-// 4 up to H = 2048, 2 above (PBMM_COL_S_TALL), up to H = 4096.
-#define PBMM_COL_S 4
-#define PBMM_COL_S_TALL 2
-#define PBMM_COL_MAXH 2048       // tallest column at PBMM_COL_S
-#define PBMM_COL_MAXH_TALL 4096  // tallest column at PBMM_COL_S_TALL
+// Tallest column kernels 2, 6 and 12 take (PBMM_MAX_TILES lanes: the rows
+// and kernels 5 and 8 stop there too).
+#define PBMM_COL_MAXH 8192
+
+// Columns a block of kernel 12 holds in shared memory (cur and prev, 4 H S
+// floats, at most 128 KB): 4 up to H = 2048, 2 up to 4096, 1 up to 8192
+// (spectral/fused.py::col_strip); the narrowest strip of kernel 6.
+__host__ __device__ constexpr int pbmm_col_strip(int h) {
+  return h <= 2048 ? 4 : h <= 4096 ? 2 : 1;
+}
 // Largest blur radius of the post kernels (3, 10, 11): post_pallas_ok
 // admits 2 r <= ob - e with the output block ob <= 192, so r <= 96.
 #define PBMM_MAX_BLUR_R 96
@@ -103,41 +106,3 @@ struct PbmmLanePlan {
   int src[PBMM_MAX_TILES];
   int rev[PBMM_MAX_TILES];
 };
-
-// Zero-embed of a strip of S columns from col0 of an h-row column: rows
-// [row0, row0 + hc) take the content rows' spectra (src, row stride wk),
-// the others zeros; element (row p, column c) lands at p * S + c.  Ends
-// synchronised.
-template <int S>
-__device__ __forceinline__ void pbmm_col_embed(
-    const float* __restrict__ src_re, const float* __restrict__ src_im,
-    int hc, int wk, int col0, int row0, int h, float* re, float* im) {
-  for (int e = threadIdx.x; e < h * S; e += blockDim.x) {
-    const int p = e / S, c = e % S;
-    const int r = p - row0;
-    float vr = 0.0f, vi = 0.0f;
-    if (r >= 0 && r < hc) {
-      const size_t g = (size_t)r * wk + col0 + c;
-      vr = src_re[g];
-      vi = src_im[g];
-    }
-    re[e] = vr;
-    im[e] = vi;
-  }
-  __syncthreads();
-}
-
-// Kernel 2's forward column FFT at pow-2 heights h on a strip of S
-// columns: the zero-embed, then a radix-2 DIF over the whole column
-// (natural rows in, bit-reversed rows out: JAX's layout), every product
-// and sum rounded separately.  Kernel 5 (col_pass.cuh's engine) runs the
-// same butterflies in the same order and computes the same bits.
-// tw_re/tw_im: _dif_twiddles(h, forward).  Ends synchronised.
-template <int S>
-__device__ __forceinline__ void pbmm_col_fft_pow2(
-    const float* __restrict__ src_re, const float* __restrict__ src_im,
-    int hc, int wk, int col0, int row0, int h, const float* __restrict__ tw_re,
-    const float* __restrict__ tw_im, float* re, float* im) {
-  pbmm_col_embed<S>(src_re, src_im, hc, wk, col0, row0, h, re, im);
-  pbmm_radix2(re, im, h, S, S, 0, 1, S, tw_re, tw_im, false);
-}

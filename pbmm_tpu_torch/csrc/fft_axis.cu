@@ -17,9 +17,29 @@
 // once each, against 5 n log2(n) flops per length-n transform: ~3.4
 // flops per byte at n = 2048, far under the card's ~20, so bytes bound.
 //
-// Axis 2 (rows of W): one block per row holds the row (2 W f32, 16 KB at
-// W = 2048) in shared memory, every stage in place.  Axis 1 (columns of
-// H): col_pass.cuh's engine, shared with kernel 5.  The strip-of-8 design
+// Axis 2 (rows of W): from 128 points up, the row engine of kernels 1, 4
+// and 7 (row_pass.cuh): W / 16 threads hold a row, 16 points each, running
+// up to four radix-2 stages a pass in registers; the passes exchange
+// through padded shared memory inside one launch (3 barriers at W =
+// 2048), rows under 2048 points several to a block.  The forward's first
+// pass reads its points straight from the row (a warp's reads of one
+// point are consecutive lanes); its last pass holds 16 consecutive
+// bit-reversed lanes a thread and stores them as four 16-byte words.  The
+// inverse's first pass loads 2^K consecutive bit-reversed lanes a group
+// by 16-byte loads (both planes must start on 16 bytes), and its last
+// pass stores natural lanes a warp-wide row segment at a time, times
+// `scale` (one rounded product, as before).  Twiddles: the compact table
+// (spectral/radix2.py::compact_twiddles, W - 1 words) in L1.  The stage
+// order, the butterflies and the twiddle words are pbmm_radix2's, and the
+// real input's first stage is the stage-by-stage kernel's
+// (fa_real_first_stage), so every output is bit for bit the one the
+// stage-by-stage design it replaces computes (one block a row, a barrier
+// after each stage, 0.078 ms for the inverse at (1, 2048, 2048) against
+// 0.051 for torch.fft.ifft along dim -1); kernel 1 equals it on a zero
+// imaginary plane, and kernel 7 is it + torch's |z|.  Lengths 2 to 64 keep
+// that stage-by-stage kernel (fft_rows_kernel): a routing by length.
+// Axis 1 (columns of H): col_pass.cuh's engine, shared with kernel 5.  The
+// strip-of-8 design
 // it replaces held 8 columns of every row in shared memory (128 KB at
 // H = 2048, one block of 8 warps an SM), read 32 bytes of each row, put
 // its threads 8 floats apart (8-way bank conflicts on every stage) and
@@ -31,10 +51,12 @@
 // tile of columns is masked.  On an NVIDIA H100 80GB HBM3 at its 700 W
 // limit (chip_smoke.py) the inverse column pass at (1, 2048, 2048) takes
 // 0.055 ms warm, against 0.057 for torch.fft.ifft along dim -2 and 0.329
-// for the strip-of-8 design; its two passes move 134 MB at 2.4 TB/s.
+// for the strip-of-8 design; its two passes move 134 MB at 2.4 TB/s.  The
+// row pass's times on the row engine are in PERF.md.
 
 #include "col_pass.cuh"
 #include "common.cuh"
+#include "row_pass.cuh"
 
 #define FA_MAXN 8192  // longest transform (a row of it in shared memory)
 
@@ -54,20 +76,20 @@ __device__ __forceinline__ void fa_real_first_stage(
   }
 }
 
-// All stages of one row held in shared memory.
+// All stages of one row held in shared memory (rows of 2 to 64 points).
 template <bool INVERSE, bool REAL>
 __device__ __forceinline__ void fa_stages(float* re, float* im, int n,
                                           const float* tw_re,
                                           const float* tw_im) {
-  int stages = 0;
-  while ((1 << stages) < n) ++stages;
-  for (int s = 0; s < stages; ++s) {
-    const int d = INVERSE ? (1 << s) : (n >> (s + 1));
-    if (REAL && s == 0)
-      fa_real_first_stage(re, im, n, tw_re, tw_im);
-    else
-      pbmm_radix2_stage(re, im, n, d, 1, 1, 0, 0, 1, tw_re + s * n,
-                        tw_im + s * n, INVERSE);
+  if (!REAL) {
+    pbmm_radix2(re, im, n, 1, 1, 0, 0, 1, tw_re, tw_im, INVERSE);
+    return;
+  }
+  fa_real_first_stage(re, im, n, tw_re, tw_im);
+  __syncthreads();
+  for (int s = 1; (1 << s) < n; ++s) {
+    pbmm_radix2_stage(re, im, n, n >> (s + 1), 1, 1, 0, 0, 1, tw_re + s * n,
+                      tw_im + s * n, false);
     __syncthreads();
   }
 }
@@ -95,6 +117,92 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// A row pass of N = 128 .. 8192 points on the row engine (row_pass.cuh):
+// rows of (B H) rows of N f32; REAL: im unread (forward only).
+template <int N, bool INVERSE, bool REAL>
+__global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
+    fft_rows_engine_kernel(const float* __restrict__ re,
+                           const float* __restrict__ im,
+                           const float* __restrict__ tw_re,
+                           const float* __restrict__ tw_im,
+                           float* __restrict__ out_re,
+                           float* __restrict__ out_im, long long rows,
+                           float scale) {
+  extern __shared__ float smem[];
+  constexpr int NT = N / PBMM_RP_P;
+  const int r = threadIdx.x / NT, t = threadIdx.x % NT;
+  const long long row = (long long)blockIdx.x * pbmm_rp_rows_per_block(N) + r;
+  const bool valid = row < rows;
+  float* sre = smem + (size_t)r * pbmm_rp_row_floats(N);
+  float* sim = sre + pbmm_rp_pad(N);
+  const size_t base = (size_t)(valid ? row : 0) * N;  // past the end: row 0
+  const float* src_re = re + base;
+  const float* src_im = REAL ? nullptr : im + base;
+  float* dre = out_re + base;
+  float* dim = out_im + base;
+  const bool scaled = scale != 1.0f;
+  auto load = [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                  float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+    if constexpr (!INVERSE) {
+      // First DIF pass: base = g < st, point q of group j is lane g + q st.
+#pragma unroll
+      for (int j = 0; j < G::J; ++j)
+#pragma unroll
+        for (int q = 0; q < G::L; ++q) {
+          xr[j * G::L + q] = __ldg(src_re + gr.pos(j, q));
+          xi[j * G::L + q] = REAL ? 0.0f : __ldg(src_im + gr.pos(j, q));
+        }
+    } else {
+      // First DIT pass (st = 1): 2^K consecutive lanes a group.
+      static_assert(G::L % 4 == 0, "the first DIT pass runs 2 stages or more");
+#pragma unroll
+      for (int j = 0; j < G::J; ++j) {
+        const float4* a = reinterpret_cast<const float4*>(src_re + gr.base[j]);
+        const float4* b = reinterpret_cast<const float4*>(src_im + gr.base[j]);
+#pragma unroll
+        for (int c = 0; c < G::L / 4; ++c) {
+          const float4 u = __ldg(a + c), v = __ldg(b + c);
+          const int e = j * G::L + 4 * c;
+          xr[e] = u.x; xr[e + 1] = u.y; xr[e + 2] = u.z; xr[e + 3] = u.w;
+          xi[e] = v.x; xi[e + 1] = v.y; xi[e + 2] = v.z; xi[e + 3] = v.w;
+        }
+      }
+    }
+  };
+  auto out = [&](float x) { return scaled ? __fmul_rn(x, scale) : x; };
+  auto store = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
+                   const float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+    if (!valid) return;
+    if constexpr (!INVERSE) {
+      // Last DIF pass, its groups adjacent: 2^K J consecutive lanes.
+      static_assert(G::L % 4 == 0, "the last DIF pass runs 2 stages or more");
+#pragma unroll
+      for (int j = 0; j < G::J; ++j)
+#pragma unroll
+        for (int c = 0; c < G::L / 4; ++c) {
+          const int e = j * G::L + 4 * c;
+          reinterpret_cast<float4*>(dre + gr.base[j])[c] = make_float4(
+              out(xr[e]), out(xr[e + 1]), out(xr[e + 2]), out(xr[e + 3]));
+          reinterpret_cast<float4*>(dim + gr.base[j])[c] = make_float4(
+              out(xi[e]), out(xi[e + 1]), out(xi[e + 2]), out(xi[e + 3]));
+        }
+    } else {
+      // Last DIT pass: base = g < st, point q of group j is lane g + q st.
+#pragma unroll
+      for (int j = 0; j < G::J; ++j)
+#pragma unroll
+        for (int q = 0; q < G::L; ++q) {
+          dre[gr.pos(j, q)] = out(xr[j * G::L + q]);
+          dim[gr.pos(j, q)] = out(xi[j * G::L + q]);
+        }
+    }
+  };
+  pbmm_row_transform<N, INVERSE, !INVERSE, REAL>(t, sre, sim, tw_re, tw_im,
+                                                 ~0ull, load, store);
+}
+
 // One pass of the column transform (col_pass.cuh).  The min-blocks
 // bound of 1 lets the 64-point pass keep up to 255 registers a thread
 // (without it nvcc stops at 184 and the kernel runs slower), and the
@@ -112,7 +220,32 @@ static cudaError_t fa_launch(const float* re, const float* im,
                              float* out_re, float* out_im, int b, int h,
                              int w, int axis, float scale,
                              cudaStream_t stream) {
-  if (axis == 2) {
+  if (axis == 2 && w >= PBMM_RP_MINN) {
+    const long long rows = (long long)b * h;
+    const int rpb = pbmm_rp_rows_per_block(w);
+    const long long blocks = (rows + rpb - 1) / rpb;
+    const size_t smem = (size_t)rpb * pbmm_rp_row_floats(w) * sizeof(float);
+#define FA_ROWS(N)                                                          \
+  {                                                                         \
+    cudaError_t err =                                                       \
+        pbmm_smem_opt_in(fft_rows_engine_kernel<N, INVERSE, REAL>, smem);   \
+    if (err != cudaSuccess) return err;                                     \
+    fft_rows_engine_kernel<N, INVERSE, REAL>                                \
+        <<<(unsigned)blocks, rpb * (N / PBMM_RP_P), smem, stream>>>(        \
+            re, im, tw_re, tw_im, out_re, out_im, rows, scale);             \
+  }
+    switch (w) {
+      case 128: FA_ROWS(128); break;
+      case 256: FA_ROWS(256); break;
+      case 512: FA_ROWS(512); break;
+      case 1024: FA_ROWS(1024); break;
+      case 2048: FA_ROWS(2048); break;
+      case 4096: FA_ROWS(4096); break;
+      case 8192: FA_ROWS(8192); break;
+      default: return cudaErrorInvalidValue;
+    }
+#undef FA_ROWS
+  } else if (axis == 2) {
     const size_t smem = 2 * (size_t)w * sizeof(float);
     cudaError_t err = pbmm_smem_opt_in(fft_rows_kernel<INVERSE, REAL>, smem);
     if (err != cudaSuccess) return err;
@@ -136,7 +269,10 @@ static cudaError_t fa_launch(const float* re, const float* im,
   return cudaGetLastError();
 }
 
-// im null: real input (forward only).  axis 1 = H, 2 = W.
+// im null: real input (forward only).  axis 1 = H, 2 = W.  tw_re / tw_im:
+// compact_twiddles(n, inverse) for a row pass of 128 points or more (the
+// row engine), else _dif_twiddles(n, inverse).  The row engine's inverse
+// takes planes that start on 16 bytes.
 extern "C" int pbmm_fft_axis(const float* re, const float* im,
                              const float* tw_re, const float* tw_im,
                              float* out_re, float* out_im, int b, int h,
@@ -147,6 +283,9 @@ extern "C" int pbmm_fft_axis(const float* re, const float* im,
       (n & (n - 1)) != 0 || n > FA_MAXN || (inverse && im == nullptr) ||
       (axis == 1 && b > 65535) || (axis == 2 && (size_t)b * h > 2147483647u))
     return (int)cudaErrorInvalidValue;
+  if (axis == 2 && n >= PBMM_RP_MINN && inverse &&
+      ((size_t)re % 16 != 0 || (size_t)im % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (inverse)

@@ -12,10 +12,10 @@
 // Rows [r0, r1) of the result go out.
 //
 // Design: kernel 6's first layout (a probe keeps the design it measures):
-// a strip of S columns of one frame a block (4 up to H = 2048, 2 above,
-// up to 4096), cur and prev in shared memory (128 KB at H = 2048 or
-// 4096), the phase pass's pbmm_phase_bin and the stage-by-stage
-// pbmm_radix2_stage calls on the twiddle rows pbmm_radix2 uses.  Kernel 6
+// a strip of S columns of one frame a block (4 up to H = 2048, 2 up to
+// 4096, 1 up to 8192: common.cuh's pbmm_col_strip), cur and prev in
+// shared memory (128 KB at H = 2048, 4096 and 8192), the phase pass's
+// pbmm_phase_bin and the stage-by-stage pbmm_radix2_stage calls on the twiddle rows pbmm_radix2 uses.  Kernel 6
 // now runs kernel 2's in-block register passes (csrc/phase_inv.cuh), which
 // compute pbmm_radix2's bits, so the full variant (PHASE, LO, HI) still
 // equals kernel 6 bit for bit (chip_smoke.py), and the other variants
@@ -113,25 +113,27 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+template <bool PHASE, bool GENERAL, bool LO, bool HI, int KD_S>
+static cudaError_t kd_run(const KdecompIO& io, const PhaseArgs& pa, int b,
+                          cudaStream_t stream) {
+  const size_t smem = 4 * (size_t)io.h * KD_S * sizeof(float);
+  const cudaError_t err =
+      pbmm_smem_opt_in(kdecomp_kernel<PHASE, GENERAL, LO, HI, KD_S>, smem);
+  if (err != cudaSuccess) return err;
+  kdecomp_kernel<PHASE, GENERAL, LO, HI, KD_S>
+      <<<dim3(io.w / KD_S, b), 256, smem, stream>>>(io, pa);
+  return cudaGetLastError();
+}
+
+// The strip of pbmm_col_strip(h): 4, 2 or 1 columns.
 template <bool PHASE, bool GENERAL, bool LO, bool HI>
 static cudaError_t kd_launch(const KdecompIO& io, const PhaseArgs& pa, int b,
                              cudaStream_t stream) {
-  const bool tall = io.h > PBMM_COL_MAXH;
-  const int s = tall ? PBMM_COL_S_TALL : PBMM_COL_S;
-  const size_t smem = 4 * (size_t)io.h * s * sizeof(float);
-  cudaError_t err =
-      tall ? pbmm_smem_opt_in(
-                 kdecomp_kernel<PHASE, GENERAL, LO, HI, PBMM_COL_S_TALL>, smem)
-           : pbmm_smem_opt_in(
-                 kdecomp_kernel<PHASE, GENERAL, LO, HI, PBMM_COL_S>, smem);
-  if (err != cudaSuccess) return err;
-  if (tall)
-    kdecomp_kernel<PHASE, GENERAL, LO, HI, PBMM_COL_S_TALL>
-        <<<dim3(io.w / s, b), 256, smem, stream>>>(io, pa);
-  else
-    kdecomp_kernel<PHASE, GENERAL, LO, HI, PBMM_COL_S>
-        <<<dim3(io.w / s, b), 256, smem, stream>>>(io, pa);
-  return cudaGetLastError();
+  switch (pbmm_col_strip(io.h)) {
+    case 4: return kd_run<PHASE, GENERAL, LO, HI, 4>(io, pa, b, stream);
+    case 2: return kd_run<PHASE, GENERAL, LO, HI, 2>(io, pa, b, stream);
+    default: return kd_run<PHASE, GENERAL, LO, HI, 1>(io, pa, b, stream);
+  }
 }
 
 template <bool PHASE, bool GENERAL>
@@ -167,9 +169,9 @@ extern "C" int pbmm_kdecomp(const float* cur_re, const float* cur_im,
         (general && (fy == nullptr || fx == nullptr)))
       return (int)cudaErrorInvalidValue;
   }
-  const int sw = h > PBMM_COL_MAXH ? PBMM_COL_S_TALL : PBMM_COL_S;
+  const int sw = pbmm_col_strip(h);
   if (pieces < 0 || pieces > 7 || b < 1 || b > 65535 || h < 2 ||
-      (h & (h - 1)) != 0 || h > PBMM_COL_MAXH_TALL || w < sw ||
+      (h & (h - 1)) != 0 || h > PBMM_COL_MAXH || w < sw ||
       w % sw != 0 || r0 < 0 || r1 <= r0 || r1 > h)
     return (int)cudaErrorInvalidValue;
   const KdecompIO io = {cur_re, cur_im, prev_re, prev_im, plane0, plane1,

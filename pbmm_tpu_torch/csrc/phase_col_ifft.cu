@@ -24,9 +24,9 @@
 // recurs inside a launch, so there is no frame loop and no tap plane in
 // shared memory (2 H S floats a block).  The launch is kernel 2's too:
 // 512 threads, one block an SM, the strip of colspec_chunk.cu::cs_strip
-// (16 columns to H = 1024, 8 to 2048, 4 above), or the widest half of it
-// that divides the width, down to 4 (2 above H = 2048)
-// (spectral/fused.py::phase_col_strip).  Narrower strips and smaller
+// (16 columns to H = 1024, 8 to 2048, 4 to 4096, 2 to 8192), or the
+// widest half of it that divides the width, down to 4 (2 above H = 2048, 1
+// above 4096) (spectral/fused.py::phase_col_strip).  Narrower strips and smaller
 // blocks that fill the SMs in one wave at B = 1 (4 columns, 256 threads,
 // 3 blocks an SM: 288 blocks at 1080p's H = 2048) measured no faster, and
 // slower at H = 4096 and B = 16 (PERF.md).
@@ -105,11 +105,11 @@ static cudaError_t pc_branch(const PhaseColIO& io, const PhaseArgs& pa,
 }
 
 // The strips a height takes (phase_col_strip's candidates): kernel 2's
-// strip S2, S2 / 2 and 4 (2 above H = 2048).
+// strip S2, S2 / 2 and pbmm_col_strip (4 to H = 2048, 2 to 4096, 1 above).
 template <int NLOG, int S2>
 static cudaError_t pc_strip(const PhaseColIO& io, const PhaseArgs& pa,
                             bool general, int b, int s, cudaStream_t st) {
-  constexpr int S4 = NLOG > 11 ? 2 : 4;
+  constexpr int S4 = pbmm_col_strip(1 << NLOG);
   if (s == S2) return pc_branch<NLOG, S2>(io, pa, general, b, st);
   if (s == S2 / 2) return pc_branch<NLOG, S2 / 2>(io, pa, general, b, st);
   if (s == S4 && S4 < S2 / 2)
@@ -134,7 +134,7 @@ extern "C" int pbmm_phase_col_ifft(
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool general = pbmm_phase_general(pa);
   if (!args_ok || b < 1 || b > 65535 || h < 2 || (h & (h - 1)) != 0 ||
-      h > PBMM_COL_MAXH_TALL || s < 2 || w < s || w % s != 0 || r0 < 0 ||
+      h > PBMM_COL_MAXH || s < 1 || w < s || w % s != 0 || r0 < 0 ||
       r1 <= r0 || r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (!general && (plane0 == nullptr || plane1 == nullptr)) ||
@@ -153,7 +153,7 @@ extern "C" int pbmm_phase_col_ifft(
   case 1 << NLOG: err = pc_strip<NLOG, S2>(io, pa, general, b, s, st); break;
     PC_H(1, 16) PC_H(2, 16) PC_H(3, 16) PC_H(4, 16) PC_H(5, 16) PC_H(6, 16)
     PC_H(7, 16) PC_H(8, 16) PC_H(9, 16) PC_H(10, 16) PC_H(11, 8)
-    PC_H(12, 4)
+    PC_H(12, 4) PC_H(13, 2)
 #undef PC_H
     default: return (int)cudaErrorInvalidValue;
   }

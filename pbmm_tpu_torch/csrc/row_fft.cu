@@ -41,8 +41,8 @@
 // holds 16 consecutive bit-reversed lanes of one tile and stores them
 // with 16-byte stores.  Twiddles: the compact table (W - 1 words) in L1.
 // Rows under 2048 lanes are packed several to a block.  Every butterfly
-// is pbmm_radix2's, so kernel 1 equals the stage-by-stage DIF (kernel 8's
-// row pass on the windowed rows) bit for bit.  On an NVIDIA H100 80GB
+// is pbmm_radix2's, so kernel 1 equals the stage-by-stage DIF (and kernel
+// 8's row pass on the windowed rows, on this engine too) bit for bit.  On an NVIDIA H100 80GB
 // HBM3 at its 700 W limit (chip_smoke.py) kernel 4 takes 0.191 ms warm at
 // 1080p ((16, 3, 1080, 1920) u8 -> 16 x 1152 rows of 1152 kept lanes:
 // 269 MB), against 0.417 for torch.fft.fft on the f32 rows, and kernel 1

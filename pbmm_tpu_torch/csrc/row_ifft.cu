@@ -23,8 +23,9 @@
 // pass holds points W / 2^K apart, so each of its stores of |z| is a
 // 128-byte row segment of a warp.  The compact twiddle table (W - 1 words)
 // stays in L1.  The butterflies and their order are pbmm_radix2's (the
-// stage-by-stage transform of kernel 8's row pass), and |z| is rounded as
-// torch rounds sqrt(re re + im im) * scale: the output is bit for bit
+// stage-by-stage transform, and kernel 8's row pass on this engine), and
+// |z| is rounded as torch rounds sqrt(re re + im im) * scale: the output
+// is bit for bit
 // kernel 8's row pass followed by torch's |z| (tests/test_torch_cuda.py,
 // chip_smoke.py).  Kernel 3 (rowifft_post.cu) runs this load, transform
 // and rounding on the same engine, so its |z| rows are these.  On an NVIDIA H100

@@ -1,4 +1,4 @@
-// The row engine of kernels 1, 4 and 7: a radix-2 transform of one row of
+// The row engine of kernels 1, 4, 7 and 8's row pass: a radix-2 transform of one row of
 // length N (128 to 8192) held on chip, as a few register passes that
 // exchange through the row's shared memory inside one launch.
 //
@@ -148,8 +148,10 @@ template <class G>
 using PbmmRpOf = typename std::decay<G>::type;
 
 // The pass's K stages on the groups in registers (x[j L + q] is point q of
-// group j).
-template <class G, bool INVERSE>
+// group j).  REAL (the first forward pass only): the input's imaginary
+// part is zero, and the transform's first stage (span N / 2) reads none
+// of it and writes it 0 above, br tw below (kernel 8's real row pass).
+template <class G, bool INVERSE, bool REAL = false>
 __device__ __forceinline__ void pbmm_rp_stages(
     const G& gr, float (&xr)[PBMM_RP_P], float (&xi)[PBMM_RP_P],
     const float* __restrict__ tw_re, const float* __restrict__ tw_im) {
@@ -171,7 +173,13 @@ __device__ __forceinline__ void pbmm_rp_stages(
         const int a = j * L + q, b = a + dl;
         const float x_r = xr[a], x_i = xi[a];
         const float u_r = xr[b], u_i = xi[b];
-        if (!INVERSE) {
+        if (REAL && t == 0) {
+          const float br = __fsub_rn(x_r, u_r);
+          xr[a] = __fadd_rn(x_r, u_r);
+          xi[a] = 0.0f;
+          xr[b] = __fmul_rn(br, tr);
+          xi[b] = __fmul_rn(br, ti);
+        } else if (!INVERSE) {
           const float br = __fsub_rn(x_r, u_r), bi = __fsub_rn(x_i, u_i);
           xr[a] = __fadd_rn(x_r, u_r);
           xi[a] = __fadd_rn(x_i, u_i);
@@ -249,7 +257,9 @@ __device__ __forceinline__ void pbmm_rp_middle(
 // groups from the kernel's input, the passes run, and store(gr, xr, xi)
 // takes the last pass's (ADJ_LAST: its groups adjacent, g = t J + j).
 // The callbacks read the pass's constants as PbmmRpOf<decltype(gr)>::K.
-template <int N, bool INVERSE, bool ADJ_LAST, class Load, class Store>
+// REAL: a real input, forward only (pbmm_rp_stages).
+template <int N, bool INVERSE, bool ADJ_LAST, bool REAL = false, class Load,
+          class Store>
 __device__ __forceinline__ void pbmm_row_transform(
     int t, float* sre, float* sim, const float* __restrict__ tw_re,
     const float* __restrict__ tw_im, unsigned long long keep, Load&& load,
@@ -260,7 +270,7 @@ __device__ __forceinline__ void pbmm_row_transform(
     const G gr(t, keep);
     float xr[PBMM_RP_P], xi[PBMM_RP_P];
     load(gr, xr, xi);
-    pbmm_rp_stages<G, INVERSE>(gr, xr, xi, tw_re, tw_im);
+    pbmm_rp_stages<G, INVERSE, REAL>(gr, xr, xi, tw_re, tw_im);
     pbmm_rp_write(gr, xr, xi, sre, sim);
   }
   pbmm_rp_middle<N, INVERSE, 1>(t, sre, sim, tw_re, tw_im, keep);

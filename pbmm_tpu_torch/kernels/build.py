@@ -47,11 +47,12 @@ SIGNATURES = {
     # n_kept, t, hc, h_in, w_in, w, off, x0, coeffs(host), scale, stream
     "pbmm_row_fft_u8": [_P] * 8 + [_I] * 8 + [_P, _F, _P],
     # rows_re, rows_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
-    # fy, fx, fs_tw_re, fs_tw_im, comb_re, comb_im, tw_fwd_re, tw_fwd_im,
-    # tw_inv_re, tw_inv_im, spec_re, spec_im (scratch), out_re, out_im,
-    # new_prev_re, new_prev_im, new_lpf, new_lps, phase ints(host), phase
-    # floats(host), t, planes, hc, h, wk, row0, r0, r1, stream
-    "pbmm_colspec_chunk": [_P] * 28 + [_I] * 8 + [_P],
+    # fy, fx, fs_tw_re, fs_tw_im, comb_re(host), comb_im(host), comb_re,
+    # comb_im (device, m > 32), tw_fwd_re, tw_fwd_im, tw_inv_re, tw_inv_im,
+    # spec_re, spec_im (scratch), out_re, out_im, new_prev_re, new_prev_im,
+    # new_lpf, new_lps, phase ints(host), phase floats(host), t, planes, hc,
+    # h, wk, row0, r0, r1, stream
+    "pbmm_colspec_chunk": [_P] * 30 + [_I] * 8 + [_P],
     # re, im, tw_re, tw_im, out_re, out_im, batch, hc, h, wk, row0, stream
     "pbmm_col_fft": [_P] * 6 + [_I] * 5 + [_P],
     # rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,

@@ -68,8 +68,6 @@ from pbmm_tpu_torch.spectral.radix2 import (
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
-_COL_STRIP = 4  # columns a block of the CUDA strip kernel 12 holds
-_COL_STRIP_TALL = 2  # ... above H = 2048 (PBMM_COL_S_TALL)
 _MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
 
 
@@ -457,29 +455,35 @@ windowed_row_fft_u8planar.launches = 0
 # Kernel 2: column FFT + band/phase + column IFFT over a chunk
 # ---------------------------------------------------------------------------
 
-_COLSPEC_MAX_H = 4096  # tallest column kernels 2, 6 and 12 hold on chip
+_COLSPEC_MAX_H = 8192  # tallest column of kernels 2, 6, 12 (PBMM_COL_MAXH)
 _COL_FFT_MAX_H = 8192  # longest column of kernel 5 (three passes)
+_COMBINE_MAX_PARAM = 32  # largest m whose combine is a kernel parameter
 _MAX_ORIENTATIONS = 16  # sector count of the CUDA phase pass (CS_MAXK)
 _MAX_LEVELS = 16  # radial levels of the CUDA phase pass (CS_MAXB)
 _MASK_KINDS = ("zero", "high", "low", "band")
 
 
 def col_strip(h: int) -> int:
-    """Columns a block of kernel 12 holds at column height h, and the
-    narrowest strip of kernel 6: 4 up to 2048 rows, 2 above
-    (csrc/common.cuh); their widths are multiples of it."""
-    return _COL_STRIP if h <= 2048 else _COL_STRIP_TALL
+    """Columns a block of kernel 12 holds at column height h (cur and
+    prev, 4 h S floats, at most 128 KB), and the narrowest strip of kernel
+    6: 4 up to 2048 rows, 2 up to 4096, 1 up to 8192
+    (csrc/common.cuh::pbmm_col_strip); their widths are multiples of it."""
+    return 4 if h <= 2048 else 2 if h <= 4096 else 1
 
 
 def colspec_strip(h: int) -> int:
-    """Columns a block of kernel 2 holds at column height h, the most
-    whose strip fits a block's 227 KB, up to 16: 16 to 1024 rows (pow-2)
-    or m = 14 (tight), 8 to 2048 or m = 28, 4 above
+    """Columns a block of kernel 2 holds at column height h: the widest
+    power of two up to 16 whose strip (2 h S floats) fits a block's 227
+    KB, 2 at least: 16 to 1024 rows (pow-2) or m = 14 (tight), 8 to 2048
+    or m = 28, 4 to 4096 or m = 32, 2 above, to 8192 (the tight heights
+    above m = 32 keep 2 for their 256-thread blocks)
     (csrc/colspec_chunk.cu::cs_strip); its widths are multiples of it."""
     m = h // _LANE
     if _is_pow2(h):
-        return 16 if h <= 1024 else 8 if h <= 2048 else 4
-    return 16 if m <= 14 else 8 if m <= 28 else 4
+        return 16 if h <= 1024 else 8 if h <= 2048 else 4 if h <= 4096 else 2
+    return (16 if m <= 14 else 8 if m <= 28 else 4
+            if m <= _COMBINE_MAX_PARAM else 2)
+
 
 
 def phase_col_strip(h: int, w: int) -> int:
@@ -496,7 +500,8 @@ def _check_col_height(pad_h: int, limit: int = _COLSPEC_MAX_H,
                       what: str = "the CUDA column kernels (2, 6, 12) hold "
                                   "columns") -> None:
     if pad_h > limit:
-        raise ValueError(f"{what} up to {limit} rows, got {pad_h}")
+        raise ValueError(f"{what} up to {limit} rows, got {pad_h}: padded "
+                         f"sizes above {limit} are ROADMAP fault F4")
 
 
 class _PhasePlan(NamedTuple):
@@ -808,11 +813,12 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     (planes, H, Wk)[, new_lp_fast, new_lp_slow]).
 
     CPU tensors take `colspec_chunk_ref`; CUDA tensors launch
-    `csrc/colspec_chunk.cu`: outside the IIR branch the forward spectra
-    of all frames go to a scratch tensor first and the frames' phase
-    passes and inverses then run in parallel (two launches, counted as
-    one call; planes that do not start on 16 bytes are refused); the IIR
-    branch runs the frames in order."""
+    `csrc/colspec_chunk.cu`: the forward spectra of all frames go to a
+    scratch tensor first, and the frames' phase passes and inverses then
+    run in parallel (two launches, counted as one call); with the IIR
+    taps a scan between them walks each bin's frames in order (three
+    launches).  Padded heights up to 8192, planes that start on 16
+    bytes."""
     if rows_re.device.type == "cpu":
         return colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg,
                                  pad_h, row0, lp_fast, lp_slow, out_rows,
@@ -836,28 +842,28 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
                               dev) if host is not None else ())
     planes_d = planes_d + (None,) * (2 - len(planes_d))
     fy, fx = device_arrays(_freq_tables, (pad_h, w, full_w), dev)
-    # Twiddles: the frame-serial IIR kernel reads the (log2 n, n) tables,
-    # the frame-parallel ones the compact table; n = 128 at tight heights.
+    # Twiddles: the compact table of n = 128 at tight heights, else H.
     n_tw = pad_h if _is_pow2(pad_h) else _LANE
-    table = _dif_twiddles if plan.iir else compact_twiddles
-    tw = (device_arrays(table, (n_tw, False), dev)
-          + device_arrays(table, (n_tw, True), dev))
+    tw = (device_arrays(compact_twiddles, (n_tw, False), dev)
+          + device_arrays(compact_twiddles, (n_tw, True), dev))
     if _is_pow2(pad_h):
-        fs, cw = (None, None), (None, None)
+        fs, cw, cwd = (None, None), (None, None), (None, None)
     else:
+        m = pad_h // _LANE
         fs = device_arrays(_fourstep_twiddle, (pad_h, False), dev)
         cw = tuple(c_floats(a.ravel())  # host arrays: passed by value
-                   for a in _combine_matrix(pad_h // _LANE))
-    spec = ((None, None) if plan.iir else tuple(
-        torch.empty((n, pad_h, w), dtype=torch.float32, device=dev)
-        for _ in range(2)))
+                   for a in _combine_matrix(m))
+        cwd = (device_arrays(_combine_matrix, (m,), dev)
+               if m > _COMBINE_MAX_PARAM else (None, None))
+    spec = tuple(torch.empty((n, pad_h, w), dtype=torch.float32, device=dev)
+                 for _ in range(2))
     outs = [torch.empty((n, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]
     outs += [torch.empty((planes, pad_h, w), dtype=torch.float32, device=dev)
              for _ in range(2 + len(taps))]
     ints, floats = _phase_args(plan, host is not None)
     ins = ((rows_re, rows_im, prev_re, prev_im) + (taps or (None, None))
-           + planes_d + (fy, fx) + fs + cw + tw + spec)
+           + planes_d + (fy, fx) + fs + cw + cwd + tw + spec)
     err = library().pbmm_colspec_chunk(
         *(x.data_ptr() if torch.is_tensor(x) else x
           for x in ins + tuple(outs) + (None,) * (6 - len(outs))),

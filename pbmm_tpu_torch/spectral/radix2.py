@@ -11,8 +11,8 @@ decimation in time (bit-reversed in, natural out), so the permutations
 cancel across forward -> phase -> inverse and never run as a gather.
 
 The CUDA kernels of this package read `_dif_twiddles` as their twiddle
-tables (the row engine of kernels 1, 4 and 7, and kernel 2, its
-`compact_twiddles`), so
+tables (the row engine of kernels 1, 4, 7 and 8's row pass, and kernel
+2, its `compact_twiddles`), so
 both packages use the same f64-derived f32 constants.  The
 TPU kernel's 128 x 128 group matmul and its bf16 split work around the
 TPU's matmul precision; here every stage is an f32 butterfly, and
@@ -138,6 +138,9 @@ def _fft_axis_ref(re, im, axis: int, inverse: bool, scale: float = 1.0):
     return zr, zi
 
 
+_ROW_ENGINE_MIN = 128  # shortest row of the row engine (PBMM_RP_MINN)
+
+
 @checked
 def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
     """(B, H, W) f32 re/im -> the same shape transformed along `axis` (1 =
@@ -146,7 +149,11 @@ def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
     is a real input (forward only): no imaginary plane is read.
 
     CPU tensors take `_fft_axis_ref`; CUDA tensors launch
-    `csrc/fft_axis.cu`."""
+    `csrc/fft_axis.cu`: along the rows (axis 2) the row engine of
+    kernels 1, 4 and 7 from 128 points up (its inverse takes planes that
+    start on 16 bytes), the stage-by-stage kernel at 2 to 64 points (a
+    routing by length: both compute the same bits); along the columns
+    the column engine of kernel 5."""
     if re.device.type == "cpu":
         return _fft_axis_ref(re, im, axis, inverse, scale)
     from pbmm_tpu_torch.kernels.build import check_launch, library
@@ -158,7 +165,9 @@ def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
     check_cuda("_fft_axis", tuple(re.shape), re,
                *(() if im is None else (im,)))
     dev = re.device
-    twr, twi = device_arrays(_dif_twiddles, (n, bool(inverse)), dev)
+    engine = axis == 2 and n >= _ROW_ENGINE_MIN
+    twr, twi = device_arrays(compact_twiddles if engine else _dif_twiddles,
+                             (n, bool(inverse)), dev)
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(re)
     b, h, w = re.shape

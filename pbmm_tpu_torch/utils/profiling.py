@@ -53,9 +53,10 @@ def trace(logdir: str):
         os.path.join(logdir, f"pbmm_trace_{os.getpid()}.json"))
 
 
-# A spin of the card ahead of each timed launch (~0.1 ms at the H100's
-# clocks) covers the host's enqueue of the launch.
-_SPIN_CYCLES = 200_000
+# A spin of the card ahead of each timed launch (~1 ms at the H100's
+# clocks) covers the host's enqueue of the launch: a wrapper that packs
+# its arguments on the host (kernel 6's) takes 0.1-0.3 ms.
+_SPIN_CYCLES = 2_000_000
 
 
 def device_ms(run, reps: int, before=None) -> float:

@@ -15,9 +15,12 @@
   kernel 3's on the same rows.
 - The port's plain `colspec_chunk_ref` against the JAX `colspec_chunk`
   (interpret) at the padded heights of 2160p: 4096 (square_pow2) and
-  2176 = 17 x 128 (tight), 128 lanes, 2 frames: spectra to max error /
-  max magnitude < 1e-4, as tests/test_torch_kernels.py."""
+  2176 = 17 x 128 (tight), and 4320p's tight 4352 = 34 x 128, 128 lanes,
+  2 frames: spectra to max error / max magnitude < 1e-4, as
+  tests/test_torch_kernels.py.  The JAX traces made at gm_precision
+  "highest" are dropped when the module ends."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,6 +47,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_highest_traces():
+    """Drop the JAX traces made at gm_precision "highest" when the module
+    ends, so later tests of the process trace the default anew."""
+    yield
+    set_gm_precision("")
+    jax.clear_caches()
 
 
 BLUR = {0.5: 2, 0.75: 3, 1.5: 5, 4.0: 13}  # blur_size -> radius
@@ -188,8 +200,8 @@ def test_post_fused_u8_chroma_ref_matches_kernel3_ref(layout):
                               "tight", layout)
 
 
-@pytest.mark.parametrize("pad_h,row0", [(4096, 968), (2176, 8)],
-                         ids=["square_pow2_4096", "tight_2176"])
+@pytest.mark.parametrize("pad_h,row0", [(4096, 968), (2176, 8), (4352, 16)],
+                         ids=["square_pow2_4096", "tight_2176", "tight_4352"])
 def test_colspec_chunk_ref_vs_jax_tall(pad_h, row0):
     hc = 2160
     rng = np.random.default_rng(pad_h)

@@ -5,7 +5,14 @@ on `csrc/col_pass.cuh`'s in-block passes), checked on the CPU.
   frame's phase pass against the unmodified spectrum of the frame before
   it) equals the frame-serial `colspec_chunk_ref` bit for bit on every
   branch but the IIR taps, at a pow-2 and a four-step height, one plane
-  and three.
+  and three; and the IIR branch's three launches (every forward spectrum,
+  the per-bin tap scan over the frames in order, every inverse) equal it
+  bit for bit, rows, state and taps, y_only and rgb, pow-2 and tight.
+- The strip planners at every padded height above 4096 (pow-2 8192 and
+  tight m = 33-64): each strip's shared memory fits 227 KB and each
+  width divides 4320p's kept lanes; the in-block passes on strips of 2
+  (H = 8192, m = 34 and 64) equal the stage-by-stage radix-2 bit for
+  bit.
 - The in-block plans (`pbmm_cb_k`, the passes' strides) and a numpy-f32
   model of the passes (groups {base + q st} of each (group, column) task,
   the compact twiddle words, `row_pass.cuh`'s butterflies, each product
@@ -32,6 +39,7 @@ from pbmm_tpu.config import MagnifyConfig as JCfg
 from pbmm_tpu.spectral import fused as jfused
 from pbmm_tpu.spectral.pallas_fft import set_gm_precision
 from pbmm_tpu_torch.config import MagnifyConfig as TCfg
+from pbmm_tpu_torch.config import TemporalConfig
 from pbmm_tpu_torch.spectral import fused, radix2
 
 KMAX = 4  # PBMM_RP_KMAX
@@ -300,6 +308,133 @@ def test_frame_parallel_equals_frame_serial(name, pad_h):
     for g, x in zip(got, want):
         assert g.shape == x.shape
         assert torch.equal(g, x)
+
+
+def iir_three_launches(rows_re, rows_im, prev_re, prev_im, cfg, pad_h, row0,
+                       lp_fast, lp_slow, out_rows, full_w, planes):
+    """The IIR branch as the CUDA kernel schedules it, in torch: the
+    forward spectra of all frames (launch 1), then the tap scan (for each
+    bin of each plane, the frames in order: the phase pass against the
+    previous frame's unmodified spectrum, which stays in registers, the
+    taps carried, the rotated bin written over the frame's scratch slot;
+    torch runs the bins of a plane at once, each bin's arithmetic alone),
+    then the inverse of every rotated spectrum (launch 2, no phase pass);
+    new_prev and the taps are what the scan holds at its end."""
+    n, _, w = rows_re.shape
+    r0, r1 = out_rows
+    order = torch.as_tensor(fused._col_order(pad_h))
+    spec = [fused._col_fft_ref(rows_re[f], rows_im[f], pad_h, row0, order)
+            for f in range(n)]
+    host = fused._static_phase_planes(cfg, pad_h, w, full_w)
+    host = None if host is None else tuple(map(torch.from_numpy, host))
+    fy, fx = map(torch.from_numpy, fused._freq_tables(pad_h, w, full_w))
+    rotated = [None] * n
+    state = []
+    for c in range(planes):
+        pr, pi_, lf, ls = prev_re[c], prev_im[c], lp_fast[c], lp_slow[c]
+        for f in range(c, n, planes):
+            cr, ci = spec[f].real, spec[f].imag
+            o_r, o_i, lf, ls = fused._phase_block_ref(
+                cr, ci, pr, pi_, fy, fx, cfg, lf, ls, static_planes=host)
+            rotated[f] = torch.complex(o_r, o_i)
+            pr, pi_ = cr, ci
+        state.append((pr, pi_, lf, ls))
+    outs = []
+    for f in range(n):
+        nat = torch.empty_like(rotated[f])
+        nat[order] = rotated[f]
+        outs.append(torch.fft.ifft(nat, dim=0, norm="forward")[r0:r1])
+    z = torch.stack(outs)
+    return (z.real, z.imag) + tuple(torch.stack(x) for x in zip(*state))
+
+
+_IIR = {"y_only": dict(), "rgb": dict(chroma="rgb"),
+        "standard": dict(mode="standard")}
+
+
+@pytest.mark.parametrize("pad_h", [512, 384])
+@pytest.mark.parametrize("name", sorted(_IIR))
+def test_iir_three_launches_equal_frame_serial(name, pad_h):
+    cfg = TCfg(phase_scale=10.0).tuned_for_tpu().replace(
+        temporal=TemporalConfig(mode="iir_bandpass"), **_IIR[name])
+    planes = 3 if cfg.chroma == "rgb" else 1
+    w, hc, row0, rows, t = 512, 256, 64, (64, 320), 4
+    wk = fused.hermitian_kept_width(w)
+    rng = np.random.default_rng(41)
+    args = [_spectra(rng, (t * planes, hc, wk)) for _ in range(2)]
+    args += [_spectra(rng, (planes, pad_h, wk)) for _ in range(2)]
+    taps = [0.1 * _spectra(rng, (planes, pad_h, wk)) for _ in range(2)]
+    want = fused.colspec_chunk_ref(*args, cfg, pad_h, row0, *taps,
+                                   out_rows=rows, full_w=w, planes=planes)
+    got = iir_three_launches(*args, cfg, pad_h, row0, *taps, rows, w,
+                             planes)
+    assert len(got) == len(want) == 6
+    for g, x in zip(got, want):
+        assert g.shape == x.shape
+        assert torch.equal(g, x)
+
+
+# -- the strips of the heights above 4096 (4320p) -----------------------------
+
+_SMEM = 232448  # a block's shared memory on the H100 (227 KB)
+_TALL = [8192] + [m * LANE for m in range(33, 65)]
+
+
+@pytest.mark.parametrize("h", _TALL)
+def test_tall_strips_fit_and_divide(h):
+    """Kernel 2's strip (2 h S f32), kernel 6's (the same, or a half down
+    to `col_strip`) and kernel 12's (cur and prev, 4 h S f32) fit a
+    block's shared memory at every padded height above 4096 up to 8192,
+    pow-2 and tight m = 33-64; each divides 4320p's kept lanes (8192 padded
+    lanes, 4224 kept); kernel 2's is 2 columns there (256-thread blocks at
+    m > 32), kernel 12's 1."""
+    s = fused.colspec_strip(h)
+    assert s == 2
+    assert 2 * h * s * 4 <= _SMEM  # the strip's two planes, f32
+    assert 4 * h * fused.col_strip(h) * 4 <= _SMEM and fused.col_strip(h) == 1
+    kept = fused.hermitian_kept_width(8192)
+    assert kept == 4224
+    for strip in (s, fused.col_strip(h)):
+        assert kept % strip == 0
+    if fused._is_pow2(h):
+        k6 = fused.phase_col_strip(h, kept)
+        assert k6 == s and kept % k6 == 0
+        assert fused.phase_col_strip(h, kept + 1) == 1
+    else:
+        assert h // LANE > fused._COMBINE_MAX_PARAM
+    # The next height up would be fault F4: every kernel stops at 8192.
+    assert h <= fused._COLSPEC_MAX_H == fused._COL_FFT_MAX_H == 8192
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])
+@pytest.mark.parametrize("nlog,nseq", [(13, 1), (7, 34), (7, 64)],
+                         ids=["n8192", "n128x34", "n128x64"])
+def test_in_block_passes_on_strips_of_2(nlog, nseq, inverse):
+    """The in-block passes of the heights above 4096 (H = 8192 and the
+    four-step factor at m = 34 and 64, strips of 2) equal the
+    stage-by-stage radix-2 bit for bit, and their shared-memory words stay
+    one-to-one with point q of a group at the group's word XOR a
+    constant."""
+    s = fused.colspec_strip(nseq << nlog)
+    rng = np.random.default_rng(nlog * 64 + nseq + inverse)
+    n = nseq << nlog
+    re, im = (rng.standard_normal((2, n)).astype(np.float32)
+              for _ in range(2))
+    want = stage_by_stage(re, im, nlog, inverse)
+    got = cb_passes(re, im, nlog, inverse)
+    for g, w in zip(_bits(*got), _bits(*want)):
+        np.testing.assert_array_equal(g, w)
+    p = np.arange(n)
+    words = idx(p[:, None], np.arange(s)[None, :], s).reshape(-1)
+    assert sorted(words) == list(range(n * s))
+    ls = s.bit_length() - 1
+    for k, lst in cb_plan(nlog, inverse):
+        c, base, _ = tasks(nlog, nseq, s, k, lst)
+        w0 = idx(base, c, s)
+        for q in range(1 << k):
+            np.testing.assert_array_equal(
+                w0 ^ (swz(np.array(q << lst), s) << ls),
+                idx(base + q * (1 << lst), c, s))
 
 
 # -- the whole schedule against the JAX kernel -------------------------------

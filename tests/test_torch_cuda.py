@@ -31,8 +31,19 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   on the card;
 - 2160p's heights: kernels 2, 5 and 6 at H = 4096 (with and without the
   IIR taps; 6 = 2's rows and 12 = 6 bit for bit), kernel 2 at tight
-  H = 2176 (m = 17), the refusals above 4096 (kernels 2, 6) and 8192
-  (kernel 5);
+  H = 2176 (m = 17), the refusals above 8192 (kernels 2, 5, 6: fault F4);
+- 4320p's heights: kernel 2 in every branch, the IIR taps included, at
+  H = 8192 and at tight m = 34, 48 and 63 (m = 64 is H = 8192, a power
+  of two: the radix-2 layout), against its plain version; kernels 5, 6
+  and 12 at H = 8192 (5 = 2's forward half, 6 = 2's rows, 12 = 6 bit for
+  bit, kernel 6 also with the IIR taps); two chunks equal to one at
+  m = 34 and 8192, with and without the IIR taps;
+- kernel 2's IIR branch on its three launches (forward, tap scan,
+  inverse): the zero-prev bootstrap keeps the taps exactly zero at
+  H = 384, 512, 4352 and 8192;
+- kernel 8's row pass on the row engine at every length 128 to 8192,
+  forward real, forward complex and inverse with a scale, on a row count
+  that leaves the last block part-filled;
 - the column engine of kernels 5 and 8 (`csrc/col_pass.cuh`): kernel 8
   in every kind at lengths 2 to 8192 on ragged widths, kernel 5 bit for
   bit against kernel 2's forward half at H = 512 to 4096 and against
@@ -48,7 +59,7 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   `--fast --blur-size 1.5` at 1080p;
 - kernel 1 on the row engine at 128 to 8192 lanes, kept and full, on a
   part-filled last block: against its plain version and bit for bit
-  against kernel 8's stage-by-stage row pass on the same windowed rows;
+  against kernel 8's row pass on the same windowed rows;
 - kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
   1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
@@ -376,11 +387,13 @@ def test_colspec_kernel_branches(dev, name, pad_h):
         assert _rel([g.cpu() for g in got[k:k + 2]], want[k:k + 2]) < 1e-4
 
 
-@pytest.mark.parametrize("pad_h", [512, 384])
+@pytest.mark.parametrize("pad_h", [512, 384, 8192, 4352])
 def test_iir_zero_prev_taps_stay_zero(dev, pad_h):
     """The bootstrap: a zero previous spectrum with signed zeros and zero
     taps.  atan2 of (+-0, +-0) must be 0, so the taps stay exactly zero
-    (IEEE atan2 would give +-pi at bins with cur in the left half)."""
+    (IEEE atan2 would give +-pi at bins with cur in the left half).  On
+    the IIR branch's three launches: the tap scan runs each bin's phase
+    pass, the inverse the rotated spectra."""
     cfg = _cfg().replace(temporal=TemporalConfig(mode="iir_bandpass"))
     wk = hermitian_kept_width(512)
     rng = np.random.default_rng(12)
@@ -393,7 +406,8 @@ def test_iir_zero_prev_taps_stay_zero(dev, pad_h):
     assert torch.equal(got[4], taps[0]) and torch.equal(got[5], taps[1])
     assert not torch.signbit(got[4]).any()
     # Frame 0 passes unmodified: its spectrum is the state it leaves.
-    spec = fused.col_fft_zero_padded(*rows_in, pad_h) if pad_h == 512 else None
+    pow2 = pad_h & (pad_h - 1) == 0
+    spec = fused.col_fft_zero_padded(*rows_in, pad_h) if pow2 else None
     if spec is not None:
         assert torch.equal(got[2], spec[0]) and torch.equal(got[3], spec[1])
 
@@ -491,11 +505,14 @@ def test_tight_2160p_colspec_kernel(dev, iir):
 
 def test_column_kernels_refuse_past_their_height_by_name(dev):
     z = torch.zeros((1, 64, 128), device=dev)
-    zp = torch.zeros((1, 8192, 128), device=dev)
-    with pytest.raises(ValueError, match="4096"):
-        fused.colspec_chunk(z, z, zp, zp, _cfg(), 8192, 0)
-    with pytest.raises(ValueError, match="4096"):
+    zp = torch.zeros((1, 16384, 128), device=dev)
+    with pytest.raises(ValueError, match="8192.*F4"):
+        fused.colspec_chunk(z, z, zp, zp, _cfg(), 16384, 0)
+    with pytest.raises(ValueError, match="8192.*F4"):
         fused.phase_col_ifft(zp, zp, zp, zp, _cfg())
+    with pytest.raises(ValueError, match="8192.*F4"):
+        kdecomp.kdecomp_variant(zp, zp, zp, zp, _cfg(),
+                                kdecomp.VARIANTS[-1][1], (0, 64))
     with pytest.raises(ValueError, match="8192"):
         fused.col_fft_zero_padded(z, z, 16384)
 
@@ -1245,8 +1262,8 @@ def test_row_fft_kernel_on_the_row_engine(dev, w, keep):
     """Kernel 1 (csrc/row_pass.cuh) at every row length, on a row count
     that leaves the last block part-filled (37 x 3 rows; blocks of 16 rows
     at 128 lanes): against its plain version, and bit for bit against the
-    stage-by-stage DIF on the same windowed rows (kernel 8's row pass on
-    a zero imaginary plane: pbmm_radix2's butterflies), kept tiles."""
+    DIF of kernel 8's row pass on a zero imaginary plane of the same
+    windowed rows (pbmm_radix2's butterflies), kept tiles."""
     from pbmm_tpu_torch.spectral import radix2
     from pbmm_tpu_torch.spectral.hermitian import kept_tiles
 
@@ -1351,15 +1368,15 @@ def test_colspec_pow2_identities(dev, h):
 
 
 @pytest.mark.parametrize("planes", [1, 3])
-@pytest.mark.parametrize("h", [1152, 2048, 2176, 4096])
+@pytest.mark.parametrize("h", [1152, 2048, 2176, 4096, 4352, 8192])
 def test_colspec_two_chunks_equal_one(dev, h, planes):
     """Two chunks of 8 frames, the state threaded, equal one chunk of 16
     bit for bit (rows and state), at tight and pow-2 heights."""
-    cfg = _cfg().replace(pad_mode="tight" if h in (1152, 2176)
-                         else "square_pow2")
+    tight = h & (h - 1) != 0
+    cfg = _cfg().replace(pad_mode="tight" if tight else "square_pow2")
     fw = 256
     wk = hermitian_kept_width(fw)
-    hc, row0 = (h - 64, 32) if h in (1152, 2176) else (h // 2, h // 4)
+    hc, row0 = (h - 64, 32) if tight else (h // 2, h // 4)
     rng = np.random.default_rng(h + planes)
     rows_in = [_spectra(rng, (16 * planes, hc, wk), dev) for _ in range(2)]
     prev = [_spectra(rng, (planes, h, wk), dev) for _ in range(2)]
@@ -1461,3 +1478,151 @@ def test_post_kernel_quirks_equal_row_ifft_and_post_fused(dev, layout):
                                  "tight", layout)
     got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# -- 4320p: padded heights above 4096 (F3), kernel 2's IIR schedule, kernel
+# 8's row pass on the row engine ---------------------------------------------
+
+_TALL_BRANCHES = {
+    **_K2, "iir": dict(temporal=TemporalConfig(mode="iir_bandpass")),
+    "standard_iir": dict(mode="standard",
+                         temporal=TemporalConfig(mode="iir_bandpass"))}
+
+
+def _taps_rel(got, want, mag):
+    """An IIR tap's error weighted by the magnitude of the bin it rotates
+    (chip_smoke.py's measure: at bins at the FFTs' rounding floor the
+    phase delta is noise in both versions, and there the taps rotate
+    nothing)."""
+    return (float(((got - want).abs() * mag).max())
+            / float((want.abs() * mag).max()))
+
+
+@pytest.mark.parametrize("h", [4352, 6144, 8064, 8192])
+@pytest.mark.parametrize("name", sorted(_TALL_BRANCHES))
+def test_colspec_tall_heights(dev, name, h):
+    """Kernel 2 at 4320p's heights, every branch, against its plain
+    version: H = 8192 (radix-2, strips of 2), tight m = 34, 48 and 63
+    (four-step, the combine matrix in device memory, strips of 2,
+    256-thread blocks), one plane and three, on rows that turn smoothly
+    from frame to frame (clear of atan2's branch cut); with the IIR taps
+    on its three launches, the taps weighted by magnitude."""
+    cfg = _cfg().replace(pad_mode="square_pow2" if h == 8192 else "tight",
+                         **_TALL_BRANCHES[name])
+    iir = cfg.temporal.mode == "iir_bandpass"
+    fw = 512
+    wk = hermitian_kept_width(fw)
+    hc, row0 = (4320, 1936) if h == 8192 else (h - 32, 16)
+    rows = (h // 8, h - h // 8)
+    rng = np.random.default_rng(h + len(name))
+    order = torch.as_tensor(fused._col_order(h), device=dev)
+    for planes, t in ((1, 3), (3, 2)):
+        rr, ri = _smooth_rows(rng, (t + 1) * planes, hc, wk, dev)
+        prev = [fused._col_fft_ref(rr[c], ri[c], h, row0, order)
+                for c in range(planes)]
+        taps = ([0.1 * _spectra(rng, (planes, h, wk), dev) for _ in range(2)]
+                if iir else [])
+        args = (rr[planes:].contiguous(), ri[planes:].contiguous(),
+                torch.stack([p.real for p in prev]).contiguous(),
+                torch.stack([p.imag for p in prev]).contiguous(), cfg, h,
+                row0, *taps)
+        kw = dict(out_rows=rows, full_w=fw, planes=planes)
+        n = fused.colspec_chunk.launches
+        got = fused.colspec_chunk(*args, **kw)
+        assert fused.colspec_chunk.launches == n + 1
+        want = fused.colspec_chunk_ref(*args, **kw)
+        assert len(got) == len(want) == 4 + len(taps)
+        for k in range(0, 4, 2):
+            assert _rel(got[k:k + 2], want[k:k + 2]) < 1e-4, (planes, t, k)
+        mag = torch.complex(want[2], want[3]).abs()
+        for g, w in zip(got[4:], want[4:]):
+            assert _taps_rel(g, w, mag) < 1e-4
+
+
+@pytest.mark.parametrize("iir", [False, True], ids=["two_frame", "iir"])
+def test_square_pow2_8k_identities(dev, iir):
+    """4320p at square_pow2 pads to H = 8192: kernel 5 (three passes) =
+    kernel 2's forward half, kernel 6 on kernel 5's spectra = kernel 2's
+    rows (two-frame), kernel 12's full variant = kernel 6, bit for bit;
+    kernel 6 with the IIR taps against its plain version."""
+    cfg = _tall_cfg("square_pow2", iir)
+    h, fw, hc, row0, rows = 8192, 512, 4320, 1936, (1932, 6260)
+    w = hermitian_kept_width(fw)
+    rng = np.random.default_rng(80)
+    rows_in = [_spectra(rng, (2, hc, w), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, w), dev) for _ in range(2)]
+    kw = dict(out_rows=rows, full_w=fw)
+    k5 = fused.col_fft_zero_padded(*rows_in, h, row0)
+    want5 = fused.col_fft_zero_padded_ref(*[x.cpu() for x in rows_in], h,
+                                          row0)
+    assert _rel([g.cpu() for g in k5], want5) < 1e-4
+    prv = [torch.cat([p, c[:-1]]) for p, c in zip(prev, k5)]
+    tap6 = ([0.1 * _spectra(rng, (2, h, w), dev) for _ in range(2)]
+            if iir else [])
+    k6 = fused.phase_col_ifft(*k5, *prv, cfg, **kw,
+                              **dict(zip(("lp_fast", "lp_slow"), tap6)))
+    want6 = fused.phase_col_ifft_ref(
+        *[x.cpu() for x in (*k5, *prv)], cfg, **kw,
+        **dict(zip(("lp_fast", "lp_slow"), [x.cpu() for x in tap6])))
+    assert _rel([g.cpu() for g in k6[:2]], want6[:2]) < 1e-4
+    if iir:
+        return
+    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, h, row0, **kw)
+    assert torch.equal(k2[2][0], k5[0][-1]) and torch.equal(k2[3][0],
+                                                            k5[1][-1])
+    assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg, kdecomp.VARIANTS[-1][1],
+                                  rows, full_w=fw)
+    assert all(torch.equal(a, b) for a, b in zip(k12, k6))
+
+
+@pytest.mark.parametrize("h", [1152, 2048, 4352, 8192])
+def test_colspec_iir_two_chunks_equal_one(dev, h):
+    """The IIR branch's three launches: two chunks of 4 frames, the state
+    and taps threaded, equal one chunk of 8 bit for bit (rows, state,
+    taps): the tap scan walks a chunk's frames in the order the state
+    threads them."""
+    tight = h & (h - 1) != 0
+    cfg = _cfg().replace(pad_mode="tight" if tight else "square_pow2",
+                         temporal=TemporalConfig(mode="iir_bandpass"))
+    fw, planes = 256, 3
+    wk = hermitian_kept_width(fw)
+    hc, row0 = (h - 64, 32) if tight else (h // 2, h // 4)
+    rng = np.random.default_rng(h + 7)
+    rows_in = [_spectra(rng, (8 * planes, hc, wk), dev) for _ in range(2)]
+    state = [_spectra(rng, (planes, h, wk), dev) for _ in range(2)]
+    state += [0.1 * _spectra(rng, (planes, h, wk), dev) for _ in range(2)]
+    kw = dict(out_rows=(16, h - 16), full_w=fw, planes=planes)
+    one = fused.colspec_chunk(*rows_in, *state[:2], cfg, h, row0, *state[2:],
+                              **kw)
+    half = 4 * planes
+    a = fused.colspec_chunk(*(r[:half] for r in rows_in), *state[:2], cfg, h,
+                            row0, *state[2:], **kw)
+    b = fused.colspec_chunk(*(r[half:].contiguous() for r in rows_in),
+                            *a[2:4], cfg, h, row0, *a[4:], **kw)
+    assert all(torch.equal(torch.cat([x, y]), z)
+               for x, y, z in zip(a[:2], b[:2], one[:2]))
+    assert all(torch.equal(x, z) for x, z in zip(b[2:], one[2:]))
+
+
+@pytest.mark.parametrize("kind", ["forward_real", "forward_complex",
+                                  "inverse_scaled"])
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096, 8192])
+def test_fft_axis_row_engine(dev, n, kind):
+    """Kernel 8's row pass on the row engine (row_pass.cuh) at every
+    length it takes, against its plain version, on 7 x 5 rows: rows under
+    2048 points pack several to a block, and 35 leaves the last block
+    part-filled."""
+    from pbmm_tpu_torch.spectral import radix2
+
+    rng = np.random.default_rng(n + len(kind))
+    re, im = (_rand(rng, (7, 5, n), dev) for _ in range(2))
+    real, inverse = kind == "forward_real", kind == "inverse_scaled"
+    scale = 1.0 / (5 * n) if inverse else 1.0
+    args = (re, None if real else im, 2, inverse, scale)
+    count = radix2._fft_axis.launches
+    got = radix2._fft_axis(*args)
+    assert radix2._fft_axis.launches == count + 1
+    want = radix2._fft_axis_ref(*[x.cpu() if torch.is_tensor(x) else x
+                                  for x in args])
+    assert _rel([g.cpu() for g in got], want) < 1e-4

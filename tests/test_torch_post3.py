@@ -233,7 +233,7 @@ def test_kernel3_smem_within_the_block_limit():
 @pytest.mark.parametrize("h,w,strip", [
     (2, 1152, 16), (512, 384, 16), (1024, 640, 16), (1024, 1160, 8),
     (1024, 12, 4), (2048, 1152, 8), (2048, 1156, 4), (4096, 2176, 4),
-    (4096, 2050, 2),
+    (4096, 2050, 2), (8192, 4224, 2), (8192, 4225, 1),
 ])
 def test_phase_col_strip_is_kernel_2s(h, w, strip):
     """Kernel 6 launches as kernel 2's second launch does (512 threads,

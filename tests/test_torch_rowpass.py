@@ -1,4 +1,5 @@
-"""The row engine of kernels 1, 4 and 7 (`pbmm_tpu_torch/csrc/row_pass.cuh`),
+"""The row engine of kernels 1, 4, 7 and 8's row pass
+(`pbmm_tpu_torch/csrc/row_pass.cuh`),
 checked on the CPU: its twiddle words against the JAX package, and a
 numpy-f32 model of its register-pass schedule against the stage-by-stage
 radix-2 that kernels 1, 3 and 8 run (`common.cuh::pbmm_radix2`).
@@ -14,8 +15,14 @@ kept lanes.  The shared-memory layout (`pbmm_rp_pad`) is checked to give
 every pass addresses a thread reaches by constant offsets from one base
 a group, and to put a warp's 32 accesses on at most two words a bank.
 Last, the model with kernel 7's rebuild and |z| and with kernel 4's pre
-stage is held against the JAX kernels in interpret mode."""
+stage is held against the JAX kernels in interpret mode, and the model of
+kernel 8's row pass (forward real, with the real input's first stage;
+forward complex; inverse with its scale) bit for bit against the
+stage-by-stage kernel it replaces and against the JAX `_fft_axis` in
+interpret mode at gm_precision "highest" (whose traces the module drops
+when it ends)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +34,15 @@ from pbmm_tpu_torch.core.color import RGB_TO_YIQ
 from pbmm_tpu_torch.core.window import geometry_for
 from pbmm_tpu_torch.spectral import fused, radix2
 from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width, kept_tiles
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_highest_traces():
+    """Drop the JAX traces made at gm_precision "highest" when the module
+    ends, so later tests of the process trace the default anew."""
+    yield
+    jfft.set_gm_precision("")
+    jax.clear_caches()
+
 
 KMAX = 4  # PBMM_RP_KMAX
 P = 1 << KMAX  # PBMM_RP_P: points a thread holds
@@ -79,9 +95,17 @@ def _butterfly(xr, xi, ur, ui, tr, ti, inverse):
     return xr + zr, xi + zi, xr - zr, xi - zi
 
 
-def stage_by_stage(re, im, inverse):
+def _real_butterfly(xr, ur, tr, ti):
+    """The real input's first stage (`fft_axis.cu::fa_real_first_stage`):
+    no imaginary part read, 0 above, br tw below."""
+    br = xr - ur
+    return xr + ur, np.zeros_like(xr), br * tr, br * ti
+
+
+def stage_by_stage(re, im, inverse, real=False):
     """`pbmm_radix2` on (rows, n) f32: every stage over the whole row,
-    twiddle of the bottom element i1 from row s of `_dif_twiddles`."""
+    twiddle of the bottom element i1 from row s of `_dif_twiddles`;
+    `real`: the first stage of kernel 8's real rows."""
     n = re.shape[-1]
     tw_re, tw_im = radix2._dif_twiddles(n, inverse)
     re, im = re.copy(), im.copy()
@@ -91,17 +115,23 @@ def stage_by_stage(re, im, inverse):
         j = k & (d - 1)
         i0 = ((k - j) << 1) + j
         i1 = i0 + d
+        if real and s == 0:
+            re[:, i0], im[:, i0], re[:, i1], im[:, i1] = _real_butterfly(
+                re[:, i0], re[:, i1], tw_re[s, i1], tw_im[s, i1])
+            continue
         re[:, i0], im[:, i0], re[:, i1], im[:, i1] = _butterfly(
             re[:, i0], im[:, i0], re[:, i1], im[:, i1], tw_re[s, i1],
             tw_im[s, i1], inverse)
     return re, im
 
 
-def register_passes(re, im, inverse, keep=None):
+def register_passes(re, im, inverse, keep=None, real=False):
     """The engine's schedule on (rows, n) f32: per pass, each group's 2^K
     points gathered, the pass's stages run on them, scattered back.
     `keep` (tiles, forward only): groups of passes whose spans are all
-    under 128 run only in kept tiles, as `PbmmRpGroups::on`."""
+    under 128 run only in kept tiles, as `PbmmRpGroups::on`.  `real`
+    (forward only): the first stage of the first pass is the real input's
+    (`pbmm_rp_stages<..., REAL>`)."""
     n = re.shape[-1]
     cre, cim = radix2.compact_twiddles(n, inverse)
     re, im = re.copy(), im.copy()
@@ -122,6 +152,11 @@ def register_passes(re, im, inverse, keep=None):
                 if q & dl:
                     continue
                 w = (st << tt) - 1 + lo + (q & (dl - 1)) * st
+                if real and i == 0 and t == 0:
+                    (xr[..., q], xi[..., q], xr[..., q + dl],
+                     xi[..., q + dl]) = _real_butterfly(
+                        xr[..., q], xr[..., q + dl], cre[w], cim[w])
+                    continue
                 (xr[..., q], xi[..., q], xr[..., q + dl],
                  xi[..., q + dl]) = _butterfly(
                     xr[..., q], xi[..., q], xr[..., q + dl], xi[..., q + dl],
@@ -313,4 +348,41 @@ def test_engine_model_of_kernel1_matches_jax(w, keep_half):
     want = jfused.windowed_row_fft(jnp.asarray(y), pad_h=pad_h, row0=row0,
                                    keep_half=keep_half, interpret=True)
     want = (np.asarray(want[0]) + 1j * np.asarray(want[1])).reshape(got.shape)
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind", ["forward_real", "forward_complex",
+                                  "inverse_scaled"])
+@pytest.mark.parametrize("n", [256, 512])
+def test_engine_model_of_kernel8_matches_jax(n, kind):
+    # Kernel 8's row pass as the row engine computes it (the register
+    # passes; a real input's first stage reads no imaginary plane; the
+    # inverse's scale one rounded product at the end): bit for bit the
+    # stage-by-stage kernel it replaces (fft_rows_kernel, which keeps the
+    # rows of 2 to 64 points), and against the JAX `_fft_axis` along
+    # axis 2 in interpret mode.
+    real, inverse = kind == "forward_real", kind == "inverse_scaled"
+    b, h = 2, 8
+    rng = np.random.default_rng(n + len(kind))
+    re, im = (rng.standard_normal((b, h, n)).astype(np.float32)
+              for _ in range(2))
+    scale = 1.0 / (h * n) if inverse else 1.0
+    x_im = np.zeros_like(re) if real else im
+    zr, zi = register_passes(re.reshape(-1, n), x_im.reshape(-1, n), inverse,
+                             real=real)
+    sr, si = stage_by_stage(re.reshape(-1, n), x_im.reshape(-1, n), inverse,
+                            real=real)
+    if scale != 1.0:
+        zr, zi, sr, si = (a * np.float32(scale) for a in (zr, zi, sr, si))
+    for g, w in zip(_bits(zr, zi), _bits(sr, si)):
+        np.testing.assert_array_equal(g, w)
+    jfft.set_gm_precision("highest")
+    try:
+        want = jfft._fft_axis(jnp.asarray(re),
+                              None if real else jnp.asarray(im), 2, inverse,
+                              scale, True)
+    finally:
+        jfft.set_gm_precision("")
+    got = (zr + 1j * zi.astype(np.float64)).reshape(b, h, n)
+    want = np.asarray(want[0]) + 1j * np.asarray(want[1])
     assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
