@@ -170,6 +170,7 @@ H540, W540 = 540, 960  # a frame size outside post_pallas_ok
 H720, W720 = 720, 1280  # rect_pow2 pads it to 1024 x 2048
 H4K, W4K, T4K = 2160, 3840, 8  # square_pow2: 4096 x 4096; tight: 2176 rows
 H8K, W8K, T8K = 4320, 7680, 2  # square_pow2: 8192 x 8192; tight: 4352 rows
+H16, W16, T16 = 8640, 15360, 2  # 16K: 16384 x 16384; tight: 8704 rows
 M_TOP = 63  # the four-step's largest m (m = 64 is 8192 rows: radix-2)
 SPEC_TOL = 1e-4  # max error / max magnitude, spectra
 IMG_TOL = 1e-4  # max abs error, images in [0, 1]
@@ -267,6 +268,9 @@ def main():
                         help="add phase 5, the per-kernel device-time "
                              "breakdown of a steady-state chunk")
     args = parser.parse_args()
+    # Path (m) holds 16K planes beside the earlier paths' tensors: let the
+    # allocator grow segments rather than leave freed blocks stranded.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -314,6 +318,28 @@ def main():
     log(f"[0] device: {kind}; nvidia-smi name, power limit: {card}")
     log(f"[0] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+
+    # Path (m)'s fp64 oracles (16K: 16384 x 16384 FFTs, ~50 GB of host
+    # memory at square_pow2, ~370 s) start first, one after the other on a
+    # thread of their own, and run beside the build and phases 2-4; their
+    # results are read after phase 4.  Square_pow2's serves the scan engine
+    # and (g) too (the same function); then tight's.
+    base16 = np.random.default_rng(5).random((H16, W16, 3), np.float32)
+    frames16 = np.stack([np.roll(base16, shift=i, axis=1) * (0.95 + 0.01 * i)
+                         for i in range(T16)]).astype(np.float32)
+    del base16
+    big_pool = ThreadPoolExecutor(1)
+
+    def oracle16(c):
+        def run():
+            t1 = time.perf_counter()
+            return (oracle.oracle_magnify_video(frames16, c),
+                    time.perf_counter() - t1)
+        return big_pool.submit(run)
+
+    cfg_tuned = pbmm_tpu_torch.MagnifyConfig().tuned_for_tpu()
+    jobs16 = {"m": oracle16(cfg_tuned),
+              "mt": oracle16(cfg_tuned.replace(pad_mode="tight"))}
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -465,7 +491,7 @@ def main():
     # 2160p: square_pow2 (H = 4096, kernel 5's two passes, kernels 2 and 6
     # on strips of 4 and 2) and tight (H = 2176, four-step m = 17), a chunk
     # of 8.
-    cfg_j = pbmm_tpu_torch.MagnifyConfig().tuned_for_tpu()
+    cfg_j = cfg_tuned
     g4k = geometry_for(H4K, W4K, "square_pow2")
     g4t = geometry_for(H4K, W4K, "tight")
     wk4 = hermitian_kept_width(g4k.pad_w)
@@ -515,6 +541,47 @@ def main():
     # Kernel 8's row pass at 8192 points on as many elements as at 2048.
     k8w_re, k8w_im = (dev_t(rng.standard_normal((1, 512, 8192)))
                       for _ in range(2))
+    # 16K (15360x8640), path (m)'s shapes: square_pow2 pads to 16384 x
+    # 16384 (the bracket passes: kernels 1, 4, 7 and 8's rows of 16384
+    # lanes, kernels 2, 5, 6, 12 and 8's columns of 16384 rows), tight to
+    # 8704 rows (m = 68: kernel 2's combine pass), chunks of 2; the tail
+    # takes kernels 7 + 10 (11 with rgb) on 15360-column crops.
+    g16 = geometry_for(H16, W16, "square_pow2")
+    g16t = geometry_for(H16, W16, "tight")
+    wk16 = hermitian_kept_width(g16.pad_w)
+    r0_16, r1_16 = fused.aligned_row_window(g16.y0, g16.y0 + H16, g16.pad_h)
+    r0_16t, r1_16t = fused.aligned_row_window(g16t.y0, g16t.y0 + H16,
+                                              g16t.pad_h)
+    rows_16 = blur_row_window(g16, cfg_j)
+    rows_16t = blur_row_window(g16t, cfg)
+    hr16 = rows_16[1] - rows_16[0]
+    def dev_n(shape, scale=1.0):  # f32 normals, made in f32 on the host
+        return dev_t(scale * rng.standard_normal(shape, dtype=np.float32))
+
+    k16_re, k16_im = (dev_n((T16, r1_16 - r0_16, wk16)) for _ in range(2))
+    k16_prev = [dev_n((1, g16.pad_h, wk16)) for _ in range(2)]
+    k16_next = [dev_n((1, g16.pad_h, wk16)) for _ in range(2)]
+    t16_re, t16_im = (dev_n((T16, r1_16t - r0_16t, wk16)) for _ in range(2))
+    t16_prev = [dev_n((1, g16t.pad_h, wk16)) for _ in range(2)]
+    k16_kw = dict(out_rows=rows_16, full_w=g16.pad_w)
+    y16 = dev_t(rng.random((T16, r1_16 - r0_16, g16.pad_w), np.float32))
+    s16 = 0.3 * g16.pad_h * np.sqrt(g16.pad_w)
+    rre16, rim16 = (dev_n((T16, hr16, wk16), s16) for _ in range(2))
+    u8_16 = dev_u8((T16, 3, H16, W16))
+    u8_args16 = (u8_16, luma, g16.pad_h, g16.pad_w, g16.y0, g16.x0, r0_16,
+                 True)
+    win16 = hann2d_region(g16, device=dev)
+    rec16_1 = dev_t(rng.random((T16, hr16, g16.pad_w), np.float32))
+    iq16 = [dev_t(rng.uniform(-0.5, 0.5, (T16, H16, W16)).astype(np.float32))
+            for _ in range(2)]
+    k8x_re, k8x_im = (dev_n((1, g16.pad_h, g16.pad_w)) for _ in range(2))
+    fyb16, fxb16 = freq_axes(g16.pad_h, g16.pad_w, "bitrev2d", dev)
+    axes_b16 = (fyb16[:, 0].contiguous(), fxb16[0].contiguous())
+    # Kernel 9 at (m) (g)'s call: the whole spectra of path (m)'s frames 1
+    # and 0 (random spectra at this size: the card-only
+    # test_amplify_procedural_16k_random_spectra).
+    frames16_d = torch.from_numpy(frames16).to(dev)
+    k9x_cur, k9x_prev = (spectra(frames16_d[i], cfg_g) for i in (1, 0))
 
     def both(fn, *a, **k):
         """(kernel call, plain-version call) of one wrapper."""
@@ -725,6 +792,46 @@ def main():
             radix2._fft_axis, k8w_re, None, 2, False),
         "_fft_axis[forward complex, axis 2, 8192]": both(
             radix2._fft_axis, k8w_re, k8w_im, 2, False),
+        # 16K, path (m)'s calls: every kernel past 8192 points (the bracket
+        # passes around the block engines; kernel 2's combine pass at m =
+        # 68), kernels 10 on a 15360-column crop and 9 on (m) (g)'s full
+        # 16384 x 16384 spectra.
+        "windowed_row_fft[16384 lanes, 16K square_pow2]": both(
+            fused.windowed_row_fft, y16, g16.pad_h, r0_16, True),
+        "windowed_row_fft_u8planar[16384 lanes, 16K]": both(
+            fused.windowed_row_fft_u8planar, *u8_args16),
+        "colspec_chunk[pow-2, H 16384, 16K square_pow2]": both(
+            fused.colspec_chunk, k16_re, k16_im, *k16_prev, cfg_j,
+            g16.pad_h, r0_16, **k16_kw),
+        "colspec_chunk[tight m 68, 16K]": both(
+            fused.colspec_chunk, t16_re, t16_im, *t16_prev, cfg, g16t.pad_h,
+            r0_16t, out_rows=rows_16t, full_w=g16t.pad_w),
+        "col_fft_zero_padded[H 16384, 16K]": both(
+            fused.col_fft_zero_padded, k16_re[:1], k16_im[:1], g16.pad_h,
+            r0_16),
+        "phase_col_ifft[H 16384, 16K]": both(
+            fused.phase_col_ifft, *k16_next, *k16_prev, cfg_j, **k16_kw),
+        "kdecomp_variant[phase + gm + rolls, H 16384]": both(
+            kdecomp.kdecomp_variant, *k16_next, *k16_prev, cfg_j,
+            kdecomp.VARIANTS[-1][1], rows_16, full_w=g16.pad_w),
+        "row_ifft_magnitude[16384 lanes, 16K]": both(
+            fused.row_ifft_magnitude, rre16, rim16, pad_h=g16.pad_h,
+            full_w=g16.pad_w),
+        "post_fused[16K, crop 15360]": both(
+            post_fused.post_fused, rec16_1, *iq16, win16, cfg_j, rows_16[0],
+            H16, W16, "square_pow2"),
+        "_fft_axis[inverse, axis 2, scale, 16384]": both(
+            radix2._fft_axis, k8x_re, k8x_im, 2, True,
+            1.0 / (g16.pad_h * g16.pad_w)),
+        "_fft_axis[forward real, axis 2, 16384]": both(
+            radix2._fft_axis, k8x_re, None, 2, False),
+        "_fft_axis[inverse, axis 1, 16384]": both(
+            radix2._fft_axis, k8x_re, k8x_im, 1, True, 1.0),
+        "_fft_axis[forward complex, axis 1, 16384]": both(
+            radix2._fft_axis, k8x_re, k8x_im, 1, False),
+        "amplify_procedural[16K (g), (1, 16384, 16384)]": both(
+            fused_kernels.amplify_procedural, *k9x_cur, *k9x_prev,
+            *axes_b16, *k9_args(cfg_g)),
         # The measurement path's kernels: kdecomp's other piece sets, the
         # copy patterns at both sizes.
         **{f"kdecomp_variant[{name}]": both(
@@ -767,8 +874,9 @@ def main():
         "post_fused[blur 4.5, radius 15, u8 chroma, planar_u8]": (
             10, cfg_b45, True, "planar_u8"),
     }
-    assert set(post_variants) == {k for k in variants if k.startswith(
-        ("rowifft_post_fused", "post_fused"))}
+    assert set(post_variants) | {"post_fused[16K, crop 15360]"} == {
+        k for k in variants if k.startswith(("rowifft_post_fused",
+                                             "post_fused"))}
     # What each kernel's call above must move and compute, and the one
     # torch call that computes the same transform (FFT kernels only):
     # name -> (bytes, f32 operations, library call or None).  Bytes: each
@@ -898,6 +1006,52 @@ def main():
             f4 * 3 * n8k, fft_ops(8192, 512)),
         "_fft_axis[forward complex, axis 2, 8192]": (
             f4 * 4 * n8k, fft_ops(8192, 512)),
+        # 16K (m): the same counts at 16384 points.
+        "windowed_row_fft[16384 lanes, 16K square_pow2]": (
+            f4 * (y16.numel() + 2 * y16.shape[0] * y16.shape[1] * wk16),
+            fft_ops(g16.pad_w, y16.shape[0] * y16.shape[1])),
+        "windowed_row_fft_u8planar[16384 lanes, 16K]": (
+            u8_16.numel() + f4 * 2 * T16 * (r1_16 - r0_16) * wk16,
+            fft_ops(g16.pad_w, T16 * (r1_16 - r0_16))),
+        "colspec_chunk[pow-2, H 16384, 16K square_pow2]": (
+            colspec_bytes(k16_re, k16_prev[0], T16, hr16, wk16),
+            fft_ops(g16.pad_h, 2 * T16 * wk16) + 40 * T16 * g16.pad_h * wk16),
+        "colspec_chunk[tight m 68, 16K]": (
+            colspec_bytes(t16_re, t16_prev[0], T16,
+                          rows_16t[1] - rows_16t[0], wk16),
+            # the combine's m complex MACs a point each way, the 128-point
+            # factor and the phase pass
+            8 * 68 * 2 * T16 * g16t.pad_h * wk16
+            + fft_ops(128, 2 * T16 * 68 * wk16)
+            + 40 * T16 * g16t.pad_h * wk16),
+        "col_fft_zero_padded[H 16384, 16K]": (
+            2 * f4 * ((r1_16 - r0_16) * wk16 + g16.pad_h * wk16),
+            fft_ops(g16.pad_h, wk16)),
+        "phase_col_ifft[H 16384, 16K]": (
+            f4 * (6 * k16_next[0].numel() + 2 * hr16 * wk16),
+            fft_ops(g16.pad_h, wk16) + 40 * g16.pad_h * wk16),
+        "kdecomp_variant[phase + gm + rolls, H 16384]": (
+            f4 * (4 * k16_next[0].numel() + 2 * hr16 * wk16),
+            fft_ops(g16.pad_h, wk16) + 40 * g16.pad_h * wk16),
+        "row_ifft_magnitude[16384 lanes, 16K]": (
+            f4 * (2 * rre16.numel() + T16 * hr16 * g16.pad_w),
+            fft_ops(g16.pad_w, T16 * hr16)),
+        "_fft_axis[inverse, axis 2, scale, 16384]": (
+            f4 * 4 * k8x_re.numel(), fft_ops(g16.pad_w, g16.pad_h)),
+        "_fft_axis[forward real, axis 2, 16384]": (
+            f4 * 3 * k8x_re.numel(), fft_ops(g16.pad_w, g16.pad_h)),
+        "_fft_axis[inverse, axis 1, 16384]": (
+            f4 * 4 * k8x_re.numel(), fft_ops(g16.pad_h, g16.pad_w)),
+        "_fft_axis[forward complex, axis 1, 16384]": (
+            f4 * 4 * k8x_re.numel(), fft_ops(g16.pad_h, g16.pad_w)),
+        # 4 planes in, 2 out; ~15 f32 operations a level and bin and ~40
+        # for the gate and the rotation
+        "amplify_procedural[16K (g), (1, 16384, 16384)]": (
+            f4 * 6 * k8x_re.numel(), (15 * 5 + 40) * k8x_re.numel()),
+        "post_fused[16K, crop 15360]": (
+            f4 * (T16 * (H16 + 4) * (W16 + 4) + 2 * T16 * H16 * W16
+                  + win16.numel() + 3 * T16 * H16 * W16),
+            (2 * (4 * 2 + 1) + 20) * T16 * H16 * W16),
     }
     assert set(variant_work) <= set(variants)
     irfft_in = torch.complex(rre[..., :geom.pad_w // 2 + 1].contiguous(),
@@ -976,6 +1130,47 @@ def main():
     if not same:
         raise AssertionError("kernel 4 differs from the pre stage + kernel 1")
     del k4, pre
+    # The same at 16K (15360 pixels a row, 16384 lanes: the bracket's byte
+    # loads and the row engine on 8192-lane blocks).
+    k4 = fused.windowed_row_fft_u8planar(*u8_args16)
+    pre = preprocess_cl(u8_16, cfg_j, want_iq=True)
+    same = torch.equal(k4[0], pre[0]) and torch.equal(k4[1], pre[1])
+    log(f"[2] windowed_row_fft_u8planar == pre stage + windowed_row_fft on "
+        f"the same {tuple(u8_16.shape)} u8 frames (16K, 16384 lanes): {same}")
+    if not same:
+        raise AssertionError("kernel 4 differs from the pre stage + kernel 1 "
+                             "at 16K")
+    del k4, pre
+    # Kernel 1 and kernel 7 past the row engine's 8192 lanes (the bracket
+    # around it on 8192-lane blocks) = kernel 8's row pass (the same
+    # split) on the same rows, bit for bit: 512 rows of 16K's 16384 lanes.
+    g1 = y16[:, :256].contiguous()
+    got = fused.windowed_row_fft(g1, g16.pad_h, r0_16, True)
+    wy1, wx1 = (torch.from_numpy(a).to(dev)
+                for a in fused._hann_pair(g16.pad_h, g16.pad_w))
+    yw = (g1 * wy1[r0_16:r0_16 + 256, None]) * wx1
+    zr, zi = radix2._fft_axis(yw, torch.zeros_like(yw), 2, False)
+    lanes = torch.as_tensor(fused.kept_lane_indices(g16.pad_w), device=dev)
+    same = torch.equal(got[0], zr[..., lanes]) and torch.equal(
+        got[1], zi[..., lanes])
+    log(f"[2] windowed_row_fft == _fft_axis's row pass on the windowed rows, "
+        f"kept tiles, {tuple(g1.shape)} (16K, 16384 lanes): {same}")
+    if not same:
+        raise AssertionError("kernel 1 differs from kernel 8's row pass at "
+                             "16384 lanes")
+    a16, b16 = (x[:, :256].contiguous() for x in (rre16, rim16))
+    got = fused.row_ifft_magnitude(a16, b16, pad_h=g16.pad_h,
+                                   full_w=g16.pad_w)
+    zr, zi = radix2._fft_axis(*fused.rebuild_lanes(a16, b16, g16.pad_w), 2,
+                              True, 1.0)
+    want = torch.sqrt(zr * zr + zi * zi) * (1.0 / (g16.pad_h * g16.pad_w))
+    same = torch.equal(got, want)
+    log(f"[2] row_ifft_magnitude == _fft_axis's row pass + torch |z| on "
+        f"{tuple(a16.shape)} -> {tuple(got.shape)} (16K, 16384 lanes): {same}")
+    if not same:
+        raise AssertionError("kernel 7 differs from kernel 8's row pass + "
+                             "torch at 16384 lanes")
+    del g1, got, yw, zr, zi, want, a16, b16
     # Kernel 1 on the row engine (csrc/row_pass.cuh) = the DIF of kernel
     # 8's row pass (the same engine, its own load and store) on a zero
     # imaginary plane (pbmm_radix2's butterflies, the same twiddle words)
@@ -1049,7 +1244,9 @@ def main():
          g4k, r0_4k, k4_kw),
         ("4320p square_pow2", [dev_t(rng6.standard_normal(
             (T8K, r1_8k - r0_8k, wk8))) for _ in range(2)], k8k_prev, cfg_j,
-         g8k, r0_8k, k8_kw))
+         g8k, r0_8k, k8_kw),
+        ("16K square_pow2", (k16_re, k16_im), k16_prev, cfg_j, g16, r0_16,
+         k16_kw))
     for what, (cre, cim), prv0, c, g, c_r0, kw in k6_cases:
         nf = cre.shape[0]
         k5 = fused.col_fft_zero_padded(cre, cim, g.pad_h, c_r0)
@@ -1530,6 +1727,73 @@ def main():
     psnr_lt, = vs_oracle([(path_lt, lt1)], jobs["lt"])
     del l2, lt2, ls1
 
+    # (m) 16K: 15360x8640 in chunks of 2, shifted noise, the state threaded
+    # across two chunks.  square_pow2 (16384 x 16384): kernel 5 (three
+    # passes), kernel 1 and kernel 7 on 16384 lanes (the bracket around
+    # the row engine), kernel 2 bracketed around its launches on 8192-row
+    # blocks, the tail on kernels 7 + 10 (no kernel-3 block holds 16384
+    # lanes).  Tight (8704 rows, m = 68): kernel 2's combine pass.  The
+    # scan engine on 2 frames: kernels 1, 5, 6 (bracketed), 7.  (g), the
+    # unfused pallas backend with use_pallas: kernel 8 on both axes at
+    # 16384 and kernel 9.  Each route: its launch counters, two chunks of
+    # 1 = one of 2 bit for bit, > 100 dB against the oracle on frames 0-1
+    # (read after phase 4).
+    tail16 = ("row_ifft_magnitude", "post_fused")
+    assert not post_fused.kernel3_serves(post_fused._radius(cfg), g16.pad_w,
+                                         W16)
+    path_m = "(m) 16K square_pow2"
+    m1, sm1, m2, _ = run_path(
+        path_m, ("col_fft_zero_padded", "windowed_row_fft", "colspec_chunk")
+        + tail16, ("windowed_row_fft_u8planar", "post_fused_rgb",
+                   "rowifft_post_fused"),
+        lambda: two_chunks(frames16_d, cfg_j))
+    check_frames(path_m, (m1, m2), (T16, H16, W16, 3), torch.float32)
+    check_split(frames16_d, cfg_j, m1, sm1, path_m)
+    if tuple(sm1.prev_spec_re.shape) != (1, g16.pad_h, wk16):
+        raise AssertionError(f"{path_m}: state "
+                             f"{tuple(sm1.prev_spec_re.shape)}")
+    outs16 = {path_m: m1.cpu()}
+    del m1, m2, sm1
+    torch.cuda.empty_cache()
+    path_mt = "(m) 16K tight"
+    mt1, smt1, mt2, _ = run_path(
+        path_mt, ("windowed_row_fft", "colspec_chunk") + tail16,
+        ("col_fft_zero_padded", "windowed_row_fft_u8planar",
+         "post_fused_rgb", "rowifft_post_fused"),
+        lambda: two_chunks(frames16_d, cfg))
+    check_frames(path_mt, (mt1, mt2), (T16, H16, W16, 3), torch.float32)
+    check_split(frames16_d, cfg, mt1, smt1, path_mt)
+    if tuple(smt1.prev_spec_re.shape) != (1, g16t.pad_h, wk16):
+        raise AssertionError(f"{path_mt}: state "
+                             f"{tuple(smt1.prev_spec_re.shape)}")
+    outs16[path_mt] = mt1.cpu()
+    del mt1, mt2, smt1
+    torch.cuda.empty_cache()
+    path_ms = "(m) 16K tuned scan square_pow2"
+    cfg_ms = cfg_j.replace(engine="scan")
+    ms1, sms1 = run_path(path_ms, scan_k, not_scan,
+                         lambda: pbmm_tpu_torch.magnify_video(frames16_d,
+                                                              cfg_ms))
+    check_frames(path_ms, (ms1,), (T16, H16, W16, 3), torch.float32)
+    check_split(frames16_d, cfg_ms, ms1, sms1, path_ms)
+    outs16[path_ms] = ms1.cpu()
+    del ms1, sms1
+    torch.cuda.empty_cache()
+    path_mg = "(m) 16K pallas unfused, use_pallas"
+    mg1, smg1 = run_path(
+        path_mg, ("windowed_row_fft", "col_fft_zero_padded",
+                  "amplify_procedural", "_fft_axis"),
+        ("phase_col_ifft", "colspec_chunk", "row_ifft_magnitude",
+         "rowifft_post_fused", "post_fused", "post_fused_rgb"),
+        lambda: pbmm_tpu_torch.magnify_video(frames16_d, cfg_g))
+    check_frames(path_mg, (mg1,), (T16, H16, W16, 3), torch.float32)
+    check_split(frames16_d, cfg_g, mg1, smg1, path_mg)
+    # Frames 0-1 of each route, on the host for the oracle's comparison
+    # after phase 4.
+    outs16[path_mg] = mg1.cpu()
+    del mg1, smg1
+    torch.cuda.empty_cache()
+
     # (k) 1080p tight at blur_size 4.5 (radius 15): no kernel-3 block
     # fits, so kernel 7 and kernel 10 take the tail; f32 and u8 in.
     path_k = "(k) 1080p blur 4.5 (kernels 7 + 10)"
@@ -1700,7 +1964,9 @@ def main():
                             (path_l, frames8k_d, cfg_j),
                             (path_lt, frames8k_d, cfg),
                             (path_k, frames_d, cfg_k),
-                            (path_k15, frames_d, cfg_b15)):
+                            (path_k15, frames_d, cfg_b15),
+                            (path_m, frames16_d, cfg_j),
+                            (path_mt, frames16_d, cfg)):
             matrix[what] = steady(fd, c, what)
         scan_paths = {}
         for what, fd, c, db in ((path_e, bar_il_d, cfg_e, psnr_e),
@@ -1812,6 +2078,38 @@ def main():
             log(f"[4] {card}: {name} {records[name]['ms']:.4f} ms warm "
                 f"against its library call (torch.fft along dim -1) "
                 f"{records[name]['library_ms']:.4f} ms")
+        # The kernels past 8192 points (16K) beside the one torch.fft
+        # call that computes the same transform.
+        fft16 = torch.complex(k8x_re, k8x_im)
+        col16 = torch.complex(k16_prev[0], k16_prev[1])
+        irfft16 = torch.complex(rre16[..., :g16.pad_w // 2 + 1].contiguous(),
+                                rim16[..., :g16.pad_w // 2 + 1].contiguous())
+        for name, lib, what in (
+                ("windowed_row_fft[16384 lanes, 16K square_pow2]",
+                 lambda: torch.fft.fft(y16, dim=-1), "fft dim -1"),
+                ("windowed_row_fft_u8planar[16384 lanes, 16K]",
+                 lambda: torch.fft.fft(y16, dim=-1), "fft dim -1"),
+                ("col_fft_zero_padded[H 16384, 16K]",
+                 lambda: torch.fft.fft(col16, dim=-2), "fft dim -2"),
+                ("kdecomp_variant[phase + gm + rolls, H 16384]",
+                 lambda: torch.fft.ifft(col16, dim=-2), "ifft dim -2"),
+                ("row_ifft_magnitude[16384 lanes, 16K]",
+                 lambda: torch.fft.irfft(irfft16, n=g16.pad_w, dim=-1),
+                 "irfft dim -1"),
+                ("_fft_axis[inverse, axis 2, scale, 16384]",
+                 lambda: torch.fft.ifft(fft16, dim=-1), "ifft dim -1"),
+                ("_fft_axis[forward real, axis 2, 16384]",
+                 lambda: torch.fft.fft(k8x_re, dim=-1), "fft dim -1"),
+                ("_fft_axis[inverse, axis 1, 16384]",
+                 lambda: torch.fft.ifft(fft16, dim=-2), "ifft dim -2"),
+                ("_fft_axis[forward complex, axis 1, 16384]",
+                 lambda: torch.fft.fft(fft16, dim=-2), "fft dim -2")):
+            records[name]["library_ms"] = kexp.timed(lib, device=dev)[0]
+            log(f"[4] {card}: {name} {records[name]['ms']:.4f} ms warm, "
+                f"bound {records[name]['bound_ms']:.4f} ms, against its "
+                f"library call (torch.fft.{what}) "
+                f"{records[name]['library_ms']:.4f} ms")
+        del fft16, col16, irfft16
         for name, num in (("row_ifft_magnitude", 7),
                           ("windowed_row_fft_u8planar", 4),
                           ("windowed_row_fft", 1)):
@@ -1850,6 +2148,12 @@ def main():
             "magnify and device -> host the rest")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # Path (m)'s oracles, which ran beside phases 2-4.
+    psnr_m, psnr_ms, psnr_mg = vs_oracle(
+        [(p, outs16[p]) for p in (path_m, path_ms, path_mg)], jobs16["m"])
+    psnr_mt, = vs_oracle([(path_mt, outs16[path_mt])], jobs16["mt"])
+    big_pool.shutdown(wait=True)
 
     # -- 5. where the time goes (opt-in) -------------------------------------
     if args.profile:
@@ -1923,13 +2227,16 @@ def main():
                 {"psnr_vs_oracle_db": db} if db is not None else {})}
                for (what, (_, m, f)), db in zip(
                    matrix.items(), (psnr_a, psnr_b, psnr_c, None, psnr_j,
-                                    None, psnr_l, psnr_lt, psnr_k, None))},
+                                    None, psnr_l, psnr_lt, psnr_k, None,
+                                    psnr_m, psnr_mt))},
             **{what: {"fps": f, "chunk_ms": m, "psnr_vs_oracle_db": db}
                for what, (_, m, f, db) in scan_paths.items()},
             path_h: {"pairs_per_s": 1e3 / pair_ms, "pair_ms": pair_ms,
                      "psnr_vs_oracle_db": psnr_h},
             path_js: {"psnr_vs_oracle_db": psnr_js},
             path_ls: {"psnr_vs_oracle_db": psnr_ls},
+            path_ms: {"psnr_vs_oracle_db": psnr_ms},
+            path_mg: {"psnr_vs_oracle_db": psnr_mg},
             path_i: {"seconds": meas["seconds"],
                      "row_copy_ceiling_gbps": meas["copy_gbps"],
                      "roofline": meas["roofline"][1],
@@ -1943,4 +2250,16 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except SystemExit:
+        raise
+    except BaseException:
+        # Stop at once: the oracle threads would otherwise run to their end
+        # before the interpreter exits.
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)

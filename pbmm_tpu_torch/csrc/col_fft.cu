@@ -8,7 +8,8 @@
 // through video_init when a pow-2 stream starts from interleaved frames
 // (pbmm_tpu/engine/video.py:382 -> :83 -> pipeline.py:150), and on the
 // last frame of a bypassed clip (video.py:466); the scan engine and the
-// unfused backends once a frame.  Heights H from 2 to 8192.
+// unfused backends once a frame.  Any pow-2 height H from 2 (16384 at
+// 16K: three passes).
 //
 // The arithmetic is kernel 2's forward half (colspec_chunk.cu's launch 1:
 // the zero-embed, then the radix-2 DIF over the whole column): the same
@@ -52,18 +53,24 @@ extern "C" int pbmm_col_fft(const float* re, const float* im,
                             float* out_re, float* out_im, int batch, int hc,
                             int h, int wk, int row0, void* stream) {
   if (batch < 1 || batch > 65535 || h < 2 || (h & (h - 1)) != 0 ||
-      h > 8192 || hc < 1 || row0 < 0 || row0 + hc > h || wk < 1)
+      hc < 1 || row0 < 0 || row0 + hc > h || wk < 1)
     return (int)cudaErrorInvalidValue;
   const PbmmColPass a = {re, im, out_re, out_im, tw_re, tw_im, h, wk, hc,
                          row0, 0, 0, 1.0f};
+#define CF_PASS(L) col_fft_pass<L, E><<<grid, block, 0, stream>>>(a)
   auto first = [](int k, dim3 grid, dim3 block, const PbmmColPass& a,
                   cudaStream_t stream) -> cudaError_t {
-    PBMM_CP_SWITCH(col_fft_pass, true)
+    constexpr bool E = true;
+    PBMM_CP_SWITCH(k, CF_PASS)
+    return cudaGetLastError();
   };
   auto rest = [](int k, dim3 grid, dim3 block, const PbmmColPass& a,
                  cudaStream_t stream) -> cudaError_t {
-    PBMM_CP_SWITCH(col_fft_pass, false)
+    constexpr bool E = false;
+    PBMM_CP_SWITCH(k, CF_PASS)
+    return cudaGetLastError();
   };
+#undef CF_PASS
   return (int)pbmm_col_launch(a, batch, first, rest, false, true, 1.0f,
                               (cudaStream_t)stream);
 }

@@ -90,6 +90,25 @@
 // IIR branch's times, against the frame-serial kernel it replaced (6.006
 // ms for (b)'s rgb chunk), are in PERF.md.
 //
+// Above 8192 rows (16384 at 16K square_pow2, 8704 = 68 x 128 at 16K
+// tight) a column no longer fits a block's strip, so:
+//   pow-2 heights run col_pass.cuh's bracket around the two launches: the
+//     forward bracket (the zero embed of the content rows and the stages of
+//     span >= 8192) into the scratch, launch 1 on every 8192-row block of
+//     it in place, launch 2 (or the tap scan and launch 3) on every block
+//     with its rows' planes and frequencies (one launch a block, the
+//     spectra at the column's frame stride) into a second scratch, and the
+//     inverse bracket writing rows [r0, r1);
+//   tight heights above m = 64 run the m-point combine as a pass of its own
+//     through device memory (cs_combine_kernel: per column and n2 the m
+//     points staged in shared memory, the combine matrix from device
+//     memory, the four-step twiddle applied on the spectrum's side), and
+//     the 128-point factor on chunks of up to 32 blocks of 128 rows
+//     (cs_fwd_blocks_kernel, cs_inv_blocks_kernel: strips of 4); any m,
+//     prime or not.
+// The state, the scratch and the planes keep the whole column's layout,
+// so the carried spectrum is the one the in-block heights give.
+//
 // What bounds it on an H100: per frame it reads the Hc content rows and
 // writes r1 - r0 output rows (re and im), and the state in and out; the
 // scratch spectra add one write and two reads (IIR: one write, two reads
@@ -107,8 +126,10 @@
 #include "phase_inv.cuh"
 
 #define CS_MAXM_PARAM 32    // largest m whose combine is a kernel parameter
-#define CS_MAXM 64          // bound of m (m = 64 is H = 8192: radix-2)
+#define CS_MAXM 64          // m of the in-register tiers (m = 64 is 8192 rows)
 #define CS_SCAN_THREADS 256  // a block of the IIR tap scan
+#define CS_CHUNK_M 32       // 128-row blocks a chunk kernel holds (m > 64)
+#define CS_CHUNK_S 4        // its strip
 
 // Pointers and sizes of one launch (device pointers; null where a branch
 // does not read them).
@@ -140,6 +161,8 @@ struct ColspecIO {
   float* lpf_out;
   float* lps_out;
   int t, c, hc, h, wk, row0, r0, r1;
+  size_t fs;  // frame stride of the spectra and prev (floats; H Wk)
+  size_t os;  // frame stride of the output ((r1 - r0) Wk)
 };
 
 // The four-step combine matrix W_m^{-k1 n1} (fused.py:_combine_matrix).
@@ -402,7 +425,7 @@ __global__ void __launch_bounds__(cs_threads(MAXM), 1)
   const size_t wk = io.wk;
   const int col0 = blockIdx.x * S;
   const int n = blockIdx.y;
-  const size_t hw = (size_t)h * wk;
+  const size_t hw = io.fs;
   if constexpr (PH == CS_PH_NONE) {
     cs_copy_strip<S, POW2>(io.spec_re + n * hw, io.spec_im + n * hw, h, wk,
                            col0, sre, sim);
@@ -417,8 +440,8 @@ __global__ void __launch_bounds__(cs_threads(MAXM), 1)
   }
 
   const int r0 = io.r0, hr = io.r1 - io.r0;
-  float* dre = io.out_re + (size_t)n * hr * wk + col0;
-  float* dim = io.out_im + (size_t)n * hr * wk + col0;
+  float* dre = io.out_re + (size_t)n * io.os + col0;
+  float* dim = io.out_im + (size_t)n * io.os + col0;
   if constexpr (POW2) {
     pbmm_inv_rows_pow2<NLOG, S>(sre, sim, io.tw_ire, io.tw_iim, dre, dim, wk,
                                 r0, hr);
@@ -469,6 +492,176 @@ __global__ void __launch_bounds__(cs_threads(MAXM), 1)
   }
 }
 
+// Tight heights above m = 64: the 128-point DIF of each of a chunk's
+// h / 128 blocks in place on the scratch (frame stride io.fs, the chunk's
+// first row at io.spec_*), rows out in the fourstep layout (cs_row).
+template <int S>
+__global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
+    cs_fwd_blocks_kernel(ColspecIO io) {
+  extern __shared__ float smem[];
+  const int h = io.h;
+  float* sre = smem;
+  float* sim = smem + h * S;
+  const size_t wk = io.wk;
+  const int col0 = blockIdx.x * S;
+  float* dre = io.spec_re + blockIdx.y * io.fs + col0;
+  float* dim = io.spec_im + blockIdx.y * io.fs + col0;
+  cs_load_strip<S>(dre, dim, wk, h, 0, h, sre, sim);
+  auto first = [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                   float (&xi)[PBMM_RP_P]) {
+    pbmm_cb_read(gr, xr, xi, sre, sim);
+  };
+  auto last = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
+                  const float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+#pragma unroll
+    for (int q = 0; q < G::L; ++q) {
+      const size_t o = (size_t)cs_row<false>(gr.pos(q)) * wk + gr.c;
+      dre[o] = xr[q];
+      dim[o] = xi[q];
+    }
+  };
+  pbmm_cb_transform<7, S, false>(h / PBMM_LANE, sre, sim, io.tw_fre,
+                                 io.tw_fim, first, last);
+}
+
+// Tight heights above m = 64: a chunk's phase pass (its rows' planes and
+// frequencies at io.plane* / io.fy) or its rotated spectrum, then the
+// 128-point DIT of each block, natural block rows out to io.out_* (frame
+// stride io.os) for the inverse combine.
+template <int S, int PH>
+__global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
+    cs_inv_blocks_kernel(ColspecIO io, PhaseArgs pa) {
+  extern __shared__ float smem[];
+  const int h = io.h;
+  float* sre = smem;
+  float* sim = smem + h * S;
+  const size_t wk = io.wk, hw = io.fs;
+  const int col0 = blockIdx.x * S;
+  const int n = blockIdx.y;
+  if constexpr (PH == CS_PH_NONE) {
+    cs_copy_strip<S, false>(io.spec_re + n * hw, io.spec_im + n * hw, h, wk,
+                            col0, sre, sim);
+  } else {
+    const bool first = n < io.c;
+    pbmm_phase_strip<S, false, PH == CS_PH_GENERAL, false>(
+        io.spec_re + n * hw, io.spec_im + n * hw,
+        first ? io.prev_re + n * hw : io.spec_re + (n - io.c) * hw,
+        first ? io.prev_im + n * hw : io.spec_im + (n - io.c) * hw, nullptr,
+        nullptr, nullptr, nullptr, io.plane0, io.plane1, io.fy, io.fx, pa, h,
+        wk, col0, sre, sim);
+  }
+  float* dre = io.out_re + (size_t)n * io.os + col0;
+  float* dim = io.out_im + (size_t)n * io.os + col0;
+  auto read = [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                  float (&xi)[PBMM_RP_P]) {
+    pbmm_cb_read(gr, xr, xi, sre, sim);
+  };
+  auto last = [&](const auto& gr, const float (&xr)[PBMM_RP_P],
+                  const float (&xi)[PBMM_RP_P]) {
+    using G = PbmmRpOf<decltype(gr)>;
+#pragma unroll
+    for (int q = 0; q < G::L; ++q) {
+      const size_t o = (size_t)gr.pos(q) * wk + gr.c;
+      dre[o] = xr[q];
+      dim[o] = xi[q];
+    }
+  };
+  pbmm_cb_transform<7, S, true>(h / PBMM_LANE, sre, sim, io.tw_ire, io.tw_iim,
+                                read, last);
+}
+
+// The m-point combine of the four-step above m = 64, through device
+// memory.  Forward: per column c and n2 < 128, the m points {n2 + 128 n1}
+// of the zero-embedded column (src rows [row0, row0 + hs), frame stride
+// ss), X[k1] = sum_n1 x[n1] W_m^{-k1 n1}, times the four-step twiddle
+// fs[128 k1 + n2], to row 128 k1 + n2 of dst.  Inverse: the points times
+// the conjugate twiddle, x[n1] = sum_k1 X[k1] conj(W_m^{-n1 k1}), rows
+// [row0, row0 + hs) of the column out.  A block takes 32 columns and one
+// n2 of one frame: the m points of each column staged in shared memory
+// (2 m 32 floats; a row segment of 128 bytes a load), then each of its 8
+// warps the outputs k = warp, warp + 8, ...: every thread of a warp reads
+// the same matrix word (one broadcast), its column's points without bank
+// conflicts.  The sums run in plain C++ (nvcc may contract them to FMA),
+// as the in-register tiers' do.
+struct CsCombIO {
+  const float* src_re;
+  const float* src_im;
+  float* dst_re;
+  float* dst_im;
+  const float* fs_re;  // the four-step twiddle, (H,)
+  const float* fs_im;
+  const float* cw_re;  // the m x m combine, row k1 at k1 m
+  const float* cw_im;
+  int m, wk, hs, row0;
+  size_t ss, ds;  // frame strides of src and dst
+};
+
+#define CS_CB_LANES 32
+#define CS_CB_WARPS 8
+
+template <bool INVERSE>
+__global__ void __launch_bounds__(CS_CB_LANES * CS_CB_WARPS)
+    cs_combine_kernel(CsCombIO a) {
+  extern __shared__ float smem[];
+  const int m = a.m, tx = threadIdx.x;
+  float* xr = smem;
+  float* xi = smem + m * CS_CB_LANES;
+  const int c = blockIdx.x * CS_CB_LANES + tx;
+  const int n2 = blockIdx.y;
+  const bool on = c < a.wk;
+  const float* sr = a.src_re + blockIdx.z * a.ss + c;
+  const float* si = a.src_im + blockIdx.z * a.ss + c;
+  for (int i = threadIdx.y; i < m; i += CS_CB_WARPS) {
+    float vr = 0.0f, vi = 0.0f;
+    if (!INVERSE) {
+      const int r = i * PBMM_LANE + n2 - a.row0;
+      if (on && (unsigned)r < (unsigned)a.hs) {
+        vr = __ldcs(sr + (size_t)r * a.wk);
+        vi = __ldcs(si + (size_t)r * a.wk);
+      }
+    } else if (on) {
+      const int p = i * PBMM_LANE + n2;
+      const float zr = __ldcs(sr + (size_t)p * a.wk);
+      const float zi = __ldcs(si + (size_t)p * a.wk);
+      const float tr = __ldg(a.fs_re + p), ti = -__ldg(a.fs_im + p);
+      vr = zr * tr - zi * ti;
+      vi = zr * ti + zi * tr;
+    }
+    xr[i * CS_CB_LANES + tx] = vr;
+    xi[i * CS_CB_LANES + tx] = vi;
+  }
+  __syncthreads();
+  if (!on) return;
+  float* dr = a.dst_re + blockIdx.z * a.ds + c;
+  float* di = a.dst_im + blockIdx.z * a.ds + c;
+  for (int k = threadIdx.y; k < m; k += CS_CB_WARPS) {
+    const float* wr = a.cw_re + (size_t)k * m;
+    const float* wi = a.cw_im + (size_t)k * m;
+    float sr_ = 0.0f, si_ = 0.0f;
+    for (int j = 0; j < m; ++j) {
+      const float w_r = __ldg(wr + j);
+      const float w_i = INVERSE ? -__ldg(wi + j) : __ldg(wi + j);
+      const float x_r = xr[j * CS_CB_LANES + tx];
+      const float x_i = xi[j * CS_CB_LANES + tx];
+      sr_ += x_r * w_r - x_i * w_i;
+      si_ += x_r * w_i + x_i * w_r;
+    }
+    if (!INVERSE) {
+      const int p = k * PBMM_LANE + n2;
+      const float tr = __ldg(a.fs_re + p), ti = __ldg(a.fs_im + p);
+      dr[(size_t)p * a.wk] = sr_ * tr - si_ * ti;
+      di[(size_t)p * a.wk] = sr_ * ti + si_ * tr;
+    } else {
+      const int r = k * PBMM_LANE + n2 - a.row0;
+      if ((unsigned)r < (unsigned)a.hs) {
+        dr[(size_t)r * a.wk] = sr_;
+        di[(size_t)r * a.wk] = si_;
+      }
+    }
+  }
+}
+
 // The IIR branch's launch 2, the tap scan: thread i owns bin i of the
 // planes' (C, H, Wk) state, (row, lane) of plane i / (H Wk).  It walks the
 // T frames of its plane in order with the previous frame's unmodified
@@ -508,17 +701,20 @@ __global__ void __launch_bounds__(CS_SCAN_THREADS)
 // Columns a block of the in-block kernels holds: the widest power of two
 // up to 16 (64-byte row segments) whose strip (2 H S floats) fits the
 // 227 KB a block may have, 2 at least: 16 to H = 1024 (pow-2) or m = 14
-// (tight), 8 to 2048 or m = 28, 4 to 4096 or m = 32, 2 above (to 8192;
-// the tight heights above m = 32 take 2 for their 256-thread blocks).
+// (tight), 8 to 2048 or m = 28, 4 to 4096 or m = 32, 2 above (to 8192,
+// and the bracketed pow-2 heights' 8192-row blocks; the tight heights at
+// m = 33-63 take 2 for their 256-thread blocks, above m = 64 the chunk
+// kernels' CS_CHUNK_S).
 static int cs_strip(int h) {
   const bool pow2 = (h & (h - 1)) == 0;
   const int m = h / PBMM_LANE;
   return pow2 ? (h <= 1024 ? 16 : h <= 2048 ? 8 : h <= 4096 ? 4 : 2)
-              : (m <= 14 ? 16 : m <= 28 ? 8 : m <= CS_MAXM_PARAM ? 4 : 2);
+              : (m <= 14 ? 16 : m <= 28 ? 8 : m <= CS_MAXM_PARAM ? 4
+                 : m < CS_MAXM ? 2 : CS_CHUNK_S);
 }
 
 template <class K, class... Args>
-static cudaError_t cs_run(K kernel, dim3 grid, int threads, size_t smem,
+static cudaError_t cs_run(K kernel, dim3 grid, dim3 threads, size_t smem,
                           cudaStream_t stream, const Args&... args) {
   const cudaError_t err = pbmm_smem_opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -574,12 +770,159 @@ static cudaError_t cs_tight(const ColspecIO& io, const PhaseArgs& pa, int ph,
   return cs_second<7, S, MAXM>(io, pa, cw, ph, grid, smem, st);
 }
 
+// Pow-2 heights above 8192 (col_pass.cuh): the forward bracket into the
+// scratch, launch 1 on every 8192-row block in place, launch 2 (or the
+// tap scan and launch 3) on every block into the second scratch (sp2),
+// the inverse bracket out.
+static cudaError_t cs_pow2_bracket(const ColspecIO& io, const PhaseArgs& pa,
+                                   int ph, float* sp2_re, float* sp2_im,
+                                   cudaStream_t st) {
+  constexpr int NB = PBMM_BK_LOG, S = 2;
+  const int blks = io.h / PBMM_BK_N, frames = io.t * io.c;
+  const size_t hw = (size_t)io.h * io.wk, bw = (size_t)PBMM_BK_N * io.wk;
+  const size_t smem = 2 * ((size_t)S << NB) * sizeof(float);
+  if ((long long)frames * blks > 65535) return cudaErrorInvalidValue;
+  const PbmmColPass fwd = {io.rows_re, io.rows_im, io.spec_re, io.spec_im,
+                           io.tw_fre,  io.tw_fim,  io.h,       io.wk,
+                           io.hc,      io.row0,    0,          0,
+                           1.0f,       0,          (size_t)io.hc * io.wk,
+                           hw};
+  cudaError_t err = pbmm_bracket_cols(fwd, frames, false, st);
+  if (err != cudaSuccess) return err;
+  ColspecIO v = io;  // every block as a frame of 8192 rows
+  v.rows_re = io.spec_re;
+  v.rows_im = io.spec_im;
+  v.hc = v.h = PBMM_BK_N;
+  v.row0 = v.r0 = 0;
+  v.r1 = PBMM_BK_N;
+  v.fs = v.os = bw;
+  v.out_re = sp2_re;
+  v.out_im = sp2_im;
+  const dim3 all(io.wk / S, frames * blks);
+  err = cs_run(cs_fwd_pow2_kernel<NB, S>, all, PBMM_CB_THREADS, smem, st, v);
+  if (err != cudaSuccess) return err;
+  const CsCombine<1> none = {};
+  if (ph == CS_PH_NONE) {
+    const size_t bins = (size_t)io.c * hw;
+    err = cs_run(cs_iir_scan_kernel,
+                 dim3((unsigned)((bins + CS_SCAN_THREADS - 1) /
+                                 CS_SCAN_THREADS)),
+                 CS_SCAN_THREADS, 0, st, io, pa);
+    if (err == cudaSuccess)
+      err = cs_run(cs_inv_kernel<NB, S, 0, CS_PH_NONE>, all, PBMM_CB_THREADS,
+                   smem, st, v, pa, none);
+  } else {
+    for (int b = 0; b < blks && err == cudaSuccess; ++b) {
+      ColspecIO w = v;  // block b of every frame, at the column's stride
+      const size_t o = b * bw;
+      w.spec_re = io.spec_re + o;
+      w.spec_im = io.spec_im + o;
+      w.prev_re = io.prev_re + o;
+      w.prev_im = io.prev_im + o;
+      w.plane0 = io.plane0 ? io.plane0 + o : nullptr;
+      w.plane1 = io.plane1 ? io.plane1 + o : nullptr;
+      w.fy = io.fy ? io.fy + (size_t)b * PBMM_BK_N : nullptr;
+      w.out_re = sp2_re + o;
+      w.out_im = sp2_im + o;
+      w.fs = w.os = hw;
+      const dim3 grid(io.wk / S, frames);
+      err = ph == CS_PH_MAIN
+                ? cs_run(cs_inv_kernel<NB, S, 0, CS_PH_MAIN>, grid,
+                         PBMM_CB_THREADS, smem, st, w, pa, none)
+                : cs_run(cs_inv_kernel<NB, S, 0, CS_PH_GENERAL>, grid,
+                         PBMM_CB_THREADS, smem, st, w, pa, none);
+    }
+  }
+  if (err != cudaSuccess) return err;
+  const PbmmColPass inv = {sp2_re,    sp2_im, io.out_re,     io.out_im,
+                           io.tw_ire, io.tw_iim, io.h,       io.wk,
+                           io.r1 - io.r0, io.r0, 0, 0, 1.0f, 0, hw, io.os};
+  return pbmm_bracket_cols(inv, frames, true, st);
+}
+
+template <bool INVERSE>
+static cudaError_t cs_combine_run(const CsCombIO& a, int frames,
+                                  cudaStream_t st) {
+  const size_t smem = 2 * (size_t)a.m * CS_CB_LANES * sizeof(float);
+  return cs_run(cs_combine_kernel<INVERSE>,
+                dim3((a.wk + CS_CB_LANES - 1) / CS_CB_LANES, PBMM_LANE,
+                     frames),
+                dim3(CS_CB_LANES, CS_CB_WARPS), smem, st, a);
+}
+
+// Tight heights above m = 64: the forward combine into the scratch, the
+// 128-point DIF chunk by chunk in place, the tap scan (IIR), the phase
+// pass and 128-point DIT chunk by chunk into the second scratch, the
+// inverse combine out.
+static cudaError_t cs_tight_big(const ColspecIO& io, const PhaseArgs& pa,
+                                int ph, float* sp2_re, float* sp2_im,
+                                cudaStream_t st) {
+  constexpr int S = CS_CHUNK_S;
+  const int m = io.h / PBMM_LANE, frames = io.t * io.c;
+  const size_t hw = (size_t)io.h * io.wk;
+  const CsCombIO fwd = {io.rows_re, io.rows_im, io.spec_re, io.spec_im,
+                        io.fs_re,   io.fs_im,   io.cwd_re,  io.cwd_im,
+                        m,          io.wk,      io.hc,      io.row0,
+                        (size_t)io.hc * io.wk, hw};
+  cudaError_t err = cs_combine_run<false>(fwd, frames, st);
+  const dim3 grid(io.wk / S, frames);
+  for (int k0 = 0; k0 < m && err == cudaSuccess; k0 += CS_CHUNK_M) {
+    const int mc = m - k0 < CS_CHUNK_M ? m - k0 : CS_CHUNK_M;
+    ColspecIO v = io;
+    const size_t o = (size_t)k0 * PBMM_LANE * io.wk;
+    v.spec_re = io.spec_re + o;
+    v.spec_im = io.spec_im + o;
+    v.h = mc * PBMM_LANE;
+    v.fs = hw;
+    err = cs_run(cs_fwd_blocks_kernel<S>, grid, PBMM_CB_THREADS,
+                 2 * (size_t)v.h * S * sizeof(float), st, v);
+  }
+  if (err == cudaSuccess && ph == CS_PH_NONE) {
+    const size_t bins = (size_t)io.c * hw;
+    err = cs_run(cs_iir_scan_kernel,
+                 dim3((unsigned)((bins + CS_SCAN_THREADS - 1) /
+                                 CS_SCAN_THREADS)),
+                 CS_SCAN_THREADS, 0, st, io, pa);
+  }
+  for (int k0 = 0; k0 < m && err == cudaSuccess; k0 += CS_CHUNK_M) {
+    const int mc = m - k0 < CS_CHUNK_M ? m - k0 : CS_CHUNK_M;
+    ColspecIO w = io;
+    const size_t o = (size_t)k0 * PBMM_LANE * io.wk;
+    w.spec_re = io.spec_re + o;
+    w.spec_im = io.spec_im + o;
+    w.prev_re = io.prev_re + o;
+    w.prev_im = io.prev_im + o;
+    w.plane0 = io.plane0 ? io.plane0 + o : nullptr;
+    w.plane1 = io.plane1 ? io.plane1 + o : nullptr;
+    w.fy = io.fy ? io.fy + (size_t)k0 * PBMM_LANE : nullptr;
+    w.out_re = sp2_re + o;
+    w.out_im = sp2_im + o;
+    w.h = mc * PBMM_LANE;
+    w.fs = w.os = hw;
+    const size_t smem = 2 * (size_t)w.h * S * sizeof(float);
+    err = ph == CS_PH_MAIN
+              ? cs_run(cs_inv_blocks_kernel<S, CS_PH_MAIN>, grid,
+                       PBMM_CB_THREADS, smem, st, w, pa)
+          : ph == CS_PH_GENERAL
+              ? cs_run(cs_inv_blocks_kernel<S, CS_PH_GENERAL>, grid,
+                       PBMM_CB_THREADS, smem, st, w, pa)
+              : cs_run(cs_inv_blocks_kernel<S, CS_PH_NONE>, grid,
+                       PBMM_CB_THREADS, smem, st, w, pa);
+  }
+  if (err != cudaSuccess) return err;
+  const CsCombIO inv = {sp2_re,   sp2_im,   io.out_re, io.out_im, io.fs_re,
+                        io.fs_im, io.cwd_re, io.cwd_im, m,        io.wk,
+                        io.r1 - io.r0, io.r0, hw,      io.os};
+  return cs_combine_run<true>(inv, frames, st);
+}
+
 // iargs, fargs: the phase pass's branch and constants (host arrays, copied
 // by value; phase_pass.cuh::pbmm_phase_unpack); cw_re / cw_im: the m x m
 // combine (host arrays; null at pow-2 heights) and cwd_re / cwd_im the
 // same on the device (read above m = 32); tw_*: compact_twiddles(n) with
 // n = 128 at tight heights, else H.  spec_re / spec_im: the scratch, (T
-// C, H, Wk) each.  Heights to PBMM_COL_MAXH (m <= 64).
+// C, H, Wk) each; sp2_re / sp2_im a second one of that size, read only
+// above 8192 rows (pow-2) or m = 64 (tight), else null.  Any height.
 extern "C" int pbmm_colspec_chunk(
     const float* rows_re, const float* rows_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
@@ -589,17 +932,19 @@ extern "C" int pbmm_colspec_chunk(
     const float* cwd_im, const float* tw_fre, const float* tw_fim,
     const float* tw_ire, const float* tw_iim, float* spec_re,
     float* spec_im, float* out_re, float* out_im, float* np_re,
-    float* np_im, float* lpf_out, float* lps_out, const int* iargs,
-    const float* fargs, int t, int c, int hc, int h, int wk, int row0,
-    int r0, int r1, void* stream) {
+    float* np_im, float* lpf_out, float* lps_out, float* sp2_re,
+    float* sp2_im, const int* iargs, const float* fargs, int t, int c,
+    int hc, int h, int wk, int row0, int r0, int r1, void* stream) {
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool pow2 = h >= 2 && (h & (h - 1)) == 0;
   const int m = h / PBMM_LANE;
   const bool general = pbmm_phase_general(pa);
   const int s = cs_strip(h);
+  const bool big = pow2 ? h > PBMM_BK_N : m >= CS_MAXM;
   if (!args_ok || t < 1 || c < 1 || (long long)t * c > 65535 ||
-      h > PBMM_COL_MAXH || (!pow2 && (h != m * PBMM_LANE || m < 1)) ||
+      (!pow2 && (h != m * PBMM_LANE || m < 1)) ||
+      (big && (sp2_re == nullptr || sp2_im == nullptr)) ||
       wk % s != 0 || hc < 1 || row0 < 0 || row0 + hc > h || r0 < 0 ||
       r1 <= r0 || r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
@@ -619,11 +964,15 @@ extern "C" int pbmm_colspec_chunk(
                         cwd_re,  cwd_im,  tw_fre,  tw_fim,  tw_ire,  tw_iim,
                         spec_re, spec_im, out_re,  out_im,  np_re,   np_im,
                         lpf_out, lps_out, t,       c,       hc,      h,
-                        wk,      row0,    r0,      r1};
+                        wk,      row0,    r0,      r1,
+                        (size_t)h * wk,   (size_t)(r1 - r0) * wk};
   const int ph = pa.iir ? CS_PH_NONE : general ? CS_PH_GENERAL : CS_PH_MAIN;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  if (!pow2) {
+  if (big) {
+    err = pow2 ? cs_pow2_bracket(io, pa, ph, sp2_re, sp2_im, st)
+               : cs_tight_big(io, pa, ph, sp2_re, sp2_im, st);
+  } else if (!pow2) {
     err = m <= 14   ? cs_tight<16, 14>(io, pa, ph, cw_re, cw_im, st)
           : m <= 28 ? cs_tight<8, 28>(io, pa, ph, cw_re, cw_im, st)
           : m <= CS_MAXM_PARAM

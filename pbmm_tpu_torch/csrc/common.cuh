@@ -4,16 +4,17 @@
 
 #include <cuda_runtime.h>
 
-// Widest padded row the kernels take: 64 tiles of 128 lanes (W = 8192).
+// Tiles of 128 lanes in the longest row one block of the row engine holds
+// (W = 8192; longer rows are bracketed, col_pass.cuh; kernel 3 keeps its
+// whole row and ring in one block, so rowifft_post_fused routes longer
+// rows to kernels 7 + 10).
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
-// Tallest column kernels 2, 6 and 12 take (PBMM_MAX_TILES lanes: the rows
-// and kernels 5 and 8 stop there too).
-#define PBMM_COL_MAXH 8192
 
 // Columns a block of kernel 12 holds in shared memory (cur and prev, 4 H S
 // floats, at most 128 KB): 4 up to H = 2048, 2 up to 4096, 1 up to 8192
-// (spectral/fused.py::col_strip); the narrowest strip of kernel 6.
+// (spectral/fused.py::col_strip; taller columns are bracketed, each
+// 8192-row block on strips of 1); the narrowest strip of kernel 6.
 __host__ __device__ constexpr int pbmm_col_strip(int h) {
   return h <= 2048 ? 4 : h <= 4096 ? 2 : 1;
 }
@@ -98,11 +99,3 @@ __device__ __forceinline__ void pbmm_radix2(
   }
 }
 
-// Static Hermitian rebuild plan, per full 128-lane tile: the kept tile
-// position feeding it, and 1 where it is conj(lane reversal) of that
-// tile (spectral/hermitian.py::reconstruction_plan; identity when the
-// lanes are not the kept half).  Passed by value.
-struct PbmmLanePlan {
-  int src[PBMM_MAX_TILES];
-  int rev[PBMM_MAX_TILES];
-};

@@ -8,7 +8,7 @@
 // in, bit-reversed out), with a first stage that reads no imaginary plane
 // when the input is real; the inverse is decimation in time (bit-reversed
 // in, natural out), unnormalised but for `scale`, which multiplies the
-// output.  Lengths are powers of two from 2 to 8192.  The TPU kernel runs
+// output.  Lengths are any powers of two from 2.  The TPU kernel runs
 // the 7 innermost stages as one 128 x 128 MXU group matmul with a 3-pass
 // bf16 split, a way around the TPU's matmul precision; here every stage
 // is an f32 radix-2 butterfly, each product and sum rounded on its own.
@@ -53,12 +53,19 @@
 // 0.055 ms warm, against 0.057 for torch.fft.ifft along dim -2 and 0.329
 // for the strip-of-8 design; its two passes move 134 MB at 2.4 TB/s.  The
 // row pass's times on the row engine are in PERF.md.
+// A row of 16384 points runs in one block (1024 threads, 139 KB: faster
+// than the bracket at that length, PERF.md).  Longer rows run
+// col_pass.cuh's bracket: the forward's outer stages as passes through the
+// output planes
+// (fa_rows_bracket; the first reads the input, REAL its real first
+// stage), then the row engine on each 8192-point block in place, the
+// scale in its store; the inverse the other way round, the scale in the
+// last bracket pass.  Columns of any length take the column engine's
+// passes (three at 16384).
 
 #include "col_pass.cuh"
 #include "common.cuh"
 #include "row_pass.cuh"
-
-#define FA_MAXN 8192  // longest transform (a row of it in shared memory)
 
 // The forward DIF's first stage (d = n / 2) on a real row: im is
 // written, never read (pallas_fft.py:331-347).
@@ -117,10 +124,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// A row pass of N = 128 .. 8192 points on the row engine (row_pass.cuh):
+// A row pass of N = 128 .. 16384 points on the row engine (row_pass.cuh):
 // rows of (B H) rows of N f32; REAL: im unread (forward only).
 template <int N, bool INVERSE, bool REAL>
-__global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
+__global__ void __launch_bounds__(PBMM_RP_BOUND(N))
     fft_rows_engine_kernel(const float* __restrict__ re,
                            const float* __restrict__ im,
                            const float* __restrict__ tw_re,
@@ -203,6 +210,45 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
                                                  ~0ull, load, store);
 }
 
+// One bracket pass of rows of n points (col_pass.cuh): thread (row, group).
+// EDGE: the pass that meets the caller's planes, the first of the forward
+// (it reads re / im; REAL: no imaginary plane, its first stage real) or
+// the last of the inverse (it writes the output times `scale`); the other
+// passes run in place on the output planes.
+template <int L, bool INVERSE, bool REAL, bool EDGE>
+__global__ void __launch_bounds__(PBMM_BK_THREADS)
+    fa_rows_bracket(const float* re, const float* im, float* out_re,
+                    float* out_im, const float* __restrict__ tw_re,
+                    const float* __restrict__ tw_im, long long n, int lst,
+                    float scale) {
+  constexpr int K = pbmm_log2(L);
+  constexpr bool FROM_IN = !INVERSE && EDGE;
+  constexpr bool REAL_IN = REAL && FROM_IN;
+  const long long g = (long long)blockIdx.y * PBMM_BK_THREADS + threadIdx.x;
+  if (g >= (n >> K)) return;
+  const long long st = 1ll << lst;
+  const int base = pbmm_cp_base<K>((int)g, lst);
+  const size_t row = (size_t)blockIdx.x * n;
+  const float* sr = (FROM_IN ? re : out_re) + row + base;
+  const float* si = (FROM_IN ? im : out_im) + row + base;
+  float xr[L], xi[L];
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    xr[q] = __ldcs(sr + q * st);
+    xi[q] = REAL_IN ? 0.0f : __ldcs(si + q * st);
+  }
+  pbmm_cp_stages<L, INVERSE, REAL_IN, true>(base, lst, 0, 0, xr, xi, tw_re,
+                                            tw_im);
+  const bool scaled = INVERSE && EDGE && scale != 1.0f;
+  float* dr = out_re + row + base;
+  float* di = out_im + row + base;
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    dr[q * st] = scaled ? __fmul_rn(xr[q], scale) : xr[q];
+    di[q * st] = scaled ? __fmul_rn(xi[q], scale) : xi[q];
+  }
+}
+
 // One pass of the column transform (col_pass.cuh).  The min-blocks
 // bound of 1 lets the 64-point pass keep up to 255 registers a thread
 // (without it nvcc stops at 184 and the kernel runs slower), and the
@@ -220,7 +266,53 @@ static cudaError_t fa_launch(const float* re, const float* im,
                              float* out_re, float* out_im, int b, int h,
                              int w, int axis, float scale,
                              cudaStream_t stream) {
-  if (axis == 2 && w >= PBMM_RP_MINN) {
+  if (axis == 2 && w > PBMM_RP_BLOCKN) {
+    // The bracket around the row engine on the rows' 8192-point blocks.
+    const long long rows = (long long)b * h;
+    const long long blocks = rows * (w / PBMM_BK_N);
+    const size_t smem = (size_t)pbmm_rp_row_floats(PBMM_BK_N) * sizeof(float);
+    if (rows > 2147483647LL || blocks > 2147483647LL)
+      return cudaErrorInvalidValue;
+    auto bracket = [&](const PbmmCpPass& p, bool first,
+                       bool last) -> cudaError_t {
+      const dim3 grid((unsigned)rows,
+                      (unsigned)(((w >> p.k) + PBMM_BK_THREADS - 1) /
+                                 PBMM_BK_THREADS));
+      const bool edge = INVERSE ? last : first;
+#define FA_BK(L)                                                            \
+  if (edge)                                                                 \
+    fa_rows_bracket<L, INVERSE, REAL, true><<<grid, PBMM_BK_THREADS, 0,     \
+                                              stream>>>(                    \
+        re, im, out_re, out_im, tw_re, tw_im, w, p.lst, scale);             \
+  else                                                                      \
+    fa_rows_bracket<L, INVERSE, false, false><<<grid, PBMM_BK_THREADS, 0,   \
+                                                stream>>>(                  \
+        re, im, out_re, out_im, tw_re, tw_im, w, p.lst, scale)
+      PBMM_CP_SWITCH(p.k, FA_BK)
+#undef FA_BK
+      return cudaGetLastError();
+    };
+    // The row engine on every 8192-point block: the inverse's first step
+    // (input -> output), the forward's last (in place, scaled).
+    auto inner = [&](const float* ir, const float* ii, float sc) {
+      cudaError_t err = pbmm_smem_opt_in(
+          fft_rows_engine_kernel<PBMM_BK_N, INVERSE, false>, smem);
+      if (err != cudaSuccess) return err;
+      fft_rows_engine_kernel<PBMM_BK_N, INVERSE, false>
+          <<<(unsigned)blocks, PBMM_BK_N / PBMM_RP_P, smem, stream>>>(
+              ir, ii, tw_re, tw_im, out_re, out_im, blocks, sc);
+      return cudaGetLastError();
+    };
+    if (INVERSE) {
+      cudaError_t err = inner(re, im, 1.0f);
+      if (err != cudaSuccess) return err;
+      return pbmm_bracket_launch(w, true, bracket);
+    }
+    cudaError_t err = pbmm_bracket_launch(w, false, bracket);
+    if (err != cudaSuccess) return err;
+    return inner(out_re, out_im, scale);
+  } else if (axis == 2 && w >= PBMM_RP_MINN) {
+
     const long long rows = (long long)b * h;
     const int rpb = pbmm_rp_rows_per_block(w);
     const long long blocks = (rows + rpb - 1) / rpb;
@@ -242,6 +334,7 @@ static cudaError_t fa_launch(const float* re, const float* im,
       case 2048: FA_ROWS(2048); break;
       case 4096: FA_ROWS(4096); break;
       case 8192: FA_ROWS(8192); break;
+      case 16384: FA_ROWS(16384); break;
       default: return cudaErrorInvalidValue;
     }
 #undef FA_ROWS
@@ -255,14 +348,20 @@ static cudaError_t fa_launch(const float* re, const float* im,
   } else {
     const PbmmColPass a = {re, im, out_re, out_im, tw_re, tw_im, h, w, h,
                            0, 0, 0, 1.0f};
+#define FA_COLS(L) fft_cols_pass<L, INVERSE, R><<<grid, block, 0, stream>>>(a)
     auto first = [](int k, dim3 grid, dim3 block, const PbmmColPass& a,
                     cudaStream_t stream) -> cudaError_t {
-      PBMM_CP_SWITCH(fft_cols_pass, INVERSE, REAL)
+      constexpr bool R = REAL;
+      PBMM_CP_SWITCH(k, FA_COLS)
+      return cudaGetLastError();
     };
     auto rest = [](int k, dim3 grid, dim3 block, const PbmmColPass& a,
                    cudaStream_t stream) -> cudaError_t {
-      PBMM_CP_SWITCH(fft_cols_pass, INVERSE, false)
+      constexpr bool R = false;
+      PBMM_CP_SWITCH(k, FA_COLS)
+      return cudaGetLastError();
     };
+#undef FA_COLS
     return pbmm_col_launch(a, b, first, rest, INVERSE, false, scale,
                            stream);
   }
@@ -271,8 +370,8 @@ static cudaError_t fa_launch(const float* re, const float* im,
 
 // im null: real input (forward only).  axis 1 = H, 2 = W.  tw_re / tw_im:
 // compact_twiddles(n, inverse) for a row pass of 128 points or more (the
-// row engine), else _dif_twiddles(n, inverse).  The row engine's inverse
-// takes planes that start on 16 bytes.
+// row engine and its bracket above 8192), else _dif_twiddles(n, inverse).
+// The row engine's inverse takes planes that start on 16 bytes.
 extern "C" int pbmm_fft_axis(const float* re, const float* im,
                              const float* tw_re, const float* tw_im,
                              float* out_re, float* out_im, int b, int h,
@@ -280,7 +379,7 @@ extern "C" int pbmm_fft_axis(const float* re, const float* im,
                              void* stream) {
   const int n = axis == 1 ? h : w;
   if (b < 1 || h < 1 || w < 1 || (axis != 1 && axis != 2) || n < 2 ||
-      (n & (n - 1)) != 0 || n > FA_MAXN || (inverse && im == nullptr) ||
+      (n & (n - 1)) != 0 || (inverse && im == nullptr) ||
       (axis == 1 && b > 65535) || (axis == 2 && (size_t)b * h > 2147483647u))
     return (int)cudaErrorInvalidValue;
   if (axis == 2 && n >= PBMM_RP_MINN && inverse &&

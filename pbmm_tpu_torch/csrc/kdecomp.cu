@@ -22,12 +22,20 @@
 // differ from it only by the pieces they leave out.  IIR taps are not
 // taken (kdecomp times the two-frame pass).
 //
+// Above 8192 rows the kernel runs on every 8192-row block of the column
+// (one launch a block, strips of 1, the block's planes and frequencies at
+// the column's frame stride) into a scratch, then col_pass.cuh's inverse
+// bracket (its stages of span >= 8192 are HI's): kernel 6's split, so the
+// full variant still equals kernel 6.  Without HI the blocks write their
+// rows of [r0, r1) straight out.
+//
 // What bounds it on an H100: the same bytes as kernel 6: 4 planes of
 // H x W f32 in, 2 x (r1 - r0) x W out; at H = 2048, W = 1152, rows
 // (384, 1600): 37.7 MB in, 11.2 MB out, 0.0146 ms at 3.35 TB/s.  The
 // design does nothing about that bound: it measures kernel 6's pieces as
 // kernel 6 runs them.
 
+#include "col_pass.cuh"
 #include "common.cuh"
 #include "phase_pass.cuh"
 
@@ -47,6 +55,8 @@ struct KdecompIO {
   float* out_re;
   float* out_im;
   int h, w, r0, r1;
+  size_t fs;  // frame stride of the spectra (floats; H W)
+  size_t os;  // frame stride of the output ((r1 - r0) W)
 };
 
 template <bool PHASE, bool GENERAL, bool LO, bool HI, int KD_S>
@@ -60,7 +70,7 @@ __global__ void __launch_bounds__(256)
   float* b_re = smem + 2 * hs;
   float* b_im = smem + 3 * hs;
   const int col0 = blockIdx.x * KD_S;
-  const size_t fo = (size_t)blockIdx.y * h * w;
+  const size_t fo = (size_t)blockIdx.y * io.fs;
   const int nt = blockDim.x;
 
   for (int e = threadIdx.x; e < hs; e += nt) {
@@ -104,7 +114,7 @@ __global__ void __launch_bounds__(256)
   }
 
   const int hr = io.r1 - io.r0;
-  const size_t obase = (size_t)blockIdx.y * hr * w;
+  const size_t obase = (size_t)blockIdx.y * io.os;
   for (int e = threadIdx.x; e < hr * KD_S; e += nt) {
     const int p = e / KD_S, c = e % KD_S;
     const size_t g = obase + (size_t)p * w + col0 + c;
@@ -147,13 +157,18 @@ static cudaError_t kd_stages(const KdecompIO& io, const PhaseArgs& pa,
 
 // pieces: bit 0 phase, bit 1 the span < 128 stages ("gm"), bit 2 the span
 // >= 128 stages ("rolls").  iargs/fargs as for pbmm_phase_col_ifft (read
-// only with the phase piece); the IIR branch is refused.
+// only with the phase piece); the IIR branch is refused.  tw_re / tw_im:
+// _dif_twiddles(min(h, 8192), inverse=True); above 8192 rows with the
+// "rolls" piece, tb_re / tb_im: compact_twiddles(h, inverse=True) and sp_re
+// / sp_im a (b, h, w) scratch (else unread).
 extern "C" int pbmm_kdecomp(const float* cur_re, const float* cur_im,
                             const float* prev_re, const float* prev_im,
                             const float* plane0, const float* plane1,
                             const float* fy, const float* fx,
                             const float* tw_re, const float* tw_im,
-                            float* out_re, float* out_im, const int* iargs,
+                            const float* tb_re, const float* tb_im,
+                            float* out_re, float* out_im, float* sp_re,
+                            float* sp_im, const int* iargs,
                             const float* fargs, int pieces, int b, int h,
                             int w, int r0, int r1, void* stream) {
   const bool phase = pieces & 1, lo = pieces & 2, hi = pieces & 4;
@@ -170,17 +185,58 @@ extern "C" int pbmm_kdecomp(const float* cur_re, const float* cur_im,
       return (int)cudaErrorInvalidValue;
   }
   const int sw = pbmm_col_strip(h);
+  const bool bracket = h > PBMM_BK_N;
   if (pieces < 0 || pieces > 7 || b < 1 || b > 65535 || h < 2 ||
-      (h & (h - 1)) != 0 || h > PBMM_COL_MAXH || w < sw ||
-      w % sw != 0 || r0 < 0 || r1 <= r0 || r1 > h)
+      (h & (h - 1)) != 0 || w < sw || w % sw != 0 || r0 < 0 || r1 <= r0 ||
+      r1 > h || (bracket && hi && (tb_re == nullptr || tb_im == nullptr ||
+                                   sp_re == nullptr || sp_im == nullptr)))
     return (int)cudaErrorInvalidValue;
   const KdecompIO io = {cur_re, cur_im, prev_re, prev_im, plane0, plane1,
                         fy,     fx,     tw_re,   tw_im,   out_re, out_im,
-                        h,      w,      r0,      r1};
+                        h,      w,      r0,      r1,      (size_t)h * w,
+                        (size_t)(r1 - r0) * w};
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      !phase    ? kd_stages<false, false>(io, pa, b, lo, hi, s)
-      : general ? kd_stages<true, true>(io, pa, b, lo, hi, s)
-                : kd_stages<true, false>(io, pa, b, lo, hi, s);
-  return (int)err;
+  auto run = [&](const KdecompIO& v) {
+    return !phase    ? kd_stages<false, false>(v, pa, b, lo, hi, s)
+           : general ? kd_stages<true, true>(v, pa, b, lo, hi, s)
+                     : kd_stages<true, false>(v, pa, b, lo, hi, s);
+  };
+  if (!bracket) return (int)run(io);
+  // Every 8192-row block of every frame, then the inverse bracket (or,
+  // without it, each block's rows of [r0, r1) out).
+  const size_t bw = (size_t)PBMM_BK_N * w;
+  for (int k = 0; k < h / PBMM_BK_N; ++k) {
+    const int y0 = k * PBMM_BK_N;
+    const int b0 = hi ? 0 : (r0 > y0 ? r0 - y0 : 0);
+    const int b1 = hi ? PBMM_BK_N
+                      : (r1 - y0 < PBMM_BK_N ? r1 - y0 : PBMM_BK_N);
+    if (b1 <= b0) continue;
+    const size_t o = k * bw;
+    KdecompIO v = io;
+    v.cur_re += o;
+    v.cur_im += o;
+    v.prev_re += o;
+    v.prev_im += o;
+    if (plane0) v.plane0 += o;
+    if (plane1) v.plane1 += o;
+    if (fy) v.fy += (size_t)y0;
+    if (hi) {
+      v.out_re = sp_re + o;
+      v.out_im = sp_im + o;
+      v.os = io.fs;
+    } else {
+      v.out_re = out_re + (size_t)(y0 + b0 - r0) * w;
+      v.out_im = out_im + (size_t)(y0 + b0 - r0) * w;
+    }
+    v.h = PBMM_BK_N;
+    v.r0 = b0;
+    v.r1 = b1;
+    const cudaError_t err = run(v);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!hi) return (int)cudaSuccess;
+  const PbmmColPass inv = {sp_re, sp_im, out_re, out_im, tb_re, tb_im,
+                           h,     w,     r1 - r0, r0,   0,     0,
+                           1.0f,  0,     io.fs,  io.os};
+  return (int)pbmm_bracket_cols(inv, b, true, s);
 }

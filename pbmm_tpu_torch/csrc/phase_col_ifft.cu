@@ -30,6 +30,11 @@
 // blocks that fill the SMs in one wave at B = 1 (4 columns, 256 threads,
 // 3 blocks an SM: 288 blocks at 1080p's H = 2048) measured no faster, and
 // slower at H = 4096 and B = 16 (PERF.md).
+// Above 8192 rows (16384 at 16K) it runs the same launch on every
+// 8192-row block of the column (one launch a block: the block's planes,
+// frequencies and taps at the column's frame stride) into a scratch the
+// wrapper allocates, then col_pass.cuh's inverse bracket writes rows [r0,
+// r1), as kernel 2 does: kernel 6's rows stay kernel 2's bit for bit.
 //
 // What bounds it on an H100: it reads 4 (IIR 6) planes of B x H x W f32
 // (and the two host planes of H x W) once and writes 2 x B x (r1 - r0) x W
@@ -40,6 +45,7 @@
 // 0.090 ms warm (0.105 on strips of 4), one frame at H = 4096 0.258 (the
 // stage-by-stage design before it: 0.239 and 0.933).
 
+#include "col_pass.cuh"
 #include "common.cuh"
 #include "phase_inv.cuh"
 
@@ -61,6 +67,8 @@ struct PhaseColIO {
   float* lpf_out;
   float* lps_out;
   int w, r0, r1;
+  size_t fs;  // frame stride of the spectra and taps (floats; H W)
+  size_t os;  // frame stride of the output ((r1 - r0) W)
 };
 
 template <int NLOG, int S, bool GENERAL, bool IIR>
@@ -72,14 +80,14 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
   float* sim = smem + N * S;
   const size_t wk = io.w;
   const int col0 = blockIdx.x * S;
-  const size_t fo = (size_t)blockIdx.y * N * wk;  // this frame's planes
+  const size_t fo = (size_t)blockIdx.y * io.fs;  // this frame's planes
   pbmm_phase_strip<S, true, GENERAL, IIR>(
       io.cur_re + fo, io.cur_im + fo, io.prev_re + fo, io.prev_im + fo,
       IIR ? io.lpf_in + fo : nullptr, IIR ? io.lps_in + fo : nullptr,
       IIR ? io.lpf_out + fo : nullptr, IIR ? io.lps_out + fo : nullptr,
       io.plane0, io.plane1, io.fy, io.fx, pa, N, wk, col0, sre, sim);
   const int hr = io.r1 - io.r0;
-  const size_t ob = (size_t)blockIdx.y * hr * wk + col0;
+  const size_t ob = (size_t)blockIdx.y * io.os + col0;
   pbmm_inv_rows_pow2<NLOG, S>(sre, sim, io.tw_re, io.tw_im, io.out_re + ob,
                               io.out_im + ob, wk, io.r0, hr);
 }
@@ -121,20 +129,23 @@ static cudaError_t pc_strip(const PhaseColIO& io, const PhaseArgs& pa,
 // for pbmm_colspec_chunk).  lpf/lps pointers are null without IIR,
 // plane0/plane1 without host planes, fy/fx on the main branch; tw_re /
 // tw_im: compact_twiddles(h, inverse=True); s: the strip
-// (spectral/fused.py::phase_col_strip).
+// (spectral/fused.py::phase_col_strip; of the 8192-row block above 8192
+// rows); sp_re / sp_im: a (b, h, w) scratch above 8192 rows, else null.
 extern "C" int pbmm_phase_col_ifft(
     const float* cur_re, const float* cur_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
     const float* plane0, const float* plane1, const float* fy,
     const float* fx, const float* tw_re, const float* tw_im, float* out_re,
-    float* out_im, float* lpf_out, float* lps_out, const int* iargs,
-    const float* fargs, int b, int h, int w, int r0, int r1, int s,
-    void* stream) {
+    float* out_im, float* lpf_out, float* lps_out, float* sp_re,
+    float* sp_im, const int* iargs, const float* fargs, int b, int h, int w,
+    int r0, int r1, int s, void* stream) {
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool general = pbmm_phase_general(pa);
+  const bool bracket = h > PBMM_BK_N;
   if (!args_ok || b < 1 || b > 65535 || h < 2 || (h & (h - 1)) != 0 ||
-      h > PBMM_COL_MAXH || s < 1 || w < s || w % s != 0 || r0 < 0 ||
+      (bracket && (sp_re == nullptr || sp_im == nullptr)) || s < 1 ||
+      w < s || w % s != 0 || r0 < 0 ||
       r1 <= r0 || r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (!general && (plane0 == nullptr || plane1 == nullptr)) ||
@@ -145,9 +156,43 @@ extern "C" int pbmm_phase_col_ifft(
   const PhaseColIO io = {cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in,
                          plane0, plane1, fy,      fx,      tw_re,  tw_im,
                          out_re, out_im, lpf_out, lps_out, w,      r0,
-                         r1};
+                         r1,     (size_t)h * w, (size_t)(r1 - r0) * w};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
+  if (bracket) {
+    // Every 8192-row block of every frame, then the inverse bracket.
+    const size_t bw = (size_t)PBMM_BK_N * w;
+    err = cudaSuccess;
+    for (int k = 0; k < h / PBMM_BK_N && err == cudaSuccess; ++k) {
+      const size_t o = k * bw;
+      PhaseColIO v = io;
+      v.cur_re += o;
+      v.cur_im += o;
+      v.prev_re += o;
+      v.prev_im += o;
+      if (pa.iir) {
+        v.lpf_in += o;
+        v.lps_in += o;
+        v.lpf_out += o;
+        v.lps_out += o;
+      }
+      if (plane0) v.plane0 += o;
+      if (plane1) v.plane1 += o;
+      if (fy) v.fy += (size_t)k * PBMM_BK_N;
+      v.out_re = sp_re + o;
+      v.out_im = sp_im + o;
+      v.r0 = 0;
+      v.r1 = PBMM_BK_N;
+      v.os = io.fs;
+      err = pc_strip<PBMM_BK_LOG, 2>(v, pa, general, b, s, st);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const PbmmColPass inv = {sp_re,   sp_im, out_re, out_im, tw_re,
+                             tw_im,   h,     w,      r1 - r0, r0,
+                             0,       0,     1.0f,   0,       io.fs,
+                             io.os};
+    return (int)pbmm_bracket_cols(inv, b, true, st);
+  }
   switch (h) {
 #define PC_H(NLOG, S2) \
   case 1 << NLOG: err = pc_strip<NLOG, S2>(io, pa, general, b, s, st); break;

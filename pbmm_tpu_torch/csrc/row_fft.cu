@@ -48,7 +48,21 @@
 // 269 MB), against 0.417 for torch.fft.fft on the f32 rows, and kernel 1
 // 0.186 ms at (16, 1152, 2048) f32 (321 MB) against 0.417 for
 // torch.fft.fft and 0.520 for its stage-by-stage design.
+//
+// A row of 16384 lanes (16K) still fits one block (1024 threads, 139 KB;
+// measured faster than the bracket below on kernel 8's row pass, PERF.md):
+// there every tile's last passes run and the store skips the tiles not
+// kept.  Longer rows run col_pass.cuh's bracket: rf_bracket_kernel forms the
+// windowed row (kernel 1's product or kernel 4's luma, byte loads, the
+// same rounded ops) in its first pass, runs the outer DIF stages and
+// writes the complex row to a scratch the wrapper allocates;
+// rf_inner_kernel then runs the row engine on each 8192-lane block of the
+// scratch and stores the block's kept tiles by their global tile numbers.
+// The kept tiles' positions are a device table of one int a tile (-1: not
+// kept; 65 of 128 tiles kept at 16384 lanes); a block up to 8192 lanes
+// derives its 64-bit keep mask by two warp ballots.
 
+#include "col_pass.cuh"
 #include "common.cuh"
 #include "row_pass.cuh"
 
@@ -57,38 +71,28 @@ struct LumaRow {
   float s;     // f32(1/255)
 };
 
-// The kept tiles' positions in the output row, by full tile (-1: not
-// kept), and the same as one bit per tile.
-struct RfKeptPos {
-  int pos[PBMM_MAX_TILES];
-  unsigned long long mask;
-};
+// The keep bits of the 64 tiles from pos[0] (ntiles of them in the row):
+// tile i is kept where pos[i] >= 0.  Every thread of a warp calls it.
+__device__ __forceinline__ unsigned long long rf_keep_mask(
+    const int* __restrict__ pos, int ntiles) {
+  const int l = threadIdx.x & 31;
+  const unsigned lo = __ballot_sync(~0u, l < ntiles && __ldg(pos + l) >= 0);
+  const unsigned hi =
+      __ballot_sync(~0u, l + 32 < ntiles && __ldg(pos + 32 + l) >= 0);
+  return ((unsigned long long)hi << 32) | lo;
+}
 
-// The shared part of kernels 1 and 4: the row's windowed real values are
-// staged in the re plane of its shared memory (sre, sim; the caller has
-// synchronised); the DIF passes run and the kept tiles go to row rowid of
-// out_re / out_im (n_kept * 128 lanes a row).
-template <int N>
+// The shared part of kernels 1 and 4: load(gr, xr, xi) fills the first
+// DIF pass's groups (the windowed row staged in shared memory, or a
+// bracketed block from the scratch), the passes run and the kept tiles go
+// to row rowid of out_re / out_im (n_kept * 128 lanes a row).  pos: the
+// kept position of each tile of this block's N lanes, keep: their bits.
+template <int N, class Load>
 __device__ __forceinline__ void rf_transform_store(
     int t, float* sre, float* sim, const float* __restrict__ tw_re,
-    const float* __restrict__ tw_im, const RfKeptPos& kept, int n_kept,
-    long long rowid, bool valid, float* __restrict__ out_re,
-    float* __restrict__ out_im) {
-  // First DIF pass: base = g < st, so point q of group j is lane g + q st
-  // of the staged row, its imaginary part 0.
-  auto load = [&](const auto& gr, float (&xr)[PBMM_RP_P],
-                  float (&xi)[PBMM_RP_P]) {
-    using G = PbmmRpOf<decltype(gr)>;
-#pragma unroll
-    for (int j = 0; j < G::J; ++j) {
-      const float* a = sre + pbmm_rp_pad(gr.base[j]);
-#pragma unroll
-      for (int q = 0; q < G::L; ++q) {
-        xr[j * G::L + q] = a[pbmm_rp_pad(q * G::ST)];
-        xi[j * G::L + q] = 0.0f;
-      }
-    }
-  };
+    const float* __restrict__ tw_im, const int* __restrict__ pos,
+    unsigned long long keep, int n_kept, long long rowid, bool valid,
+    float* __restrict__ out_re, float* __restrict__ out_im, Load&& load) {
   // Last DIF pass (st = 1), its groups adjacent: a thread holds 2^K J
   // consecutive bit-reversed lanes of one tile, stored only where the
   // tile is kept (its groups elsewhere were skipped).
@@ -104,7 +108,9 @@ __device__ __forceinline__ void rf_transform_store(
     for (int j = 0; j < G::J; ++j) {
       if (!gr.on[j]) continue;
       const int p0 = gr.base[j];
-      const int o = kept.pos[p0 / PBMM_LANE] * PBMM_LANE + p0 % PBMM_LANE;
+      const int kp = __ldg(pos + p0 / PBMM_LANE);
+      if (N > PBMM_RP_MAXN && kp < 0) continue;  // a tile not kept
+      const size_t o = (size_t)kp * PBMM_LANE + p0 % PBMM_LANE;
 #pragma unroll
       for (int c = 0; c < G::L / 4; ++c) {
         const int e = j * G::L + 4 * c;
@@ -115,20 +121,57 @@ __device__ __forceinline__ void rf_transform_store(
       }
     }
   };
-  pbmm_row_transform<N, false, true>(t, sre, sim, tw_re, tw_im, kept.mask,
-                                     load, store);
+  pbmm_row_transform<N, false, true>(t, sre, sim, tw_re, tw_im, keep, load,
+                                     store);
+}
+
+// The first DIF pass's load from a row staged in the re plane: base = g <
+// st, so point q of group j is lane g + q st, its imaginary part 0.
+template <class G>
+__device__ __forceinline__ void rf_staged_load(const G& gr,
+                                               float (&xr)[PBMM_RP_P],
+                                               float (&xi)[PBMM_RP_P],
+                                               const float* sre) {
+#pragma unroll
+  for (int j = 0; j < G::J; ++j) {
+    const float* a = sre + pbmm_rp_pad(gr.base[j]);
+#pragma unroll
+    for (int q = 0; q < G::L; ++q) {
+      xr[j * G::L + q] = a[pbmm_rp_pad(q * G::ST)];
+      xi[j * G::L + q] = 0.0f;
+    }
+  }
+}
+
+// Kernel 4's windowed luma at lane x of a padded row from the three u8
+// planes (r8: the content source row, or any row where !content), byte by
+// byte: the 16-byte path's values, the same rounded ops.
+__device__ __forceinline__ float rf_u8_luma(const unsigned char* r8,
+                                            size_t plane, int x, int w_in,
+                                            bool content,
+                                            const LumaRow& luma) {
+  const int xc = min(max(x, 0), w_in - 1);
+  const float rr = __fmul_rn((float)__ldg(r8 + xc), luma.s);
+  const float gg = __fmul_rn((float)__ldg(r8 + plane + xc), luma.s);
+  const float bb = __fmul_rn((float)__ldg(r8 + 2 * plane + xc), luma.s);
+  return content && x >= 0 && x < w_in
+             ? __fadd_rn(__fadd_rn(__fmul_rn(rr, luma.c[0]),
+                                   __fmul_rn(gg, luma.c[1])),
+                         __fmul_rn(bb, luma.c[2]))
+             : 0.0f;
 }
 
 // Kernel 1: rows of (batch x hc) padded f32 content rows of N lanes.
 template <int N>
-__global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
+__global__ void __launch_bounds__(PBMM_RP_BOUND(N))
     row_fft_f32_kernel(const float* __restrict__ y,
                        const float* __restrict__ wy,
                        const float* __restrict__ wx,
                        const float* __restrict__ tw_re,
                        const float* __restrict__ tw_im,
                        float* __restrict__ out_re, float* __restrict__ out_im,
-                       RfKeptPos kept, int n_kept, long long rows, int hc) {
+                       const int* __restrict__ pos, int n_kept,
+                       long long rows, int hc) {
   extern __shared__ float smem[];
   constexpr int NT = N / PBMM_RP_P;
   const int r = threadIdx.x / NT, t = threadIdx.x % NT;
@@ -139,6 +182,7 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
   float* sim = sre + pbmm_rp_pad(N);
   const long long src = valid ? rowid : 0;  // a past-the-end row reads row 0
   const float wr = wy[src % hc];
+  const unsigned long long keep = rf_keep_mask(pos, N / PBMM_LANE);
 
   // Thread t windows lanes [16 t, 16 t + 16): y * wy[row] * wx in the op
   // order of the pre stage's product, from 16-byte loads.
@@ -162,21 +206,23 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
     }
   }
   __syncthreads();
-  rf_transform_store<N>(t, sre, sim, tw_re, tw_im, kept, n_kept, rowid,
-                        valid, out_re, out_im);
+  rf_transform_store<N>(
+      t, sre, sim, tw_re, tw_im, pos, keep, n_kept, rowid, valid, out_re,
+      out_im, [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                  float (&xi)[PBMM_RP_P]) { rf_staged_load(gr, xr, xi, sre); });
 }
 
 template <int N>
-__global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
+__global__ void __launch_bounds__(PBMM_RP_BOUND(N))
     row_fft_u8_kernel(const unsigned char* __restrict__ frames,
                       const float* __restrict__ wy,
                       const float* __restrict__ wx,
                       const float* __restrict__ tw_re,
                       const float* __restrict__ tw_im,
                       float* __restrict__ out_re, float* __restrict__ out_im,
-                      RfKeptPos kept, int n_kept, long long rows, int hc,
-                      int h_in, int w_in, int off, int x0, LumaRow luma,
-                      int vec) {
+                      const int* __restrict__ pos, int n_kept,
+                      long long rows, int hc, int h_in, int w_in, int off,
+                      int x0, LumaRow luma, int vec) {
   extern __shared__ float smem[];
   constexpr int NT = N / PBMM_RP_P;
   const int r = threadIdx.x / NT, t = threadIdx.x % NT;
@@ -194,6 +240,7 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
       frames + (size_t)f * 3 * plane + (size_t)(content ? src_row : 0) * w_in;
   const float wr = wy[row];
   const float s = luma.s, c0 = luma.c[0], c1 = luma.c[1], c2 = luma.c[2];
+  const unsigned long long keep = rf_keep_mask(pos, N / PBMM_LANE);
 
   // The row's windowed luma, staged in the re plane: thread t forms lanes
   // [16 t, 16 t + 16) from 16-byte loads of the three planes where the
@@ -231,17 +278,8 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < C; ++e) {
-        const int x = xs + e;
-        const int xc = min(max(x, 0), w_in - 1);
-        const float rr = __fmul_rn((float)__ldg(r8 + xc), s);
-        const float gg = __fmul_rn((float)__ldg(r8 + plane + xc), s);
-        const float bb = __fmul_rn((float)__ldg(r8 + 2 * plane + xc), s);
-        v[e] = content && x >= 0 && x < w_in
-                   ? __fadd_rn(__fadd_rn(__fmul_rn(rr, c0), __fmul_rn(gg, c1)),
-                               __fmul_rn(bb, c2))
-                   : 0.0f;
-      }
+      for (int e = 0; e < C; ++e)
+        v[e] = rf_u8_luma(r8, plane, xs + e, w_in, content, luma);
     }
     const float4* w4 = reinterpret_cast<const float4*>(wx + i0);
 #pragma unroll
@@ -255,29 +293,165 @@ __global__ void __launch_bounds__(PBMM_RP_MAXN / PBMM_RP_P)
     }
   }
   __syncthreads();
-  rf_transform_store<N>(t, sre, sim, tw_re, tw_im, kept, n_kept, rowid,
-                        valid, out_re, out_im);
+  rf_transform_store<N>(
+      t, sre, sim, tw_re, tw_im, pos, keep, n_kept, rowid, valid, out_re,
+      out_im, [&](const auto& gr, float (&xr)[PBMM_RP_P],
+                  float (&xi)[PBMM_RP_P]) { rf_staged_load(gr, xr, xi, sre); });
 }
 
-// The checks both entry points share: w a row length of the engine,
-// 16-byte aligned wx and outputs (n_kept * 128 floats keep every row
-// aligned), the kept tiles distinct and inside the row.
+// The front end of a bracketed row (longer than PBMM_BK_N): the windowed
+// value at lane x of output row rowid, kernel 1's (f32 rows) or kernel 4's
+// (u8 planes).
+struct RfFront {
+  const float* y;            // kernel 1: (rows, n) f32; null for kernel 4
+  const unsigned char* u8;   // kernel 4: (t, 3, h_in, w_in)
+  const float* wy;           // the content rows' window
+  const float* wx;
+  int hc, h_in, w_in, off, x0;
+  LumaRow luma;
+  __device__ __forceinline__ float operator()(long long rowid, long long n,
+                                              long long x) const {
+    if (y != nullptr)
+      return __fmul_rn(__fmul_rn(__ldcs(y + rowid * n + x),
+                                 __ldg(wy + rowid % hc)),
+                       __ldg(wx + x));
+    const int f = (int)(rowid / hc), row = (int)(rowid - (long long)f * hc);
+    const int src_row = row - off;
+    const bool content = src_row >= 0 && src_row < h_in;
+    const size_t plane = (size_t)h_in * w_in;
+    const unsigned char* r8 = u8 + (size_t)f * 3 * plane +
+                              (size_t)(content ? src_row : 0) * w_in;
+    const float v = rf_u8_luma(r8, plane, (int)(x - x0), w_in, content, luma);
+    return __fmul_rn(__fmul_rn(v, __ldg(wy + row)), __ldg(wx + x));
+  }
+};
+
+// One bracket pass of kernel 1 or 4's rows of n lanes: thread (row,
+// group); FIRST forms the windowed points (imaginary part 0, the complex
+// butterflies of kernel 1), the later passes run in place on the (rows,
+// n) scratch.
+template <int L, bool FIRST>
+__global__ void __launch_bounds__(PBMM_BK_THREADS)
+    rf_bracket_kernel(RfFront front, float* sc_re, float* sc_im,
+                      const float* __restrict__ tw_re,
+                      const float* __restrict__ tw_im, long long n, int lst) {
+  constexpr int K = pbmm_log2(L);
+  const long long g = (long long)blockIdx.y * PBMM_BK_THREADS + threadIdx.x;
+  if (g >= (n >> K)) return;
+  const long long st = 1ll << lst;
+  const int base = pbmm_cp_base<K>((int)g, lst);
+  const long long rowid = blockIdx.x;
+  float* dr = sc_re + rowid * n + base;
+  float* di = sc_im + rowid * n + base;
+  float xr[L], xi[L];
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    xr[q] = FIRST ? front(rowid, n, base + q * st) : __ldcs(dr + q * st);
+    xi[q] = FIRST ? 0.0f : __ldcs(di + q * st);
+  }
+  pbmm_cp_stages<L, false, false, true>(base, lst, 0, 0, xr, xi, tw_re, tw_im);
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    dr[q * st] = xr[q];
+    di[q * st] = xi[q];
+  }
+}
+
+// The inner stages of a bracketed row: the row engine on block blk of row
+// rowid (block vid = rowid (n / PBMM_BK_N) + blk of the scratch, in
+// place of its first pass's loads), the block's kept tiles stored by
+// their global tile numbers.
+__global__ void __launch_bounds__(PBMM_BK_N / PBMM_RP_P)
+    rf_inner_kernel(const float* __restrict__ sc_re,
+                    const float* __restrict__ sc_im,
+                    const float* __restrict__ tw_re,
+                    const float* __restrict__ tw_im,
+                    float* __restrict__ out_re, float* __restrict__ out_im,
+                    const int* __restrict__ pos, int n_kept, int blks) {
+  extern __shared__ float smem[];
+  constexpr int N = PBMM_BK_N;
+  const long long vid = blockIdx.x;
+  const long long rowid = vid / blks;
+  const int blk = (int)(vid - rowid * blks);
+  const int* bpos = pos + (size_t)blk * (N / PBMM_LANE);
+  const unsigned long long keep = rf_keep_mask(bpos, N / PBMM_LANE);
+  float* sre = smem;
+  float* sim = smem + pbmm_rp_pad(N);
+  const float* src_re = sc_re + vid * N;
+  const float* src_im = sc_im + vid * N;
+  rf_transform_store<N>(
+      threadIdx.x, sre, sim, tw_re, tw_im, bpos, keep, n_kept, rowid, true,
+      out_re, out_im,
+      [&](const auto& gr, float (&xr)[PBMM_RP_P], float (&xi)[PBMM_RP_P]) {
+        using G = PbmmRpOf<decltype(gr)>;
+#pragma unroll
+        for (int j = 0; j < G::J; ++j)
+#pragma unroll
+          for (int q = 0; q < G::L; ++q) {
+            xr[j * G::L + q] = __ldcs(src_re + gr.pos(j, q));
+            xi[j * G::L + q] = __ldcs(src_im + gr.pos(j, q));
+          }
+      });
+}
+
+// Every launch of a bracketed row FFT: the bracket passes into the
+// scratch (rows, w), then the inner kernel.
+static int rf_bracketed(const RfFront& front, const float* tw_re,
+                        const float* tw_im, float* sc_re, float* sc_im,
+                        float* out_re, float* out_im, const int* pos,
+                        int n_kept, long long rows, int w,
+                        cudaStream_t stream) {
+  if (sc_re == nullptr || sc_im == nullptr || rows > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = pbmm_bracket_launch(
+      w, false, [&](const PbmmCpPass& p, bool first, bool) -> cudaError_t {
+        const dim3 grid((unsigned)rows,
+                        (unsigned)(((w >> p.k) + PBMM_BK_THREADS - 1) /
+                                   PBMM_BK_THREADS));
+#define RF_BK(L)                                                           \
+  if (first)                                                               \
+    rf_bracket_kernel<L, true><<<grid, PBMM_BK_THREADS, 0, stream>>>(      \
+        front, sc_re, sc_im, tw_re, tw_im, w, p.lst);                      \
+  else                                                                     \
+    rf_bracket_kernel<L, false><<<grid, PBMM_BK_THREADS, 0, stream>>>(     \
+        front, sc_re, sc_im, tw_re, tw_im, w, p.lst)
+        PBMM_CP_SWITCH(p.k, RF_BK)
+#undef RF_BK
+        return cudaGetLastError();
+      });
+  if (err != cudaSuccess) return (int)err;
+  const int blks = w / PBMM_BK_N;
+  const long long vblocks = rows * blks;
+  if (vblocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)pbmm_rp_row_floats(PBMM_BK_N) * sizeof(float);
+  err = pbmm_smem_opt_in(rf_inner_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  rf_inner_kernel<<<(unsigned)vblocks, PBMM_BK_N / PBMM_RP_P, smem,
+                    stream>>>(sc_re, sc_im, tw_re, tw_im, out_re, out_im, pos,
+                              n_kept, blks);
+  return (int)cudaGetLastError();
+}
+
+// The checks both entry points share: w a power-of-two row of 128 lanes
+// or more, 16-byte aligned wx and outputs (n_kept * 128 floats keep every
+// row aligned), the kept tiles distinct and inside the row (host table
+// kept_tiles; pos: the same as a device table of w / 128 positions, -1
+// where a tile is not kept).
 static int rf_setup(const int* kept_tiles, int n_kept, int w, const float* wx,
                     const float* out_re, const float* out_im,
-                    RfKeptPos* kept) {
-  if (n_kept < 1 || n_kept > PBMM_MAX_TILES || !pbmm_rp_length_ok(w))
+                    const int* pos) {
+  if (w < PBMM_RP_MINN || (w & (w - 1)) != 0 || n_kept < 1 ||
+      n_kept > w / PBMM_LANE || pos == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((size_t)wx % 16 != 0 || (size_t)out_re % 16 != 0 ||
       (size_t)out_im % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  kept->mask = 0;
-  for (int i = 0; i < PBMM_MAX_TILES; ++i) kept->pos[i] = -1;
   for (int i = 0; i < n_kept; ++i) {
     const int tile = kept_tiles[i];
-    if (tile < 0 || (tile + 1) * PBMM_LANE > w || kept->pos[tile] >= 0)
+    if (tile < 0 || (tile + 1) * PBMM_LANE > w)
       return (int)cudaErrorInvalidValue;
-    kept->pos[tile] = i;
-    kept->mask |= 1ull << tile;
+    for (int j = 0; j < i; ++j)
+      if (kept_tiles[j] == tile) return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
@@ -291,52 +465,66 @@ static bool rf_grid(long long rows, int w, unsigned* blocks, size_t* smem) {
   return b <= 2147483647LL;
 }
 
-// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each.
+// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each;
+// sc_re / sc_im: a (batch hc, w) scratch above 16384 lanes (else null).
 extern "C" int pbmm_row_fft(const float* y, const float* wy, const float* wx,
                             const float* tw_re, const float* tw_im,
                             float* out_re, float* out_im,
-                            const int* kept_tiles, int n_kept, int batch,
-                            int hc, int w, void* stream) {
-  RfKeptPos kept;
+                            const int* kept_tiles, const int* pos,
+                            int n_kept, int batch, int hc, int w,
+                            float* sc_re, float* sc_im, void* stream) {
   if (batch < 1 || hc < 1) return (int)cudaErrorInvalidValue;
-  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, &kept);
+  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, pos);
   if (bad) return bad;
   if ((size_t)y % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const long long rows = (long long)batch * hc;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w > PBMM_RP_BLOCKN) {
+    const RfFront front = {y, nullptr, wy, wx, hc, 0, 0, 0, 0, {}};
+    return rf_bracketed(front, tw_re, tw_im, sc_re, sc_im, out_re, out_im,
+                        pos, n_kept, rows, w, s);
+  }
   unsigned blocks;
   size_t smem;
   if (!rf_grid(rows, w, &blocks, &smem)) return (int)cudaErrorInvalidValue;
   const int rpb = pbmm_rp_rows_per_block(w);
-  cudaStream_t s = (cudaStream_t)stream;
 #define RF1_LAUNCH(N)                                                       \
   {                                                                         \
     cudaError_t err = pbmm_smem_opt_in(row_fft_f32_kernel<N>, smem);        \
     if (err != cudaSuccess) return (int)err;                                \
     row_fft_f32_kernel<N><<<blocks, rpb * (N / PBMM_RP_P), smem, s>>>(      \
-        y, wy, wx, tw_re, tw_im, out_re, out_im, kept, n_kept, rows, hc);   \
+        y, wy, wx, tw_re, tw_im, out_re, out_im, pos, n_kept, rows, hc);    \
   }
-  PBMM_RP_SWITCH(w, RF1_LAUNCH)
+  PBMM_RP_SWITCH_BLOCK(w, RF1_LAUNCH)
 #undef RF1_LAUNCH
   return (int)cudaGetLastError();
 }
 
-// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each.
+// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each;
+// sc_re / sc_im: a (t hc, w) scratch above 16384 lanes (else null).
 extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
                                const float* wx, const float* tw_re,
                                const float* tw_im, float* out_re,
                                float* out_im, const int* kept_tiles,
-                               int n_kept, int t, int hc, int h_in, int w_in,
-                               int w, int off, int x0, const float* coeffs,
-                               float scale, void* stream) {
+                               const int* pos, int n_kept, int t, int hc,
+                               int h_in, int w_in, int w, int off, int x0,
+                               const float* coeffs, float scale,
+                               float* sc_re, float* sc_im, void* stream) {
   if (t < 1 || hc < 1 || h_in < 1 || w_in < 1 || x0 < 0 || x0 + w_in > w)
     return (int)cudaErrorInvalidValue;
-  RfKeptPos kept;
-  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, &kept);
+  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, pos);
   if (bad) return bad;
   LumaRow luma;
   for (int i = 0; i < 3; ++i) luma.c[i] = coeffs[i];
   luma.s = scale;
   const long long rows = (long long)t * hc;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (w > PBMM_RP_BLOCKN) {
+    const RfFront front = {nullptr, frames, wy, wx, hc, h_in, w_in, off,
+                           x0, luma};
+    return rf_bracketed(front, tw_re, tw_im, sc_re, sc_im, out_re, out_im,
+                        pos, n_kept, rows, w, s);
+  }
   unsigned blocks;
   size_t smem;
   if (!rf_grid(rows, w, &blocks, &smem)) return (int)cudaErrorInvalidValue;
@@ -345,16 +533,15 @@ extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
   // of 16; byte loads otherwise.
   const int vec =
       (size_t)frames % 16 == 0 && w_in % 16 == 0 && x0 % 16 == 0;
-  cudaStream_t s = (cudaStream_t)stream;
 #define RF_LAUNCH(N)                                                        \
   {                                                                         \
     cudaError_t err = pbmm_smem_opt_in(row_fft_u8_kernel<N>, smem);         \
     if (err != cudaSuccess) return (int)err;                                \
     row_fft_u8_kernel<N><<<blocks, rpb * (N / PBMM_RP_P), smem, s>>>(       \
-        frames, wy, wx, tw_re, tw_im, out_re, out_im, kept, n_kept, rows,   \
+        frames, wy, wx, tw_re, tw_im, out_re, out_im, pos, n_kept, rows,    \
         hc, h_in, w_in, off, x0, luma, vec);                                \
   }
-  PBMM_RP_SWITCH(w, RF_LAUNCH)
+  PBMM_RP_SWITCH_BLOCK(w, RF_LAUNCH)
 #undef RF_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // The row engine of kernels 1, 4, 7 and 8's row pass: a radix-2 transform of one row of
 // length N (128 to 8192) held on chip, as a few register passes that
-// exchange through the row's shared memory inside one launch.
+// exchange through the row's shared memory inside one launch.  Longer rows
+// run on it block by block inside col_pass.cuh's bracket passes.
 //
 // A pass runs K <= PBMM_RP_KMAX consecutive stages s0 .. s0 + K - 1 of the
 // stage sequence of common.cuh's pbmm_radix2 (forward DIF: spans N/2 .. 1;
@@ -52,7 +53,14 @@
 #define PBMM_RP_MAXPASS 4               // passes of the longest transform
 #define PBMM_RP_THREADS 128  // a block's threads, rows of up to 2048 lanes
 #define PBMM_RP_MINN 128
-#define PBMM_RP_MAXN (PBMM_MAX_TILES * PBMM_LANE)
+#define PBMM_RP_MAXN (PBMM_MAX_TILES * PBMM_LANE)  // rows of 64-bit tile masks
+// The longest row one block holds: 16384 lanes, 1024 threads, 139 KB of
+// shared memory (every tile's groups on: kernels 1 and 4 skip the tiles
+// they do not keep at their store).  Longer rows are bracketed
+// (col_pass.cuh), on 8192-lane blocks.
+#define PBMM_RP_BLOCKN (2 * PBMM_RP_MAXN)
+// A row kernel's launch bound: 512 threads, 1024 for the 16384-lane row.
+#define PBMM_RP_BOUND(N) (((N) > PBMM_RP_MAXN ? (N) : PBMM_RP_MAXN) / PBMM_RP_P)
 
 __host__ __device__ constexpr int pbmm_rp_log2(int v) {
   return v <= 1 ? 0 : 1 + pbmm_rp_log2(v >> 1);
@@ -136,7 +144,9 @@ struct PbmmRpGroups {
       const int g = ADJ ? t * J + j : t + j * NT;
       lo[j] = g & (ST - 1);
       base[j] = ((g >> LST) << (LST + K)) | lo[j];
-      on[j] = !INTRA || ((keep >> (base[j] / PBMM_LANE)) & 1ull);
+      // A row of more than 64 tiles runs every tile's groups.
+      on[j] = !INTRA || N > PBMM_RP_MAXN ||
+              ((keep >> (base[j] / PBMM_LANE)) & 1ull);
     }
   }
   __device__ __forceinline__ int pos(int j, int q) const {
@@ -285,8 +295,58 @@ __device__ __forceinline__ void pbmm_row_transform(
   }
 }
 
+// Kernels 7 and 3's first DIT pass (st = 1), the Hermitian rebuild: a
+// group is 2^K consecutive bit-reversed positions inside one tile, read
+// by 16-byte loads from the kept tile the plan names (lane-reversed and
+// conjugated where it rebuilds a missing tile).  plan_src / plan_rev: the
+// rebuild plan, one int each a tile of the row (device tables,
+// spectral/fused.py::lane_plan_tables); tile0: the global number of the
+// engine's first tile (its block of a bracketed row); src_re / src_im:
+// the row's kept lanes (16-byte aligned); !valid: zeros.
+template <class G>
+__device__ __forceinline__ void pbmm_rp_rebuild_load(
+    const G& gr, float (&xr)[PBMM_RP_P], float (&xi)[PBMM_RP_P],
+    const float* src_re, const float* src_im,
+    const int* __restrict__ plan_src, const int* __restrict__ plan_rev,
+    int tile0, bool valid) {
+  constexpr int L = G::L;
+  static_assert(L % 4 == 0, "the first DIT pass runs 3 or 4 stages");
+#pragma unroll
+  for (int j = 0; j < G::J; ++j) {
+    const int p0 = gr.base[j];
+    const int tile = tile0 + p0 / PBMM_LANE, l0 = p0 % PBMM_LANE;
+    const bool rev = __ldg(plan_rev + tile) != 0;
+    // Lowest source lane of the group's run of L lanes.
+    const int s0 = __ldg(plan_src + tile) * PBMM_LANE +
+                   (rev ? PBMM_LANE - l0 - L : l0);
+    float vr[L], vi[L];
+    if (!valid) {
+#pragma unroll
+      for (int e = 0; e < L; ++e) vr[e] = vi[e] = 0.0f;
+    } else {
+      const float4* a = reinterpret_cast<const float4*>(src_re + s0);
+      const float4* b = reinterpret_cast<const float4*>(src_im + s0);
+#pragma unroll
+      for (int c = 0; c < L / 4; ++c) {
+        const float4 u = __ldg(a + c), v = __ldg(b + c);
+        vr[4 * c] = u.x; vr[4 * c + 1] = u.y;
+        vr[4 * c + 2] = u.z; vr[4 * c + 3] = u.w;
+        vi[4 * c] = v.x; vi[4 * c + 1] = v.y;
+        vi[4 * c + 2] = v.z; vi[4 * c + 3] = v.w;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      xr[j * L + q] = rev ? vr[L - 1 - q] : vr[q];
+      xi[j * L + q] = rev ? -vi[L - 1 - q] : vi[q];
+    }
+  }
+}
+
 // Launch of KERNEL<N> for a row length w (a power of two in [128, 8192]):
-// a switch over the seven lengths, for the kernels' C entry points.
+// a switch over the seven lengths, for the kernels' C entry points;
+// PBMM_RP_SWITCH_BLOCK adds the one-block 16384 (longer rows take their
+// bracketed route before it).
 #define PBMM_RP_SWITCH(w, LAUNCH) \
   switch (w) {                    \
     case 128: LAUNCH(128); break;   \
@@ -297,4 +357,10 @@ __device__ __forceinline__ void pbmm_row_transform(
     case 4096: LAUNCH(4096); break; \
     case 8192: LAUNCH(8192); break; \
     default: return (int)cudaErrorInvalidValue; \
+  }
+#define PBMM_RP_SWITCH_BLOCK(w, LAUNCH)                    \
+  if ((w) == PBMM_RP_BLOCKN) {                            \
+    LAUNCH(PBMM_RP_BLOCKN);                               \
+  } else {                                                \
+    PBMM_RP_SWITCH(w, LAUNCH)                             \
   }

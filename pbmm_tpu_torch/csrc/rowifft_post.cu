@@ -76,7 +76,6 @@
 #include "row_pass.cuh"
 
 struct PostParams {
-  PbmmLanePlan plan;
   PbmmTailParams tail;  // taps, RGB matrix, u8 chroma rows, gains, flags
   int magnitude;        // |z| (1) or Re z (0)
 };
@@ -87,6 +86,8 @@ struct PostIO {
   const float* rim;
   const float* tw_re;  // compact_twiddles(W, inverse)
   const float* tw_im;
+  const int* plan_src;  // the rebuild plan (device tables, a tile each)
+  const int* plan_rev;
   int radius, run, hr, wk, yrow0, x0;
   float scale;
 };
@@ -122,43 +123,11 @@ __global__ void __launch_bounds__(PP_MAX_THREADS)
     const bool valid = y0 + rr < nreg;
     const float* src_re = io.rre + (reg0 + (valid ? y0 + rr : 0)) * io.wk;
     const float* src_im = io.rim + (reg0 + (valid ? y0 + rr : 0)) * io.wk;
-    // First DIT pass (st = 1): kernel 7's gather of 2^K consecutive
-    // bit-reversed positions inside one tile from the kept tile the plan
-    // names (lane-reversed and conjugated where it rebuilds a missing one).
+    // First DIT pass (st = 1): kernel 7's rebuild load.
     auto load = [&](const auto& gr, float (&xr)[PBMM_RP_P],
                     float (&xi)[PBMM_RP_P]) {
-      using G = PbmmRpOf<decltype(gr)>;
-      constexpr int L = G::L;
-      static_assert(L % 4 == 0, "the first DIT pass runs 3 or 4 stages");
-#pragma unroll
-      for (int j = 0; j < G::J; ++j) {
-        const int p0 = gr.base[j];
-        const int tile = p0 / PBMM_LANE, l0 = p0 % PBMM_LANE;
-        const bool rev = prm.plan.rev[tile] != 0;
-        const int s0 = prm.plan.src[tile] * PBMM_LANE +
-                       (rev ? PBMM_LANE - l0 - L : l0);
-        float vr[L], vi[L];
-        if (!valid) {
-#pragma unroll
-          for (int e = 0; e < L; ++e) vr[e] = vi[e] = 0.0f;
-        } else {
-          const float4* a = reinterpret_cast<const float4*>(src_re + s0);
-          const float4* b = reinterpret_cast<const float4*>(src_im + s0);
-#pragma unroll
-          for (int c = 0; c < L / 4; ++c) {
-            const float4 u = __ldg(a + c), v = __ldg(b + c);
-            vr[4 * c] = u.x; vr[4 * c + 1] = u.y;
-            vr[4 * c + 2] = u.z; vr[4 * c + 3] = u.w;
-            vi[4 * c] = v.x; vi[4 * c + 1] = v.y;
-            vi[4 * c + 2] = v.z; vi[4 * c + 3] = v.w;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < L; ++q) {
-          xr[j * L + q] = rev ? vr[L - 1 - q] : vr[q];
-          xi[j * L + q] = rev ? -vi[L - 1 - q] : vi[q];
-        }
-      }
+      pbmm_rp_rebuild_load(gr, xr, xi, src_re, src_im, io.plan_src,
+                           io.plan_rev, 0, valid);
     };
     // Last DIT pass: point q of group j is natural lane g + q st.  Every
     // thread of the block calls it: the barrier lets the row's last-pass
@@ -291,8 +260,9 @@ extern "C" int pbmm_rowifft_post(
     int magnitude, int comp, int gain, float g_y, float g_i, float g_q,
     void* stream) {
   const bool u8 = rgb_u8 != nullptr;
-  if (t < 1 || t > 65535 || n_tiles < 1 || n_tiles > PBMM_MAX_TILES ||
-      n_tiles * PBMM_LANE != w || !pbmm_rp_length_ok(w) ||
+  if (t < 1 || t > 65535 || n_tiles < 1 || plan_src == nullptr ||
+      plan_rev == nullptr || n_tiles * PBMM_LANE != w ||
+      !pbmm_rp_length_ok(w) ||
       wk < PBMM_LANE || wk > w || radius < 0 ||
       radius > PBMM_MAX_BLUR_R || rows < 1 || in_h < 1 ||
       in_w < 4 || in_w % 4 != 0 || x0 % 4 != 0 || yrow0 - radius < 0 ||
@@ -310,12 +280,6 @@ extern "C" int pbmm_rowifft_post(
       return (int)cudaErrorMisalignedAddress;
   if ((size_t)rgb_u8 % 4 != 0) return (int)cudaErrorMisalignedAddress;
   PostParams prm;
-  for (int i = 0; i < n_tiles; ++i) {
-    if (plan_src[i] < 0 || (plan_src[i] + 1) * PBMM_LANE > wk)
-      return (int)cudaErrorInvalidValue;
-    prm.plan.src[i] = plan_src[i];
-    prm.plan.rev[i] = plan_rev[i];
-  }
   for (int i = 0; i <= 2 * radius; ++i) prm.tail.taps[i] = taps[i];
   for (int i = 0; i < 9; ++i) prm.tail.m[i] = yiq_to_rgb[i];
   for (int i = 0; i < 6; ++i) prm.tail.iq[i] = iq_u8[i];
@@ -327,7 +291,8 @@ extern "C" int pbmm_rowifft_post(
   prm.magnitude = magnitude;
   const PostIO io = {
       {i_plane, q_plane, rgb_u8, win, out0, out1, out2, in_h, in_w},
-      rre, rim, tw_re, tw_im, radius, 0, hr, wk, yrow0, x0, scale};
+      rre, rim, tw_re, tw_im, plan_src, plan_rev, radius, 0, hr, wk, yrow0,
+      x0, scale};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
 #define PP_LAUNCH(N) \

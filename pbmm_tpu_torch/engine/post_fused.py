@@ -38,14 +38,15 @@ from pbmm_tpu_torch.core.color import RGB_TO_YIQ, YIQ_TO_RGB, channel_mix
 from pbmm_tpu_torch.core.window import Geometry, blur_taps, geometry_for
 from pbmm_tpu_torch.kernels import (
     c_floats,
-    c_ints,
     check_cuda,
     checked,
     device_arrays,
+    device_ints,
     stream_handle,
 )
 from pbmm_tpu_torch.spectral.fused import (
-    lane_plan,
+    BLOCK_N,
+    lane_plan_tables,
     rebuilt_row_ifft,
     row_ifft_magnitude,
 )
@@ -130,8 +131,13 @@ def kernel3_rows(radius: int, pad_w: int, in_w=None) -> int:
     radius, padded width and crop width (default: the widest crop
     `post_pallas_ok` admits): the most, up to `_KERNEL3_THREADS` threads
     (pad_w / 16 a row, at least one row), whose block fits 227 KB of
-    shared memory (`kernel3_smem`); 0 where not even one row fits."""
+    shared memory (`kernel3_smem`); 0 where not even one row fits, or
+    where the row is longer than one block of the row engine holds
+    (`fused.BLOCK_N`: kernel 3 keeps its whole row in one block, so
+    `rowifft_post_fused` takes kernels 7 + 10 there)."""
     in_w = _widest_crop(radius, pad_w) if in_w is None else in_w
+    if pad_w > BLOCK_N:
+        return 0
     rows = max(1, _KERNEL3_THREADS // (pad_w // _RP_POINTS))
     while rows and kernel3_smem(rows, radius, pad_w, in_w) > _SMEM_BYTES:
         rows -= 1
@@ -427,12 +433,11 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     dev = rre.device
     outs, ptrs = _outputs(t, in_h, in_w, out_layout, dev)
     twr, twi = device_arrays(compact_twiddles, (wp, True), dev)
-    plan = lane_plan(wk, wp)
+    src, rev = device_ints(lane_plan_tables, (wk, wp), dev)
     err = library().pbmm_rowifft_post(
         rre.data_ptr(), rim.data_ptr(), *chroma, win.data_ptr(),
-        twr.data_ptr(), twi.data_ptr(), *ptrs,
-        c_ints(kp for kp, _ in plan), c_ints(rev for _, rev in plan),
-        len(plan), c_floats(blur_taps(cfg.blur_size)), r,
+        twr.data_ptr(), twi.data_ptr(), *ptrs, src.data_ptr(),
+        rev.data_ptr(), wp // _LANE, c_floats(blur_taps(cfg.blur_size)), r,
         kernel3_rows(r, wp, in_w), c_floats(YIQ_TO_RGB.reshape(-1)),
         c_floats(_u8_chroma_coeffs()),
         _LAYOUTS.index(out_layout), t, hr, wk, wp, in_h, in_w,

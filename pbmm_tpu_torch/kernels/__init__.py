@@ -48,6 +48,15 @@ def device_arrays(fn, args: tuple, device: torch.device):
         for a in fn(*args))
 
 
+@functools.lru_cache(maxsize=32)
+def device_ints(fn, args: tuple, device: torch.device):
+    """`fn(*args)`'s numpy arrays (a tuple) as int32 tensors on `device`
+    (memoised like `device_arrays`): the kernels' per-tile tables."""
+    return tuple(
+        torch.as_tensor(np.ascontiguousarray(a, np.int32)).to(device)
+        for a in fn(*args))
+
+
 def c_ints(values) -> ctypes.Array:
     """A host int array for a C entry point that copies it by value."""
     values = [int(v) for v in values]

@@ -40,30 +40,33 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes.  Every pointer and the stream are
 # c_void_p (a bare Python int would be passed as a 32-bit int).
 SIGNATURES = {
-    # y, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host), n_kept,
-    # batch, hc, w, stream
-    "pbmm_row_fft": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # y, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host), kept
+    # positions (device), n_kept, batch, hc, w, scratch re, im (above 8192
+    # lanes), stream
+    "pbmm_row_fft": [_P] * 9 + [_I] * 4 + [_P] * 3,
     # frames_u8, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host),
-    # n_kept, t, hc, h_in, w_in, w, off, x0, coeffs(host), scale, stream
-    "pbmm_row_fft_u8": [_P] * 8 + [_I] * 8 + [_P, _F, _P],
+    # kept positions (device), n_kept, t, hc, h_in, w_in, w, off, x0,
+    # coeffs(host), scale, scratch re, im, stream
+    "pbmm_row_fft_u8": [_P] * 9 + [_I] * 8 + [_P, _F, _P, _P, _P],
     # rows_re, rows_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
     # fy, fx, fs_tw_re, fs_tw_im, comb_re(host), comb_im(host), comb_re,
     # comb_im (device, m > 32), tw_fwd_re, tw_fwd_im, tw_inv_re, tw_inv_im,
     # spec_re, spec_im (scratch), out_re, out_im, new_prev_re, new_prev_im,
-    # new_lpf, new_lps, phase ints(host), phase floats(host), t, planes, hc,
+    # new_lpf, new_lps, spec2_re, spec2_im (a second scratch above 8192
+    # rows or m = 64), phase ints(host), phase floats(host), t, planes, hc,
     # h, wk, row0, r0, r1, stream
-    "pbmm_colspec_chunk": [_P] * 30 + [_I] * 8 + [_P],
+    "pbmm_colspec_chunk": [_P] * 32 + [_I] * 8 + [_P],
     # re, im, tw_re, tw_im, out_re, out_im, batch, hc, h, wk, row0, stream
     "pbmm_col_fft": [_P] * 6 + [_I] * 5 + [_P],
     # rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
-    # out2, plan_src(host), plan_rev(host), n_tiles, taps(host), radius,
+    # out2, plan_src, plan_rev (device), n_tiles, taps(host), radius,
     # rows, yiq_to_rgb(host), iq_u8(host), layout, t, hr, wk, w, in_h, in_w,
     # yrow0, x0, scale, magnitude, comp, gain, g_y, g_i, g_q, stream
     "pbmm_rowifft_post": [_P] * 13 + [_I, _P, _I, _I, _P, _P] + [_I] * 9
     + [_F, _I, _I, _I, _F, _F, _F, _P],
-    # re, im, tw_re, tw_im, out, plan_src(host), plan_rev(host), n_tiles,
-    # batch, hb, wk, w, scale, magnitude, stream
-    "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    # re, im, tw_re, tw_im, out, plan_src, plan_rev (device), n_tiles,
+    # batch, hb, wk, w, scale, magnitude, scratch re, im, stream
+    "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _I, _P, _P, _P],
     # chans3, win, out0, out1, out2, taps(host), radius, yiq_to_rgb(host),
     # layout, t, hr, w, in_h, in_w, yrow0, x0, sw, rows, run, smem, comp,
     # gain, g_y, g_i, g_q, stream
@@ -76,9 +79,10 @@ SIGNATURES = {
     # registers a thread of kernels 10 and 11's instantiation
     "pbmm_post_tile_regs": [_I, _I],
     # cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
-    # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, phase
-    # ints(host), phase floats(host), batch, h, w, r0, r1, strip, stream
-    "pbmm_phase_col_ifft": [_P] * 18 + [_I] * 6 + [_P],
+    # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, scratch re,
+    # im (above 8192 rows), phase ints(host), phase floats(host), batch, h,
+    # w, r0, r1, strip, stream
+    "pbmm_phase_col_ifft": [_P] * 20 + [_I] * 6 + [_P],
     # re, im (null: real), tw_re, tw_im, out_re, out_im, batch, h, w,
     # axis, inverse, scale, stream
     "pbmm_fft_axis": [_P] * 6 + [_I] * 5 + [_F, _P],
@@ -86,9 +90,10 @@ SIGNATURES = {
     # floats(host), planes, h, w, stream
     "pbmm_amplify_procedural": [_P] * 10 + [_I] * 3 + [_P],
     # cur_re, cur_im, prev_re, prev_im, plane0, plane1, fy, fx, tw_re,
-    # tw_im, out_re, out_im, phase ints(host), phase floats(host), pieces,
-    # batch, h, w, r0, r1, stream
-    "pbmm_kdecomp": [_P] * 14 + [_I] * 6 + [_P],
+    # tw_im, bracket tw_re, tw_im, out_re, out_im, scratch re, im (above
+    # 8192 rows), phase ints(host), phase floats(host), pieces, batch, h,
+    # w, r0, r1, stream
+    "pbmm_kdecomp": [_P] * 18 + [_I] * 6 + [_P],
     # a, b, out_a, out_b, pattern, block, batch, h, w, stream
     "pbmm_copy_probe": [_P] * 4 + [_I] * 5 + [_P],
     # in0..in4, fy, fx, out0, out1, phase ints(host), phase floats(host),

@@ -53,6 +53,15 @@ def _check_args(cur_re, fy, fx, levels, orientations):
                          f"{levels} and {orientations}")
 
 
+def _div_rn(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / f32(b) rounded once, as the kernel's `__fdiv_rn` and the JAX
+    kernel's division: on a CUDA tensor torch takes a Python divisor as
+    a * (1 / b), two roundings that move t by an ulp now and then and, at
+    a magnitude gate g m ~ tau, flip a bin; a divisor tensor on a's device
+    is divided in one rounding (on the CPU both forms are one)."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
 def amplify_procedural_ref(cur_re, cur_im, prev_re, prev_im, fy, fx,
                            levels: int, min_f: float, max_f: float,
                            phase_scale: float, tau: float,
@@ -77,7 +86,7 @@ def amplify_procedural_ref(cur_re, cur_im, prev_re, prev_im, fy, fx,
     amped = torch.zeros_like(cr)
     for i, (kind, lo, hi, _) in enumerate(
             radial_level_params(levels, min_f, max_f)):
-        m = radial_profile_from_params(f, kind, lo, hi)
+        m = radial_profile_from_params(f, kind, lo, hi, div=_div_rn)
         total = total + m
         if 0 < i < levels - 1:
             for mk in ([m * a for a in sect] if sect else [m]):

@@ -14,6 +14,7 @@ suffix of the JAX names is dropped: here the procedural forms are torch.
 from __future__ import annotations
 
 import functools
+import operator
 
 import numpy as np
 import torch
@@ -140,20 +141,22 @@ def _smoothstep(t):
 
 def radial_profile_from_params(freq, kind: str, lo: float, hi: float,
                                smoothstep=_smoothstep, cos=torch.cos,
-                               where=torch.where, zeros_like=torch.zeros_like):
+                               where=torch.where, zeros_like=torch.zeros_like,
+                               div=operator.truediv):
     """One level's mask from its `radial_level_params` entry; the array
-    functions are injectable so the f64 numpy banks share the ramps."""
+    functions (and the division by the ramp's width) are injectable so the
+    f64 numpy banks share the ramps."""
     if kind == "zero":
         return zeros_like(freq)
     if kind == "high":
         return where(freq > hi, 1.0,
-                     where(freq > lo, smoothstep((freq - lo) / (hi - lo)),
+                     where(freq > lo, smoothstep(div(freq - lo, hi - lo)),
                            0.0))
     if kind == "low":
         return where(freq < lo, 1.0,
                      where(freq < hi,
-                           1.0 - smoothstep((freq - lo) / (hi - lo)), 0.0))
-    t = (freq - lo) / (hi - lo)
+                           1.0 - smoothstep(div(freq - lo, hi - lo)), 0.0))
+    t = div(freq - lo, hi - lo)
     band = 0.5 * (1.0 + cos(2.0 * np.pi * (t - 0.5)))
     return where((freq >= lo) & (freq <= hi), band, 0.0)
 

@@ -50,6 +50,7 @@ from pbmm_tpu_torch.kernels import (
     check_cuda,
     checked,
     device_arrays,
+    device_ints,
     stream_handle,
 )
 from pbmm_tpu_torch.spectral.hermitian import (
@@ -68,7 +69,13 @@ from pbmm_tpu_torch.spectral.radix2 import (
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
-_MAX_TILES = 64  # widest row the CUDA kernels take: 64 tiles (PBMM_MAX_TILES)
+# The longest sequence the CUDA block engines hold (csrc/col_pass.cuh
+# PBMM_BK_N): longer pow-2 columns run bracket passes through device
+# memory around them, on a scratch of the whole planes.  A row of up to
+# ROW_BLOCK_N lanes fits one block of the row engine (row_pass.cuh
+# PBMM_RP_BLOCKN); longer rows are bracketed on BLOCK_N-lane blocks.
+BLOCK_N = 8192
+ROW_BLOCK_N = 16384
 
 
 def _hann_vec(n: int) -> np.ndarray:
@@ -303,6 +310,30 @@ def _row_args(y: torch.Tensor, pad_h: int, row0: int, keep_half: bool):
     return pad_h, list(range(w // _LANE)), w
 
 
+def kept_positions(w: int, tiles: tuple):
+    """(positions,): the kept position of each of the w / 128 tiles of a
+    row (-1 where the tile is not kept), the device table kernels 1 and 4
+    read."""
+    pos = np.full(w // _LANE, -1, np.int32)
+    pos[list(tiles)] = np.arange(len(tiles), dtype=np.int32)
+    return (pos,)
+
+
+def _scratch(shape, big: bool, device):
+    """The (re, im) scratch planes a bracketed transform runs through
+    (`big`: a row above `ROW_BLOCK_N` lanes, a column above `BLOCK_N` rows
+    or above m = 64), else two Nones."""
+    if not big:
+        return None, None
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for _ in range(2))
+
+
+def _ptrs(*xs):
+    """Device pointers of tensors (None stays a null)."""
+    return tuple(None if x is None else x.data_ptr() for x in xs)
+
+
 def windowed_row_fft_ref(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
                          keep_half: bool = False):
     """Plain PyTorch version of `windowed_row_fft`: window, `torch.fft`,
@@ -337,25 +368,27 @@ def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
 
     CPU tensors take `windowed_row_fft_ref`; CUDA tensors launch
     `csrc/row_fft.cu::pbmm_row_fft` (the row engine of
-    `csrc/row_pass.cuh`), which refuses misaligned planes."""
+    `csrc/row_pass.cuh`, one block a row up to 16384 lanes; longer rows
+    bracketed through a scratch, `csrc/col_pass.cuh`), which refuses
+    misaligned planes."""
     if y.device.type == "cpu":
         return windowed_row_fft_ref(y, pad_h, row0, keep_half)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
     b, h, w = y.shape
     pad_h, tiles, wk = _row_args(y, pad_h, row0, keep_half)
-    if w > _MAX_TILES * _LANE:
-        raise ValueError(f"the CUDA row kernel takes rows up to "
-                         f"{_MAX_TILES * _LANE} lanes, got {w}")
     check_cuda("windowed_row_fft", (b, h, w), y)
     wy, wx = device_arrays(_hann_pair, (pad_h, w), y.device)
     twr, twi = device_arrays(compact_twiddles, (w, False), y.device)
+    (pos,) = device_ints(kept_positions, (w, tuple(tiles)), y.device)
     out_re = torch.empty((b, h, wk), dtype=torch.float32, device=y.device)
     out_im = torch.empty_like(out_re)
+    sc = _scratch((b * h, w), w > ROW_BLOCK_N, y.device)
     err = library().pbmm_row_fft(
         y.data_ptr(), wy[row0:row0 + h].data_ptr(), wx.data_ptr(),
         twr.data_ptr(), twi.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        c_ints(tiles), len(tiles), b, h, w, stream_handle(y.device))
+        c_ints(tiles), pos.data_ptr(), len(tiles), b, h, w, *_ptrs(*sc),
+        stream_handle(y.device))
     check_launch(err, "windowed_row_fft")
     windowed_row_fft.launches += 1
     return out_re, out_im
@@ -416,7 +449,8 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
 
     CPU tensors take `windowed_row_fft_u8planar_ref`; CUDA tensors launch
     `csrc/row_fft.cu::pbmm_row_fft_u8` (the row engine of
-    `csrc/row_pass.cuh`)."""
+    `csrc/row_pass.cuh`; rows above 16384 lanes bracketed through a
+    scratch)."""
     if frames.device.type == "cpu":
         return windowed_row_fft_u8planar_ref(frames, coeffs, pad_h, pad_w,
                                              y0, x0, row0, keep_half)
@@ -425,9 +459,9 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
     hc, off = _u8_args(frames, pad_h, pad_w, y0, x0, row0)
     t, _, h_in, w_in = frames.shape
     check_pow2(pad_w, "row FFT length")
-    if pad_w % _LANE or pad_w > _MAX_TILES * _LANE:
-        raise ValueError(f"the CUDA row kernel takes multiples of 128 up "
-                         f"to {_MAX_TILES * _LANE} lanes, got {pad_w}")
+    if pad_w % _LANE:
+        raise ValueError(f"the CUDA row kernel takes multiples of 128 "
+                         f"lanes, got {pad_w}")
     check_cuda("windowed_row_fft_u8planar", (t, 3, h_in, w_in), frames,
                dtype=torch.uint8)
     tiles = kept_tiles(pad_w) if keep_half else list(range(pad_w // _LANE))
@@ -435,14 +469,16 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
     dev = frames.device
     wy, wx = device_arrays(_hann_pair, (pad_h, pad_w), dev)
     twr, twi = device_arrays(compact_twiddles, (pad_w, False), dev)
+    (pos,) = device_ints(kept_positions, (pad_w, tuple(tiles)), dev)
     out_re = torch.empty((t, hc, wk), dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
+    sc = _scratch((t * hc, pad_w), pad_w > ROW_BLOCK_N, dev)
     err = library().pbmm_row_fft_u8(
         frames.data_ptr(), wy[row0:row0 + hc].data_ptr(), wx.data_ptr(),
         twr.data_ptr(), twi.data_ptr(), out_re.data_ptr(),
-        out_im.data_ptr(), c_ints(tiles), len(tiles), t, hc, h_in, w_in,
-        pad_w, off, x0, c_floats(coeffs), float(np.float32(1.0 / 255.0)),
-        stream_handle(dev))
+        out_im.data_ptr(), c_ints(tiles), pos.data_ptr(), len(tiles), t, hc,
+        h_in, w_in, pad_w, off, x0, c_floats(coeffs),
+        float(np.float32(1.0 / 255.0)), *_ptrs(*sc), stream_handle(dev))
     check_launch(err, "windowed_row_fft_u8planar")
     windowed_row_fft_u8planar.launches += 1
     return out_re, out_im
@@ -455,8 +491,6 @@ windowed_row_fft_u8planar.launches = 0
 # Kernel 2: column FFT + band/phase + column IFFT over a chunk
 # ---------------------------------------------------------------------------
 
-_COLSPEC_MAX_H = 8192  # tallest column of kernels 2, 6, 12 (PBMM_COL_MAXH)
-_COL_FFT_MAX_H = 8192  # longest column of kernel 5 (three passes)
 _COMBINE_MAX_PARAM = 32  # largest m whose combine is a kernel parameter
 _MAX_ORIENTATIONS = 16  # sector count of the CUDA phase pass (CS_MAXK)
 _MAX_LEVELS = 16  # radial levels of the CUDA phase pass (CS_MAXB)
@@ -466,8 +500,9 @@ _MASK_KINDS = ("zero", "high", "low", "band")
 def col_strip(h: int) -> int:
     """Columns a block of kernel 12 holds at column height h (cur and
     prev, 4 h S floats, at most 128 KB), and the narrowest strip of kernel
-    6: 4 up to 2048 rows, 2 up to 4096, 1 up to 8192
-    (csrc/common.cuh::pbmm_col_strip); their widths are multiples of it."""
+    6: 4 up to 2048 rows, 2 up to 4096, 1 above (taller pow-2 columns run
+    on their 8192-row blocks) (csrc/common.cuh::pbmm_col_strip); their
+    widths are multiples of it."""
     return 4 if h <= 2048 else 2 if h <= 4096 else 1
 
 
@@ -475,33 +510,57 @@ def colspec_strip(h: int) -> int:
     """Columns a block of kernel 2 holds at column height h: the widest
     power of two up to 16 whose strip (2 h S floats) fits a block's 227
     KB, 2 at least: 16 to 1024 rows (pow-2) or m = 14 (tight), 8 to 2048
-    or m = 28, 4 to 4096 or m = 32, 2 above, to 8192 (the tight heights
-    above m = 32 keep 2 for their 256-thread blocks)
+    or m = 28, 4 to 4096 or m = 32, 2 above (pow-2 columns above 8192 on
+    their 8192-row blocks; the tight heights at m = 33-63 keep 2 for their
+    256-thread blocks), and 4 above m = 64, the strip of the chunk kernels
     (csrc/colspec_chunk.cu::cs_strip); its widths are multiples of it."""
     m = h // _LANE
     if _is_pow2(h):
         return 16 if h <= 1024 else 8 if h <= 2048 else 4 if h <= 4096 else 2
     return (16 if m <= 14 else 8 if m <= 28 else 4
-            if m <= _COMBINE_MAX_PARAM else 2)
-
+            if m <= _COMBINE_MAX_PARAM else 2 if m < 64 else 4)
 
 
 def phase_col_strip(h: int, w: int) -> int:
     """Columns a block of kernel 6 holds at column height h and width w:
     kernel 2's strip (`colspec_strip`), or the widest half of it that
-    divides w, down to `col_strip(h)` (csrc/phase_col_ifft.cu)."""
+    divides w, down to `col_strip(h)` (csrc/phase_col_ifft.cu); above
+    `BLOCK_N` rows, the strip of the 8192-row blocks it runs on."""
+    h = min(h, BLOCK_N)
     s = colspec_strip(h)
     while w % s and s > col_strip(h):
         s //= 2
     return s
 
 
-def _check_col_height(pad_h: int, limit: int = _COLSPEC_MAX_H,
-                      what: str = "the CUDA column kernels (2, 6, 12) hold "
-                                  "columns") -> None:
-    if pad_h > limit:
-        raise ValueError(f"{what} up to {limit} rows, got {pad_h}: padded "
-                         f"sizes above {limit} are ROADMAP fault F4")
+def colspec_big(h: int) -> bool:
+    """Whether kernel 2 runs a column of height h through device memory
+    (a second scratch spectrum): pow-2 heights above `BLOCK_N` (the
+    bracket) and tight heights above m = 64 (the combine pass)."""
+    return h > BLOCK_N if _is_pow2(h) else h // _LANE > 64
+
+
+def bracket_plan(n: int, inverse: bool):
+    """The bracket of a radix-2 transform of length n
+    (csrc/col_pass.cuh::pbmm_bracket_plan): a (k, lst, s0) per pass
+    through device memory, the outer log2(n) - 13 stages (spans `BLOCK_N`
+    and up) split into passes of at most 6, the longer first; k stages a
+    pass, its stride 2^lst, s0 the bracket's stages before it (the C plan
+    counts the whole transform's: 13 more on the inverse).  Empty at n <=
+    `BLOCK_N`."""
+    check_pow2(n)
+    stages = n.bit_length() - 1
+    outer = stages - (BLOCK_N.bit_length() - 1)
+    if outer <= 0:
+        return ()
+    np_ = -(-outer // 6)
+    plan, s0 = [], 0
+    for i in range(np_):
+        k = outer // np_ + (1 if i < outer % np_ else 0)
+        lst = (BLOCK_N.bit_length() - 1 + s0) if inverse else stages - s0 - k
+        plan.append((k, lst, s0))
+        s0 += k
+    return tuple(plan)
 
 
 class _PhasePlan(NamedTuple):
@@ -817,8 +876,11 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     scratch tensor first, and the frames' phase passes and inverses then
     run in parallel (two launches, counted as one call); with the IIR
     taps a scan between them walks each bin's frames in order (three
-    launches).  Padded heights up to 8192, planes that start on 16
-    bytes."""
+    launches).  Above 8192 rows (pow-2) the two launches run on every
+    8192-row block between a forward and an inverse bracket pass, and
+    above m = 64 (tight) the four-step's combine runs as a pass of its
+    own; both through a second scratch (`colspec_big`).  Any padded
+    height; planes that start on 16 bytes."""
     if rows_re.device.type == "cpu":
         return colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg,
                                  pad_h, row0, lp_fast, lp_slow, out_rows,
@@ -828,7 +890,6 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     r0, r1 = _colspec_args(rows_re, cfg, pad_h, row0, out_rows, planes,
                            lp_fast, lp_slow)
     n, hc, w = rows_re.shape
-    _check_col_height(pad_h)
     if w % colspec_strip(pad_h):
         raise ValueError(f"the CUDA kernel 2 takes widths that are multiples "
                          f"of {colspec_strip(pad_h)} at H = {pad_h}, got {w}")
@@ -857,6 +918,7 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
                if m > _COMBINE_MAX_PARAM else (None, None))
     spec = tuple(torch.empty((n, pad_h, w), dtype=torch.float32, device=dev)
                  for _ in range(2))
+    spec2 = _scratch((n, pad_h, w), colspec_big(pad_h), dev)
     outs = [torch.empty((n, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]
     outs += [torch.empty((planes, pad_h, w), dtype=torch.float32, device=dev)
@@ -866,7 +928,7 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
            + planes_d + (fy, fx) + fs + cw + cwd + tw + spec)
     err = library().pbmm_colspec_chunk(
         *(x.data_ptr() if torch.is_tensor(x) else x
-          for x in ins + tuple(outs) + (None,) * (6 - len(outs))),
+          for x in ins + tuple(outs) + (None,) * (6 - len(outs)) + spec2),
         c_ints(ints), c_floats(floats), n // planes, planes, hc, pad_h, w,
         row0, r0, r1, stream_handle(dev))
     check_launch(err, "colspec_chunk")
@@ -947,7 +1009,9 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
 
     CPU tensors take `phase_col_ifft_ref`; CUDA tensors launch
     `csrc/phase_col_ifft.cu`, kernel 2's phase pass and inverse on strips
-    of `phase_col_strip(H, W)` columns, all frames at once."""
+    of `phase_col_strip(H, W)` columns, all frames at once (above 8192
+    rows on every 8192-row block into a scratch, then the inverse
+    bracket)."""
     if cur_re.device.type == "cpu":
         return phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg,
                                   out_rows, full_w, fx_values, lp_fast,
@@ -957,7 +1021,6 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     r0, r1 = _phase_col_args(cur_re, cfg, out_rows, fx_values, lp_fast,
                              lp_slow)
     b, h, w = cur_re.shape
-    _check_col_height(h)
     if w % col_strip(h):
         raise ValueError(f"the CUDA kernel takes widths that are multiples "
                          f"of {col_strip(h)} at H = {h}, got {w}")
@@ -978,9 +1041,9 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     ints, floats = _phase_args(_phase_plan(cfg), host is not None)
     ins = ((cur_re, cur_im, prev_re, prev_im) + (taps or (None, None))
            + planes_d + (fy, fx, twr, twi))
+    sc = _scratch((b, h, w), h > BLOCK_N, dev)
     err = library().pbmm_phase_col_ifft(
-        *(None if x is None else x.data_ptr()
-          for x in ins + tuple(outs) + (None,) * (4 - len(outs))),
+        *_ptrs(*(ins + tuple(outs) + (None,) * (4 - len(outs)) + sc)),
         c_ints(ints), c_floats(floats), b, h, w, r0, r1,
         phase_col_strip(h, w), stream_handle(dev))
     check_launch(err, "phase_col_ifft")
@@ -1025,7 +1088,7 @@ def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
     (the zero rows are never read), rows bit-reversed: the radix-2 DIF of
     `colspec_chunk`'s pow-2 branch, the same op sequence, so the spectrum
     of a frame equals the one kernel 2 carries bit for bit.  pow-2
-    heights only, up to 8192 on the card.
+    heights only (any, on the card: three passes at 16384).
 
     CPU tensors take `col_fft_zero_padded_ref`; CUDA tensors launch
     `csrc/col_fft.cu`."""
@@ -1035,8 +1098,6 @@ def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
 
     _col_fft_args(re, pad_h, row0)
     b, hc, w = re.shape
-    _check_col_height(pad_h, _COL_FFT_MAX_H, "the CUDA column FFT takes "
-                                             "columns")
     check_cuda("col_fft_zero_padded", (b, hc, w), re, im)
     dev = re.device
     twr, twi = device_arrays(_dif_twiddles, (pad_h, False), dev)
@@ -1066,6 +1127,13 @@ def lane_plan(wk: int, w: int):
     if w == wk:
         return tuple((t, 0) for t in range(w // _LANE))
     return reconstruction_plan(w)
+
+
+def lane_plan_tables(wk: int, w: int):
+    """`lane_plan` as the two int tables kernel 7 reads: the source kept
+    tile and the conj-reversed flag of each of the w / 128 tiles."""
+    plan = np.asarray(lane_plan(wk, w), np.int32).reshape(-1, 2)
+    return plan[:, 0].copy(), plan[:, 1].copy()
 
 
 def _row_ifft_args(re, pad_h: int, full_w):
@@ -1145,26 +1213,25 @@ def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
     the normalisation.
 
     CPU tensors take `row_ifft_magnitude_ref`; CUDA tensors launch
-    `csrc/row_ifft.cu` (the row engine of `csrc/row_pass.cuh`)."""
+    `csrc/row_ifft.cu` (the row engine of `csrc/row_pass.cuh`; rows above
+    16384 lanes bracketed through a scratch)."""
     if re.device.type == "cpu":
         return row_ifft_magnitude_ref(re, im, magnitude, pad_h, full_w)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
     fw, scale = _row_ifft_args(re, pad_h, full_w)
     b, hb, wk = re.shape
-    if fw > _MAX_TILES * _LANE:
-        raise ValueError(f"the CUDA row kernel takes rows up to "
-                         f"{_MAX_TILES * _LANE} lanes, got {fw}")
     check_cuda("row_ifft_magnitude", (b, hb, wk), re, im)
     dev = re.device
     twr, twi = device_arrays(compact_twiddles, (fw, True), dev)
-    plan = lane_plan(wk, fw)
+    src, rev = device_ints(lane_plan_tables, (wk, fw), dev)
     out = torch.empty((b, hb, fw), dtype=torch.float32, device=dev)
+    sc = _scratch((b * hb, fw), fw > ROW_BLOCK_N, dev)
     err = library().pbmm_row_ifft(
         re.data_ptr(), im.data_ptr(), twr.data_ptr(), twi.data_ptr(),
-        out.data_ptr(), c_ints(kp for kp, _ in plan),
-        c_ints(rev for _, rev in plan), len(plan), b, hb, wk, fw,
-        float(scale), int(magnitude), stream_handle(dev))
+        out.data_ptr(), src.data_ptr(), rev.data_ptr(), fw // _LANE, b, hb,
+        wk, fw, float(scale), int(magnitude), *_ptrs(*sc),
+        stream_handle(dev))
     check_launch(err, "row_ifft_magnitude")
     row_ifft_magnitude.launches += 1
     return out

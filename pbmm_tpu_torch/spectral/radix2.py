@@ -152,16 +152,14 @@ def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
     `csrc/fft_axis.cu`: along the rows (axis 2) the row engine of
     kernels 1, 4 and 7 from 128 points up (its inverse takes planes that
     start on 16 bytes), the stage-by-stage kernel at 2 to 64 points (a
-    routing by length: both compute the same bits); along the columns
-    the column engine of kernel 5."""
+    routing by length: both compute the same bits), rows above 16384
+    points bracketed around it (`csrc/col_pass.cuh`); along the columns
+    the column engine of kernel 5, at any length."""
     if re.device.type == "cpu":
         return _fft_axis_ref(re, im, axis, inverse, scale)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
     n = _fft_axis_args(re, im, axis, inverse)
-    if n > 8192:
-        raise ValueError(f"the CUDA kernel takes transforms up to 8192 "
-                         f"points, got {n}")
     check_cuda("_fft_axis", tuple(re.shape), re,
                *(() if im is None else (im,)))
     dev = re.device

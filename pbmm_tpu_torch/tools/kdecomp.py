@@ -34,7 +34,11 @@ from pbmm_tpu_torch.kernels import (
     stream_handle,
 )
 from pbmm_tpu_torch.spectral import fused
-from pbmm_tpu_torch.spectral.radix2 import _dif_twiddles, check_pow2
+from pbmm_tpu_torch.spectral.radix2 import (
+    _dif_twiddles,
+    check_pow2,
+    compact_twiddles,
+)
 
 VARIANTS = (
     ("stream only", frozenset()),
@@ -141,7 +145,6 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
 
     bits = _kdecomp_args(cur_re, cfg, pieces, rows)
     b, h, w = cur_re.shape
-    fused._check_col_height(h)
     if w % fused.col_strip(h):
         raise ValueError(f"the CUDA kernel takes widths that are multiples "
                          f"of {fused.col_strip(h)} at H = {h}, got {w}")
@@ -153,15 +156,23 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
                               dev) if host is not None else ())
     planes_d = planes_d + (None,) * (2 - len(planes_d))
     fy, fx = device_arrays(fused._freq_tables, (h, w, full_w), dev)
-    twr, twi = device_arrays(_dif_twiddles, (h, True), dev)
+    # The stage-by-stage table of the 8192-row blocks above 8192 rows, and
+    # the bracket's compact table.
+    twr, twi = device_arrays(_dif_twiddles, (min(h, fused.BLOCK_N), True),
+                             dev)
+    big = h > fused.BLOCK_N
+    tb = (device_arrays(compact_twiddles, (h, True), dev) if big
+          else (None, None))
     r0, r1 = rows
     outs = [torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]
+    sc = fused._scratch((b, h, w), big, dev)
     ints, floats = fused._phase_args(fused._phase_plan(cfg),
                                      host is not None)
-    ins = (cur_re, cur_im, prev_re, prev_im) + planes_d + (fy, fx, twr, twi)
+    ins = ((cur_re, cur_im, prev_re, prev_im) + planes_d
+           + (fy, fx, twr, twi) + tb)
     err = library().pbmm_kdecomp(
-        *(None if x is None else x.data_ptr() for x in ins + tuple(outs)),
+        *fused._ptrs(*(ins + tuple(outs) + sc)),
         c_ints(ints), c_floats(floats), bits, b, h, w, r0, r1,
         stream_handle(dev))
     check_launch(err, "kdecomp_variant")

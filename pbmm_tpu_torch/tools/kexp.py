@@ -14,6 +14,9 @@ content rows [448, 1600), 1152 kept lanes):
     rowfft_u8planar4           kernel 4 on four (3, 1080, 1920) u8 frames
     colspec_chunk8             kernel 2 on an 8-frame chunk
     rowifft_kept, rowifft_full kernel 7, kept lanes / full width
+    amplify_g[_steer]          kernel 9 at path (g)'s call: (1, 2048, 2048)
+                               bit-reversed spectra, the unfused pallas
+                               backend's config (and with 4 sectors)
     copy_rowblocks             kernel 13: two (frames, 1152, 2048) planes
                                copied `--row-block` rows a block
     copy_laneblocks            the same by strips of `--lane-block`
@@ -218,6 +221,22 @@ def experiments(device, names=None, row_block: int = 1,
                 rng.random((1, hr, wp)))
             exps["rowifft_full"] = (lambda a, b: row_ifft_magnitude(
                 a, b, magnitude=True, pad_h=hp), (rre_f, rim_f))
+    if want("amplify_g", "amplify_g_steer"):
+        from pbmm_tpu_torch.phase.fused_kernels import amplify_procedural
+        from pbmm_tpu_torch.pyramid.filters import freq_axes
+
+        planes = [dev_t(rng.standard_normal((1, hp, wp))) for _ in range(4)]
+        fy, fx = freq_axes(hp, wp, "bitrev2d", device)
+        axes = (fy[:, 0].contiguous(), fx[0].contiguous())
+        cg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
+                           use_pallas=True)
+        for name, c in (("amplify_g", cg),
+                        ("amplify_g_steer", cg.replace(orientations=4))):
+            if want(name):
+                exps[name] = (lambda *a, c=c: amplify_procedural(
+                    *a, c.pyramid_levels, c.min_frequency, c.max_frequency,
+                    c.phase_scale, c.magnitude_threshold, c.orientations),
+                    (*planes, *axes))
     if want("copy_rowblocks", "copy_laneblocks"):
         shape = copy_shape(frames, cfg)
         cr, ci = (torch.from_numpy(rng.random(shape, np.float32)).to(device)

@@ -10,7 +10,8 @@ on `csrc/col_pass.cuh`'s in-block passes), checked on the CPU.
   bit for bit, rows, state and taps, y_only and rgb, pow-2 and tight.
 - The strip planners at every padded height above 4096 (pow-2 8192 and
   tight m = 33-64): each strip's shared memory fits 227 KB and each
-  width divides 4320p's kept lanes; the in-block passes on strips of 2
+  width divides 4320p's kept lanes, and the heights above take device
+  memory (`colspec_big`, `bracket_plan`); the in-block passes on strips of 2
   (H = 8192, m = 34 and 64) equal the stage-by-stage radix-2 bit for
   bit.
 - The in-block plans (`pbmm_cb_k`, the passes' strides) and a numpy-f32
@@ -402,8 +403,14 @@ def test_tall_strips_fit_and_divide(h):
         assert fused.phase_col_strip(h, kept + 1) == 1
     else:
         assert h // LANE > fused._COMBINE_MAX_PARAM
-    # The next height up would be fault F4: every kernel stops at 8192.
-    assert h <= fused._COLSPEC_MAX_H == fused._COL_FFT_MAX_H == 8192
+    # These heights fit a block's strip; the next ones up take device
+    # memory: pow-2 columns above 8192 the bracket on 8192-row blocks (one
+    # pass of 1 stage at 16384), tight ones above m = 64 the combine pass.
+    assert not fused.colspec_big(h) and fused.bracket_plan(8192, False) == ()
+    assert fused.colspec_big(16384) and fused.colspec_big(65 * LANE)
+    assert fused.bracket_plan(16384, False) == ((1, 13, 0),)
+    assert fused.colspec_strip(16384) == 2 == fused.phase_col_strip(
+        16384, fused.hermitian_kept_width(16384))
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["dif", "dit"])

@@ -31,7 +31,7 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   on the card;
 - 2160p's heights: kernels 2, 5 and 6 at H = 4096 (with and without the
   IIR taps; 6 = 2's rows and 12 = 6 bit for bit), kernel 2 at tight
-  H = 2176 (m = 17), the refusals above 8192 (kernels 2, 5, 6: fault F4);
+  H = 2176 (m = 17);
 - 4320p's heights: kernel 2 in every branch, the IIR taps included, at
   H = 8192 and at tight m = 34, 48 and 63 (m = 64 is H = 8192, a power
   of two: the radix-2 layout), against its plain version; kernels 5, 6
@@ -60,6 +60,16 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
 - kernel 1 on the row engine at 128 to 8192 lanes, kept and full, on a
   part-filled last block: against its plain version and bit for bit
   against kernel 8's row pass on the same windowed rows;
+- the sizes above 8192 (fault F4, fixed by the bracket passes): kernels
+  2, 5, 6 and 12 at H = 16384 and 32768, kernel 2 in every branch at
+  16384 and at tight m = 65 and 68 (the combine pass), kernels 1, 4, 7
+  and 8 (both axes) at 16384 and 32768, against their plain versions;
+  the identities at 16384 (5 = 2's forward half, 6 = 2's rows, 12 = 6,
+  4 = the pre stage + 1, 1 = 8's row pass, 7 = 8's row pass + |z|), two
+  chunks equal to one, and kernel 8's column pass on a plane of more
+  than 2^31 elements;
+- kernel 9 (redesigned) in its four branches and both layouts on a width
+  that is not a multiple of 4;
 - kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
   1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
@@ -503,18 +513,37 @@ def test_tight_2160p_colspec_kernel(dev, iir):
         assert _rel([g.cpu() for g in got[k:k + 2]], want[k:k + 2]) < 1e-4
 
 
-def test_column_kernels_refuse_past_their_height_by_name(dev):
-    z = torch.zeros((1, 64, 128), device=dev)
-    zp = torch.zeros((1, 16384, 128), device=dev)
-    with pytest.raises(ValueError, match="8192.*F4"):
-        fused.colspec_chunk(z, z, zp, zp, _cfg(), 16384, 0)
-    with pytest.raises(ValueError, match="8192.*F4"):
-        fused.phase_col_ifft(zp, zp, zp, zp, _cfg())
-    with pytest.raises(ValueError, match="8192.*F4"):
-        kdecomp.kdecomp_variant(zp, zp, zp, zp, _cfg(),
-                                kdecomp.VARIANTS[-1][1], (0, 64))
-    with pytest.raises(ValueError, match="8192"):
-        fused.col_fft_zero_padded(z, z, 16384)
+@pytest.mark.parametrize("h", [16384, 32768])
+def test_column_kernels_past_8192_match_their_plain_versions(dev, h):
+    """The column kernels past 8192 rows (fault F4, fixed: the bracket
+    passes around the 8192-row blocks) against their plain versions on
+    narrow planes: kernels 2 (two frames), 5, 6 and 12."""
+    cfg = _cfg().replace(pad_mode="square_pow2")
+    fw, hc = 256, h - 200
+    w = hermitian_kept_width(fw)
+    row0, rows = 100, (64, h - 64)
+    rng = np.random.default_rng(h)
+    rr, ri = _smooth_rows(rng, 3, hc, w, dev)
+    order = torch.as_tensor(fused._col_order(h), device=dev)
+    prev = fused._col_fft_ref(rr[0], ri[0], h, row0, order)
+    args = (rr[1:].contiguous(), ri[1:].contiguous(),
+            prev.real[None].contiguous(), prev.imag[None].contiguous(), cfg,
+            h, row0)
+    kw = dict(out_rows=rows, full_w=fw)
+    got = fused.colspec_chunk(*args, **kw)
+    want = fused.colspec_chunk_ref(*args, **kw)
+    for k in range(0, 4, 2):
+        assert _rel(got[k:k + 2], want[k:k + 2]) < 1e-4, k
+    k5 = fused.col_fft_zero_padded(rr, ri, h, row0)
+    assert _rel(k5, fused.col_fft_zero_padded_ref(rr, ri, h, row0)) < 1e-4
+    cur = [x[1:].contiguous() for x in k5]
+    prv = [x[:-1].contiguous() for x in k5]
+    k6 = fused.phase_col_ifft(*cur, *prv, cfg, **kw)
+    assert _rel(k6, fused.phase_col_ifft_ref(*cur, *prv, cfg, **kw)) < 1e-4
+    k12 = kdecomp.kdecomp_variant(*cur, *prv, cfg, kdecomp.VARIANTS[-1][1],
+                                  rows, full_w=fw)
+    assert _rel(k12, kdecomp.kdecomp_variant_ref(
+        *cur, *prv, cfg, kdecomp.VARIANTS[-1][1], rows, full_w=fw)) < 1e-4
 
 
 @pytest.mark.parametrize("h", [512, 1024, 2048, 4096])
@@ -1626,3 +1655,294 @@ def test_fft_axis_row_engine(dev, n, kind):
     want = radix2._fft_axis_ref(*[x.cpu() if torch.is_tensor(x) else x
                                   for x in args])
     assert _rel([g.cpu() for g in got], want) < 1e-4
+
+
+# -- padded sizes above 8192 (fault F4, fixed: csrc/col_pass.cuh) ------------
+
+
+@pytest.mark.parametrize("name", sorted(_TALL_BRANCHES))
+@pytest.mark.parametrize("h", [16384, 65 * 128, 68 * 128])
+def test_colspec_above_8192(dev, name, h):
+    """Kernel 2 past the in-block heights, every branch: pow-2 16384 (the
+    bracket around its two launches on the 8192-row blocks) and tight m =
+    65 and 68 (the combine pass, the 128-point factor on chunks), one plane
+    and three, against its plain version; the IIR taps weighted by
+    magnitude."""
+    cfg = _cfg().replace(pad_mode="square_pow2" if h == 16384 else "tight",
+                         **_TALL_BRANCHES[name])
+    iir = cfg.temporal.mode == "iir_bandpass"
+    fw = 256
+    wk = hermitian_kept_width(fw)
+    hc, row0 = (h - 256, 128) if h == 16384 else (h - 32, 16)
+    rows = (h // 8, h - h // 8)
+    rng = np.random.default_rng(h + len(name))
+    order = torch.as_tensor(fused._col_order(h), device=dev)
+    for planes, t in ((1, 2), (3, 1)):
+        rr, ri = _smooth_rows(rng, (t + 1) * planes, hc, wk, dev)
+        prev = [fused._col_fft_ref(rr[c], ri[c], h, row0, order)
+                for c in range(planes)]
+        taps = ([0.1 * _spectra(rng, (planes, h, wk), dev) for _ in range(2)]
+                if iir else [])
+        args = (rr[planes:].contiguous(), ri[planes:].contiguous(),
+                torch.stack([p.real for p in prev]).contiguous(),
+                torch.stack([p.imag for p in prev]).contiguous(), cfg, h,
+                row0, *taps)
+        kw = dict(out_rows=rows, full_w=fw, planes=planes)
+        n = fused.colspec_chunk.launches
+        got = fused.colspec_chunk(*args, **kw)
+        assert fused.colspec_chunk.launches == n + 1
+        want = fused.colspec_chunk_ref(*args, **kw)
+        for k in range(0, 4, 2):
+            assert _rel(got[k:k + 2], want[k:k + 2]) < 1e-4, (planes, t, k)
+        mag = torch.complex(want[2], want[3]).abs()
+        for g, w in zip(got[4:], want[4:]):
+            assert _taps_rel(g, w, mag) < 1e-4
+
+
+@pytest.mark.parametrize("h", [16384, 68 * 128])
+def test_colspec_above_8192_two_chunks_equal_one(dev, h):
+    """Two chunks of 1, the state threaded, equal one chunk of 2 bit for
+    bit, rows and state, past the in-block heights."""
+    cfg = _cfg().replace(pad_mode="square_pow2" if h == 16384 else "tight")
+    fw = 256
+    wk = hermitian_kept_width(fw)
+    hc, row0 = (h - 256, 128) if h == 16384 else (h - 32, 16)
+    rng = np.random.default_rng(h)
+    rr, ri = _smooth_rows(rng, 2, hc, wk, dev)
+    prev = [_spectra(rng, (1, h, wk), dev) for _ in range(2)]
+    kw = dict(out_rows=(0, h), full_w=fw)
+    one = fused.colspec_chunk(rr, ri, *prev, cfg, h, row0, **kw)
+    a = fused.colspec_chunk(rr[:1], ri[:1], *prev, cfg, h, row0, **kw)
+    b = fused.colspec_chunk(rr[1:], ri[1:], *a[2:4], cfg, h, row0, **kw)
+    for k in range(2):
+        assert torch.equal(one[k], torch.cat([a[k], b[k]]))
+        assert torch.equal(one[2 + k], b[2 + k])
+
+
+@pytest.mark.parametrize("iir", [False, True], ids=["two_frame", "iir"])
+def test_square_pow2_16k_identities(dev, iir):
+    """16K at square_pow2 pads to H = 16384: kernel 5 (three passes of the
+    column engine) = kernel 2's forward half (the bracket, then its launch
+    1 on the blocks), kernel 6 on kernel 5's spectra = kernel 2's rows,
+    kernel 12's full variant = kernel 6, bit for bit; kernel 6 with the
+    IIR taps against its plain version."""
+    cfg = _tall_cfg("square_pow2", iir)
+    h, fw, hc, row0, rows = 16384, 256, 8640, 3872, (3868, 12516)
+    w = hermitian_kept_width(fw)
+    rng = np.random.default_rng(160)
+    rows_in = [_spectra(rng, (2, hc, w), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, w), dev) for _ in range(2)]
+    kw = dict(out_rows=rows, full_w=fw)
+    k5 = fused.col_fft_zero_padded(*rows_in, h, row0)
+    prv = [torch.cat([p, c[:-1]]) for p, c in zip(prev, k5)]
+    tap6 = ([0.1 * _spectra(rng, (2, h, w), dev) for _ in range(2)]
+            if iir else [])
+    k6 = fused.phase_col_ifft(*k5, *prv, cfg, **kw,
+                              **dict(zip(("lp_fast", "lp_slow"), tap6)))
+    if iir:
+        want6 = fused.phase_col_ifft_ref(
+            *k5, *prv, cfg, **kw, **dict(zip(("lp_fast", "lp_slow"), tap6)))
+        mag = torch.complex(*k5).abs()
+        assert _rel(k6[:2], want6[:2]) < 1e-4
+        for g, w_ in zip(k6[2:], want6[2:]):
+            assert _taps_rel(g, w_, mag) < 1e-4
+        return
+    k2 = fused.colspec_chunk(*rows_in, *prev, cfg, h, row0, **kw)
+    assert torch.equal(k2[2][0], k5[0][-1]) and torch.equal(k2[3][0],
+                                                            k5[1][-1])
+    assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg, kdecomp.VARIANTS[-1][1],
+                                  rows, full_w=fw)
+    assert all(torch.equal(a, b) for a, b in zip(k12, k6))
+
+
+@pytest.mark.parametrize("w", [16384, 32768])
+@pytest.mark.parametrize("keep", [True, False], ids=["kept", "full"])
+def test_row_kernels_above_8192(dev, w, keep):
+    """Kernels 1 and 7 on rows of 16384 and 32768 lanes (the bracket
+    around the row engine on 8192-lane blocks): against their plain
+    versions, kernel 1 bit for bit kernel 8's row pass on the same
+    windowed rows, kernel 7 bit for bit kernel 8's row pass on the rebuilt
+    rows + torch's |z| (and Re z)."""
+    hc, pad_h, row0 = 6, 64, 20
+    rng = np.random.default_rng(w + keep)
+    y = torch.from_numpy(rng.random((2, hc, w), np.float32)).to(dev)
+    n = fused.windowed_row_fft.launches
+    got = fused.windowed_row_fft(y, pad_h, row0, keep)
+    assert fused.windowed_row_fft.launches == n + 1
+    assert _rel(got, fused.windowed_row_fft_ref(y, pad_h, row0, keep)) < 1e-4
+    wy, wx = fused._hann_pair(pad_h, w)
+    yw = (y * torch.from_numpy(wy[row0:row0 + hc, None]).to(dev)
+          * torch.from_numpy(wx[None, :]).to(dev)).contiguous()
+    zr, zi = radix2._fft_axis(yw, torch.zeros_like(yw), 2, False)
+    if keep:
+        lanes = torch.as_tensor(fused.kept_lane_indices(w), device=dev)
+        zr, zi = zr[..., lanes], zi[..., lanes]
+    assert torch.equal(got[0], zr) and torch.equal(got[1], zi)
+    wk = hermitian_kept_width(w) if keep else w
+    scale = 0.3 * hc * np.sqrt(w)
+    re, im = (_rand(rng, (2, hc, wk), dev, scale) for _ in range(2))
+    for magnitude in (True, False):
+        k7 = fused.row_ifft_magnitude(re, im, magnitude, pad_h=hc, full_w=w)
+        want = fused.row_ifft_magnitude_ref(re, im, magnitude, pad_h=hc,
+                                            full_w=w)
+        assert _rel([k7], [want]) < 1e-4
+        assert torch.equal(k7, _row_pass_then_abs(re, im, w, 1.0 / (hc * w),
+                                                  magnitude))
+
+
+@pytest.mark.parametrize("in_w", [9000, 15360, 20000])
+def test_u8_row_fft_kernel_above_8192(dev, in_w):
+    """Kernel 4 on frames wider than 8192 pixels (16384 and 32768 padded
+    lanes, the bracket's byte-loading front end): bit for bit the pre
+    stage + kernel 1, and against its plain version."""
+    in_h = 40
+    g = geometry_for(in_h, in_w, "tight")
+    assert g.pad_w == (16384 if in_w <= 16384 else 32768)
+    rng = np.random.default_rng(in_w)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 3, in_h, in_w),
+                                       dtype=np.uint8)).to(dev)
+    luma = tuple(float(c) for c in RGB_TO_YIQ[0])
+    r0, _ = fused.aligned_row_window(g.y0, g.y0 + in_h, g.pad_h)
+    args = (u8, luma, g.pad_h, g.pad_w, g.y0, g.x0, r0, True)
+    got = fused.windowed_row_fft_u8planar(*args)
+    assert _rel(got, fused.windowed_row_fft_u8planar_ref(*args)) < 1e-4
+    hc, off = fused._u8_args(u8, g.pad_h, g.pad_w, g.y0, g.x0, r0)
+    from pbmm_tpu_torch.core.color import channel_mix, unit_float
+    f = unit_float(u8)
+    slab = torch.nn.functional.pad(
+        channel_mix(f[:, 0], f[:, 1], f[:, 2], luma),
+        (g.x0, g.pad_w - in_w - g.x0, off, hc - off - in_h))
+    want = fused.windowed_row_fft(slab.contiguous(), g.pad_h, r0, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["forward_real", "forward_complex",
+                                  "inverse_scaled"])
+@pytest.mark.parametrize("axis", [1, 2])
+@pytest.mark.parametrize("n", [16384, 32768])
+def test_fft_axis_above_8192(dev, n, axis, kind):
+    """Kernel 8 at 16384 and 32768 points on both axes (rows: the bracket
+    around the row engine; columns: the column engine's passes), against
+    its plain version on narrow planes."""
+    rng = np.random.default_rng(n + axis + len(kind))
+    shape = (2, n, 40) if axis == 1 else (2, 3, n)
+    re, im = (_rand(rng, shape, dev) for _ in range(2))
+    real, inverse = kind == "forward_real", kind == "inverse_scaled"
+    scale = 1.0 / (3 * n) if inverse else 1.0
+    args = (re, None if real else im, axis, inverse, scale)
+    got = radix2._fft_axis(*args)
+    want = radix2._fft_axis_ref(*args)
+    assert _rel(got, want) < 1e-4
+
+
+def test_fft_axis_column_pass_past_2_31_elements(dev):
+    """Kernel 8's column pass on (9, 16384, 16384): the planes pass 2^31
+    elements (~9.7 GB each), so the last frame's offsets need 64 bits; it
+    equals the same frame transformed alone, bit for bit."""
+    shape = (9, 16384, 16384)
+    g = torch.Generator(device=dev).manual_seed(3)
+    re = torch.randn(shape, device=dev, generator=g)
+    im = torch.randn(shape, device=dev, generator=g)
+    assert re.numel() > 2 ** 31
+    got = radix2._fft_axis(re, im, 1, True, 0.5)
+    last = radix2._fft_axis(re[-1:].contiguous(), im[-1:].contiguous(), 1,
+                            True, 0.5)
+    assert torch.equal(got[0][-1:], last[0])
+    assert torch.equal(got[1][-1:], last[1])
+    del re, im, got, last
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("layout", ["centered", "bitrev2d"])
+@pytest.mark.parametrize("change", [dict(), dict(phase_scale=2.5),
+                                    dict(orientations=4),
+                                    dict(orientations=4, phase_scale=2.5)],
+                         ids=["integer", "atan2", "steerable",
+                              "steerable_atan2"])
+@pytest.mark.parametrize("w", [512, 387])
+def test_amplify_procedural_branches(dev, layout, change, w):
+    """Kernel 9's four branches (integer power or atan2; steerable or
+    not) in both layouts against its plain version, on a width that is a
+    multiple of 4 (16-byte loads) and one that is not (scalar loads)."""
+    cfg = MagnifyConfig(**change)
+    h = 128
+    rng = np.random.default_rng(w + len(change))
+    spec = [_spectra(rng, (2, h, w), dev) for _ in range(4)]
+    fy, fx = freq_axes(h, 512, layout, dev)
+    args = (*spec, fy[:, 0].contiguous(), fx[0, :w].contiguous(),
+            cfg.pyramid_levels, cfg.min_frequency, cfg.max_frequency,
+            cfg.phase_scale, cfg.magnitude_threshold, cfg.orientations)
+    got = fused_kernels.amplify_procedural(*args)
+    want = fused_kernels.amplify_procedural_ref(*args)
+    assert _rel(got, want) < 1e-4
+
+
+def test_amplify_procedural_16k_random_spectra(dev, monkeypatch):
+    """Kernel 9 at path (m) (g)'s call, (1, 16384, 16384), on random
+    spectra against its plain version: among 268 M bins many magnitude
+    gates g m >= tau sit within an ulp of tau, so both must round every
+    step alike.  The plain version divides by the ramp's width in one
+    rounding (`fused_kernels._div_rn`, as the kernel's __fdiv_rn); torch's
+    division of a CUDA tensor by a Python float, a * (1 / b), moves t by
+    an ulp at some bins and flips their gates.  Prints both readings."""
+    cfg = MagnifyConfig(fft_backend="pallas", use_rfft=False,
+                        use_pallas=True)
+    n = 16384
+    g = torch.Generator(device=dev).manual_seed(16)
+    spec = [torch.randn((1, n, n), device=dev, generator=g)
+            for _ in range(4)]
+    fy, fx = freq_axes(n, n, "bitrev2d", dev)
+    args = (*spec, fy[:, 0].contiguous(), fx[0].contiguous(),
+            cfg.pyramid_levels, cfg.min_frequency, cfg.max_frequency,
+            cfg.phase_scale, cfg.magnitude_threshold, cfg.orientations)
+    got = fused_kernels.amplify_procedural(*args)
+    want = fused_kernels.amplify_procedural_ref(*args)
+    err = _rel(got, want)
+    peak = max(float(w.abs().max()) for w in want)
+    same = int(((got[0] == want[0]) & (got[1] == want[1])).sum())
+    monkeypatch.setattr(fused_kernels, "_div_rn", lambda a, b: a / b)
+    recip = fused_kernels.amplify_procedural_ref(*args)
+    far = int(torch.maximum((got[0] - recip[0]).abs(),
+                            (got[1] - recip[1]).abs()).gt(1e-4 * peak).sum())
+    print(f"kernel 9, 16K random spectra: max err / max {err:.3e}, "
+          f"{same} of {n * n} bins equal bit for bit; against torch's "
+          f"a * (1 / b): max err / max {_rel(got, recip):.3e}, {far} bins "
+          f"over 1e-4 of the max")
+    assert err < 1e-4
+    del spec, got, want, recip
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("rgb", [False, True], ids=["kernel10", "kernel11"])
+def test_post_tile_kernels_16k_crop(dev, rgb):
+    """Kernels 10 and 11 (tiles of at most 256 columns) on a 16K frame's
+    15360-column crop of 16384 padded lanes, as the y_only tail (kernels
+    7 + 10) and chroma="rgb" take it at 16K, against their plain
+    versions."""
+    in_h, in_w = 8640, 15360
+    g = geometry_for(in_h, in_w, "square_pow2")
+    cfg = _cfg().replace(pad_mode="square_pow2")
+    if rgb:
+        cfg = cfg.replace(chroma="rgb", output_layout="planar_u8")
+    rows = blur_row_window(g, cfg)
+    hr = rows[1] - rows[0]
+    rng = np.random.default_rng(16)
+    win = hann2d_region(g, device=dev)
+    if rgb:
+        rec = torch.from_numpy(rng.uniform(-0.2, 0.9, (3, hr, g.pad_w))
+                               .astype(np.float32)).to(dev)
+        args = (rec, win, cfg, rows[0], in_h, in_w, "square_pow2")
+        got = post_fused.post_fused_rgb(*args, out_layout="planar_u8")
+        want = post_fused.post_fused_rgb_ref(*args, out_layout="planar_u8")
+        assert got.shape == (1, 3, in_h, in_w)
+        assert int((got.int() - want.int()).abs().max()) <= 1
+    else:
+        rec = torch.from_numpy(rng.uniform(0, 0.9, (1, hr, g.pad_w))
+                               .astype(np.float32)).to(dev)
+        iq = [_rand(rng, (1, in_h, in_w), dev, 0.3) for _ in range(2)]
+        args = (rec, *iq, win, cfg, rows[0], in_h, in_w, "square_pow2")
+        got = post_fused.post_fused(*args)
+        want = post_fused.post_fused_ref(*args)
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) < 1e-5
