@@ -53,7 +53,15 @@ non-zero without the final line:
      kernel 6, one frame a launch and all frames in one, bit for bit
      against kernel 2's rows at H = 2048, 4096 and 8192 (kernel 5's last
      spectrum = kernel 2's state), and kernel 12 against kernel 6 at 4096
-     and 8192;
+     and 8192; path (n)'s kernels at the shapes 2-, 4- and 8-way rows
+     shards of a 1080p square_pow2 frame give them: kernel 6 with
+     fx_values (the last shard's column slice (16, 2048, 2048 / p) of the
+     bar's whole-lane spectra and its slice of the bit-reversed lane
+     table) in four branches (pyramid, standard at 2.5, steerable over
+     overlapping bands, the IIR taps), each also bit for bit against the
+     same columns of one 2048-lane call with the whole table; kernel 8 on
+     the row band (16, 2048 / p, 2048) (real) and the column slice
+     (complex), kernel 7 on the row band with pad_h;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -106,6 +114,15 @@ non-zero without the final line:
        kernels 7 + 10 anyway), so kernels 1, 2, 7, 10 (and 4, 2, 7, 10 from
        planar uint8 to planar_u8), > 100 dB; and at blur_size 1.5
        (radius 5): kernels 1, 2, 3;
+     - (n) the multi-device engines (`pbmm_tpu_torch.parallel`) on a
+       world of one over NCCL: `magnify_clip_batched` at 1080p
+       `tuned_for_tpu()` on the bench clip (kernels 1, 8, 6, 7; > 100 dB
+       against the oracle), `magnify_batch_sharded` on a (1, 1) mesh
+       (bit for bit the batched clip), `magnify_video_spatial` on a
+       ("rows",) mesh of one (kernels 8, 6 with fx_values, 7) at 1080p
+       square_pow2 and at 720p rect_pow2 in standard mode at 2.5 and
+       with the IIR taps, each > 70 dB against `magnify_video` on the
+       same config (its PSNR against the oracle on frames 0-1 printed);
      - (i) the measurement path, through the tools: `roofline_table` at
        1080p (kernels 1, 2, 3 and the row-tile copy ceiling), kexp's
        experiments (kernels 1, 5, 6, 7 and both copies at kexp's shape
@@ -126,7 +143,8 @@ non-zero without the final line:
      and 4 region rows in flight at radii 2 and 5, kernel 3 against
      kernel 7 + kernel 10 at radii 2-14, f32 and uint8 chroma), and the
      y4m stream's
-     frames/s with the host's parse share.  Kernels, plain
+     frames/s with the host's parse share; path (n)'s calls (frames/s of
+     one call of each engine).  Kernels, plain
      versions and library calls are timed by the device's time alone
      (`tools.kexp.timed`: a spin of the card ahead of each event pair
      covers the host's enqueue), each kernel warm (relaunched on the same
@@ -134,7 +152,8 @@ non-zero without the final line:
      timing: its inputs out of L2), and also, as before, with the host's
      enqueue inside one event pair around one call (`ms_enqueued`);
   5. with --profile only: torch.profiler over a few steady-state chunks
-     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j)-(l),
+     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j)-(n)
+     (one call of each engine of (n)),
      printing where the device time of a chunk goes (each kernel's
      share) and the device's idle share with the profiler on.
 
@@ -293,6 +312,17 @@ def main():
     from pbmm_tpu_torch.io.device_decode import ycbcr_planes_to_rgb_planar_u8
     from pbmm_tpu_torch.kernels.build import build, library
     from pbmm_tpu_torch.oracle import reference as oracle
+    from pbmm_tpu_torch.parallel import (
+        magnify_batch_sharded,
+        magnify_clip_batched,
+        magnify_video_spatial,
+        make_mesh,
+    )
+    from pbmm_tpu_torch.parallel.launcher import (
+        free_port,
+        init_world,
+        rank_device,
+    )
     from pbmm_tpu_torch.oracle import synthetic
     from pbmm_tpu_torch.phase import fused_kernels
     from pbmm_tpu_torch.pyramid.filters import freq_axes
@@ -307,6 +337,8 @@ def main():
         trig_probe,
     )
     from pbmm_tpu_torch.utils.debug import debug_frame_view
+
+    import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1053,6 +1085,65 @@ def main():
                   + win16.numel() + 3 * T16 * H16 * W16),
             (2 * (4 * 2 + 1) + 20) * T16 * H16 * W16),
     }
+    # Path (n)'s kernels at the shapes rows shards of a 1080p square_pow2
+    # frame give them (p = 2, 4, 8: the last shard, idx = p - 1): kernel 6
+    # with fx_values on the shard's column slice (T, 2048, 2048 / p) of the
+    # whole-lane spectra of the 16 bar frames (each frame's prev the one
+    # before), with the shard's slice of the bit-reversed lane table;
+    # kernel 8 on the row band (T, 2048 / p, 2048) (real) and the column
+    # slice (complex), kernel 7 on the row band.
+    n_re, n_im = (x.reshape(T, g_sq.pad_h, g_sq.pad_w).contiguous() for x in
+                  split(preprocess(bar_il_d, cfg_full)[0]))
+    n_prev = [torch.cat([x[:1], x[:-1]]).contiguous() for x in (n_re, n_im)]
+    fx_table = dev_t(radix2.bitrev_freq_axis(g_sq.pad_w))
+    cfg_n_iir = cfg_full.replace(temporal=TemporalConfig(mode="iir_bandpass"))
+    n_branches = {"pyramid": cfg_full,
+                  "standard 2.5": cfg_full.replace(mode="standard",
+                                                   phase_scale=2.5),
+                  "steerable 4, overlapping bands": cfg_full.replace(
+                      orientations=4, pyramid_levels=6),
+                  "IIR taps": cfg_n_iir}
+    shard_variants, shard_work, shard_slices = {}, {}, {}
+    for p_ in (2, 4, 8):
+        wc_, hp_ = g_sq.pad_w // p_, g_sq.pad_h // p_
+        sl = slice((p_ - 1) * wc_, p_ * wc_)
+        cur_ = [x[..., sl].contiguous() for x in (n_re, n_im)]
+        prv_ = [x[..., sl].contiguous() for x in n_prev]
+        fx_ = fx_table[sl].contiguous()
+        shard_slices[p_] = (sl, cur_, prv_, fx_)
+        for br, c in n_branches.items():
+            taps_ = ({} if c.temporal.mode == "two_frame" else dict(zip(
+                ("lp_fast", "lp_slow"),
+                (0.1 * dev_t(rng.standard_normal((T, g_sq.pad_h, wc_)))
+                 for _ in range(2)))))
+            name = f"phase_col_ifft[fx_values, {br}, W/p {wc_}]"
+            shard_variants[name] = both(fused.phase_col_ifft, *cur_, *prv_,
+                                        c, fx_values=fx_, **taps_)
+            # planes read (spectra, prev, taps) and written (rows, taps)
+            n_io = 10 if taps_ else 6
+            shard_work[name] = (
+                f4 * (n_io * T * g_sq.pad_h * wc_ + wc_),
+                fft_ops(g_sq.pad_h, T * wc_)
+                + (40 + 15 * c.pyramid_levels) * T * g_sq.pad_h * wc_)
+        band = dev_t(rng.random((T, hp_, g_sq.pad_w)))
+        k7_ = [dev_t(scale * rng.standard_normal((T, hp_, g_sq.pad_w)))
+               for _ in range(2)]
+        shard_variants[f"_fft_axis[shard rows, forward real, H/p {hp_}]"] = (
+            both(radix2._fft_axis, band, None, 2, False))
+        shard_work[f"_fft_axis[shard rows, forward real, H/p {hp_}]"] = (
+            f4 * 3 * band.numel(), fft_ops(g_sq.pad_w, T * hp_))
+        shard_variants[
+            f"_fft_axis[shard columns, forward complex, W/p {wc_}]"] = both(
+                radix2._fft_axis, *cur_, 1, False)
+        shard_work[f"_fft_axis[shard columns, forward complex, W/p {wc_}]"] = (
+            f4 * 4 * cur_[0].numel(), fft_ops(g_sq.pad_h, T * wc_))
+        shard_variants[f"row_ifft_magnitude[shard rows, H/p {hp_}]"] = both(
+            fused.row_ifft_magnitude, *k7_, pad_h=g_sq.pad_h)
+        shard_work[f"row_ifft_magnitude[shard rows, H/p {hp_}]"] = (
+            f4 * 3 * k7_[0].numel(),
+            fft_ops(g_sq.pad_w, T * hp_) + 3 * k7_[0].numel())
+    variants.update(shard_variants)
+    variant_work.update(shard_work)
     assert set(variant_work) <= set(variants)
     irfft_in = torch.complex(rre[..., :geom.pad_w // 2 + 1].contiguous(),
                              rim[..., :geom.pad_w // 2 + 1].contiguous())
@@ -1121,6 +1212,29 @@ def main():
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{rel} > {tol}")
         records[name] = {"max_abs_err": float(err)}
+    # Kernel 6 with fx_values on a shard's column slice = the same columns
+    # of one full-width call with the whole table, bit for bit (columns
+    # are independent), in every branch of path (n).
+    for br, c in n_branches.items():
+        taps_w = ({} if c.temporal.mode == "two_frame" else dict(zip(
+            ("lp_fast", "lp_slow"), (0.1 * dev_t(rng.standard_normal(
+                (T, g_sq.pad_h, g_sq.pad_w))) for _ in range(2)))))
+        whole = fused.phase_col_ifft(n_re, n_im, *n_prev, c,
+                                     fx_values=fx_table, **taps_w)
+        for p_, (sl, cur_, prv_, fx_) in shard_slices.items():
+            part = fused.phase_col_ifft(
+                *cur_, *prv_, c, fx_values=fx_,
+                **{k: v[..., sl].contiguous() for k, v in taps_w.items()})
+            same = all(torch.equal(a, b[..., sl]) for a, b in
+                       zip(part, whole))
+            log(f"[2] phase_col_ifft[fx_values, {br}] on the column slice "
+                f"of shard {p_ - 1} of {p_} ({cur_[0].shape[-1]} lanes) == "
+                f"the same columns of one 2048-lane call: {same}")
+            if not same:
+                raise AssertionError(f"kernel 6 on a column slice differs "
+                                     f"from the full-width call ({br}, "
+                                     f"p = {p_})")
+        del whole
     # Kernel 4's contract: the torch pre stage + kernel 1, bit for bit.
     k4 = fused.windowed_row_fft_u8planar(*u8_args)
     pre = preprocess_cl(u8_frames, cfg, want_iq=True)
@@ -1655,6 +1769,69 @@ def main():
     psnr_h, = vs_oracle([(path_h, torch.stack([bar_il_d[0], *pairs]))],
                         jobs["bar"])
 
+    # (n) the multi-device engines on a world of one over NCCL (one card:
+    # NCCL refuses two ranks on one GPU): the batched clip (kernels 1, 8,
+    # 6, 7), the ("data", "frame") sharded batch on a (1, 1) mesh (bit for
+    # bit the batched clip) and the rows-sharded spatial engine on a
+    # ("rows",) mesh of one (the kernel route: 8, 6 with fx_values, 7),
+    # at 1080p square_pow2 on the bench clip, and at 720p rect_pow2 in
+    # standard mode at 2.5 and with the IIR taps on the bar.  On a mesh of
+    # one the spatial engine's rank block is the whole clip.
+    init_world(f"tcp://127.0.0.1:{free_port()}", 1, 0, rank_device())
+    mesh11 = make_mesh((1, 1))
+    rows1 = make_mesh((1,), ("rows",))
+    clip_k = ("windowed_row_fft", "_fft_axis", "phase_col_ifft",
+              "row_ifft_magnitude")
+    not_clip = ("colspec_chunk", "rowifft_post_fused", "col_fft_zero_padded",
+                "amplify_procedural", "post_fused", "post_fused_rgb",
+                "windowed_row_fft_u8planar")
+    spatial_k = ("_fft_axis", "phase_col_ifft", "row_ifft_magnitude")
+    path_n = "(n) 1080p magnify_clip_batched, tuned"
+    n1 = run_path(path_n, clip_k, not_clip,
+                  lambda: magnify_clip_batched(frames_d, cfg_sq))
+    check_frames(path_n, (n1,), (T, H, W, 3), torch.float32)
+    psnr_n, = vs_oracle([(path_n, n1)], jobs["a"])
+    path_ns = "(n) 1080p magnify_batch_sharded, (1, 1) mesh"
+    ns1 = run_path(path_ns, clip_k, not_clip,
+                   lambda: magnify_batch_sharded(frames_d[None], cfg_sq,
+                                                 mesh11))
+    same = torch.equal(ns1[0], n1)
+    log(f"[3] {path_ns}: equal to magnify_clip_batched bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{path_ns} differs from the batched clip")
+    del ns1
+    spatial_runs = {
+        "(n) 1080p magnify_video_spatial, rows 1": (frames_d, cfg_sq, a1,
+                                                    jobs["a"]),
+        "(n) 720p magnify_video_spatial, standard 2.5, rows 1": (
+            bar720_d, cfg_std, c1, jobs["c"]),
+        "(n) 720p magnify_video_spatial, IIR, rows 1": (
+            bar720_d, cfg_sq.replace(pad_mode="rect_pow2",
+                                     temporal=cfg_fi.temporal), None,
+            jobs["f_iir"]),
+    }
+    psnr_spatial = {}
+    for what, (fd, c, single, job) in spatial_runs.items():
+        got = run_path(what, spatial_k, ("windowed_row_fft", "colspec_chunk",
+                                         "col_fft_zero_padded",
+                                         "rowifft_post_fused"),
+                       lambda: magnify_video_spatial(fd, c, rows1))
+        check_frames(what, (got,), tuple(fd.shape), torch.float32)
+        if single is None:
+            single = pbmm_tpu_torch.magnify_video(fd, c)[0]
+        db = psnr_db(got.double().cpu().numpy(),
+                     single.double().cpu().numpy())
+        want, _ = job.result()
+        db_o = psnr_db(got[:2].double().cpu().numpy(), want[:2])
+        log(f"[3] {what}: PSNR vs the single-card magnify_video on the same "
+            f"config {db:.2f} dB (bound > 70); vs the fp64 oracle, frames "
+            f"0-1: {db_o:.2f} dB")
+        if not db > 70:
+            raise AssertionError(f"{what}: PSNR {db} dB <= 70")
+        psnr_spatial[what] = {"psnr_vs_magnify_video_db": db,
+                              "psnr_vs_oracle_db": db_o}
+        del got
+
     # (j) 2160p: 3840x2160 tuned_for_tpu() (square_pow2, H = 4096): the
     # stream starts through kernel 5, kernels 1, 2 (strips of 4), 3 (8
     # rows a block at radius 2, 4096 lanes).  Then 2160p tight (H = 2176,
@@ -1978,6 +2155,24 @@ def main():
             bar_il_d[0], bar_il_d[1], cfg_f))
         log(f"[4] {card}: {path_h}: {pair_ms:.3f} ms a pair, median of 10 "
             f"-> {1e3 / pair_ms:.2f} pairs/s")
+        # Path (n): each engine's call on its clip, on the world of one.
+        n_calls = {
+            path_n: (frames_d, lambda: magnify_clip_batched(frames_d,
+                                                            cfg_sq)),
+            path_ns: (frames_d, lambda: magnify_batch_sharded(
+                frames_d[None], cfg_sq, mesh11)),
+            **{what: (fd, (lambda fd=fd, c=c: magnify_video_spatial(
+                fd, c, rows1))) for what, (fd, c, _, _) in
+               spatial_runs.items()}}
+        n_paths = {}
+        for what, (fd, fn) in n_calls.items():
+            ms = time_ms(torch, fn, reps=5, warmup=1)
+            n_paths[what] = {"fps": fd.shape[0] / (ms / 1e3), "call_ms": ms,
+                             **psnr_spatial.get(what, {})}
+            log(f"[4] {card}: {what}: {ms:.3f} ms a call of "
+                f"{fd.shape[0]} frames, median of 5 -> "
+                f"{n_paths[what]['fps']:.2f} frames/s")
+        n_paths[path_n]["psnr_vs_oracle_db"] = psnr_n
         for name, (kern, plain) in {**calls, **variants}.items():
             enq_ms = time_ms(torch, kern)
             k_ms, cold_ms = kexp.timed(kern, device=dev)
@@ -2164,6 +2359,8 @@ def main():
             profile_chunks(torch, fn, card, what)
         for what, (fn, _, _, _) in scan_paths.items():
             profile_chunks(torch, fn, card, what)
+        for what, (_, fn) in n_calls.items():
+            profile_chunks(torch, fn, card, what)
 
     sources = {
         "windowed_row_fft": ("pbmm_tpu_torch/csrc/row_fft.cu",
@@ -2235,6 +2432,7 @@ def main():
                      "psnr_vs_oracle_db": psnr_h},
             path_js: {"psnr_vs_oracle_db": psnr_js},
             path_ls: {"psnr_vs_oracle_db": psnr_ls},
+            **n_paths,
             path_ms: {"psnr_vs_oracle_db": psnr_ms},
             path_mg: {"psnr_vs_oracle_db": psnr_mg},
             path_i: {"seconds": meas["seconds"],
@@ -2243,6 +2441,7 @@ def main():
                      "kdecomp_split_ms": kdecomp.split(meas["kdecomp"])},
         },
         "launches_by_path": path_launches}))
+    dist.destroy_process_group()
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,8 +21,11 @@ CUDA kernel for sm_90a under `csrc/` (numbered as in PERF.md):
     tools/trig_probe.py::trig_probe                  csrc/trig_probe.cu    14
 
 Kernels 12-14 serve the measurement path: `tools/` holds the counterparts
-of the JAX package's `benchmarks/` scripts and `tools/parity.py`, and
-`utils/` its metrics, checks, profiling and debug views.
+of the JAX package's `benchmarks/` scripts, `tools/parity.py` and
+`tools/multihost.py`, and `utils/` its metrics, checks, profiling and
+debug views.  `parallel/` holds the multi-device engines on
+`torch.distributed` (the batched clip, the ("data", "frame")-sharded
+batch, the rows-sharded spatial engine).
 
 Tensors on the CPU take each kernel's plain PyTorch version (`*_ref`);
 tensors on the card launch the kernels (built with nvcc at first use,

@@ -10,8 +10,11 @@
 // (and, with the IIR band-pass, its own taps, written back full height).
 // Every branch of _phase_block runs: host planes or per-bin masks,
 // standard mode, steerable sectors, integer power or atan2 + sin/cos, IIR
-// taps; the sharded engines' fx_values and the benchmark-only pair_offset
-// are not ported.
+// taps.  With the sharded engines' fx_values (a shard's lane frequencies,
+// parallel/spatial.py) the wrapper passes them as the fx table and no host
+// plane: the masks, the sector windows and the standard mode's weight are
+// evaluated per bin (phase_pass.cuh::cs_standard_weight).  The
+// benchmark-only pair_offset is not ported.
 //
 // Design: kernel 2's launch 2 at pow-2 heights, frame-parallel.  A block
 // owns a strip of S columns of one frame (grid: W / S strips x B frames)

@@ -18,14 +18,21 @@
 #define CS_MAXB 16  // most radial levels
 
 // The phase pass's branch and constants (spectral/fused.py::_phase_args
-// packs them in this order).
+// packs them in this order).  std_weight: standard mode without a host
+// plane (the sharded engines' per-shard frequencies, fx_values) evaluates
+// its weight w(f) per bin from the terms after span (fused.py:619
+// _standard_weight_block).
 struct PhaseArgs {
   int iir, standard, host_planes, steer, power, n_bands;
   int kind[CS_MAXB];  // 0 zero, 1 high, 2 low, 3 band
   int amp[CS_MAXB];
+  int std_weight, bandpass, steep_pow;  // steep_pow: -1 for exp / log
   float tau2, scale, r_hi, r_lo, inv_norm;
   float cphi[CS_MAXK], sphi[CS_MAXK];  // cos, sin of 2 pi k / K
   float lo[CS_MAXB], hi[CS_MAXB], span[CS_MAXB];
+  // 1 / 0.707, the cutoffs, 1 / max(lc, 1e-3), 1 / max(1 - hc, 1e-3),
+  // the steepness, sensitivity, edge gain (0: off) and hc - lc.
+  float f_scale, lc, hc, inv_lo, inv_hi, steep, sens, edge, mid_span;
 };
 
 // unit(prev * conj(cur)) ** power by square-and-multiply.
@@ -100,6 +107,34 @@ __device__ __forceinline__ float cs_gated(float m, float min_mag2,
   return amped;
 }
 
+// The standard mode's weight w(f) at frequency (fy, fx), in the JAX
+// kernel's order (fused.py:619 _standard_weight_block: pow by squaring for
+// an integer steepness to 16, else exp / log; sin(pi t) as cos(pi (t -
+// 1/2))), each product and sum rounded on its own: these bins are kernel
+// 6's alone, and the rounding must not follow nvcc's contraction.
+__device__ __forceinline__ float cs_standard_weight(float fy, float fx,
+                                                    const PhaseArgs& pa) {
+  const float freq = sqrtf(__fadd_rn(__fmul_rn(fy, fy), __fmul_rn(fx, fx)));
+  const float f = fminf(__fmul_rn(freq, pa.f_scale), 1.0f);
+  if (!pa.bandpass) return 1.0f;
+  float w = 1.0f;
+  if (f < pa.lc || f > pa.hc) {
+    const float x = f < pa.lc ? __fmul_rn(f, pa.inv_lo)
+                              : __fmul_rn(__fsub_rn(1.0f, f), pa.inv_hi);
+    w = pa.steep_pow >= 0
+            ? cs_pow_int(x, pa.steep_pow)
+            : expf(__fmul_rn(pa.steep, logf(fmaxf(x, 1e-38f))));
+  }
+  w = __fmul_rn(w, pa.sens);
+  if (pa.edge != 0.0f && f > pa.lc && f < pa.hc) {
+    const float t =
+        fminf(fmaxf(__fdiv_rn(__fsub_rn(f, pa.lc), pa.mid_span), 0.0f), 1.0f);
+    const float s = cosf(__fmul_rn(3.14159265f, __fsub_rn(t, 0.5f)));
+    w = __fmul_rn(w, __fadd_rn(1.0f, __fmul_rn(pa.edge, s)));
+  }
+  return fmaxf(w, 0.0f);
+}
+
 // Every branch of fused.py:865 _phase_block on one bin: cur (cr, ci)
 // against prev (pr, pi) at frequency (fy, fx), host planes pl0/pl1,
 // IIR taps updated in place.
@@ -122,8 +157,9 @@ __device__ __forceinline__ void cs_phase_general(
   }
   if (pa.standard) {
     const float d = IIR ? d_iir : cs_atan2(ri, rr);
+    const float w = pa.host_planes ? pl0 : cs_standard_weight(fy, fx, pa);
     float s, c;
-    sincosf(d * pl0 * pa.scale, &s, &c);
+    sincosf(d * w * pa.scale, &s, &c);
     const bool pass =
         (cr * cr + ci * ci) < pa.tau2 || (pr * pr + pi * pi) < pa.tau2;
     out_r = pass ? cr : cr * c - ci * s;
@@ -207,8 +243,11 @@ static inline bool pbmm_phase_general(const PhaseArgs& pa) {
 
 // PhaseArgs from the host arrays spectral/fused.py::_phase_args packs:
 // iargs: iir, standard, host_planes, steer, power, n_bands, kind[16],
-// amp[16]; fargs: tau2, scale, r_hi, r_lo, inv_norm, cphi[16], sphi[16],
-// lo[16], hi[16], span[16].  False when a count is out of range.
+// amp[16], std_weight, bandpass, steep_pow; fargs: tau2, scale, r_hi,
+// r_lo, inv_norm, cphi[16], sphi[16], lo[16], hi[16], span[16], f_scale,
+// lc, hc, inv_lo, inv_hi, steep, sens, edge, mid_span.  False when a
+// count is out of range, or for standard mode with neither its host
+// plane nor the weight's terms (it would rotate by nothing).
 static inline bool pbmm_phase_unpack(const int* iargs, const float* fargs,
                                      PhaseArgs& pa) {
   pa.iir = iargs[0];
@@ -221,6 +260,9 @@ static inline bool pbmm_phase_unpack(const int* iargs, const float* fargs,
     pa.kind[b] = iargs[6 + b];
     pa.amp[b] = iargs[6 + CS_MAXB + b];
   }
+  pa.std_weight = iargs[6 + 2 * CS_MAXB];
+  pa.bandpass = iargs[7 + 2 * CS_MAXB];
+  pa.steep_pow = iargs[8 + 2 * CS_MAXB];
   pa.tau2 = fargs[0];
   pa.scale = fargs[1];
   pa.r_hi = fargs[2];
@@ -235,6 +277,17 @@ static inline bool pbmm_phase_unpack(const int* iargs, const float* fargs,
     pa.hi[b] = fargs[5 + 2 * CS_MAXK + CS_MAXB + b];
     pa.span[b] = fargs[5 + 2 * CS_MAXK + 2 * CS_MAXB + b];
   }
+  const float* wt = fargs + 5 + 2 * CS_MAXK + 3 * CS_MAXB;
+  pa.f_scale = wt[0];
+  pa.lc = wt[1];
+  pa.hc = wt[2];
+  pa.inv_lo = wt[3];
+  pa.inv_hi = wt[4];
+  pa.steep = wt[5];
+  pa.sens = wt[6];
+  pa.edge = wt[7];
+  pa.mid_span = wt[8];
   return pa.steer >= 0 && pa.steer <= CS_MAXK && pa.n_bands >= 0 &&
-         pa.n_bands <= CS_MAXB && pa.power <= 64;
+         pa.n_bands <= CS_MAXB && pa.power <= 64 && pa.steep_pow <= 16 &&
+         (!pa.standard || pa.host_planes || pa.std_weight);
 }

@@ -576,6 +576,52 @@ class _PhasePlan(NamedTuple):
     scale: np.float32  # phase_scale
     r_hi: np.float32  # IIR smoothing factors
     r_lo: np.float32
+    weight: tuple  # the standard weight's terms (`_weight_terms`)
+
+
+def _weight_terms(cfg):
+    """The standard mode's weight w(f) as the JAX kernel evaluates it
+    per bin (`_standard_weight_block`): ((bandpass, integer steepness or
+    -1), (1 / 0.707, low and high cutoff, 1 / max(lc, 1e-3),
+    1 / max(1 - hc, 1e-3), steepness, sensitivity, edge gain or 0,
+    hc - lc)), the floats as f32."""
+    lc, hc = float(cfg.low_freq_cutoff), float(cfg.high_freq_cutoff)
+    steep = float(cfg.filter_steepness)
+    steep_pow = int(steep) if steep.is_integer() and 0 <= steep <= 16 else -1
+    edge = float(cfg.edge_enhancement) if cfg.enhance_edges else 0.0
+    floats = (1.0 / 0.707, lc, hc, 1.0 / max(lc, 1e-3),
+              1.0 / max(1.0 - hc, 1e-3), steep,
+              float(cfg.motion_sensitivity), edge, hc - lc)
+    return ((int(cfg.apply_bandpass), steep_pow),
+            tuple(np.float32(v) for v in floats))
+
+
+def standard_weight_block(freq, cfg):
+    """The standard mode's weight w(f) at the bins' frequencies `freq`,
+    in f32, as kernel 6 evaluates it per bin where no host plane serves
+    (the sharded engines' per-shard frequencies; JAX
+    `_standard_weight_block`, `fused.py:619-646`; `standard_weight` is
+    the host plane's f64 form)."""
+    (bandpass, steep_pow), (f_scale, lc, hc, inv_lo, inv_hi, steep, sens,
+                            edge, mid_span) = _weight_terms(cfg)
+    f = torch.clamp_max(freq * f_scale, 1.0)
+    if not bandpass:
+        return torch.ones_like(f)
+
+    def pw(x):
+        if steep_pow >= 0:
+            return _pow_int(x, steep_pow)
+        return torch.exp(steep * torch.log(torch.clamp_min(x, 1e-38)))
+
+    w = torch.ones_like(f)
+    w = torch.where(f < lc, pw(f * inv_lo), w)
+    w = torch.where(f > hc, pw((1.0 - f) * inv_hi), w)
+    w = w * sens
+    if edge:
+        t = torch.clamp((f - lc) / mid_span, 0.0, 1.0)
+        s = torch.cos(np.float32(np.pi) * (t - np.float32(0.5)))
+        w = torch.where((f > lc) & (f < hc), w * (1.0 + edge * s), w)
+    return torch.clamp_min(w, 0.0)
 
 
 @functools.lru_cache(maxsize=32)
@@ -595,7 +641,8 @@ def _phase_plan(cfg) -> _PhasePlan:
     r_hi, r_lo = (cfg.temporal.smoothing_factors() if iir else (0.0, 0.0))
     return _PhasePlan(iir, standard, steer, power, _mask_params(cfg),
                       np.float32(cfg.magnitude_threshold) ** 2,
-                      np.float32(s), np.float32(r_hi), np.float32(r_lo))
+                      np.float32(s), np.float32(r_hi), np.float32(r_lo),
+                      _weight_terms(cfg))
 
 
 def _atan2z(y, x):
@@ -684,7 +731,9 @@ def _phase_block_ref(cr, ci, pr, pi_, fy, fx, cfg, lpf=None, lps=None,
     JAX kernel's `_phase_block` (`fused.py:865-1016`) as plain torch:
 
     - standard mode: rotate by delta * w * s, the weight w from the host
-      plane, bins under the magnitude gate passed through;
+      plane (or `standard_weight_block` at each bin's frequency when
+      `static_planes` is None), bins under the magnitude gate passed
+      through;
     - pyramid mode: out = cur * ((total - amped) + amped * e^{i s delta}),
       amped the gated sum of the amplified masks (host planes, or every
       level's mask evaluated per bin when `static_planes` is None), each
@@ -710,7 +759,9 @@ def _phase_block_ref(cr, ci, pr, pi_, fy, fx, cfg, lpf=None, lps=None,
         taps = (lpf, lps)
     if plan.standard:
         delta = delta_iir if plan.iir else _atan2z(r_im, r_re)
-        theta = delta * static_planes[0] * plan.scale
+        w = (static_planes[0] if static_planes is not None
+             else standard_weight_block(torch.sqrt(fy * fy + fx * fx), cfg))
+        theta = delta * w * plan.scale
         rot_re, rot_im = torch.cos(theta), torch.sin(theta)
         gate_pass = ((cr * cr + ci * ci) < tau2) | ((pr * pr + pi_ * pi_)
                                                     < tau2)
@@ -829,14 +880,18 @@ def colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
 
 
 def _phase_args(plan: _PhasePlan, host_planes: bool):
-    """(ints, floats) of csrc/colspec_chunk.cu's PhaseArgs, in its field
-    order."""
+    """(ints, floats) of csrc/phase_pass.cuh's PhaseArgs, in its field
+    order; standard mode without host planes carries its weight's terms
+    (`std_weight`)."""
     bands = () if host_planes or plan.standard else plan.params
     pad = _MAX_LEVELS - len(bands)
     ints = [int(plan.iir), int(plan.standard), int(host_planes), plan.steer,
             plan.power, len(bands)]
     ints += [_MASK_KINDS.index(b[0]) for b in bands] + [0] * pad
     ints += [int(b[3]) for b in bands] + [0] * pad
+    std_weight = plan.standard and not host_planes
+    w_ints, w_floats = plan.weight if std_weight else ((0, 0), (0.0,) * 9)
+    ints += [int(std_weight), *w_ints]
     k = max(plan.steer, 1)
     norm, cos2p, sin2p = _sector_consts(k)
     floats = [plan.tau2, plan.scale, plan.r_hi, plan.r_lo, norm]
@@ -845,6 +900,7 @@ def _phase_args(plan: _PhasePlan, host_planes: bool):
     for col in (1, 2):
         floats += [b[col] for b in bands] + [0.0] * pad
     floats += [b[2] - b[1] for b in bands] + [0.0] * pad
+    floats += list(w_floats)
     return ints, floats
 
 
@@ -946,12 +1002,15 @@ colspec_chunk.launches = 0
 
 def _phase_col_args(cur_re, cfg, out_rows, fx_values, lp_fast, lp_slow):
     """Validate a phase_col_ifft call; returns (r0, r1)."""
-    _, h, _ = cur_re.shape
+    _, h, w = cur_re.shape
     check_pow2(h, "radix-2 column height")
-    if fx_values is not None:
-        raise NotImplementedError(
-            "fx_values (the sharded engines' per-shard frequencies) is "
-            "ROADMAP item 11")
+    if fx_values is not None and (
+            tuple(fx_values.shape) != (w,)
+            or fx_values.dtype != torch.float32
+            or fx_values.device != cur_re.device):
+        raise ValueError(f"fx_values must be a ({w},) f32 tensor on "
+                         f"{cur_re.device}, got {tuple(fx_values.shape)} "
+                         f"{fx_values.dtype} on {fx_values.device}")
     if (cfg.temporal.mode == "iir_bandpass") != (lp_fast is not None
                                                  and lp_slow is not None):
         raise ValueError("lp_fast/lp_slow carry planes go with, and only "
@@ -974,10 +1033,7 @@ def phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
                              lp_slow)
     b, h, w = cur_re.shape
     dev = cur_re.device
-    host = _static_phase_planes(cfg, h, w, full_w)
-    if host is not None:
-        host = device_arrays(_static_phase_planes, (cfg, h, w, full_w), dev)
-    fy, fx = device_arrays(_freq_tables, (h, w, full_w), dev)
+    host, fy, fx = _phase_col_tables(cfg, h, w, full_w, fx_values, dev)
     order = torch.as_tensor(_col_order(h), device=dev)
     out_re = torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
@@ -995,6 +1051,19 @@ def phase_col_ifft_ref(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     return (out_re, out_im) + tuple(torch.stack(t) for t in zip(*taps))
 
 
+def _phase_col_tables(cfg, h: int, w: int, full_w, fx_values, dev):
+    """(host planes or None, fy (h, 1), fx (1, w)) of a kernel 6 call:
+    with `fx_values` those are the lane frequencies and no host plane
+    serves (JAX `phase_col_ifft`, `fused.py:1038-1041`, `:1111`)."""
+    fy, fx = device_arrays(_freq_tables, (h, w, full_w), dev)
+    if fx_values is not None:
+        return None, fy, fx_values.reshape(1, w)
+    host = None
+    if _static_phase_planes(cfg, h, w, full_w) is not None:
+        host = device_arrays(_static_phase_planes, (cfg, h, w, full_w), dev)
+    return host, fy, fx
+
+
 @checked
 def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
                    full_w=None, fx_values=None, lp_fast=None, lp_slow=None):
@@ -1004,8 +1073,12 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     spectrum, spatial rows `out_rows` = (r0, r1) only: (re, im) each
     (B, r1 - r0, W) f32, unnormalised; with the IIR band-pass also the
     new (B, H, W) taps from `lp_fast`/`lp_slow`.  Each frame is amplified
-    against its own prev.  `fx_values` (the sharded engines') is not
-    ported.
+    against its own prev.  `fx_values`, a (W,) f32 tensor beside the
+    spectra, gives each lane's frequency in place of the table of the
+    layout (the sharded engines pass a shard's slice of
+    `bitrev_freq_axis(W_full)`); no host plane serves then, and the masks,
+    the sector windows and the standard mode's weight are evaluated at
+    each bin.
 
     CPU tensors take `phase_col_ifft_ref`; CUDA tensors launch
     `csrc/phase_col_ifft.cu`, kernel 2's phase pass and inverse on strips
@@ -1028,11 +1101,9 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     check_cuda("phase_col_ifft", (b, h, w), cur_re, cur_im, prev_re,
                prev_im, *taps)
     dev = cur_re.device
-    host = _static_phase_planes(cfg, h, w, full_w)
-    planes_d = (device_arrays(_static_phase_planes, (cfg, h, w, full_w),
-                              dev) if host is not None else ())
-    planes_d = planes_d + (None,) * (2 - len(planes_d))
-    fy, fx = device_arrays(_freq_tables, (h, w, full_w), dev)
+    host, fy, fx = _phase_col_tables(cfg, h, w, full_w, fx_values, dev)
+    planes_d = (host or ()) + (None,) * (2 - len(host or ()))
+    fx = fx.contiguous()
     twr, twi = device_arrays(compact_twiddles, (h, True), dev)
     outs = [torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]

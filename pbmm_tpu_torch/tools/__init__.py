@@ -9,8 +9,10 @@ JAX package's `benchmarks/` scripts, one module per file of the same name:
     tools/roofline.py        bytes and FLOPs per stage against the H100's peaks
     tools/profile_stages.py  per-stage time of the per-frame pipeline
     tools/post_times.py      the y_only tail's two routes: kernel 3, kernels 7 + 10
+    tools/multihost.py       the sharded engines in worlds of several processes
 
-Each `main()` measures the card and exits non-zero without one; the byte
+Each `main()` measures the card and exits non-zero without one (but
+multihost's, whose ranks run on the CPU with `--device cpu`); the byte
 counts and the plain versions underneath run on CPU tensors too."""
 
 from __future__ import annotations

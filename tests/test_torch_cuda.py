@@ -17,7 +17,11 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
 - kernel 2's branches, kernels 5 and 11, the quirk switches of kernels 3
   and 7 and the config matrix's paths;
 - kernel 6 in every branch at three heights and 1, 3 and 16 frames a
-  launch, and bit for bit against kernel 2's rows (with kernel 12 = 6)
+  launch; with `fx_values` (the spatial engine's shard columns, W / p =
+  1024, 512, 256 at H = 2048) in every branch against its plain version
+  and bit for bit against one full-width call, and its launch refusing
+  standard mode without a plane or the weight's terms; and bit for bit
+  against kernel 2's rows (with kernel 12 = 6)
   at H = 512, 2048 and 4096, 1, 3 and 16 frames a launch, in every
   frame-parallel branch; kernel 8 on both axes from 8 to 8192 points,
   kernel 9 in
@@ -733,6 +737,84 @@ def test_phase_col_ifft_kernel(dev, name, h, fw, kept, b):
         for g, w_ in zip(got[2:], want[2:]):
             assert float(((g.cpu() - w_).abs() * mag).max()) < 1e-4 * float(
                 (w_.abs() * mag).max())
+
+
+@pytest.mark.parametrize("name", sorted(_K6))
+@pytest.mark.parametrize("p", [2, 4, 8])
+def test_phase_col_ifft_fx_values(dev, name, p):
+    """Kernel 6 with `fx_values` (the spatial engine's shards: a (B, 2048,
+    2048 / p) column slice and its slice of the bit-reversed lane table, no
+    host plane) against its plain version in every branch; the columns
+    equal, bit for bit, the same columns of one full-width call with the
+    whole table; standard mode rotates (its output differs from the
+    inverse of the unmodified spectrum)."""
+    cfg = _cfg().replace(pad_mode="square_pow2", **_K6[name])
+    h, fw = 2048, 2048
+    w, idx = fw // p, p - 1
+    table = torch.from_numpy(radix2.bitrev_freq_axis(fw)).to(dev)
+    fx = table[idx * w:(idx + 1) * w].contiguous()
+    rng = np.random.default_rng(19)
+    full = [_spectra(rng, (3, h, fw), dev, True) for _ in range(4)]
+    taps_full = ([0.1 * _spectra(rng, (3, h, fw), dev) for _ in range(2)]
+                 if cfg.temporal.mode == "iir_bandpass" else [])
+
+    def cols(x):
+        return x[..., idx * w:(idx + 1) * w].contiguous()
+
+    spec, taps = [cols(x) for x in full], [cols(x) for x in taps_full]
+    kw = dict(zip(("lp_fast", "lp_slow"), taps))
+    got = fused.phase_col_ifft(*spec, cfg, fx_values=fx, **kw)
+    want = fused.phase_col_ifft_ref(
+        *[x.cpu() for x in spec], cfg, fx_values=fx.cpu(),
+        **{k: v.cpu() for k, v in kw.items()})
+    assert _rel([g.cpu() for g in got[:2]], want[:2]) < 1e-4
+    if taps:
+        mag = torch.complex(*[x.cpu() for x in spec[:2]]).abs()
+        for g, w_ in zip(got[2:], want[2:]):
+            assert float(((g.cpu() - w_).abs() * mag).max()) < 1e-4 * float(
+                (w_.abs() * mag).max())
+    whole = fused.phase_col_ifft(*full, cfg, fx_values=table,
+                                 **dict(zip(("lp_fast", "lp_slow"),
+                                            taps_full)))
+    assert all(torch.equal(g, cols(x)) for g, x in zip(got, whole))
+    if name == "standard":
+        plain = radix2._fft_axis(spec[0], spec[1], 1, True)
+        assert _rel([got[0] - plain[0]], [plain[0]]) > 1e-3
+
+
+def test_phase_col_ifft_standard_needs_weight(dev):
+    """The launch refuses standard mode with neither its host plane nor
+    the weight's terms (it would rotate by nothing), and takes the same
+    call with the terms."""
+    from pbmm_tpu_torch.kernels import c_floats, c_ints, stream_handle
+    from pbmm_tpu_torch.kernels.build import library
+
+    cfg = _cfg().replace(pad_mode="square_pow2", mode="standard")
+    h, w = 256, 128
+    rng = np.random.default_rng(20)
+    spec = [_spectra(rng, (1, h, w), dev) for _ in range(4)]
+    fy = torch.from_numpy(fused.col_freq_axis(h)).to(dev)
+    fx = torch.from_numpy(radix2.bitrev_freq_axis(w)).to(dev)
+    tw = [torch.from_numpy(t).to(dev) for t in
+          radix2.compact_twiddles(h, True)]
+    outs = [torch.empty((1, h, w), device=dev) for _ in range(2)]
+    ints, floats = fused._phase_args(fused._phase_plan(cfg), False)
+    std_weight = 6 + 2 * fused._MAX_LEVELS  # PhaseArgs::std_weight
+    assert ints[std_weight] == 1
+
+    def launch(ints_):
+        return library().pbmm_phase_col_ifft(
+            *fused._ptrs(*spec, None, None, None, None, fy, fx, *tw, *outs,
+                         None, None, None, None),
+            c_ints(ints_), c_floats(floats), 1, h, w, 0, h,
+            fused.phase_col_strip(h, w), stream_handle(dev))
+
+    assert launch(ints[:std_weight] + [0] + ints[std_weight + 1:]) != 0
+    assert launch(ints) == 0
+    torch.cuda.synchronize()
+    want = fused.phase_col_ifft_ref(*[x.cpu() for x in spec], cfg,
+                                    fx_values=fx.cpu())
+    assert _rel([o.cpu() for o in outs], want) < 1e-4
 
 
 _K6_EQ = {"main": dict(), "standard": dict(mode="standard"),

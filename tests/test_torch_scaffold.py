@@ -99,7 +99,10 @@ def test_import_leaves_jax_out():
         "pbmm_tpu_torch.utils.debug, pbmm_tpu_torch.tools.parity, "
         "pbmm_tpu_torch.tools.kexp, pbmm_tpu_torch.tools.kdecomp, "
         "pbmm_tpu_torch.tools.trig_probe, pbmm_tpu_torch.tools.roofline, "
-        "pbmm_tpu_torch.tools.profile_stages\n"
+        "pbmm_tpu_torch.tools.profile_stages, pbmm_tpu_torch.parallel, "
+        "pbmm_tpu_torch.parallel.mesh, pbmm_tpu_torch.parallel.launcher, "
+        "pbmm_tpu_torch.parallel.model, pbmm_tpu_torch.parallel.sharding, "
+        "pbmm_tpu_torch.parallel.spatial, pbmm_tpu_torch.tools.multihost\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pbmm_tpu' or m.startswith('pbmm_tpu.')]\n"
         "assert not bad, bad\n"

@@ -335,13 +335,28 @@ def test_phase_col_ifft_guards():
     with pytest.raises(ValueError):  # radix-2 only: a tight height
         tfused.phase_col_ifft(z, z, z, z, tcfg)
     z = torch.zeros((1, 256, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tfused.phase_col_ifft(z, z, z, z, tcfg, fx_values=torch.zeros(256))
+    with pytest.raises(ValueError, match="fx_values"):  # one value a lane
+        tfused.phase_col_ifft(z, z, z, z, tcfg, fx_values=torch.zeros(128))
     iir = tcfg.replace(temporal=TemporalConfig(mode="iir_bandpass"))
     with pytest.raises(ValueError, match="lp_fast"):
         tfused.phase_col_ifft(z, z, z, z, iir)
     out = tfused.phase_col_ifft(z, z, z, z, tcfg)  # zero spectra: no NaN
     assert all(torch.isfinite(x).all() and not x.any() for x in out)
+
+
+def test_phase_col_ifft_fx_values_full_table():
+    """fx_values holding the layout's own lane table (the sharded engines'
+    branch: masks evaluated per bin, no host planes) gives the host-plane
+    call's result, pyramid and standard, to 1e-5 of the maximum."""
+    rng = np.random.default_rng(11)
+    spec = [_t(rng.standard_normal((2, 256, 256))) for _ in range(4)]
+    fx = torch.from_numpy(tfused.lane_freq_axis(256))
+    for extra in ({}, {"mode": "standard", "phase_scale": 2.5}):
+        tcfg, _ = _cfgs(dict(base=_TUNED, **extra))
+        want = tfused.phase_col_ifft(*spec, tcfg)
+        got = tfused.phase_col_ifft(*spec, tcfg, fx_values=fx)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 # ---------------------------------------------------------------------------
