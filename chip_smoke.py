@@ -61,7 +61,11 @@ non-zero without the final line:
      overlapping bands, the IIR taps), each also bit for bit against the
      same columns of one 2048-lane call with the whole table; kernel 8 on
      the row band (16, 2048 / p, 2048) (real) and the column slice
-     (complex), kernel 7 on the row band with pad_h;
+     (complex), kernel 7 on the row band with pad_h; and the mxu
+     backend's transforms (`spectral/mxu_fft.py`, torch.matmul in IEEE
+     f32, no kernel): rfft2_mxu, irfft2_mxu and fft2_mxu at (1, 2048,
+     2048) and (3, 1024, 2048) against torch.fft and numpy float64 (max
+     error / max magnitude < 2e-5), and a call with TF32 allowed refused;
   3. end to end, each path run as two chunks with the state threaded,
      every launch count set to 0 just before the path and read just
      after (each of its kernels must have launched, and kernel 1 must not
@@ -123,6 +127,19 @@ non-zero without the final line:
        square_pow2 and at 720p rect_pow2 in standard mode at 2.5 and
        with the IIR taps, each > 70 dB against `magnify_video` on the
        same config (its PSNR against the oracle on frames 0-1 printed);
+     - (o) `MagnifyConfig(fft_backend="mxu")` (the CLI's `--fft-backend
+       mxu`), the 1080p bar at square_pow2: the scan engine on the mxu
+       transforms, no kernel; > 100 dB against the oracle, > 70 dB
+       against (e), and one `magnify_frame_pair` > 100 dB against the
+       chunk's frame;
+     - (p) a 32-frame 1080p uint8 .npy and its f32 twin through
+       `stream_magnify` with `tuned_for_tpu()` (kernels 5, 1, 2, 3), read
+       by the native loader (`pbmm_tpu_torch/native`, built with g++, in
+       its raw mode through a pinned host buffer; the run fails if it
+       does not serve every chunk): bit for bit the memmap route
+       and `magnify_video` on the whole clip, u8 equal to its twin, and
+       `stream_magnify_resumable` stopped after one chunk and resumed
+       equal to an uninterrupted run;
      - (i) the measurement path, through the tools: `roofline_table` at
        1080p (kernels 1, 2, 3 and the row-tile copy ceiling), kexp's
        experiments (kernels 1, 5, 6, 7 and both copies at kexp's shape
@@ -144,7 +161,12 @@ non-zero without the final line:
      kernel 7 + kernel 10 at radii 2-14, f32 and uint8 chroma), and the
      y4m stream's
      frames/s with the host's parse share; path (n)'s calls (frames/s of
-     one call of each engine).  Kernels, plain
+     one call of each engine); path (o)'s chunk with its idle share
+     (torch.profiler) and the two mxu transforms alone beside
+     torch.fft and their bound; path (p)'s .npy stream on the host clock,
+     the native loader against the memmap, u8 and f32, and each chunk
+     source alone, with the loader's f32 mode (the JAX package's
+     contract: uint8 scaled on the host) beside them.  Kernels, plain
      versions and library calls are timed by the device's time alone
      (`tools.kexp.timed`: a spin of the card ahead of each event pair
      covers the host's enqueue), each kernel warm (relaunched on the same
@@ -152,7 +174,7 @@ non-zero without the final line:
      timing: its inputs out of L2), and also, as before, with the host's
      enqueue inside one event pair around one call (`ms_enqueued`);
   5. with --profile only: torch.profiler over a few steady-state chunks
-     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j)-(n)
+     of the f32 1080p, u8 1080p, 540p paths and paths (a)-(g), (j)-(o)
      (one call of each engine of (n)),
      printing where the device time of a chunk goes (each kernel's
      share) and the device's idle share with the profiler on.
@@ -236,9 +258,10 @@ def psnr_db(got, want):
     return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
 
 
-def profile_chunks(torch, chunk, card, what, n=5, top=12):
+def profile_chunks(torch, chunk, card, what, n=5, top=12, tag="[5]"):
     """Phase 5: device time per chunk by kernel, and the idle share, from
-    torch.profiler over `n` chunks (wall time from CUDA events)."""
+    torch.profiler over `n` chunks (wall time from CUDA events).  Returns
+    (wall ms, device busy ms) a chunk, or None without device time."""
     from torch.profiler import ProfilerActivity, profile
 
     chunk()
@@ -268,17 +291,18 @@ def profile_chunks(torch, chunk, card, what, n=5, top=12):
         key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
     if busy_ms == 0:
-        log(f"[5] {what}: torch.profiler recorded no device time: shares "
+        log(f"{tag} {what}: torch.profiler recorded no device time: shares "
             "not measured")
-        return
-    log(f"[5] {card}: {what}, per chunk (phase 4's length), mean of {n}: "
+        return None
+    log(f"{tag} {card}: {what}, per chunk (phase 4's length), mean of {n}: "
         f"wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
         f"{100 * (1 - busy_ms / wall_ms):.1f} % (profiler on)")
     for e in kernels[:top]:
         ms = dev_us(e) / 1e3 / n
-        log(f"[5]   {100 * ms / busy_ms:5.1f} %  {ms:.3f} ms  "
+        log(f"{tag}   {100 * ms / busy_ms:5.1f} %  {ms:.3f} ms  "
             f"{e.count / n:g} launches  {e.key[:100]}")
+    return wall_ms, busy_ms
 
 
 def main():
@@ -311,6 +335,7 @@ def main():
     from pbmm_tpu_torch.io import stream, y4m
     from pbmm_tpu_torch.io.device_decode import ycbcr_planes_to_rgb_planar_u8
     from pbmm_tpu_torch.kernels.build import build, library
+    from pbmm_tpu_torch import native
     from pbmm_tpu_torch.oracle import reference as oracle
     from pbmm_tpu_torch.parallel import (
         magnify_batch_sharded,
@@ -328,6 +353,7 @@ def main():
     from pbmm_tpu_torch.pyramid.filters import freq_axes
     from pbmm_tpu_torch.spectral import fused, radix2
     from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
+    from pbmm_tpu_torch.spectral import mxu_fft
     from pbmm_tpu_torch import cli as port_cli
     from pbmm_tpu_torch.tools import (
         kdecomp,
@@ -1445,6 +1471,68 @@ def main():
         if not ok:
             raise AssertionError(f"trig_probe {r['name']}: {r}")
 
+    # The mxu backend's transforms (spectral/mxu_fft.py: torch.matmul
+    # products in IEEE f32, the JAX package's XLA einsums, no kernel of
+    # the port's) at path (o)'s shape (1, 2048, 2048) (1080p square_pow2,
+    # y_only) and at 720p rect_pow2 rgb's (3, 1024, 2048), against
+    # torch.fft on the same tensors and numpy's float64 FFTs of the same
+    # seeded inputs: max error / max magnitude < 2e-5 (the JAX tests'
+    # bar).  With TF32 allowed a call raises; the setting is restored.
+    mxu_tol = 2e-5
+    mxu_in = {}
+    for shape in ((1, 2048, 2048), (3, 1024, 2048)):
+        y_np = np.random.default_rng(21).standard_normal(shape).astype(
+            np.float32)
+        y_d = dev_t(y_np)
+        h_, w_ = shape[1:]
+        r64 = np.fft.rfft2(y_np.astype(np.float64))
+        half = torch.from_numpy(r64.astype(np.complex64)).to(dev)
+        for name, got, lib, ref in (
+                ("rfft2_mxu", lambda: mxu_fft.rfft2_mxu(y_d),
+                 lambda: torch.fft.rfft2(y_d), lambda: r64),
+                ("fft2_mxu", lambda: mxu_fft.fft2_mxu(y_d),
+                 lambda: torch.fft.fft2(y_d),
+                 lambda: np.fft.fft2(y_np.astype(np.float64))),
+                ("irfft2_mxu", lambda: mxu_fft.irfft2_mxu(half, w_),
+                 lambda: torch.fft.irfft2(half, s=(h_, w_)),
+                 lambda: y_np.astype(np.float64))):
+            g = got().cpu().numpy()
+            want_lib = lib().cpu().numpy()
+            want64 = ref()
+            e_lib = float(np.abs(g - want_lib).max() / np.abs(want_lib).max())
+            e_64 = float(np.abs(g - want64).max() / np.abs(want64).max())
+            log(f"[2] {name} on {shape}: max error / max magnitude "
+                f"{e_lib:.3e} against torch.fft, {e_64:.3e} against numpy "
+                f"float64 (bound {mxu_tol:g})")
+            if not (g.shape == want64.shape and e_lib < mxu_tol
+                    and e_64 < mxu_tol):
+                raise AssertionError(f"{name} on {shape}: {e_lib}, {e_64}")
+            del g, want_lib, want64
+        mxu_in[shape] = (y_d, half)
+    y_mx, half_mx = mxu_in[(1, 2048, 2048)]
+    y_mx_np = y_mx.cpu().numpy().astype(np.float64)
+    rows64 = np.fft.fft(y_mx_np, axis=-1)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        try:
+            mxu_fft.rfft2_mxu(y_mx)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("rfft2_mxu ran with TF32 allowed")
+        # What the refusal keeps out: the row stage's products in TF32.
+        tf_rows = mxu_fft._four_step_last(y_mx, None, 2048, False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ieee_rows = mxu_fft._four_step_last(y_mx, None, 2048, False)
+    errs = [float(np.abs((r.cpu().numpy() + 1j * i.cpu().numpy()) - rows64)
+                  .max() / np.abs(rows64).max())
+            for r, i in (tf_rows, ieee_rows)]
+    log(f"[2] mxu with TF32 allowed: refused ({refusal[:70]}...); the row "
+        f"stage's products in TF32 err {errs[0]:.3e} of the max magnitude "
+        f"against float64, in IEEE f32 {errs[1]:.3e}")
+    del tf_rows, ieee_rows, rows64, y_mx_np
+
     # -- 3. end to end, path by path -----------------------------------------
     wrappers = {"windowed_row_fft": fused.windowed_row_fft,
                 "colspec_chunk": fused.colspec_chunk,
@@ -1768,6 +1856,36 @@ def main():
         raise AssertionError("magnify_frame_pair differs from the scan step")
     psnr_h, = vs_oracle([(path_h, torch.stack([bar_il_d[0], *pairs]))],
                         jobs["bar"])
+
+    # (o) fft_backend="mxu" (the CLI's --fft-backend mxu): the scan engine
+    # with the four-step transforms as torch.matmul products, the torch
+    # phase pass in the rfft layout and the torch tail; no kernel of the
+    # port's launches.  The 1080p bar at square_pow2, two chunks.
+    path_o = "(o) mxu 1080p"
+    cfg_o = pbmm_tpu_torch.MagnifyConfig(fft_backend="mxu")
+    o1, so1, o2, _ = run_path(path_o, (), none_of,
+                              lambda: two_chunks(bar_il_d, cfg_o))
+    check_frames(path_o, (o1, o2), (T, H, W, 3), torch.float32)
+    check_split(bar_il_d, cfg_o, o1, so1, path_o)
+    psnr_o, = vs_oracle([(path_o, o1)], jobs["bar"])
+    psnr_o_xla = psnr_db(o1.double().cpu().numpy(),
+                         e1.double().cpu().numpy())
+    log(f"[3] {path_o}: PSNR against (e), the same clip with "
+        f"fft_backend='xla': {psnr_o_xla:.2f} dB (bound > 70)")
+    if not psnr_o_xla > 70:
+        raise AssertionError(f"{path_o}: {psnr_o_xla} dB against xla")
+    pair_o = run_path(path_o + " magnify_frame_pair", (), none_of,
+                      lambda: magnify_frame_pair(bar_il_d[0], bar_il_d[1],
+                                                 cfg_o))
+    check_frames(path_o + " pair", (pair_o,), (H, W, 3), torch.float32)
+    psnr_o_pair = psnr_db(pair_o.double().cpu().numpy(),
+                          o1[1].double().cpu().numpy())
+    log(f"[3] {path_o}: magnify_frame_pair(0, 1) against the chunk's frame "
+        f"1: bit for bit {torch.equal(pair_o, o1[1])}, {psnr_o_pair:.2f} dB "
+        "(bound > 100)")
+    if not psnr_o_pair > 100:
+        raise AssertionError(f"{path_o}: the pair {psnr_o_pair} dB")
+    del o2, pair_o
 
     # (n) the multi-device engines on a world of one over NCCL (one card:
     # NCCL refuses two ranks on one GPU): the batched clip (kernels 1, 8,
@@ -2109,6 +2227,72 @@ def main():
         log("[3] stream: 2 chunks of (16, 3, 1080, 1920) uint8, equal to "
             "magnify_video on the device-decoded chunks")
 
+        # (p) the .npy route of --stream and of resumable runs: a 32-frame
+        # 1080p uint8 .npy and its f32 twin (u8 * float32(1 / 255)) through
+        # stream_magnify with tuned_for_tpu() (square_pow2: kernels 5, 1,
+        # 2, 3), read by the native prefetch loader, which must serve here.
+        path_p = "(p) npy stream native"
+        if not native.native_available():
+            raise AssertionError(f"{path_p}: the native .npy loader did not "
+                                 "build (no g++?)")
+        clip_u8 = np.round(np.concatenate([frames, frames[::-1]])
+                           * 255.0).astype(np.uint8)
+        npy = {"u8": os.path.join(tmp, "clip_u8.npy"),
+               "f32": os.path.join(tmp, "clip_f32.npy")}
+        np.save(npy["u8"], clip_u8)
+        np.save(npy["f32"], clip_u8 * np.float32(1.0 / 255.0))
+        del clip_u8
+        p_out = {}
+        for fmt, pth in npy.items():
+            native.NativeFrameLoader.served = 0
+            got = run_path(f"{path_p} {fmt}", sq_kernels,
+                           ("windowed_row_fft_u8planar",),
+                           lambda: list(stream.stream_magnify(
+                               pth, cfg_sq, chunk_frames=T, device=dev)))
+            if native.NativeFrameLoader.served != 2:
+                raise AssertionError(
+                    f"{path_p} {fmt}: the native loader served "
+                    f"{native.NativeFrameLoader.served} of 2 chunks")
+            want, st = [], None
+            for c in stream.frame_chunks(pth, T, device=dev):
+                o, st = pbmm_tpu_torch.magnify_video(c, cfg_sq, st)
+                want.append(o.cpu().numpy())
+            whole = pbmm_tpu_torch.magnify_video(
+                torch.from_numpy(np.load(pth)).to(dev), cfg_sq)[0]
+            same = (len(got) == len(want) == 2
+                    and all(np.array_equal(a, b) for a, b in zip(got, want))
+                    and np.array_equal(np.concatenate(got),
+                                       whole.cpu().numpy()))
+            log(f"[3] {path_p} {fmt}: 2 chunks of 16 through the native "
+                f"loader equal the memmap route and magnify_video on the "
+                f"whole clip bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"{path_p} {fmt}: differs")
+            p_out[fmt] = np.concatenate(got)
+            del got, want, whole
+        if not np.array_equal(p_out["u8"], p_out["f32"]):
+            raise AssertionError(f"{path_p}: u8 and its f32 twin differ")
+        out_a, out_b = (os.path.join(tmp, n) for n in ("ra.npy", "rb.npy"))
+        ck = os.path.join(tmp, "ck.npz")
+        kw = dict(chunk_frames=T, device=dev)
+        n_a = stream.stream_magnify_resumable(npy["u8"], out_a, cfg_sq,
+                                              checkpoint=ck, max_chunks=1,
+                                              **kw)
+        n_b = stream.stream_magnify_resumable(npy["u8"], out_a, cfg_sq,
+                                              checkpoint=ck, **kw)
+        n_c = stream.stream_magnify_resumable(npy["u8"], out_b, cfg_sq, **kw)
+        same = ((n_a, n_b, n_c) == (T, 2 * T, 2 * T)
+                and np.array_equal(np.load(out_a), np.load(out_b))
+                and np.array_equal(np.load(out_a), p_out["u8"]))
+        log(f"[3] {path_p}: u8 equals its f32 twin bit for bit; resumable "
+            f"stopped after chunk 1 ({n_a} frames) and resumed ({n_b}) equals "
+            f"an uninterrupted run ({n_c}) and the stream: {same}")
+        if not same:
+            raise AssertionError(f"{path_p}: the resumed run differs")
+        for f in (out_a, out_b, ck):
+            os.remove(f)
+        del p_out
+
         # -- 4. timing -------------------------------------------------------
         def steady(frames_d, c, what, reps=10):
             state = [pbmm_tpu_torch.magnify_video(frames_d, c)[1]]
@@ -2341,6 +2525,87 @@ def main():
             f"chunk source (parse, batching, host -> device, decode) "
             f"{source_s:.3f} s, {100 * source_s / stream_s:.1f} %; "
             "magnify and device -> host the rest")
+
+        # (o): frames/s a steady chunk and the device's idle share, then
+        # the two transforms alone at (1, 2048, 2048) beside torch.fft on
+        # the same tensors and their bound (tools/roofline.py's count of
+        # mxu_fft.py's products and elementwise steps).
+        chunk_o, ms_o, fps_o = steady(bar_il_d, cfg_o, path_o)
+        prof_o = profile_chunks(torch, chunk_o, card, path_o, n=3, tag="[4]")
+        idle_o = None if prof_o is None else 1 - prof_o[1] / prof_o[0]
+        mxu_times = {}
+        for name, fn, lib, inv in (
+                ("rfft2_mxu", lambda: mxu_fft.rfft2_mxu(y_mx),
+                 lambda: torch.fft.rfft2(y_mx), False),
+                ("irfft2_mxu", lambda: mxu_fft.irfft2_mxu(half_mx, 2048),
+                 lambda: torch.fft.irfft2(half_mx, s=(2048, 2048)), True)):
+            warm, cold = kexp.timed(fn, device=dev)
+            lib_ms = kexp.timed(lib, device=dev)[0]
+            nbytes, ops = roofline.mxu_transform_work((1, 2048, 2048), inv)
+            byte_ms, op_ms = nbytes / 3.35e9, ops / 67e9
+            mxu_times[name] = {
+                "ms": warm, "ms_cold": cold, "library_ms": lib_ms,
+                "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+            log(f"[4] {card}: {name} on (1, 2048, 2048): {warm:.4f} ms warm,"
+                f" {cold:.4f} ms cold; torch.fft {lib_ms:.4f} ms; bound "
+                f"{max(byte_ms, op_ms):.4f} ms ({ops / 1e9:.2f} GFLOP at 67 "
+                f"TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s)")
+
+        # (p): the .npy stream on the host clock, the native loader against
+        # the memmap route (frame_chunks + magnify_video, the same chunks)
+        # on the same files, medians of 3; and each chunk source alone
+        # (read, convert, host -> device).
+        def memmap_stream(pth):
+            st, n = None, 0
+            for c in stream.frame_chunks(pth, T, device=dev):
+                o, st = pbmm_tpu_torch.magnify_video(c, cfg_sq, st)
+                n += o.cpu().numpy().shape[0]
+            return n
+
+        def native_stream(pth):
+            return sum(c.shape[0] for c in stream.stream_magnify(
+                pth, cfg_sq, chunk_frames=T, device=dev))
+
+        def chunk_source(pth, route):
+            if route == "native f32 mode":
+                with native.NativeFrameLoader(pth, T) as ld:
+                    return sum(torch.from_numpy(c).to(dev).shape[0]
+                               for c in ld)
+            it = (stream._open_chunk_source(pth, T, device=dev)
+                  if route == "native" else
+                  stream.frame_chunks(pth, T, device=dev))
+            return sum(c.shape[0] for c in it)
+
+        def host_s(fn, *a):
+            fn(*a)
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = fn(*a)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return n, statistics.median(secs)
+
+        p_times = {}
+        for fmt, pth in npy.items():
+            for route, fn in (("native", native_stream),
+                              ("memmap", memmap_stream)):
+                n, secs = host_s(fn, pth)
+                _, src_s = host_s(chunk_source, pth, route)
+                p_times[f"{fmt} {route}"] = {
+                    "fps": n / secs, "seconds": secs, "source_seconds": src_s}
+                log(f"[4] {card}: {path_p}, {fmt} .npy, {route}: 32 frames "
+                    f"{secs:.3f} s -> {n / secs:.2f} frames/s (host clock, "
+                    f"median of 3); the chunk source alone {src_s:.3f} s")
+            # The loader's f32 mode (uint8 scaled on the host), the JAX
+            # package's contract, as a chunk source only.
+            _, src_s = host_s(chunk_source, pth, "native f32 mode")
+            p_times[f"{fmt} native f32 mode"] = {"source_seconds": src_s}
+            log(f"[4] {card}: {path_p}, {fmt} .npy: the chunk source alone "
+                f"in the loader's f32 mode {src_s:.3f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2361,6 +2626,7 @@ def main():
             profile_chunks(torch, fn, card, what)
         for what, (_, fn) in n_calls.items():
             profile_chunks(torch, fn, card, what)
+        profile_chunks(torch, chunk_o, card, path_o)
 
     sources = {
         "windowed_row_fft": ("pbmm_tpu_torch/csrc/row_fft.cu",
@@ -2435,6 +2701,12 @@ def main():
             **n_paths,
             path_ms: {"psnr_vs_oracle_db": psnr_ms},
             path_mg: {"psnr_vs_oracle_db": psnr_mg},
+            path_o: {"fps": fps_o, "chunk_ms": ms_o, "idle_share": idle_o,
+                     "psnr_vs_oracle_db": psnr_o,
+                     "psnr_vs_xla_db": psnr_o_xla,
+                     "pair_vs_chunk_db": psnr_o_pair,
+                     "transforms_1x2048x2048": mxu_times},
+            path_p: p_times,
             path_i: {"seconds": meas["seconds"],
                      "row_copy_ceiling_gbps": meas["copy_gbps"],
                      "roofline": meas["roofline"][1],

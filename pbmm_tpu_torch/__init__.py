@@ -3,9 +3,9 @@
 A second package beside the JAX reference `pbmm_tpu`, with its module
 paths, config fields and entry points: `magnify_video` (the batched chunk
 engine where the JAX package takes it, else the per-frame scan engine)
-and `magnify_frame_pair`, for every `MagnifyConfig` but
-`fft_backend="mxu"`.  Every TPU kernel on those paths is a hand-written
-CUDA kernel for sm_90a under `csrc/` (numbered as in PERF.md):
+and `magnify_frame_pair`, for every `MagnifyConfig`.  Every TPU kernel
+on those paths is a hand-written CUDA kernel for sm_90a under `csrc/`
+(numbered as in PERF.md):
 
     spectral/fused.py::windowed_row_fft[_u8planar]  csrc/row_fft.cu      1, 4
     spectral/fused.py::colspec_chunk                 csrc/colspec_chunk.cu 2
@@ -25,7 +25,10 @@ of the JAX package's `benchmarks/` scripts, `tools/parity.py` and
 `tools/multihost.py`, and `utils/` its metrics, checks, profiling and
 debug views.  `parallel/` holds the multi-device engines on
 `torch.distributed` (the batched clip, the ("data", "frame")-sharded
-batch, the rows-sharded spatial engine).
+batch, the rows-sharded spatial engine).  `fft_backend="mxu"` is
+`spectral/mxu_fft.py`, the four-step DFT as `torch.matmul` products (the
+JAX package's XLA einsums, no kernel); `native/` the host C++ `.npy`
+prefetch loader that `io/stream.py` reads `.npy` inputs through.
 
 Tensors on the CPU take each kernel's plain PyTorch version (`*_ref`);
 tensors on the card launch the kernels (built with nvcc at first use,

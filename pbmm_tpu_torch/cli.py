@@ -12,16 +12,15 @@ the three `--stream` modes (the resumable `--checkpoint` loop, the
 `--output -` y4m pipe loop and whole output), with the default config
 (`torch.fft`, the scan engine), `--fast` (the batched engine where it
 serves the frames) and any `--engine`, `--no-cache-prev-spectrum`,
-`--fft-backend xla|pallas`, `--full-spectrum`, `--apply-magnitude-scale`,
+`--fft-backend xla|pallas|mxu`, `--full-spectrum`, `--apply-magnitude-scale`,
 `--pad-mode`, `--chroma`, `--temporal`, `--mode`, `--orientations`,
 `--levels`, `--phase-scale`, `--reconstruct`, `--compensate-window`,
 `--yiq-gains` and `--no-magnify`.  `--stats` names the engine that ran.
 `--demo bar|blob` magnifies a synthetic clip in place of `--input`,
 `--debug-view magnitude|phase|split` renders spectrum views instead of
 magnifying, and `--trace LOGDIR` writes a `torch.profiler` Chrome trace
-of the run into LOGDIR.  `--fft-backend mxu` exits 2 naming ROADMAP item
-10.  It runs on the first CUDA card and exits with an error when there
-is none.
+of the run into LOGDIR.  It runs on the first CUDA card and exits with
+an error when there is none.
 """
 
 from __future__ import annotations
@@ -224,16 +223,12 @@ def main(argv=None, device=None) -> int:
     cfg = config_from_args(args)
     if args.fast:
         cfg = cfg.tuned_for_tpu()
-    try:
-        if args.trace:
-            from pbmm_tpu_torch.utils.profiling import trace
+    if args.trace:
+        from pbmm_tpu_torch.utils.profiling import trace
 
-            with trace(args.trace):
-                return _run(args, cfg, torch.device(device))
-        return _run(args, cfg, torch.device(device))
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+        with trace(args.trace):
+            return _run(args, cfg, torch.device(device))
+    return _run(args, cfg, torch.device(device))
 
 
 def _stats(args, **kw) -> None:

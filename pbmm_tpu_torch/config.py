@@ -11,9 +11,6 @@ are accepted and keep their meaning for the JAX package; in this package:
   gm_precision      validated and ignored: on the card every path computes
                     in full f32, so it changes nothing.
 
-Configurations the port does not serve yet raise `NotImplementedError`
-in `engine.video.magnify_video`, naming the ROADMAP item that brings them.
-
 Defaults mirror the reference script defaults; the demo scene's serialized
 overrides (`Assets/Scenes/SampleScene.unity:709-719`: phase_scale=1,
 high_freq_cutoff=0.3, filter_steepness=2) are available via

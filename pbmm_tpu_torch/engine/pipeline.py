@@ -16,7 +16,8 @@ kernel 9 (`phase.fused_kernels`).  `"pallas"` runs kernel 1 (row FFT)
 and kernel 5 (column FFT) in `preprocess`, and either kernel 6 (phase +
 column IFFT) and kernel 7 (row IFFT + |z|) in `amplify_reconstruct_fused`
 where `fused_reconstruct_ok` holds, or kernel 8 (`ifft2_bitrev`) in
-`reconstruct`.  `"mxu"` is ROADMAP item 10 and raises.
+`reconstruct`.  `"mxu"` is the four-step matmul DFT
+(`spectral.mxu_fft`, `torch.matmul` in IEEE f32) in the rfft layout.
 
 For the chunk engine: `hermitian_active`, `blur_row_window` and
 `preprocess_cl` (interleaved or planar, f32 or u8 frames, y_only or rgb,
@@ -83,6 +84,7 @@ from pbmm_tpu_torch.spectral.fused import (
     windowed_row_fft_u8planar,
 )
 from pbmm_tpu_torch.spectral.hermitian import hermitian_saves
+from pbmm_tpu_torch.spectral.mxu_fft import irfft2_mxu, rfft2_mxu
 from pbmm_tpu_torch.spectral.radix2 import ifft2_bitrev
 from pbmm_tpu_torch.utils.profiling import scope
 
@@ -107,12 +109,6 @@ def on_device(x, device=None) -> torch.Tensor:
     a = np.ascontiguousarray(np.asarray(x))
     return torch.from_numpy(a).to(
         device if device is not None else default_device())
-
-
-def _mxu_unported():
-    return NotImplementedError(
-        "fft_backend='mxu' (the four-step matmul DFT) is not ported yet "
-        "(ROADMAP item 10)")
 
 
 def _geometry(frame_shape, cfg: MagnifyConfig) -> Geometry:
@@ -262,8 +258,6 @@ def _preprocess(frame_rgb, cfg: MagnifyConfig):
     geom = _geometry(frame_rgb.shape, cfg)
     yiq = rgb_to_yiq(torch.movedim(unit_float(frame_rgb), -1, -3), axis=-3)
     chans_small = yiq if cfg.chroma == "rgb" else yiq[..., 0:1, :, :]
-    if cfg.fft_backend == "mxu":
-        raise _mxu_unported()
     if cfg.fft_backend == "pallas":
         if geom.pad_h & (geom.pad_h - 1):
             raise ValueError(
@@ -288,7 +282,12 @@ def _preprocess(frame_rgb, cfg: MagnifyConfig):
     chans = pad_center(chans_small, geom) * hann2d(
         geom.pad_h, geom.pad_w, device=yiq.device)
     with scope("pbmm.fft"):
-        spec = rfft2_half(chans) if cfg.use_rfft else fft2_centered(chans)
+        if cfg.fft_backend == "mxu":
+            spec = rfft2_mxu(chans)
+        elif cfg.use_rfft:
+            spec = rfft2_half(chans)
+        else:
+            spec = fft2_centered(chans)
     return spec, yiq
 
 
@@ -353,7 +352,7 @@ def reconstruct(mod_spec, cfg: MagnifyConfig, pad_w: int) -> torch.Tensor:
                 (-1,) + tuple(shape[-2:]))))
             rec = torch.complex(rre, rim).reshape(shape)
         elif cfg.fft_backend == "mxu":
-            raise _mxu_unported()
+            rec = irfft2_mxu(mod_spec, pad_w)  # real by construction
         elif cfg.use_rfft:
             rec = irfft2_half(mod_spec, pad_w)  # real by construction
         else:
@@ -433,8 +432,6 @@ def magnify_frame_pair(prev_rgb, cur_rgb, cfg: MagnifyConfig,
     prev_rgb, cur_rgb: (H, W, 3) RGB in [0, 1] (or uint8); torch tensors
     run where they lie, numpy arrays on `device` (default: the first CUDA
     card).  Returns (H, W, 3) f32 RGB."""
-    if cfg.fft_backend == "mxu":
-        raise _mxu_unported()
     cur_rgb = on_device(cur_rgb, device)
     prev_rgb = on_device(prev_rgb, cur_rgb.device)
     if not cfg.apply_motion_magnification:

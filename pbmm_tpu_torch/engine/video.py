@@ -28,7 +28,7 @@ state is `VideoState`, with the JAX package's leaves, shapes and
 spectral layout (`engine.state` converts between the two packages).
 Frame 0 of a stream passes through unchanged, like the reference's first
 rendered frame (`MotionMagnificationProcessor.cs:111-117`).
-`fft_backend="mxu"` raises `NotImplementedError` naming ROADMAP item 10.
+`fft_backend="mxu"` takes the scan engine, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ from pbmm_tpu_torch.core.color import RGB_TO_YIQ, channel_mix, unit_float
 from pbmm_tpu_torch.core.complexop import combine, split
 from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
 from pbmm_tpu_torch.engine.pipeline import (
-    _mxu_unported,
     _posttail,
     amplify_reconstruct_fused,
     amplify_spectrum,
@@ -361,8 +360,7 @@ def magnify_video(frames, cfg: MagnifyConfig, state: VideoState = None,
         output and state live on the same device); a numpy array runs on
         `device`, by default the first CUDA card (there is no fallback
         to the CPU: pass device="cpu" to run there).
-      cfg: any `MagnifyConfig` but `fft_backend="mxu"` (ROADMAP item 10),
-        with any `output_layout`.
+      cfg: any `MagnifyConfig`, with any `output_layout`.
       state: the carry of a previous chunk (streaming / resume), or None
         to start a stream: frame 0 then passes through unmodified.
 
@@ -375,8 +373,6 @@ def magnify_video(frames, cfg: MagnifyConfig, state: VideoState = None,
     (`MotionMagnificationProcessor.cs:126-139,142`).
     """
     frames = on_device(frames, device)
-    if cfg.fft_backend == "mxu":
-        raise _mxu_unported()
     if frames.ndim != 4 or not (is_planar(frames) or frames.shape[-1] == 3):
         raise ValueError(f"expected (T, H, W, 3) or (T, 3, H, W) frames, "
                          f"got {tuple(frames.shape)}")

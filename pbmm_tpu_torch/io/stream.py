@@ -14,8 +14,15 @@ restarts with the same command line and resumes from the last completed
 chunk, bit-identically to an uninterrupted run.  Checkpoints are the
 JAX package's .npz files (`engine.state`).
 
-.npy inputs are read through a memmap; the JAX package's native
-prefetching loader is ROADMAP item 7.
+`stream_magnify` and the resumable loop read .npy inputs through the
+native prefetch loader (`pbmm_tpu_torch.native`: a host thread reads the
+next chunk while the card magnifies this one), as the JAX package does,
+and close it when they finish or fail; without `g++`, and for files the
+loader rejects, through a memmap.  The loader runs in its raw mode: it
+reads each chunk, in the file's dtype, into a pinned ring slot that
+crosses from there, so uint8 crosses unscaled and `magnify_video` scales
+it on the device, as on the memmap.  Both routes hand `magnify_video`
+the same tensors.  `frame_chunks` stays on the memmap.
 """
 
 from __future__ import annotations
@@ -118,12 +125,39 @@ def _y4m_device_chunks(plane_iter, chunk_frames: int, planar_u8: bool = False,
         yield decode(batch)
 
 
+def _loader_chunks(loader, device) -> Iterator[torch.Tensor]:
+    """A raw-mode native loader's chunks on `device`, in the file's dtype,
+    each copied out of the ring slot the loader lends (pinned memory for
+    a card: the copy is done when `to` returns).  The loader closes when
+    the iterator ends, fails or is closed."""
+    try:
+        on_cpu = torch.device(device).type == "cpu"
+        while (view := loader.next_view()) is not None:
+            yield view.clone() if on_cpu else view.to(device)
+    finally:
+        loader.close()
+
+
 def _open_chunk_source(path: str, chunk_frames: int, planar_u8: bool = False,
                        meta: dict = None, *, device):
-    """The chunk iterator of `path` on `device`: device-side YCbCr decode
-    for y4m sources (file or stdin pipe), else `frame_chunks`."""
+    """The chunk iterator of `path` on `device`: the native prefetch
+    loader for .npy files it accepts (while `g++` is there), device-side
+    YCbCr decode for y4m sources (file or stdin pipe), else
+    `frame_chunks`.  Close the iterator to release the loader early."""
     from pbmm_tpu_torch.io.y4m import read_y4m_planes
 
+    if path != "-" and path.lower().endswith(".npy"):
+        from pbmm_tpu_torch.native import NativeFrameLoader, native_available
+
+        if native_available():
+            try:
+                loader = NativeFrameLoader(
+                    path, chunk_frames, raw=True,
+                    pin_memory=torch.device(device).type == "cuda")
+            except ValueError:
+                pass  # not THWC u8/f32 C-order: the memmap reads it
+            else:
+                return _loader_chunks(loader, device)
     if path == "-":
         return _y4m_device_chunks(
             read_y4m_planes(sys.stdin.buffer, "<stdin>", meta=meta),
@@ -144,16 +178,21 @@ def stream_magnify(path: str, cfg: MagnifyConfig, chunk_frames: int = 8,
     """Yield magnified chunks as host arrays (layout per
     `cfg.output_layout`), the frames magnified on `device`.
 
-    Memory stays flat for long videos: .npy inputs stream through a
-    memmap, .y4m inputs through the frame-at-a-time parser, and
-    `path="-"` reads a y4m stream from stdin.  ingest="u8": y4m sources
-    decode to planar uint8 RGB on the device, feeding kernels 4 and 3
-    (one 8-bit rounding against the f32 decode)."""
-    for chunk in _open_chunk_source(path, chunk_frames,
-                                    planar_u8=(ingest == "u8"), meta=meta,
-                                    device=device):
-        out, state = magnify_video(chunk, cfg, state=state)
-        yield out.cpu().numpy()
+    Memory stays flat for long videos: .npy inputs stream through the
+    native prefetch loader (or a memmap), .y4m inputs through the
+    frame-at-a-time parser, and `path="-"` reads a y4m stream from
+    stdin.  ingest="u8": y4m sources decode to planar uint8 RGB on the
+    device, feeding kernels 4 and 3 (one 8-bit rounding against the f32
+    decode)."""
+    chunks = _open_chunk_source(path, chunk_frames,
+                                planar_u8=(ingest == "u8"), meta=meta,
+                                device=device)
+    try:
+        for chunk in chunks:
+            out, state = magnify_video(chunk, cfg, state=state)
+            yield out.cpu().numpy()
+    finally:
+        chunks.close()
 
 
 def stream_magnify_resumable(input_path: str, output_path: str,
@@ -238,15 +277,19 @@ def _resume_chunks(input_path: str, cfg: MagnifyConfig, chunk_frames: int,
                    skip_frames: int, state: Optional[VideoState],
                    ingest: str = "f32", *, device) -> Iterator[tuple]:
     """Yield (magnified chunk as a host array, new state) starting at
-    frame `skip_frames`; completed chunks are read and discarded (decode
-    only, no magnification)."""
+    frame `skip_frames`.  The native loader has no seek, so completed
+    chunks are read and discarded (decode only, no magnification), as on
+    every other source."""
     seen = 0
-    for chunk in _open_chunk_source(input_path, chunk_frames,
-                                    planar_u8=(ingest == "u8"),
-                                    device=device):
-        n = chunk.shape[0]
-        seen += n
-        if seen <= skip_frames:
-            continue
-        out, state = magnify_video(chunk, cfg, state=state)
-        yield out.cpu().numpy(), state
+    chunks = _open_chunk_source(input_path, chunk_frames,
+                                planar_u8=(ingest == "u8"), device=device)
+    try:
+        for chunk in chunks:
+            n = chunk.shape[0]
+            seen += n
+            if seen <= skip_frames:
+                continue
+            out, state = magnify_video(chunk, cfg, state=state)
+            yield out.cpu().numpy(), state
+    finally:
+        chunks.close()

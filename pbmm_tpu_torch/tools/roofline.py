@@ -250,6 +250,47 @@ def print_table(rows, summary, file=sys.stderr):
           file=file)
 
 
+def _four_step_flops(lead: int, n: int, real_in: bool, out_rows: int = 0,
+                     imag: bool = True) -> int:
+    """f32 operations of `mxu_fft._four_step_last` on `lead` rows of n
+    points: each (M, K) @ (K, N) product 2 M K N, each elementwise sum,
+    difference and twiddle product one."""
+    n1 = min(128, n)
+    n2 = n // n1
+    rows = lead * n2  # step 2's rows (..., n2, n1)
+    if real_in:
+        step2 = 2 * (2 * rows * n1 * n1)
+    else:
+        step2 = 4 * (2 * rows * n1 * n1) + 2 * rows * n1
+    step3 = 6 * lead * n
+    out = lead * (out_rows or n2) * n1  # step 4's outputs a part
+    parts = 2 if imag else 1
+    step4 = parts * (2 * (2 * out * n2) + out)
+    return step2 + step3 + step4
+
+
+def mxu_transform_work(shape, inverse: bool = False):
+    """(bytes, f32 operations) of `rfft2_mxu` on real (..., H, W) f32
+    frames, or with `inverse` of `irfft2_mxu` back to them, counted from
+    `spectral/mxu_fft.py`'s products and elementwise steps (the Hermitian
+    extension's negation included).  Bytes: the input read once and the
+    output written once; the reshapes and transposes between the
+    products move more, which the bound leaves out."""
+    b = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+    h, w = shape[-2:]
+    k = w // 2 + 1
+    nbytes = b * h * w * _F + b * h * k * 2 * _F
+    cols = _four_step_flops(b * k, h, real_in=False)
+    if inverse:
+        rows = _four_step_flops(b * h, w, real_in=False, imag=False)
+        ops = cols + rows + b * h * (w - k)
+    else:
+        n2 = w // min(128, w)
+        ops = _four_step_flops(b * h, w, real_in=True,
+                               out_rows=n2 // 2 + 1) + cols
+    return nbytes, ops
+
+
 def row_copy_ceiling(device, reps: int = 10) -> float:
     """GB/s of kernel 13 copying two (16, 1152, 2048) planes by rows, one
     row a block, cold: the ceiling of the port's row pattern."""

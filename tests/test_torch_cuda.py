@@ -79,7 +79,12 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
   frame to frame (clear of atan2's branch cut); kernel 5 = its forward
   half, kernel 6 = its rows and kernel 12 = kernel 6 at H = 512 to 4096;
-  two chunks equal to one at tight and pow-2 heights.
+  two chunks equal to one at tight and pow-2 heights;
+- the mxu backend (`spectral/mxu_fft.py`): its refusal with TF32 or bf16
+  allowed, its transforms at (1, 2048, 2048) and (3, 1024, 2048) against
+  torch.fft, `magnify_video` on the card against the CPU; and a .npy
+  streamed through the native loader equal to the memmap route and to
+  `magnify_video` on the whole clip, uint8 and f32.
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
@@ -2028,3 +2033,99 @@ def test_post_tile_kernels_16k_crop(dev, rgb):
         want = post_fused.post_fused_ref(*args)
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("setting", ["allow_tf32", "high", "medium"])
+def test_mxu_refuses_tf32(dev, setting):
+    """With TF32 (or bf16) allowed for float32 products, the mxu
+    transforms refuse a CUDA tensor and leave the setting as it was."""
+    from pbmm_tpu_torch.spectral import mxu_fft
+
+    before = (torch.get_float32_matmul_precision(),
+              torch.backends.cuda.matmul.allow_tf32)
+    y = torch.ones((1, 64, 64), device=dev)
+    try:
+        if setting == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision(setting)
+        now = (torch.get_float32_matmul_precision(),
+               torch.backends.cuda.matmul.allow_tf32)
+        for call in (lambda: mxu_fft.rfft2_mxu(y),
+                     lambda: mxu_fft.fft2_mxu(y),
+                     lambda: mxu_fft.irfft2_mxu(torch.fft.rfft2(y), 64)):
+            with pytest.raises(ValueError, match="IEEE float32"):
+                call()
+        assert (torch.get_float32_matmul_precision(),
+                torch.backends.cuda.matmul.allow_tf32) == now
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cuda.matmul.allow_tf32 = before[1]
+
+
+@pytest.mark.parametrize("kind", ["rfft2", "irfft2", "fft2"])
+@pytest.mark.parametrize("shape", [(1, 2048, 2048), (3, 1024, 2048)])
+def test_mxu_transforms_match_torch_fft(dev, kind, shape):
+    """The four-step transforms in IEEE f32 on the card against torch.fft
+    on the same tensors: max error / max magnitude < 2e-5 (the JAX
+    tests' bar)."""
+    from pbmm_tpu_torch.spectral import mxu_fft
+
+    y = _rand(np.random.default_rng(21), shape, dev)
+    if kind == "rfft2":
+        got, want = mxu_fft.rfft2_mxu(y), torch.fft.rfft2(y)
+    elif kind == "fft2":
+        got, want = mxu_fft.fft2_mxu(y), torch.fft.fft2(y)
+    else:
+        spec = torch.fft.rfft2(y)
+        got = mxu_fft.irfft2_mxu(spec, shape[-1])
+        want = torch.fft.irfft2(spec, s=shape[-2:])
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 2e-5
+
+
+def test_mxu_magnify_video_against_cpu(dev):
+    """`fft_backend="mxu"` on the card (the scan engine, no kernel of the
+    port's) against the same clip on the CPU, two chunks threaded:
+    > 100 dB."""
+    from pbmm_tpu_torch.oracle.synthetic import oscillating_bar
+    from pbmm_tpu_torch.utils.metrics import psnr
+
+    clip = oscillating_bar(size=256, frames=6, bar_width=2)[:, :192]
+    cfg = MagnifyConfig(fft_backend="mxu")
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        o1, s1 = magnify_video(torch.from_numpy(clip[:3]).to(d), cfg)
+        o2, _ = magnify_video(torch.from_numpy(clip[3:]).to(d), cfg, s1)
+        outs[d.type] = torch.cat([o1, o2]).cpu().numpy()
+    assert psnr(outs["cuda"], outs["cpu"]) > 100
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_native_stream_equals_memmap(dev, tmp_path, dtype):
+    """A .npy streamed on the card through the native loader (built with
+    g++ on this machine; raw mode, pinned host buffer) equals the memmap
+    route (`frame_chunks`, uint8 scaled on the card) and `magnify_video`
+    on the whole clip, bit for bit, on the batched engine's kernels."""
+    from pbmm_tpu_torch.io import stream
+    from pbmm_tpu_torch.native import NativeFrameLoader, native_available
+
+    assert native_available()
+    base = np.random.default_rng(8).integers(0, 256, (270, 480, 3),
+                                             np.uint8)
+    u8 = np.stack([np.roll(base, i, axis=1) for i in range(12)])
+    p = str(tmp_path / "clip.npy")
+    np.save(p, u8 if dtype == "u8" else u8 * np.float32(1.0 / 255.0))
+    cfg = MagnifyConfig().tuned_for_tpu()
+    NativeFrameLoader.served = 0
+    got = np.concatenate(list(stream.stream_magnify(p, cfg, chunk_frames=5,
+                                                    device=dev)))
+    assert NativeFrameLoader.served == 3
+    want, st = [], None
+    for c in stream.frame_chunks(p, 5, device=dev):
+        o, st = magnify_video(c, cfg, st)
+        want.append(o.cpu().numpy())
+    np.testing.assert_array_equal(got, np.concatenate(want))
+    whole, _ = magnify_video(torch.from_numpy(np.load(p)).to(dev), cfg)
+    np.testing.assert_array_equal(got, whole.cpu().numpy())

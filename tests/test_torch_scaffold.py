@@ -102,7 +102,8 @@ def test_import_leaves_jax_out():
         "pbmm_tpu_torch.tools.profile_stages, pbmm_tpu_torch.parallel, "
         "pbmm_tpu_torch.parallel.mesh, pbmm_tpu_torch.parallel.launcher, "
         "pbmm_tpu_torch.parallel.model, pbmm_tpu_torch.parallel.sharding, "
-        "pbmm_tpu_torch.parallel.spatial, pbmm_tpu_torch.tools.multihost\n"
+        "pbmm_tpu_torch.parallel.spatial, pbmm_tpu_torch.tools.multihost, "
+        "pbmm_tpu_torch.spectral.mxu_fft, pbmm_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pbmm_tpu' or m.startswith('pbmm_tpu.')]\n"
         "assert not bad, bad\n"

@@ -275,10 +275,17 @@ def test_cli_refusals(tmp_path, capsys):
     # Without a card and without an explicit device the CLI refuses.
     if not torch.cuda.is_available():
         assert main(["--input", "x.npy", "--output", out]) == 1
-    # The default config is served (the scan engine); the mxu backend is
-    # not, and names its ROADMAP item.
+    # The default config is served (the scan engine), and so is the mxu
+    # backend: each equal to `magnify_video` on its config.
     assert main(["--input", inp, "--output", out], device="cpu") == 0
     assert np.load(out).shape == (2, H, W, 3)
-    assert main(["--input", str(tmp_path / "in.npy"), "--output", out,
-                 "--fft-backend", "mxu"], device="cpu") == 2
-    assert "ROADMAP item 10" in capsys.readouterr().err
+    from pbmm_tpu_torch.cli import build_parser, config_from_args
+
+    rng = np.random.default_rng(11)
+    np.save(inp, rng.random((2, H, W, 3)).astype(np.float32))
+    argv = ["--input", inp, "--output", out, "--fft-backend", "mxu"]
+    assert main(argv, device="cpu") == 0
+    cfg = config_from_args(build_parser().parse_args(argv))
+    assert cfg.fft_backend == "mxu" and cfg.use_rfft
+    want, _ = magnify_video(torch.from_numpy(np.load(inp)), cfg)
+    np.testing.assert_array_equal(np.load(out), want.numpy())
