@@ -17,8 +17,15 @@ non-zero without the final line:
      on the same windowed rows at 1080p, 960x540 and 4096 lanes; kernel
      2, frame-parallel, at the tight heights to 1e-4 of the spectrum),
      kernel 4 on (16, 3, 1080, 1920) uint8 frames (also bit for bit
-     against the pre stage + kernel 1), kernel 3's u8-chroma / planar_u8
-     and f32 / planar
+     against the pre stage + kernel 1), the front end (kernel 4's kernel
+     on every input form: f32 interleaved, uint8 interleaved with three
+     planes, f32 planar at 1080p and 16K's f32 frames at 16384 lanes,
+     each bit for bit against the torch pre stage + kernel 1), kernels 3
+     and 10 with the chroma from f32 and uint8 interleaved and f32 planar
+     frames bit for bit against the same kernel on the torch pre stage's
+     I/Q planes, and the interleaved layout of kernels 3, 10 and 11 bit
+     for bit against the stack of tuple3, kernel 3's u8-chroma /
+     planar_u8 and f32 / planar
      variants, kernel 7 at the 1080p and 960x540 region shapes (also bit
      for bit against kernel 8's row pass on the rebuilt rows + torch's
      |z|, there, at 2160p's 4096 lanes and for Re z); and the
@@ -72,7 +79,10 @@ non-zero without the final line:
      on the u8 path):
      - f32 1080p, the bench clip (chunks of 16, shifted noise): outputs
        finite in [0, 1], chunks of 8 + 8 equal one chunk of 16 bit for
-       bit, frames 0-3 > 100 dB PSNR against the fp64 numpy oracle;
+       bit, frames 0-3 > 100 dB PSNR against the fp64 numpy oracle; one
+       steady chunk launches the front end, kernel 2 and kernel 3 once
+       each and nothing else, and torch.profiler sees no torch kernel in
+       it (no YIQ plane, padded slab or output stack);
      - u8 1080p: planar uint8 in, planar and planar_u8 out (kernels 4,
        2, 3): 8 + 8 equals 16 bit for bit, planar_u8 equals
        round(255 planar), planar frames 0-3 > 100 dB against the oracle;
@@ -264,32 +274,36 @@ def profile_chunks(torch, chunk, card, what, n=5, top=12, tag="[5]"):
     (wall ms, device busy ms) a chunk, or None without device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    chunk()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            chunk()
-        b.record()
-        b.synchronize()
-    wall_ms = a.elapsed_time(b) / n
-
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
         return float(v if v is not None else e.self_cuda_time_total)
 
-    # The port's `pbmm.*` stage ranges (utils/profiling.py) show on the
-    # device timeline too, spanning the kernels they hold: they are not
-    # device work of their own.
-    kernels = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not e.key.startswith("pbmm.")),
-        key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+    chunk()
+    torch.cuda.synchronize()
+    # A torch.profiler session now and then records no device event at
+    # all: up to three sessions, the first with device time counts.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                chunk()
+            b.record()
+            torch.cuda.synchronize()
+        wall_ms = a.elapsed_time(b) / n
+        # The port's `pbmm.*` stage ranges (utils/profiling.py) show on the
+        # device timeline too, spanning the kernels they hold: they are not
+        # device work of their own.
+        kernels = sorted(
+            (e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.key.startswith("pbmm.")),
+            key=dev_us, reverse=True)
+        busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / n
+        if busy_ms:
+            break
     if busy_ms == 0:
         log(f"{tag} {what}: torch.profiler recorded no device time: shares "
             "not measured")
@@ -328,6 +342,7 @@ def main():
     from pbmm_tpu_torch.engine import post_fused
     from pbmm_tpu_torch.engine.pipeline import (
         blur_row_window,
+        chroma_planes,
         magnify_frame_pair,
         preprocess,
         preprocess_cl,
@@ -437,6 +452,15 @@ def main():
     r0, _ = fused.aligned_row_window(geom.y0, geom.y0 + H, geom.pad_h)
     u8_args = (u8_frames, luma, geom.pad_h, geom.pad_w, geom.y0, geom.x0,
                r0, True)
+    # The front end's inputs at 1080p: the main path's f32 interleaved
+    # frames, and the other input forms (its own seed).
+    rng_fe = np.random.default_rng(15)
+    fe_f32 = dev_t(rng_fe.random((T, H, W, 3), np.float32))
+    fe_u8 = torch.from_numpy(rng_fe.integers(0, 256, (T, H, W, 3),
+                                             dtype=np.uint8)).to(dev)
+    fe_planar = fe_f32.permute(0, 3, 1, 2).contiguous()
+    rows3 = tuple(tuple(float(c) for c in r) for r in RGB_TO_YIQ)
+    fe_geo = (geom.pad_h, geom.pad_w, geom.y0, geom.x0, r0, True)
     g540 = geometry_for(H540, W540, "tight")
     rows540 = blur_row_window(g540, cfg)
     hr540, wk540 = rows540[1] - rows540[0], hermitian_kept_width(g540.pad_w)
@@ -630,8 +654,6 @@ def main():
                  True)
     win16 = hann2d_region(g16, device=dev)
     rec16_1 = dev_t(rng.random((T16, hr16, g16.pad_w), np.float32))
-    iq16 = [dev_t(rng.uniform(-0.5, 0.5, (T16, H16, W16)).astype(np.float32))
-            for _ in range(2)]
     k8x_re, k8x_im = (dev_n((1, g16.pad_h, g16.pad_w)) for _ in range(2))
     fyb16, fxb16 = freq_axes(g16.pad_h, g16.pad_w, "bitrev2d", dev)
     axes_b16 = (fyb16[:, 0].contiguous(), fxb16[0].contiguous())
@@ -671,6 +693,8 @@ def main():
                                    full_w=geom.pad_w),
         "windowed_row_fft_u8planar": both(fused.windowed_row_fft_u8planar,
                                           *u8_args),
+        "windowed_row_fft_frames": both(fused.windowed_row_fft_frames,
+                                        fe_f32, rows3[:1], *fe_geo),
         "row_ifft_magnitude": both(fused.row_ifft_magnitude, rre, rim,
                                    pad_h=geom.pad_h, full_w=geom.pad_w),
         "col_fft_zero_padded": both(fused.col_fft_zero_padded, sq_re[:1],
@@ -691,9 +715,26 @@ def main():
         "trig_probe": both(trig_probe.trig_probe, "atan2", *tp_in),
     }
     variants = {  # kernel 3's new variants and kernel 7 at 540p shapes
+        # The front end's other input forms, and the tail's source chroma
+        # and interleaved layout at the main path's call.
+        "windowed_row_fft_frames[u8 interleaved]": both(
+            fused.windowed_row_fft_frames, fe_u8, rows3[:1], *fe_geo),
+        "windowed_row_fft_frames[f32 planar]": both(
+            fused.windowed_row_fft_frames, fe_planar, rows3[:1], *fe_geo),
+        "windowed_row_fft_frames[rgb 3 planes]": both(
+            fused.windowed_row_fft_frames, fe_f32, rows3, *fe_geo),
+        "rowifft_post_fused[f32 frames, interleaved]": both(
+            post_fused.rowifft_post_fused, *post_u8_args, full_w=geom.pad_w,
+            src=fe_f32, out_layout="interleaved"),
+        "rowifft_post_fused[u8 frames, interleaved]": both(
+            post_fused.rowifft_post_fused, *post_u8_args, full_w=geom.pad_w,
+            src=fe_u8, out_layout="interleaved"),
+        "post_fused_rgb[interleaved]": both(
+            post_fused.post_fused_rgb, *rgb_post_args,
+            out_layout="interleaved"),
         "rowifft_post_fused[u8, planar_u8]": both(
             post_fused.rowifft_post_fused, *post_u8_args, full_w=geom.pad_w,
-            rgb_u8=u8_frames, out_layout="planar_u8"),
+            src=u8_frames, out_layout="planar_u8"),
         "rowifft_post_fused[f32, planar]": both(
             post_fused.rowifft_post_fused, *post_args, full_w=geom.pad_w,
             out_layout="planar"),
@@ -774,12 +815,12 @@ def main():
         "planar_u8]": both(
             post_fused.rowifft_post_fused, rre, rim, None, None, win,
             cfg_b40, rows[0], H, W, "tight", full_w=geom.pad_w,
-            rgb_u8=u8_frames, out_layout="planar_u8"),
+            src=u8_frames, out_layout="planar_u8"),
         "rowifft_post_fused[blur 4.5, radius 15: kernels 7 + 10, u8, "
         "planar_u8]": both(
             post_fused.rowifft_post_fused, rre, rim, None, None, win,
             cfg_b45, rows[0], H, W, "tight", full_w=geom.pad_w,
-            rgb_u8=u8_frames, out_layout="planar_u8"),
+            src=u8_frames, out_layout="planar_u8"),
         "post_fused_rgb[blur 1.5, radius 5]": both(
             post_fused.post_fused_rgb, rec3, win,
             cfg_rgb.replace(blur_size=1.5), rows[0], H, W, "tight",
@@ -790,10 +831,10 @@ def main():
             out_layout="planar_u8"),
         "post_fused[blur 4.0, radius 13, u8 chroma, planar_u8]": both(
             post_fused.post_fused, rec1, None, None, win, cfg_b40, rows[0],
-            H, W, "tight", "planar_u8", rgb_u8=u8_frames),
+            H, W, "tight", "planar_u8", src=u8_frames),
         "post_fused[u8 chroma, planar_u8]": both(
             post_fused.post_fused, rec1, None, None, win, cfg, rows[0], H,
-            W, "tight", "planar_u8", rgb_u8=u8_frames),
+            W, "tight", "planar_u8", src=u8_frames),
         "post_fused[blur 1.5, radius 5]": both(
             post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_b15, rows[0],
             H, W, "tight"),
@@ -801,9 +842,12 @@ def main():
         "post_fused[blur 4.5, radius 15]": both(
             post_fused.post_fused, rec1, i_pl, q_pl, win, cfg_b45, rows[0],
             H, W, "tight"),
+        "post_fused[blur 4.5, radius 15, f32 frames, interleaved]": both(
+            post_fused.post_fused, rec1, None, None, win, cfg_b45, rows[0],
+            H, W, "tight", "interleaved", src=fe_f32),
         "post_fused[blur 4.5, radius 15, u8 chroma, planar_u8]": both(
             post_fused.post_fused, rec1, None, None, win, cfg_b45, rows[0],
-            H, W, "tight", "planar_u8", rgb_u8=u8_frames),
+            H, W, "tight", "planar_u8", src=u8_frames),
         "post_fused_rgb[blur 4.5, radius 15]": both(
             post_fused.post_fused_rgb, rec3, win,
             cfg_rgb.replace(blur_size=4.5), rows[0], H, W, "tight",
@@ -858,6 +902,9 @@ def main():
             fused.windowed_row_fft, y16, g16.pad_h, r0_16, True),
         "windowed_row_fft_u8planar[16384 lanes, 16K]": both(
             fused.windowed_row_fft_u8planar, *u8_args16),
+        "windowed_row_fft_frames[16384 lanes, 16K square_pow2]": both(
+            fused.windowed_row_fft_frames, frames16_d, rows3[:1], g16.pad_h,
+            g16.pad_w, g16.y0, g16.x0, r0_16, True),
         "colspec_chunk[pow-2, H 16384, 16K square_pow2]": both(
             fused.colspec_chunk, k16_re, k16_im, *k16_prev, cfg_j,
             g16.pad_h, r0_16, **k16_kw),
@@ -875,9 +922,10 @@ def main():
         "row_ifft_magnitude[16384 lanes, 16K]": both(
             fused.row_ifft_magnitude, rre16, rim16, pad_h=g16.pad_h,
             full_w=g16.pad_w),
-        "post_fused[16K, crop 15360]": both(
-            post_fused.post_fused, rec16_1, *iq16, win16, cfg_j, rows_16[0],
-            H16, W16, "square_pow2"),
+        "post_fused[16K, crop 15360, f32 frames, interleaved]": both(
+            post_fused.post_fused, rec16_1, None, None, win16, cfg_j,
+            rows_16[0], H16, W16, "square_pow2", "interleaved",
+            src=frames16_d),
         "_fft_axis[inverse, axis 2, scale, 16384]": both(
             radix2._fft_axis, k8x_re, k8x_im, 2, True,
             1.0 / (g16.pad_h * g16.pad_w)),
@@ -905,6 +953,13 @@ def main():
     # The post kernels' variants above: (kernel, config, uint8 chroma,
     # layout), for their bounds (post_work below).
     post_variants = {
+        "rowifft_post_fused[f32 frames, interleaved]": (
+            3, cfg, "f32", "interleaved"),
+        "rowifft_post_fused[u8 frames, interleaved]": (
+            3, cfg, True, "interleaved"),
+        "post_fused_rgb[interleaved]": (11, cfg_rgb, False, "interleaved"),
+        "post_fused[blur 4.5, radius 15, f32 frames, interleaved]": (
+            10, cfg_b45, "f32", "interleaved"),
         "rowifft_post_fused[u8, planar_u8]": (3, cfg, True, "planar_u8"),
         "rowifft_post_fused[f32, planar]": (3, cfg, False, "planar"),
         "rowifft_post_fused[real, compensate, gains]": (3, cfg_str),
@@ -932,7 +987,8 @@ def main():
         "post_fused[blur 4.5, radius 15, u8 chroma, planar_u8]": (
             10, cfg_b45, True, "planar_u8"),
     }
-    assert set(post_variants) | {"post_fused[16K, crop 15360]"} == {
+    assert set(post_variants) | {
+        "post_fused[16K, crop 15360, f32 frames, interleaved]"} == {
         k for k in variants if k.startswith(("rowifft_post_fused",
                                              "post_fused"))}
     # What each kernel's call above must move and compute, and the one
@@ -955,8 +1011,9 @@ def main():
         at the 1080p shapes under config c: the region rows the output
         needs (the crop's H + 2 r rows; kernel 3: all kept lanes of each,
         its row transform's input; 10 and 11: the W + 2 r columns the
-        blur reads), the chroma (f32 I/Q or the uint8 frames; none for
-        11), the window where the call reads it and the three output
+        blur reads), the chroma (f32 I/Q, the uint8 frames (u8 True) or
+        the f32 frames (u8 "f32"); none for 11), the window where the
+        call reads it and the three output
         planes; the blur 2 (4 r + 1) a pixel and plane (2 r + 1 products
         and 2 r sums each way), the epilogue 20, kernel 3's row transform
         5 W log2 W a region row."""
@@ -964,7 +1021,8 @@ def main():
         planes = 3 if kernel == 11 else 1
         rows_in = (2 * T * (H + 2 * r) * wk if kernel == 3
                    else planes * T * (H + 2 * r) * (W + 2 * r))
-        chroma = 0 if kernel == 11 else (3 * px if u8 else 2 * f4 * px)
+        chroma = (0 if kernel == 11 else 3 * f4 * px if u8 == "f32"
+                  else 3 * px if u8 else 2 * f4 * px)
         window = 0 if kernel == 11 and not c.compensate_window else H * W
         out = 3 * px * (1 if layout == "planar_u8" else f4)
         ops = (2 * (4 * r + 1) * planes + 20) * px
@@ -987,6 +1045,12 @@ def main():
         "windowed_row_fft_u8planar": (
             u8_frames.numel() + 2 * f4 * T * (u8_r1 - u8_r0) * wk,
             fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 8 * T * H * W,
+            lambda: torch.fft.fft(y[:, u8_r0:u8_r1], dim=-1)),
+        # the frames read once, the kept spectrum written; the plane's 5
+        # products and sums and the window's 2 a pixel
+        "windowed_row_fft_frames": (
+            f4 * fe_f32.numel() + 2 * f4 * T * (u8_r1 - u8_r0) * wk,
+            fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 7 * T * H * W,
             lambda: torch.fft.fft(y[:, u8_r0:u8_r1], dim=-1)),
         "row_ifft_magnitude": (
             f4 * (2 * rre.numel() + T * hr * geom.pad_w),
@@ -1071,6 +1135,18 @@ def main():
         "windowed_row_fft_u8planar[16384 lanes, 16K]": (
             u8_16.numel() + f4 * 2 * T16 * (r1_16 - r0_16) * wk16,
             fft_ops(g16.pad_w, T16 * (r1_16 - r0_16))),
+        "windowed_row_fft_frames[16384 lanes, 16K square_pow2]": (
+            f4 * frames16_d.numel() + f4 * 2 * T16 * (r1_16 - r0_16) * wk16,
+            fft_ops(g16.pad_w, T16 * (r1_16 - r0_16)) + 7 * T16 * H16 * W16),
+        "windowed_row_fft_frames[u8 interleaved]": (
+            fe_u8.numel() + 2 * f4 * T * (u8_r1 - u8_r0) * wk,
+            fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 8 * T * H * W),
+        "windowed_row_fft_frames[f32 planar]": (
+            f4 * fe_planar.numel() + 2 * f4 * T * (u8_r1 - u8_r0) * wk,
+            fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 7 * T * H * W),
+        "windowed_row_fft_frames[rgb 3 planes]": (
+            f4 * fe_f32.numel() + 3 * 2 * f4 * T * (u8_r1 - u8_r0) * wk,
+            3 * (fft_ops(geom.pad_w, T * (u8_r1 - u8_r0)) + 7 * T * H * W)),
         "colspec_chunk[pow-2, H 16384, 16K square_pow2]": (
             colspec_bytes(k16_re, k16_prev[0], T16, hr16, wk16),
             fft_ops(g16.pad_h, 2 * T16 * wk16) + 40 * T16 * g16.pad_h * wk16),
@@ -1106,8 +1182,8 @@ def main():
         # for the gate and the rotation
         "amplify_procedural[16K (g), (1, 16384, 16384)]": (
             f4 * 6 * k8x_re.numel(), (15 * 5 + 40) * k8x_re.numel()),
-        "post_fused[16K, crop 15360]": (
-            f4 * (T16 * (H16 + 4) * (W16 + 4) + 2 * T16 * H16 * W16
+        "post_fused[16K, crop 15360, f32 frames, interleaved]": (
+            f4 * (T16 * (H16 + 4) * (W16 + 4) + 3 * T16 * H16 * W16
                   + win16.numel() + 3 * T16 * H16 * W16),
             (2 * (4 * 2 + 1) + 20) * T16 * H16 * W16),
     }
@@ -1262,8 +1338,16 @@ def main():
                                      f"p = {p_})")
         del whole
     # Kernel 4's contract: the torch pre stage + kernel 1, bit for bit.
+    def pre_stage_k1(fr, gg, r0_, rws=(luma,)):
+        """The torch pre stage (`frames_slab`) + kernel 1 on frames."""
+        gi = (gg.pad_h, gg.pad_w, gg.y0, gg.x0, r0_)
+        _, hc_, off_ = fused._frames_args(fr, *gi)
+        return fused.windowed_row_fft(
+            fused.frames_slab(fr, rws, gg.pad_w, gg.x0, off_, hc_),
+            gg.pad_h, r0_, True)
+
     k4 = fused.windowed_row_fft_u8planar(*u8_args)
-    pre = preprocess_cl(u8_frames, cfg, want_iq=True)
+    pre = pre_stage_k1(u8_frames, geom, r0)
     same = torch.equal(k4[0], pre[0]) and torch.equal(k4[1], pre[1])
     log(f"[2] windowed_row_fft_u8planar == pre stage + windowed_row_fft on "
         f"the same (16, 3, 1080, 1920) u8 frames: {same}")
@@ -1273,7 +1357,7 @@ def main():
     # The same at 16K (15360 pixels a row, 16384 lanes: the bracket's byte
     # loads and the row engine on 8192-lane blocks).
     k4 = fused.windowed_row_fft_u8planar(*u8_args16)
-    pre = preprocess_cl(u8_16, cfg_j, want_iq=True)
+    pre = pre_stage_k1(u8_16, g16, r0_16)
     same = torch.equal(k4[0], pre[0]) and torch.equal(k4[1], pre[1])
     log(f"[2] windowed_row_fft_u8planar == pre stage + windowed_row_fft on "
         f"the same {tuple(u8_16.shape)} u8 frames (16K, 16384 lanes): {same}")
@@ -1281,6 +1365,67 @@ def main():
         raise AssertionError("kernel 4 differs from the pre stage + kernel 1 "
                              "at 16K")
     del k4, pre
+    # The front end = the torch pre stage (`frames_slab`: unit_float, the
+    # colour rows, the centre pad) + kernel 1, bit for bit: the main
+    # path's f32 interleaved frames, uint8 interleaved with three planes,
+    # f32 planar, and path (m)'s 16K frames (16384 lanes).
+    for what, fr, rws, gg, r0_ in (
+            ("f32 interleaved, Y", fe_f32, rows3[:1], geom, r0),
+            ("u8 interleaved, Y I Q", fe_u8, rows3, geom, r0),
+            ("f32 planar, Y", fe_planar, rows3[:1], geom, r0),
+            ("16K f32 interleaved, Y", frames16_d, rows3[:1], g16, r0_16)):
+        got = fused.windowed_row_fft_frames(
+            fr, rws, gg.pad_h, gg.pad_w, gg.y0, gg.x0, r0_, True)
+        want = pre_stage_k1(fr, gg, r0_, rws)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        log(f"[2] windowed_row_fft_frames == pre stage + windowed_row_fft on "
+            f"{what} {tuple(fr.shape)} -> {tuple(got[0].shape)}: {same}")
+        if not same:
+            raise AssertionError(f"the front end differs from the pre stage "
+                                 f"+ kernel 1 ({what})")
+    del got, want
+    # Kernels 3 and 10 with the chroma from the source frames = the same
+    # kernel on the I/Q planes the torch pre stage forms (f32 and uint8
+    # interleaved frames, f32 planar), and the interleaved layout = the
+    # stack of tuple3 (kernels 3, 10, 11), bit for bit, at radius 2
+    # (kernel 3) and 15 (kernel 3's route: kernels 7 + 10).
+    for c in (cfg, cfg_b45):
+        for fr in (fe_f32, fe_u8, fe_planar):
+            iq_fr = chroma_planes(fr)
+            for lay in ("tuple3", "interleaved"):
+                a3 = post_fused.rowifft_post_fused(
+                    rre, rim, *iq_fr, win, c, rows[0], H, W, "tight",
+                    full_w=geom.pad_w, out_layout=lay)
+                b3 = post_fused.rowifft_post_fused(
+                    rre, rim, None, None, win, c, rows[0], H, W, "tight",
+                    full_w=geom.pad_w, src=fr, out_layout=lay)
+                a10 = post_fused.post_fused(rec1, *iq_fr, win, c, rows[0], H,
+                                            W, "tight", lay)
+                b10 = post_fused.post_fused(rec1, None, None, win, c, rows[0],
+                                            H, W, "tight", lay, src=fr)
+                if lay == "tuple3":
+                    a3, b3, a10, b10 = (torch.stack(x, -1)
+                                        for x in (a3, b3, a10, b10))
+                    tup3, tup10 = a3, a10
+                same = torch.equal(a3, b3) and torch.equal(a10, b10)
+                if lay == "interleaved":
+                    same = (same and torch.equal(a3, tup3)
+                            and torch.equal(a10, tup10))
+                log(f"[2] kernels 3 and 10 at radius {post_fused._radius(c)}, "
+                    f"{lay}: source chroma from {fr.dtype} "
+                    f"{tuple(fr.shape)} == the I/Q planes' call"
+                    + (", == the stack of tuple3" if lay == "interleaved"
+                       else "") + f": {same}")
+                if not same:
+                    raise AssertionError("the source chroma or the "
+                                         "interleaved layout differs")
+    del a3, b3, a10, b10, tup3, tup10, iq_fr
+    got = post_fused.post_fused_rgb(*rgb_post_args, out_layout="interleaved")
+    same = torch.equal(got, torch.stack(post_fused.post_fused_rgb(
+        *rgb_post_args), -1))
+    log(f"[2] post_fused_rgb, interleaved == the stack of tuple3: {same}")
+    if not same:
+        raise AssertionError("kernel 11's interleaved layout differs")
     # Kernel 1 and kernel 7 past the row engine's 8192 lanes (the bracket
     # around it on 8192-lane blocks) = kernel 8's row pass (the same
     # split) on the same rows, bit for bit: 512 rows of 16K's 16384 lanes.
@@ -1431,9 +1576,9 @@ def main():
             for lay in ("tuple3", "planar_u8"):
                 k3 = post_fused.rowifft_post_fused(
                     rre, rim, *chroma, win, c, rows[0], H, W, "tight",
-                    full_w=geom.pad_w, rgb_u8=u8, out_layout=lay)
+                    full_w=geom.pad_w, src=u8, out_layout=lay)
                 k10 = post_fused.post_fused(rec, *chroma, win, c, rows[0], H,
-                                            W, "tight", lay, rgb_u8=u8)
+                                            W, "tight", lay, src=u8)
                 k3, k10 = ((x,) if torch.is_tensor(x) else x
                            for x in (k3, k10))
                 same = all(torch.equal(a, b) for a, b in zip(k3, k10))
@@ -1535,6 +1680,7 @@ def main():
 
     # -- 3. end to end, path by path -----------------------------------------
     wrappers = {"windowed_row_fft": fused.windowed_row_fft,
+                "windowed_row_fft_frames": fused.windowed_row_fft_frames,
                 "colspec_chunk": fused.colspec_chunk,
                 "rowifft_post_fused": post_fused.rowifft_post_fused,
                 "windowed_row_fft_u8planar": fused.windowed_row_fft_u8planar,
@@ -1665,10 +1811,40 @@ def main():
             "f_iir": oracle_job(bar720, cfg_fi)}
 
     out1, s1, out2, s2 = run_path(
-        "f32 1080p", ("windowed_row_fft", "colspec_chunk",
-                      "rowifft_post_fused"), (),
+        "f32 1080p", ("windowed_row_fft_frames", "colspec_chunk",
+                      "rowifft_post_fused"),
+        tuple(k for k in wrappers if k not in (
+            "windowed_row_fft_frames", "colspec_chunk",
+            "rowifft_post_fused")),
         lambda: two_chunks(frames_d, cfg))
     launches = path_launches["f32 1080p"]
+    # One steady-state chunk alone: the front end, kernel 2 (one call, two
+    # launches) and kernel 3 launch once each, and no torch kernel runs (no
+    # YIQ plane, padded slab or output stack; torch.profiler's device
+    # kernels hold nothing of at::native).
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(3):  # a session now and then records no device event
+        for f in wrappers.values():
+            f.launches = 0
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof1:
+            pbmm_tpu_torch.magnify_video(frames_d, cfg, s2)
+            torch.cuda.synchronize()
+        one = {k: f.launches for k, f in wrappers.items() if f.launches}
+        dev_kernels = sorted({
+            e.key for e in prof1.key_averages() if e.device_type
+            == torch.autograd.DeviceType.CUDA and not e.key.startswith(
+                "pbmm.")})
+        if dev_kernels:
+            break
+    log(f"[3] f32 1080p, one steady chunk: launches {one}; device kernels "
+        f"{dev_kernels}")
+    if one != {"windowed_row_fft_frames": 1, "colspec_chunk": 1,
+               "rowifft_post_fused": 1}:
+        raise AssertionError(f"f32 1080p chunk: launches {one}")
+    if not dev_kernels or any("at::native" in k for k in dev_kernels):
+        raise AssertionError(f"f32 1080p chunk: torch kernels {dev_kernels}")
     for name, o in (("chunk 1", out1), ("chunk 2", out2)):
         if tuple(o.shape) != (T, H, W, 3) or o.dtype != torch.float32:
             raise AssertionError(f"{name}: shape {tuple(o.shape)} {o.dtype}")
@@ -1689,10 +1865,11 @@ def main():
     u8_kernels = ("windowed_row_fft_u8planar", "colspec_chunk",
                   "rowifft_post_fused")
     pl1, pls1, pl2, _ = run_path("u8 1080p -> planar", u8_kernels,
-                                 ("windowed_row_fft",),
+                                 ("windowed_row_fft",
+                                  "windowed_row_fft_frames"),
                                  lambda: two_chunks(u8_d, cfg_pl))
     q1, _, q2, _ = run_path("u8 1080p -> planar_u8", u8_kernels,
-                            ("windowed_row_fft",),
+                            ("windowed_row_fft", "windowed_row_fft_frames"),
                             lambda: two_chunks(u8_d, cfg_u8))
     for name, o, dt in (("planar", pl1, torch.float32),
                         ("planar_u8", q1, torch.uint8)):
@@ -1711,10 +1888,16 @@ def main():
     f540_d = torch.from_numpy(f540).to(dev)
     p540_d = torch.from_numpy(
         np.ascontiguousarray(np.moveaxis(f540_u8, -1, 1))).to(dev)
-    tail_kernels = ("windowed_row_fft", "colspec_chunk", "row_ifft_magnitude")
-    o540, *_ = run_path("540p f32", tail_kernels, ("rowifft_post_fused",),
+    # The torch posttail reads I/Q planes here (post_pallas_ok fails):
+    # the front end (kernel 4 for planar uint8) and torch's I/Q FMAs.
+    tail_kernels = ("colspec_chunk", "row_ifft_magnitude")
+    o540, *_ = run_path("540p f32", ("windowed_row_fft_frames",)
+                        + tail_kernels, ("rowifft_post_fused",
+                                         "windowed_row_fft"),
                         lambda: two_chunks(f540_d, cfg))
-    ou540, *_ = run_path("540p u8", tail_kernels, ("rowifft_post_fused",),
+    ou540, *_ = run_path("540p u8", ("windowed_row_fft_u8planar",)
+                         + tail_kernels, ("rowifft_post_fused",
+                                          "windowed_row_fft"),
                          lambda: two_chunks(p540_d, cfg))
     if tuple(o540.shape) != (T, H540, W540, 3):
         raise AssertionError(f"540p: shape {tuple(o540.shape)}")
@@ -1726,7 +1909,10 @@ def main():
     # The config matrix.  (a) 1080p square_pow2, interleaved f32: the
     # stream starts from kernel 5's spectrum of frame 0.
     path_a = "(a) 1080p square_pow2"
-    sq_kernels = ("col_fft_zero_padded", "windowed_row_fft", "colspec_chunk",
+    # Square paddings start the stream with kernels 5 and 1 on frame 0
+    # (`video_init`); every chunk then takes the front end.
+    sq_kernels = ("col_fft_zero_padded", "windowed_row_fft",
+                  "windowed_row_fft_frames", "colspec_chunk",
                   "rowifft_post_fused")
     a1, sa1, a2, _ = run_path(
         path_a, sq_kernels, ("windowed_row_fft_u8planar",
@@ -1755,7 +1941,8 @@ def main():
     # (b) 1080p tight, rgb, IIR, planar uint8 in, planar_u8 out.
     path_b = "(b) 1080p rgb IIR u8 -> planar_u8"
     b1, sb1, b2, sb2 = run_path(
-        path_b, ("windowed_row_fft", "colspec_chunk", "row_ifft_magnitude",
+        path_b, ("windowed_row_fft_frames", "colspec_chunk",
+                 "row_ifft_magnitude",
                  "post_fused_rgb"),
         ("windowed_row_fft_u8planar", "rowifft_post_fused",
          "col_fft_zero_padded"),
@@ -1792,9 +1979,10 @@ def main():
     # window compensation, YIQ gains (no oracle covers the last two).
     path_d = "(d) 1080p steerable real compensate gains"
     d1, sd1, d2, _ = run_path(
-        path_d, ("windowed_row_fft", "colspec_chunk", "rowifft_post_fused"),
+        path_d, ("windowed_row_fft_frames", "colspec_chunk",
+                 "rowifft_post_fused"),
         ("col_fft_zero_padded", "row_ifft_magnitude", "post_fused_rgb",
-         "windowed_row_fft_u8planar"),
+         "windowed_row_fft_u8planar", "windowed_row_fft"),
         lambda: two_chunks(frames_d, cfg_str))
     check_frames(path_d, (d1, d2), (T, H, W, 3), torch.float32)
     check_split(frames_d, cfg_str, d1, sd1, path_d)
@@ -1968,8 +2156,10 @@ def main():
     psnr_j, = vs_oracle([(path_j, j1)], jobs["j"])
     path_jt = "(j) 2160p tight"
     jt1, sjt1, jt2, _ = run_path(
-        path_jt, ("windowed_row_fft", "colspec_chunk", "rowifft_post_fused"),
-        ("col_fft_zero_padded", "row_ifft_magnitude", "post_fused"),
+        path_jt, ("windowed_row_fft_frames", "colspec_chunk",
+                  "rowifft_post_fused"),
+        ("col_fft_zero_padded", "row_ifft_magnitude", "post_fused",
+         "windowed_row_fft"),
         lambda: two_chunks(frames4k_d, cfg))
     check_frames(path_jt, (jt1, jt2), (T4K, H4K, W4K, 3), torch.float32)
     if tuple(sjt1.prev_spec_re.shape) != (1, g4t.pad_h, wk4):
@@ -1994,7 +2184,8 @@ def main():
 
     path_l = "(l) 4320p square_pow2"
     l1, sl1, l2, _ = run_path(
-        path_l, ("col_fft_zero_padded", "windowed_row_fft", "colspec_chunk")
+        path_l, ("col_fft_zero_padded", "windowed_row_fft",
+                 "windowed_row_fft_frames", "colspec_chunk")
         + tail_of(g8k), ("windowed_row_fft_u8planar", "post_fused_rgb"),
         lambda: two_chunks(frames8k_d, cfg_j))
     check_frames(path_l, (l1, l2), (T8K, H8K, W8K, 3), torch.float32)
@@ -2004,9 +2195,9 @@ def main():
                              f"{tuple(sl1.prev_spec_re.shape)}")
     path_lt = "(l) 4320p tight"
     lt1, slt1, lt2, _ = run_path(
-        path_lt, ("windowed_row_fft", "colspec_chunk") + tail_of(g8t),
-        ("col_fft_zero_padded", "windowed_row_fft_u8planar",
-         "post_fused_rgb"),
+        path_lt, ("windowed_row_fft_frames", "colspec_chunk")
+        + tail_of(g8t), ("col_fft_zero_padded", "windowed_row_fft_u8planar",
+                         "post_fused_rgb", "windowed_row_fft"),
         lambda: two_chunks(frames8k_d, cfg))
     check_frames(path_lt, (lt1, lt2), (T8K, H8K, W8K, 3), torch.float32)
     check_split(frames8k_d, cfg, lt1, slt1, path_lt)
@@ -2038,8 +2229,8 @@ def main():
                                          W16)
     path_m = "(m) 16K square_pow2"
     m1, sm1, m2, _ = run_path(
-        path_m, ("col_fft_zero_padded", "windowed_row_fft", "colspec_chunk")
-        + tail16, ("windowed_row_fft_u8planar", "post_fused_rgb",
+        path_m, ("col_fft_zero_padded", "windowed_row_fft",
+                 "windowed_row_fft_frames", "colspec_chunk") + tail16, ("windowed_row_fft_u8planar", "post_fused_rgb",
                    "rowifft_post_fused"),
         lambda: two_chunks(frames16_d, cfg_j))
     check_frames(path_m, (m1, m2), (T16, H16, W16, 3), torch.float32)
@@ -2052,9 +2243,9 @@ def main():
     torch.cuda.empty_cache()
     path_mt = "(m) 16K tight"
     mt1, smt1, mt2, _ = run_path(
-        path_mt, ("windowed_row_fft", "colspec_chunk") + tail16,
+        path_mt, ("windowed_row_fft_frames", "colspec_chunk") + tail16,
         ("col_fft_zero_padded", "windowed_row_fft_u8planar",
-         "post_fused_rgb", "rowifft_post_fused"),
+         "post_fused_rgb", "rowifft_post_fused", "windowed_row_fft"),
         lambda: two_chunks(frames16_d, cfg))
     check_frames(path_mt, (mt1, mt2), (T16, H16, W16, 3), torch.float32)
     check_split(frames16_d, cfg, mt1, smt1, path_mt)
@@ -2094,22 +2285,24 @@ def main():
     path_k = "(k) 1080p blur 4.5 (kernels 7 + 10)"
     k_kernels = ("colspec_chunk", "row_ifft_magnitude", "post_fused")
     k1, sk1, k2_, _ = run_path(
-        path_k, ("windowed_row_fft",) + k_kernels,
-        ("rowifft_post_fused", "post_fused_rgb", "col_fft_zero_padded"),
+        path_k, ("windowed_row_fft_frames",) + k_kernels,
+        ("rowifft_post_fused", "post_fused_rgb", "col_fft_zero_padded",
+         "windowed_row_fft"),
         lambda: two_chunks(frames_d, cfg_k))
     check_frames(path_k, (k1, k2_), (T, H, W, 3), torch.float32)
     check_split(frames_d, cfg_k, k1, sk1, path_k)
     ku1, *_ = run_path(
         path_k + " u8 -> planar_u8", ("windowed_row_fft_u8planar",)
-        + k_kernels, ("rowifft_post_fused", "windowed_row_fft"),
+        + k_kernels, ("rowifft_post_fused", "windowed_row_fft",
+                      "windowed_row_fft_frames"),
         lambda: two_chunks(u8_d, cfg_k.replace(output_layout="planar_u8")))
     check_frames(path_k + " u8", (ku1,), (T, 3, H, W), torch.uint8)
     psnr_k, = vs_oracle([(path_k, k1)], jobs["k"])
     path_k15 = "(k) 1080p blur 1.5 (kernel 3)"
     k15, *_ = run_path(
-        path_k15, ("windowed_row_fft", "colspec_chunk",
+        path_k15, ("windowed_row_fft_frames", "colspec_chunk",
                    "rowifft_post_fused"),
-        ("row_ifft_magnitude", "post_fused"),
+        ("row_ifft_magnitude", "post_fused", "windowed_row_fft"),
         lambda: two_chunks(frames_d, cfg_b15))
     check_frames(path_k15, (k15,), (T, H, W, 3), torch.float32)
     pool.shutdown(wait=True)
@@ -2207,7 +2400,8 @@ def main():
                      colorspace="420jpeg")
         log(f"[3] stream: wrote a 32-frame 1080p 420jpeg y4m in "
             f"{time.perf_counter() - t0:.1f} s")
-        got = run_path("stream u8", u8_kernels, ("windowed_row_fft",),
+        got = run_path("stream u8", u8_kernels,
+                       ("windowed_row_fft", "windowed_row_fft_frames"),
                        lambda: list(stream.stream_magnify(
                            clip, cfg_u8, chunk_frames=T, ingest="u8",
                            device=dev)))
@@ -2629,8 +2823,10 @@ def main():
         profile_chunks(torch, chunk_o, card, path_o)
 
     sources = {
+        # Kernel 1 serves the per-frame pre stage (the front end took its
+        # place on the batched engine's chunks).
         "windowed_row_fft": ("pbmm_tpu_torch/csrc/row_fft.cu",
-                             "pbmm_tpu/spectral/fused.py:79", "f32 1080p"),
+                             "pbmm_tpu/spectral/fused.py:79", path_f),
         "colspec_chunk": ("pbmm_tpu_torch/csrc/colspec_chunk.cu",
                           "pbmm_tpu/spectral/fused.py:1310", "f32 1080p"),
         "rowifft_post_fused": ("pbmm_tpu_torch/csrc/rowifft_post.cu",
@@ -2639,6 +2835,12 @@ def main():
         "windowed_row_fft_u8planar": ("pbmm_tpu_torch/csrc/row_fft.cu",
                                       "pbmm_tpu/spectral/fused.py:168",
                                       "u8 1080p -> planar_u8"),
+        # The front end takes kernel 1's place on the batched engine's
+        # chunks, with the pre stage the JAX package leaves to XLA
+        # (pbmm_tpu/engine/pipeline.py:171 preprocess_cl).
+        "windowed_row_fft_frames": ("pbmm_tpu_torch/csrc/row_fft.cu",
+                                    "pbmm_tpu/spectral/fused.py:79",
+                                    "f32 1080p"),
         "row_ifft_magnitude": ("pbmm_tpu_torch/csrc/row_ifft.cu",
                                "pbmm_tpu/spectral/fused.py:1236",
                                "540p f32"),

@@ -8,6 +8,7 @@ on those paths is a hand-written CUDA kernel for sm_90a under `csrc/`
 (numbered as in PERF.md):
 
     spectral/fused.py::windowed_row_fft[_u8planar]  csrc/row_fft.cu      1, 4
+    spectral/fused.py::windowed_row_fft_frames       csrc/row_fft.cu      front end
     spectral/fused.py::colspec_chunk                 csrc/colspec_chunk.cu 2
     engine/post_fused.py::rowifft_post_fused         csrc/rowifft_post.cu  3
     spectral/fused.py::col_fft_zero_padded           csrc/col_fft.cu       5
@@ -20,7 +21,10 @@ on those paths is a hand-written CUDA kernel for sm_90a under `csrc/`
     tools/kexp.py::copy_probe                        csrc/copy_probe.cu    13
     tools/trig_probe.py::trig_probe                  csrc/trig_probe.cu    14
 
-Kernels 12-14 serve the measurement path: `tools/` holds the counterparts
+The front end is kernel 4's kernel on every input form of the batched
+chunk engine: the pre stage the JAX package leaves to XLA (the YIQ
+planes, the pad, the window) happens in its loads.  Kernels 12-14 serve
+the measurement path: `tools/` holds the counterparts
 of the JAX package's `benchmarks/` scripts, `tools/parity.py` and
 `tools/multihost.py`, and `utils/` its metrics, checks, profiling and
 debug views.  `parallel/` holds the multi-device engines on

@@ -3,13 +3,20 @@
 Counterpart of `pbmm_tpu/core/color.py`: the NTSC matrices of the
 reference fragment shaders (`RGBToYIQ.shader:46-50`,
 `YIQToRGB.shader:51-55`), as float32 numpy constants so both packages
-fold the same scalars into their kernels.
+fold the same scalars into their kernels; and the two frame layouts.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def is_planar(frames) -> bool:
+    """(T, 3, H, W) channel-planar frames (the y4m / video-file layout),
+    as against the reference's interleaved (T, H, W, 3)."""
+    return (frames.ndim == 4 and frames.shape[1] == 3
+            and frames.shape[-1] != 3)
 
 
 def unit_float(x: torch.Tensor) -> torch.Tensor:

@@ -11,15 +11,18 @@
 // times the crop-region Hann window (post_pallas.py:164-178).  The port
 // also reaches it after kernel 7 where kernel 3's block does not fit
 // shared memory (engine/post_fused.py::kernel3_serves), so it takes
-// kernel 3's chroma sources too: the f32 I/Q planes, or the (T, 3, H, W)
-// uint8 source frames, from which it forms I and Q as kernel 3 does.
+// kernel 3's chroma sources too: the f32 I/Q planes, or the uint8 or f32
+// source frames, planar or interleaved, from which it forms I and Q as
+// kernel 3 does (post_tail.cuh).
 // Kernel 11's input is kernel 7's output: (3T, Hr, W) region rows of |z|
 // (or Re z), plane-minor frame-major (frame t's Y, I, Q at rows 3t,
 // 3t + 1, 3t + 2), from padded row rows0; with all three planes
 // processed there is no original-chroma combine (posttail's rgb branch,
 // engine/pipeline.py:507-508).  LAYOUT, as in kernel 3: 0 "tuple3" (three
 // (T, H, W) f32 planes), 1 "planar" ((T, 3, H, W) f32), 2 "planar_u8"
-// ((T, 3, H, W) uint8).
+// ((T, 3, H, W) uint8), 3 "interleaved" ((T, H, W, 3) f32: kernel 11's
+// three planes meet in its sums buffer, so the thread that finishes four
+// pixels stores their 12 values as three 16-byte words).
 //
 // Design.  The blur is separable, as the reference's: each region row is
 // blurred horizontally once, and the 2 r previous horizontally blurred
@@ -242,7 +245,8 @@ static cudaError_t tile_layout(const TileIO& io, const PbmmTailParams& prm,
   switch (layout) {
     case 0: return launch_tile<CHROMA, 0>(io, prm, t, smem, s);
     case 1: return launch_tile<CHROMA, 1>(io, prm, t, smem, s);
-    default: return launch_tile<CHROMA, 2>(io, prm, t, smem, s);
+    case 2: return launch_tile<CHROMA, 2>(io, prm, t, smem, s);
+    default: return launch_tile<CHROMA, 3>(io, prm, t, smem, s);
   }
 }
 
@@ -252,14 +256,15 @@ static cudaError_t tile_regs(int layout, int* regs) {
   cudaError_t err = cudaFuncGetAttributes(
       &a, layout == 0   ? (const void*)post_tile_kernel<CHROMA, 0>
           : layout == 1 ? (const void*)post_tile_kernel<CHROMA, 1>
-                        : (const void*)post_tile_kernel<CHROMA, 2>);
+          : layout == 2 ? (const void*)post_tile_kernel<CHROMA, 2>
+                        : (const void*)post_tile_kernel<CHROMA, 3>);
   *regs = a.numRegs;
   return err;
 }
 
 static int pr_run(int chroma, const float* chans, const float* i_pl,
-                  const float* q_pl, const unsigned char* rgb_u8,
-                  const float* iq_u8, const float* win, void* out0,
+                  const float* q_pl, const void* src, int planar,
+                  const float* iq, float pre, const float* win, void* out0,
                   void* out1, void* out2, const float* taps, int radius,
                   const float* yiq_to_rgb, int layout, int t, int hr, int w,
                   int in_h, int in_w, int yrow0, int x0, int sw, int rows,
@@ -269,11 +274,12 @@ static int pr_run(int chroma, const float* chans, const float* i_pl,
   if (t < 1 || t > 65535 || in_h < 1 || in_w < 4 || in_w % 4 != 0 ||
       radius < 0 || radius > PBMM_MAX_BLUR_R || w % 4 != 0 || x0 % 4 != 0 ||
       yrow0 - radius < 0 || yrow0 + in_h + radius > hr || x0 < r4 ||
-      x0 + in_w + r4 > w || layout < 0 || layout > 2 || sw < 4 ||
+      x0 + in_w + r4 > w || layout < 0 || layout > 3 || sw < 4 ||
       sw % 4 != 0 || sw > 256 || rows < 1 || run < 1 || smem < 0 ||
       (in_h + run - 1) / run > 65535 || out0 == nullptr ||
       (chroma == PBMM_CH_IQ && (i_pl == nullptr || q_pl == nullptr)) ||
-      (chroma == PBMM_CH_U8 && (rgb_u8 == nullptr || iq_u8 == nullptr)) ||
+      ((chroma == PBMM_CH_U8 || chroma == PBMM_CH_F32) &&
+       (src == nullptr || iq == nullptr)) ||
       (layout == 0 && (out1 == nullptr || out2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   // 16-byte copies, loads and stores (4-byte for the uint8 frames and
@@ -281,18 +287,20 @@ static int pr_run(int chroma, const float* chans, const float* i_pl,
   const void* vec16[] = {chans, win, layout == 2 ? nullptr : out0,
                          chroma == PBMM_CH_IQ ? i_pl : nullptr,
                          chroma == PBMM_CH_IQ ? q_pl : nullptr,
+                         chroma == PBMM_CH_F32 ? src : nullptr,
                          layout == 0 ? out1 : nullptr,
                          layout == 0 ? out2 : nullptr};
   for (const void* p : vec16)
     if ((size_t)p % 16 != 0) return (int)cudaErrorMisalignedAddress;
   if ((layout == 2 && (size_t)out0 % 4 != 0) ||
-      (chroma == PBMM_CH_U8 && (size_t)rgb_u8 % 4 != 0))
+      (chroma == PBMM_CH_U8 && (size_t)src % 4 != 0))
     return (int)cudaErrorMisalignedAddress;
   PbmmTailParams prm;
   for (int i = 0; i <= 2 * radius; ++i) prm.taps[i] = taps[i];
   for (int i = 0; i < 9; ++i) prm.m[i] = yiq_to_rgb[i];
-  for (int i = 0; i < 6; ++i)
-    prm.iq[i] = chroma == PBMM_CH_U8 ? iq_u8[i] : 0.0f;
+  const bool from_src = chroma == PBMM_CH_U8 || chroma == PBMM_CH_F32;
+  for (int i = 0; i < 6; ++i) prm.iq[i] = from_src ? iq[i] : 0.0f;
+  prm.pre = from_src ? pre : 0.0f;
   prm.gains[0] = g_y;
   prm.gains[1] = g_i;
   prm.gains[2] = g_q;
@@ -301,7 +309,9 @@ static int pr_run(int chroma, const float* chans, const float* i_pl,
   const int planes = chroma == PBMM_CH_RGB ? 3 : 1;
   if ((size_t)smem != tile_smem(planes, radius, sw, rows))
     return (int)cudaErrorInvalidValue;
-  const TileIO io = {{i_pl, q_pl, rgb_u8, win, out0, out1, out2, in_h, in_w},
+  const TileIO io = {{i_pl, q_pl, src, planar ? 1 : 3,
+                      planar ? in_h * in_w : 1, win, out0, out1, out2, in_h,
+                      in_w},
                      chans, hr, w, yrow0, x0, radius, sw, rows, run};
   cudaStream_t s = (cudaStream_t)stream;
   switch (chroma) {
@@ -309,12 +319,16 @@ static int pr_run(int chroma, const float* chans, const float* i_pl,
       return (int)tile_layout<PBMM_CH_RGB>(io, prm, layout, t, smem, s);
     case PBMM_CH_IQ:
       return (int)tile_layout<PBMM_CH_IQ>(io, prm, layout, t, smem, s);
-    default: return (int)tile_layout<PBMM_CH_U8>(io, prm, layout, t, smem, s);
+    case PBMM_CH_U8:
+      return (int)tile_layout<PBMM_CH_U8>(io, prm, layout, t, smem, s);
+    case PBMM_CH_F32:
+      return (int)tile_layout<PBMM_CH_F32>(io, prm, layout, t, smem, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Kernel 11.  layout: 0 tuple3 (out0..2 = R, G, B planes), 1 planar f32,
-// 2 planar uint8 (out0 only).  taps and yiq_to_rgb are host arrays.
+// 2 planar uint8, 3 interleaved f32 (out0 only).  taps and yiq_to_rgb are host arrays.
 // sw, rows, run: the tile (engine/post_fused.py::post_tile); smem: its
 // shared-memory bytes (post_tile_smem), which must equal tile_smem's.
 extern "C" int pbmm_post_rgb(const float* chans3, const float* win,
@@ -325,20 +339,21 @@ extern "C" int pbmm_post_rgb(const float* chans3, const float* win,
                              int x0, int sw, int rows, int run, int smem,
                              int comp, int gain, float g_y, float g_i,
                              float g_q, void* stream) {
-  return pr_run(PBMM_CH_RGB, chans3, nullptr, nullptr, nullptr, nullptr, win,
-                out0, out1, out2, taps, radius, yiq_to_rgb, layout, t, hr, w,
-                in_h, in_w, yrow0, x0, sw, rows, run, smem, comp, gain, g_y,
-                g_i, g_q, stream);
+  return pr_run(PBMM_CH_RGB, chans3, nullptr, nullptr, nullptr, 1, nullptr,
+                0.0f, win, out0, out1, out2, taps, radius, yiq_to_rgb, layout,
+                t, hr, w, in_h, in_w, yrow0, x0, sw, rows, run, smem, comp,
+                gain, g_y, g_i, g_q, stream);
 }
 
-// Kernel 10: chans (T, Hr, W) Y rows; the chroma either i_pl/q_pl (T, H,
-// W) f32 planes or, with rgb_u8 non-null, the (T, 3, H, W) uint8 frames
-// and iq_u8 (host, the I and Q rows of RGB -> YIQ times 1/255); the rest
-// as pbmm_post_rgb.
+// Kernel 10: chans (T, Hr, W) Y rows; the chroma (post_tail.cuh's
+// PBMM_CH_IQ, _U8 or _F32) either i_pl/q_pl (T, H, W) f32 planes or src,
+// the source frames ((T, 3, H, W) where planar, else (T, H, W, 3)), with
+// iq (host, the I and Q rows of RGB -> YIQ) and pre (a factor on each
+// value first, or 0); the rest as pbmm_post_rgb.
 extern "C" int pbmm_post_yonly(const float* chans, const float* i_pl,
-                               const float* q_pl,
-                               const unsigned char* rgb_u8,
-                               const float* iq_u8, const float* win,
+                               const float* q_pl, const void* src,
+                               int chroma, int planar, const float* iq,
+                               float pre, const float* win,
                                void* out0, void* out1, void* out2,
                                const float* taps, int radius,
                                const float* yiq_to_rgb, int layout, int t,
@@ -346,11 +361,11 @@ extern "C" int pbmm_post_yonly(const float* chans, const float* i_pl,
                                int x0, int sw, int rows, int run, int smem,
                                int comp, int gain, float g_y, float g_i,
                                float g_q, void* stream) {
-  const int chroma = rgb_u8 != nullptr ? PBMM_CH_U8 : PBMM_CH_IQ;
-  return pr_run(chroma, chans, i_pl, q_pl, rgb_u8, iq_u8, win, out0, out1,
-                out2, taps, radius, yiq_to_rgb, layout, t, hr, w, in_h, in_w,
-                yrow0, x0, sw, rows, run, smem, comp, gain, g_y, g_i, g_q,
-                stream);
+  if (chroma == PBMM_CH_RGB) return (int)cudaErrorInvalidValue;
+  return pr_run(chroma, chans, i_pl, q_pl, src, planar, iq, pre, win, out0,
+                out1, out2, taps, radius, yiq_to_rgb, layout, t, hr, w, in_h,
+                in_w, yrow0, x0, sw, rows, run, smem, comp, gain, g_y, g_i,
+                g_q, stream);
 }
 
 // Registers a thread of the instantiation for a chroma source (PBMM_CH_*)
@@ -362,7 +377,8 @@ extern "C" int pbmm_post_tile_regs(int chroma, int layout) {
   switch (chroma) {
     case PBMM_CH_RGB: err = tile_regs<PBMM_CH_RGB>(layout, &regs); break;
     case PBMM_CH_IQ: err = tile_regs<PBMM_CH_IQ>(layout, &regs); break;
-    default: err = tile_regs<PBMM_CH_U8>(layout, &regs); break;
+    case PBMM_CH_U8: err = tile_regs<PBMM_CH_U8>(layout, &regs); break;
+    default: err = tile_regs<PBMM_CH_F32>(layout, &regs); break;
   }
   return err != cudaSuccess ? -(int)err : regs;
 }

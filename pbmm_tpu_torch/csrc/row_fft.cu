@@ -19,8 +19,21 @@
 // kernel 1's order: kernel 4 then equals the torch pre stage + kernel 1
 // bit for bit, the contract the JAX kernel states (fused.py:249-253).
 //
+// The front end (spectral/fused.py::windowed_row_fft_frames) is kernel 4's
+// kernel on every input form the batched chunk engine takes: uint8 or f32
+// frames (the element type is a template parameter; f32 values are used
+// as they are, as unit_float leaves them), planar or interleaved (runtime
+// pixel and channel strides), and one plane (Y) or three (Y, I, Q for
+// chroma="rgb", plane-minor frame-major).  It replaces the pre stage the
+// JAX package leaves to XLA (pbmm_tpu/engine/pipeline.py:171
+// preprocess_cl: the RGB -> YIQ rows, the centre pad and the window before
+// kernel 1), so no YIQ plane or padded slab is written: it equals the torch
+// pre stage + kernel 1 bit for bit, as kernel 4 does.
+
 // What bounds them on an H100: kernel 1 reads the row once (4W bytes),
-// kernel 4 three u8 rows (3w bytes); both write 2 x Wk x 4 bytes, about
+// kernel 4 three u8 rows (3w bytes), the front end three rows of its
+// element type (three times over for three planes, from L2 after the
+// first); all write 2 x Wk x 4 bytes, about
 // 9 KB per 2048-lane row.  The 11 stages cost 5 W log2(W) flops, ~1.1e5
 // per row, so the kernels are bound by device memory only if the
 // butterflies keep up.  The JAX kernel's 128x128 "intra-group" matmul is
@@ -30,9 +43,10 @@
 // Design (both kernels): the row engine of row_pass.cuh.  W / 16 threads
 // hold a row, 16 points each.  Each thread first forms the windowed row
 // of 16 consecutive lanes and stages it in shared memory: kernel 1 from
-// four 16-byte loads of its f32 row, kernel 4 from 16-byte loads of the
-// three u8 planes (byte loads where the frame's width or placement is not
-// a multiple of 16); the first DIF pass reads it from there.  The passes
+// four 16-byte loads of its f32 row, kernel 4 and the front end from
+// 16-byte loads of the three channels (element loads where the frame's
+// width or placement breaks the 16-byte alignment); the first DIF pass
+// reads it from there.  The passes
 // exchange through shared memory (three barriers at W = 2048, against 11
 // for the stage-by-stage design kernel 1 had before); the last 7 stages
 // run as passes of 4 and 3 inside 128-lane tiles, skipped for the tiles
@@ -53,8 +67,8 @@
 // measured faster than the bracket below on kernel 8's row pass, PERF.md):
 // there every tile's last passes run and the store skips the tiles not
 // kept.  Longer rows run col_pass.cuh's bracket: rf_bracket_kernel forms the
-// windowed row (kernel 1's product or kernel 4's luma, byte loads, the
-// same rounded ops) in its first pass, runs the outer DIF stages and
+// windowed row (kernel 1's product or the frames' plane, element loads,
+// the same rounded ops) in its first pass, runs the outer DIF stages and
 // writes the complex row to a scratch the wrapper allocates;
 // rf_inner_kernel then runs the row engine on each 8192-lane block of the
 // scratch and stores the block's kept tiles by their global tile numbers.
@@ -65,11 +79,6 @@
 #include "col_pass.cuh"
 #include "common.cuh"
 #include "row_pass.cuh"
-
-struct LumaRow {
-  float c[3];  // the Y row of RGB -> YIQ
-  float s;     // f32(1/255)
-};
 
 // The keep bits of the 64 tiles from pos[0] (ntiles of them in the row):
 // tile i is kept where pos[i] >= 0.  Every thread of a warp calls it.
@@ -143,24 +152,100 @@ __device__ __forceinline__ void rf_staged_load(const G& gr,
   }
 }
 
-// Kernel 4's windowed luma at lane x of a padded row from the three u8
-// planes (r8: the content source row, or any row where !content), byte by
-// byte: the 16-byte path's values, the same rounded ops.
-__device__ __forceinline__ float rf_u8_luma(const unsigned char* r8,
-                                            size_t plane, int x, int w_in,
-                                            bool content,
-                                            const LumaRow& luma) {
-  const int xc = min(max(x, 0), w_in - 1);
-  const float rr = __fmul_rn((float)__ldg(r8 + xc), luma.s);
-  const float gg = __fmul_rn((float)__ldg(r8 + plane + xc), luma.s);
-  const float bb = __fmul_rn((float)__ldg(r8 + 2 * plane + xc), luma.s);
-  return content && x >= 0 && x < w_in
-             ? __fadd_rn(__fadd_rn(__fmul_rn(rr, luma.c[0]),
-                                   __fmul_rn(gg, luma.c[1])),
-                         __fmul_rn(bb, luma.c[2]))
-             : 0.0f;
+// The source frames of kernel 4 and the front end: (T, 3, H, W) planar or
+// (T, H, W, 3) interleaved, uint8 or f32 (the element type is the
+// kernels' template parameter), and the RGB -> YIQ rows of the planes they
+// form: one (Y) or three (Y, I, Q, stored plane-minor frame-major: the
+// stack chroma="rgb" feeds kernel 2).  Source row r of frame f starts at
+// element f 3 h_in w_in + r w_in px; channel c of its pixel x lies at
+// x px + c ch (planar: px 1, ch h_in w_in; interleaved: px 3, ch 1).
+struct RfFrames {
+  const void* src;
+  float co[3][3];  // the rows of the planes formed
+  float s;         // f32(1/255): uint8 values are scaled first (unit_float)
+  int planes;      // 1 or 3
+  int hc, h_in, w_in, off, x0;  // content rows; the frame and its place
+  int px, ch;      // element strides of a pixel and of a channel
+};
+
+// Row d of the planes' colour rows, by selects (no dynamic index into the
+// kernel's parameters).
+__device__ __forceinline__ void rf_rows(const RfFrames& fr, int d,
+                                        float (&c)[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    c[k] = d == 0 ? fr.co[0][k] : d == 1 ? fr.co[1][k] : fr.co[2][k];
 }
 
+// The pre stage's value of a source element (unit_float): uint8 v as
+// f32(v) * s (the cast is exact), f32 as it is.
+template <typename T>
+__device__ __forceinline__ float rf_unit(float raw, float s) {
+  return sizeof(T) == 1 ? __fmul_rn(raw, s) : raw;
+}
+
+// c[0] r + c[1] g + c[2] b in channel_mix's order, each product and sum
+// rounded on its own.
+__device__ __forceinline__ float rf_mix(float r, float g, float b,
+                                        const float (&c)[3]) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(r, c[0]), __fmul_rn(g, c[1])),
+                   __fmul_rn(b, c[2]));
+}
+
+// Element k of a 16-byte word of T values, as the exact float of its value
+// (uint8 by the exponent trick, exact as the cast is).
+template <typename T>
+__device__ __forceinline__ float rf_elem(const uint4& w, int k) {
+  constexpr int E = 4 / sizeof(T);  // elements a 32-bit word
+  const int m = k / E;
+  const unsigned u = m == 0 ? w.x : m == 1 ? w.y : m == 2 ? w.z : w.w;
+  if (sizeof(T) == 4) return __uint_as_float(u);
+  const unsigned b = (u >> (8 * (k % E))) & 0xffu;
+  return __fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.0f);
+}
+
+// Where a row of the output lies in the frames: frame f, plane d, content
+// row `row`, and whether its source row (row - off) lies in the frame.
+struct RfRowAt {
+  int f, d, row;
+  bool content;
+};
+
+// Output row n_row = (f planes + d) hc + row.
+__device__ __forceinline__ RfRowAt rf_row_at(const RfFrames& fr,
+                                             long long n_row) {
+  RfRowAt a;
+  const long long q = n_row / fr.hc;  // f planes + d
+  a.row = (int)(n_row - q * fr.hc);
+  a.f = (int)(q / fr.planes);
+  a.d = (int)(q - (long long)a.f * fr.planes);
+  const int sr = a.row - fr.off;
+  a.content = sr >= 0 && sr < fr.h_in;
+  return a;
+}
+
+// The first element of the source row of `a` (row 0 of the frame where
+// the row lies outside it).
+template <typename T>
+__device__ __forceinline__ const T* rf_src_row(const RfFrames& fr,
+                                               const RfRowAt& a) {
+  return static_cast<const T*>(fr.src) +
+         (size_t)a.f * 3 * fr.h_in * fr.w_in +
+         (size_t)(a.content ? a.row - fr.off : 0) * fr.w_in * fr.px;
+}
+
+// The plane value (before the window) at column xs of source row rp, zero
+// outside the frame (the centre pad), element by element.
+template <typename T>
+__device__ __forceinline__ float rf_frame_value(const RfFrames& fr,
+                                                const T* rp, long long xs,
+                                                const float (&c)[3]) {
+  if (xs < 0 || xs >= fr.w_in) return 0.0f;
+  const T* p = rp + (size_t)xs * fr.px;
+  return rf_mix(rf_unit<T>((float)__ldg(p), fr.s),
+                rf_unit<T>((float)__ldg(p + fr.ch), fr.s),
+                rf_unit<T>((float)__ldg(p + 2 * fr.ch), fr.s), c);
+}
 // Kernel 1: rows of (batch x hc) padded f32 content rows of N lanes.
 template <int N>
 __global__ void __launch_bounds__(PBMM_RP_BOUND(N))
@@ -212,84 +297,103 @@ __global__ void __launch_bounds__(PBMM_RP_BOUND(N))
                   float (&xi)[PBMM_RP_P]) { rf_staged_load(gr, xr, xi, sre); });
 }
 
-template <int N>
+// Kernel 4 and the front end: rows of (t x planes x hc) content rows of N
+// lanes formed from the frames.  A block's row vid is plane d = vid mod
+// planes of content row q = vid / planes (frame q / hc), so the planes of
+// one source row are neighbours and meet in L2; it is stored as row
+// (f planes + d) hc + row of the output.
+template <int N, typename T>
 __global__ void __launch_bounds__(PBMM_RP_BOUND(N))
-    row_fft_u8_kernel(const unsigned char* __restrict__ frames,
-                      const float* __restrict__ wy,
-                      const float* __restrict__ wx,
-                      const float* __restrict__ tw_re,
-                      const float* __restrict__ tw_im,
-                      float* __restrict__ out_re, float* __restrict__ out_im,
-                      const int* __restrict__ pos, int n_kept,
-                      long long rows, int hc, int h_in, int w_in, int off,
-                      int x0, LumaRow luma, int vec) {
+    row_fft_frames_kernel(RfFrames fr, const float* __restrict__ wy,
+                          const float* __restrict__ wx,
+                          const float* __restrict__ tw_re,
+                          const float* __restrict__ tw_im,
+                          float* __restrict__ out_re,
+                          float* __restrict__ out_im,
+                          const int* __restrict__ pos, int n_kept,
+                          long long rows, int vec) {
   extern __shared__ float smem[];
   constexpr int NT = N / PBMM_RP_P;
   const int r = threadIdx.x / NT, t = threadIdx.x % NT;
-  const long long rowid =
+  const long long vid =
       (long long)blockIdx.x * pbmm_rp_rows_per_block(N) + r;
-  const bool valid = rowid < rows;
+  const bool valid = vid < rows;
   float* sre = smem + (size_t)r * pbmm_rp_row_floats(N);
   float* sim = sre + pbmm_rp_pad(N);
-  const int f = valid ? (int)(rowid / hc) : 0;
-  const int row = valid ? (int)(rowid - (long long)f * hc) : 0;
-  const int src_row = row - off;
-  const bool content = valid && src_row >= 0 && src_row < h_in;
-  const size_t plane = (size_t)h_in * w_in;
-  const unsigned char* r8 =
-      frames + (size_t)f * 3 * plane + (size_t)(content ? src_row : 0) * w_in;
-  const float wr = wy[row];
-  const float s = luma.s, c0 = luma.c[0], c1 = luma.c[1], c2 = luma.c[2];
+  const long long vr = valid ? vid : 0;
+  const long long q = vr / fr.planes;
+  const int d = (int)(vr - q * fr.planes);
+  const int f = (int)(q / fr.hc);
+  const long long rowid =
+      ((long long)f * fr.planes + d) * fr.hc + (q - (long long)f * fr.hc);
+  RfRowAt at = rf_row_at(fr, rowid);
+  at.content = at.content && valid;
+  const T* rp = rf_src_row<T>(fr, at);
+  float c[3];
+  rf_rows(fr, d, c);
+  const float wr = wy[at.row];
   const unsigned long long keep = rf_keep_mask(pos, N / PBMM_LANE);
 
-  // The row's windowed luma, staged in the re plane: thread t forms lanes
-  // [16 t, 16 t + 16) from 16-byte loads of the three planes where the
-  // run lies inside the frame row and vec allows it (the row, the plane
-  // and x0 16-byte aligned), else byte by byte.  The byte -> float
-  // conversion by the exponent trick is exact, as the cast is.
+  // The row's windowed plane, staged in the re plane: thread t forms lanes
+  // [16 t, 16 t + 16) from 16-byte loads, a word a channel for each group
+  // of G pixels (planar: one word of each channel's row; interleaved: the
+  // three consecutive words of the G pixels), where the run lies inside
+  // the frame row and vec allows it (the frames, a row and x0 16-byte
+  // aligned); element by element where it straddles the frame's edge;
+  // zero where it lies outside.
   {
     constexpr int C = PBMM_RP_P;
-    static_assert(C % 16 == 0, "a thread stages whole 16-byte runs");
-    const int i0 = t * C, xs = i0 - x0;
+    constexpr int G = 16 / sizeof(T);  // pixels a group
+    static_assert(C % G == 0, "a thread stages whole groups");
+    const int i0 = t * C, xs = i0 - fr.x0;
     float v[C];
-    if (content && vec && xs >= 0 && xs + C <= w_in) {
-      uint4 wd[3][C / 16];
+    if (!at.content || xs + C <= 0 || xs >= fr.w_in) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
+      for (int e = 0; e < C; ++e) v[e] = 0.0f;
+    } else if (vec && xs >= 0 && xs + C <= fr.w_in) {
 #pragma unroll
-        for (int u = 0; u < C / 16; ++u)
-          wd[c][u] = __ldg(
-              reinterpret_cast<const uint4*>(r8 + c * plane + xs) + u);
+      for (int g = 0; g < C / G; ++g) {
+        const int x = xs + g * G;
+        uint4 w[3];
+        if (fr.px == 1) {
 #pragma unroll
-      for (int e = 0; e < C; ++e) {
-        float ch[3];
+          for (int k = 0; k < 3; ++k)
+            w[k] = __ldg(reinterpret_cast<const uint4*>(
+                rp + (size_t)k * fr.ch + x));
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const uint4 q4 = wd[c][e / 16];
-          const int m = e % 16;
-          const unsigned w32 = m < 4 ? q4.x : m < 8 ? q4.y
-                               : m < 12 ? q4.z : q4.w;
-          const unsigned b = (w32 >> (8 * (m % 4))) & 0xffu;
-          ch[c] = __fmul_rn(
-              __fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.0f), s);
+          for (int e = 0; e < G; ++e)
+            v[g * G + e] = rf_mix(rf_unit<T>(rf_elem<T>(w[0], e), fr.s),
+                                  rf_unit<T>(rf_elem<T>(w[1], e), fr.s),
+                                  rf_unit<T>(rf_elem<T>(w[2], e), fr.s), c);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            w[k] = __ldg(reinterpret_cast<const uint4*>(rp + 3 * (size_t)x) +
+                         k);
+#pragma unroll
+          for (int e = 0; e < G; ++e) {
+            float ch[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              ch[k] = rf_unit<T>(
+                  rf_elem<T>(w[(3 * e + k) / G], (3 * e + k) % G), fr.s);
+            v[g * G + e] = rf_mix(ch[0], ch[1], ch[2], c);
+          }
         }
-        v[e] = __fadd_rn(__fadd_rn(__fmul_rn(ch[0], c0), __fmul_rn(ch[1], c1)),
-                         __fmul_rn(ch[2], c2));
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < C; ++e)
-        v[e] = rf_u8_luma(r8, plane, xs + e, w_in, content, luma);
+      for (int e = 0; e < C; ++e) v[e] = rf_frame_value<T>(fr, rp, xs + e, c);
     }
     const float4* w4 = reinterpret_cast<const float4*>(wx + i0);
 #pragma unroll
-    for (int c = 0; c < C / 4; ++c) {
-      const float4 u = __ldg(w4 + c);
+    for (int k = 0; k < C / 4; ++k) {
+      const float4 u = __ldg(w4 + k);
       const float wv[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        sre[pbmm_rp_pad(i0 + 4 * c + e)] =
-            __fmul_rn(__fmul_rn(v[4 * c + e], wr), wv[e]);
+        sre[pbmm_rp_pad(i0 + 4 * k + e)] =
+            __fmul_rn(__fmul_rn(v[4 * k + e], wr), wv[e]);
     }
   }
   __syncthreads();
@@ -300,29 +404,30 @@ __global__ void __launch_bounds__(PBMM_RP_BOUND(N))
 }
 
 // The front end of a bracketed row (longer than PBMM_BK_N): the windowed
-// value at lane x of output row rowid, kernel 1's (f32 rows) or kernel 4's
-// (u8 planes).
+// value at lane x of output row rowid, kernel 1's (f32 rows) or the
+// frames' (kernel 4 and the front end; u8: uint8 frames, else f32).
 struct RfFront {
-  const float* y;            // kernel 1: (rows, n) f32; null for kernel 4
-  const unsigned char* u8;   // kernel 4: (t, 3, h_in, w_in)
-  const float* wy;           // the content rows' window
+  const float* y;  // kernel 1: (rows, n) f32; null for the frames
+  RfFrames fr;
+  int u8;
+  const float* wy;  // the content rows' window
   const float* wx;
-  int hc, h_in, w_in, off, x0;
-  LumaRow luma;
+  int hc;
   __device__ __forceinline__ float operator()(long long rowid, long long n,
                                               long long x) const {
     if (y != nullptr)
       return __fmul_rn(__fmul_rn(__ldcs(y + rowid * n + x),
                                  __ldg(wy + rowid % hc)),
                        __ldg(wx + x));
-    const int f = (int)(rowid / hc), row = (int)(rowid - (long long)f * hc);
-    const int src_row = row - off;
-    const bool content = src_row >= 0 && src_row < h_in;
-    const size_t plane = (size_t)h_in * w_in;
-    const unsigned char* r8 = u8 + (size_t)f * 3 * plane +
-                              (size_t)(content ? src_row : 0) * w_in;
-    const float v = rf_u8_luma(r8, plane, (int)(x - x0), w_in, content, luma);
-    return __fmul_rn(__fmul_rn(v, __ldg(wy + row)), __ldg(wx + x));
+    const RfRowAt a = rf_row_at(fr, rowid);
+    float c[3];
+    rf_rows(fr, a.d, c);
+    const long long xs = x - fr.x0;
+    const float v =
+        !a.content ? 0.0f
+        : u8 ? rf_frame_value(fr, rf_src_row<unsigned char>(fr, a), xs, c)
+             : rf_frame_value(fr, rf_src_row<float>(fr, a), xs, c);
+    return __fmul_rn(__fmul_rn(v, __ldg(wy + a.row)), __ldg(wx + x));
   }
 };
 
@@ -480,7 +585,7 @@ extern "C" int pbmm_row_fft(const float* y, const float* wy, const float* wx,
   const long long rows = (long long)batch * hc;
   cudaStream_t s = (cudaStream_t)stream;
   if (w > PBMM_RP_BLOCKN) {
-    const RfFront front = {y, nullptr, wy, wx, hc, 0, 0, 0, 0, {}};
+    const RfFront front = {y, RfFrames{}, 0, wy, wx, hc};
     return rf_bracketed(front, tw_re, tw_im, sc_re, sc_im, out_re, out_im,
                         pos, n_kept, rows, w, s);
   }
@@ -500,28 +605,16 @@ extern "C" int pbmm_row_fft(const float* y, const float* wy, const float* wx,
   return (int)cudaGetLastError();
 }
 
-// tw_re / tw_im: compact_twiddles(w, inverse=False), w - 1 words each;
-// sc_re / sc_im: a (t hc, w) scratch above 16384 lanes (else null).
-extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
-                               const float* wx, const float* tw_re,
-                               const float* tw_im, float* out_re,
-                               float* out_im, const int* kept_tiles,
-                               const int* pos, int n_kept, int t, int hc,
-                               int h_in, int w_in, int w, int off, int x0,
-                               const float* coeffs, float scale,
-                               float* sc_re, float* sc_im, void* stream) {
-  if (t < 1 || hc < 1 || h_in < 1 || w_in < 1 || x0 < 0 || x0 + w_in > w)
-    return (int)cudaErrorInvalidValue;
-  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, pos);
-  if (bad) return bad;
-  LumaRow luma;
-  for (int i = 0; i < 3; ++i) luma.c[i] = coeffs[i];
-  luma.s = scale;
-  const long long rows = (long long)t * hc;
-  cudaStream_t s = (cudaStream_t)stream;
+// The frames' launches: the block engine (rows to 16384 lanes), else the
+// bracket.
+template <typename T>
+static int rf_frames_run(const RfFrames& fr, const float* wy, const float* wx,
+                         const float* tw_re, const float* tw_im,
+                         float* out_re, float* out_im, const int* pos,
+                         int n_kept, long long rows, int w, float* sc_re,
+                         float* sc_im, cudaStream_t s) {
   if (w > PBMM_RP_BLOCKN) {
-    const RfFront front = {nullptr, frames, wy, wx, hc, h_in, w_in, off,
-                           x0, luma};
+    const RfFront front = {nullptr, fr, sizeof(T) == 1, wy, wx, fr.hc};
     return rf_bracketed(front, tw_re, tw_im, sc_re, sc_im, out_re, out_im,
                         pos, n_kept, rows, w, s);
   }
@@ -529,19 +622,60 @@ extern "C" int pbmm_row_fft_u8(const unsigned char* frames, const float* wy,
   size_t smem;
   if (!rf_grid(rows, w, &blocks, &smem)) return (int)cudaErrorInvalidValue;
   const int rpb = pbmm_rp_rows_per_block(w);
-  // 16-byte loads of the u8 rows where frames, w_in and x0 are multiples
-  // of 16; byte loads otherwise.
-  const int vec =
-      (size_t)frames % 16 == 0 && w_in % 16 == 0 && x0 % 16 == 0;
-#define RF_LAUNCH(N)                                                        \
-  {                                                                         \
-    cudaError_t err = pbmm_smem_opt_in(row_fft_u8_kernel<N>, smem);         \
-    if (err != cudaSuccess) return (int)err;                                \
-    row_fft_u8_kernel<N><<<blocks, rpb * (N / PBMM_RP_P), smem, s>>>(       \
-        frames, wy, wx, tw_re, tw_im, out_re, out_im, pos, n_kept, rows,    \
-        hc, h_in, w_in, off, x0, luma, vec);                                \
+  // 16-byte loads where the frames, w_in and x0 keep every 16-byte group of
+  // a row aligned; element loads otherwise.
+  constexpr int G = 16 / sizeof(T);
+  const int vec = (size_t)fr.src % 16 == 0 && fr.w_in % G == 0 &&
+                  fr.x0 % G == 0;
+#define RFF_LAUNCH(N)                                                        \
+  {                                                                          \
+    cudaError_t err = pbmm_smem_opt_in(row_fft_frames_kernel<N, T>, smem);   \
+    if (err != cudaSuccess) return (int)err;                                 \
+    row_fft_frames_kernel<N, T><<<blocks, rpb * (N / PBMM_RP_P), smem, s>>>( \
+        fr, wy, wx, tw_re, tw_im, out_re, out_im, pos, n_kept, rows, vec);   \
   }
-  PBMM_RP_SWITCH_BLOCK(w, RF_LAUNCH)
-#undef RF_LAUNCH
+  PBMM_RP_SWITCH_BLOCK(w, RFF_LAUNCH)
+#undef RFF_LAUNCH
   return (int)cudaGetLastError();
+}
+
+// Kernel 4 and the front end.  frames: (t, 3, h_in, w_in) (planar) or (t,
+// h_in, w_in, 3), uint8 (u8) or f32; coeffs: host, planes rows of 3 (the
+// RGB -> YIQ rows of the planes formed: 1, Y, or 3, Y, I, Q); scale:
+// f32(1/255), by which uint8 values are multiplied first.  Output rows
+// (t planes hc, n_kept 128), plane-minor frame-major.  tw_re / tw_im:
+// compact_twiddles(w, inverse=False), w - 1 words each; sc_re / sc_im: a
+// (t planes hc, w) scratch above 16384 lanes (else null).
+extern "C" int pbmm_row_fft_frames(
+    const void* frames, const float* coeffs, const float* wy,
+    const float* wx, const float* tw_re, const float* tw_im, float* out_re,
+    float* out_im, const int* kept_tiles, const int* pos, int u8, int planar,
+    int planes, int n_kept, int t, int hc, int h_in, int w_in, int w,
+    int off, int x0, float scale, float* sc_re, float* sc_im, void* stream) {
+  if (t < 1 || hc < 1 || h_in < 1 || w_in < 1 || x0 < 0 || x0 + w_in > w ||
+      (planes != 1 && planes != 3) || frames == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int bad = rf_setup(kept_tiles, n_kept, w, wx, out_re, out_im, pos);
+  if (bad) return bad;
+  RfFrames fr;
+  fr.src = frames;
+  for (int d = 0; d < 3; ++d)
+    for (int k = 0; k < 3; ++k) fr.co[d][k] = d < planes ? coeffs[3 * d + k]
+                                                         : 0.0f;
+  fr.s = scale;
+  fr.planes = planes;
+  fr.hc = hc;
+  fr.h_in = h_in;
+  fr.w_in = w_in;
+  fr.off = off;
+  fr.x0 = x0;
+  fr.px = planar ? 1 : 3;
+  fr.ch = planar ? h_in * w_in : 1;
+  const long long rows = (long long)t * planes * hc;
+  cudaStream_t s = (cudaStream_t)stream;
+  return u8 ? rf_frames_run<unsigned char>(fr, wy, wx, tw_re, tw_im, out_re,
+                                           out_im, pos, n_kept, rows, w,
+                                           sc_re, sc_im, s)
+            : rf_frames_run<float>(fr, wy, wx, tw_re, tw_im, out_re, out_im,
+                                   pos, n_kept, rows, w, sc_re, sc_im, s);
 }

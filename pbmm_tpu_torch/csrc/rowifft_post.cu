@@ -5,16 +5,27 @@
 // Pallas kernel launched at :382, with the row transform of
 // spectral/fused.py:1532 make_row_ifft_block and the rebuild of :1182
 // _rebuild_kept_lanes).  Both chroma sources and all three output
-// layouts of the JAX kernel are template parameters:
-//   U8 = false: the original I/Q come as (T, H, W) f32 planes;
-//   U8 = true:  they are formed here from the (T, 3, H, W) uint8 source
-//               frames, (r c0 + g c1 + b c2) * window with the 1/255
-//               folded into c (post_pallas.py:319-331);
+// layouts of the JAX kernel are template parameters, with a chroma source
+// and a layout the JAX package leaves to XLA:
+//   CH PBMM_CH_IQ:  the original I/Q come as (T, H, W) f32 planes;
+//   CH PBMM_CH_U8:  they are formed here from the uint8 source frames:
+//                   (T, 3, H, W), (r c0 + g c1 + b c2) * window with the
+//                   1/255 folded into c (post_pallas.py:319-331), or
+//                   (T, H, W, 3), each value times 1/255 first, as the
+//                   torch pre stage forms the planes;
+//   CH PBMM_CH_F32: the same from f32 source frames, planar or
+//                   interleaved, as the I/Q planes of the torch pre stage
+//                   (pbmm_tpu/engine/pipeline.py:171 preprocess_cl), bit
+//                   for bit the f32 I/Q route on those planes;
 //   LAYOUT 0 "tuple3":    three (T, H, W) f32 planes;
 //   LAYOUT 1 "planar":    one (T, 3, H, W) f32 array;
 //   LAYOUT 2 "planar_u8": one (T, 3, H, W) uint8 array, rint(255 x)
 //                         (round half to even, as jnp.round and
-//                         torch.round; the value is clipped to [0, 1]).
+//                         torch.round; the value is clipped to [0, 1]);
+//   LAYOUT 3 "interleaved": one (T, H, W, 3) f32 array, a thread's four
+//                         pixels three 16-byte stores: the jnp.stack of
+//                         "tuple3" the JAX engine runs after the kernel
+//                         (pbmm_tpu/engine/video.py:168-169).
 // The reference's quirk switches are runtime flags: Re z in place of |z|
 // (reconstruct="real"), the window compensation (multiply by
 // 1 / max(win, 1e-3)) and the YIQ gains, in the JAX kernel's order
@@ -98,7 +109,7 @@ __device__ __forceinline__ int pp_zpad(int c) { return c + (c >> 5); }
 
 #define PP_MAX_THREADS 512  // a block: one row of 8192 lanes
 
-template <int N, bool U8, int LAYOUT>
+template <int N, int CH, int LAYOUT>
 __global__ void __launch_bounds__(PP_MAX_THREADS)
     rowifft_post_kernel(PostIO io, PostParams prm) {
   extern __shared__ float smem[];
@@ -109,7 +120,6 @@ __global__ void __launch_bounds__(PP_MAX_THREADS)
   float* sre = smem + rr * RF;
   float* sim = sre + pbmm_rp_pad(N);
   float* ring = smem + rows * RF;  // 2 r hb rows of in_w
-  constexpr int CH = U8 ? PBMM_CH_U8 : PBMM_CH_IQ;
   const int r = io.radius, r2 = 2 * r, in_w = io.tail.in_w;
   const int f = blockIdx.y;
   const int j0 = blockIdx.x * io.run;  // the run's first output row
@@ -201,12 +211,12 @@ __global__ void __launch_bounds__(PP_MAX_THREADS)
   }
 }
 
-// Launch of kernel<N, U8, LAYOUT>: the run length from the blocks the SMs
+// Launch of kernel<N, CH, LAYOUT>: the run length from the blocks the SMs
 // hold at once, then the grid.
-template <int N, bool U8, int LAYOUT>
+template <int N, int CH, int LAYOUT>
 static cudaError_t launch_post(PostIO io, const PostParams& prm, int rows,
                                int t, cudaStream_t stream) {
-  const auto kernel = rowifft_post_kernel<N, U8, LAYOUT>;
+  const auto kernel = rowifft_post_kernel<N, CH, LAYOUT>;
   const int threads = rows * (N / PBMM_RP_P);
   const size_t smem = ((size_t)rows * pbmm_rp_row_floats(N) +
                        2 * (size_t)io.radius * io.tail.in_w) *
@@ -226,40 +236,56 @@ static cudaError_t launch_post(PostIO io, const PostParams& prm, int rows,
   const int runs = slots > t ? slots / t : 1;  // runs a frame
   io.run = (io.tail.in_h + runs - 1) / runs;
   const dim3 grid((io.tail.in_h + io.run - 1) / io.run, t);
-  rowifft_post_kernel<N, U8, LAYOUT><<<grid, threads, smem, stream>>>(io,
+  rowifft_post_kernel<N, CH, LAYOUT><<<grid, threads, smem, stream>>>(io,
                                                                        prm);
   return cudaGetLastError();
 }
 
+template <int N, int CH>
+static cudaError_t post_layout(const PostIO& io, const PostParams& prm,
+                               int rows, int t, int layout, cudaStream_t s) {
+  switch (layout) {
+    case PBMM_OUT_TUPLE3:
+      return launch_post<N, CH, PBMM_OUT_TUPLE3>(io, prm, rows, t, s);
+    case PBMM_OUT_PLANAR:
+      return launch_post<N, CH, PBMM_OUT_PLANAR>(io, prm, rows, t, s);
+    case PBMM_OUT_PLANAR_U8:
+      return launch_post<N, CH, PBMM_OUT_PLANAR_U8>(io, prm, rows, t, s);
+    default:
+      return launch_post<N, CH, PBMM_OUT_INTERLEAVED>(io, prm, rows, t, s);
+  }
+}
+
 template <int N>
 static cudaError_t post_variant(const PostIO& io, const PostParams& prm,
-                                int rows, int t, int layout, bool u8,
+                                int rows, int t, int layout, int chroma,
                                 cudaStream_t s) {
-  switch (layout + 3 * (int)u8) {
-    case 0: return launch_post<N, false, 0>(io, prm, rows, t, s);
-    case 1: return launch_post<N, false, 1>(io, prm, rows, t, s);
-    case 2: return launch_post<N, false, 2>(io, prm, rows, t, s);
-    case 3: return launch_post<N, true, 0>(io, prm, rows, t, s);
-    case 4: return launch_post<N, true, 1>(io, prm, rows, t, s);
-    default: return launch_post<N, true, 2>(io, prm, rows, t, s);
+  switch (chroma) {
+    case PBMM_CH_IQ: return post_layout<N, PBMM_CH_IQ>(io, prm, rows, t,
+                                                       layout, s);
+    case PBMM_CH_U8: return post_layout<N, PBMM_CH_U8>(io, prm, rows, t,
+                                                       layout, s);
+    default: return post_layout<N, PBMM_CH_F32>(io, prm, rows, t, layout, s);
   }
 }
 
 // layout: 0 tuple3 (out0..2 = R, G, B planes), 1 planar f32, 2 planar
-// uint8 (out0 only).  rgb_u8 non-null selects the u8 chroma source
-// (i_plane/q_plane are then unused).  tw_re / tw_im:
-// compact_twiddles(w, inverse=True).  rows: region rows a block
-// transforms at once (engine/post_fused.py::kernel3_rows).
+// uint8, 3 interleaved f32 (out0 only).  chroma: PBMM_CH_IQ (i_plane,
+// q_plane), PBMM_CH_U8 or PBMM_CH_F32 (src: the source frames, planar or
+// not; iq: host, the I and Q rows; pre: a factor on each value first, or
+// 0).  tw_re / tw_im: compact_twiddles(w, inverse=True).  rows: region
+// rows a block transforms at once (engine/post_fused.py::kernel3_rows).
 extern "C" int pbmm_rowifft_post(
     const float* rre, const float* rim, const float* i_plane,
-    const float* q_plane, const unsigned char* rgb_u8, const float* win,
+    const float* q_plane, const void* src, const float* win,
     const float* tw_re, const float* tw_im, void* out0, void* out1,
     void* out2, const int* plan_src, const int* plan_rev, int n_tiles,
-    const float* taps, int radius, int rows, const float* yiq_to_rgb, const float* iq_u8, int layout, int t, int hr,
-    int wk, int w, int in_h, int in_w, int yrow0, int x0, float scale,
-    int magnitude, int comp, int gain, float g_y, float g_i, float g_q,
-    void* stream) {
-  const bool u8 = rgb_u8 != nullptr;
+    const float* taps, int radius, int rows, const float* yiq_to_rgb,
+    const float* iq, float pre, int chroma, int planar, int layout, int t,
+    int hr, int wk, int w, int in_h, int in_w, int yrow0, int x0,
+    float scale, int magnitude, int comp, int gain, float g_y, float g_i,
+    float g_q, void* stream) {
+  const bool from_src = chroma == PBMM_CH_U8 || chroma == PBMM_CH_F32;
   if (t < 1 || t > 65535 || n_tiles < 1 || plan_src == nullptr ||
       plan_rev == nullptr || n_tiles * PBMM_LANE != w ||
       !pbmm_rp_length_ok(w) ||
@@ -267,22 +293,29 @@ extern "C" int pbmm_rowifft_post(
       radius > PBMM_MAX_BLUR_R || rows < 1 || in_h < 1 ||
       in_w < 4 || in_w % 4 != 0 || x0 % 4 != 0 || yrow0 - radius < 0 ||
       yrow0 + in_h + radius > hr || x0 < radius || x0 + in_w + radius > w ||
-      layout < 0 || layout > 2 ||
-      (!u8 && (i_plane == nullptr || q_plane == nullptr)) ||
+      layout < 0 || layout > 3 ||
+      (chroma != PBMM_CH_IQ && !from_src) ||
+      (chroma == PBMM_CH_IQ && (i_plane == nullptr || q_plane == nullptr)) ||
+      (from_src && (src == nullptr || iq == nullptr)) ||
       out0 == nullptr || (layout == 0 && (out1 == nullptr || out2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   // 16-byte loads and stores (4-byte for the uint8 frames and planes).
-  const void* vec16[] = {rre, rim, win, out0, u8 ? nullptr : i_plane,
-                         u8 ? nullptr : q_plane, layout == 0 ? out1 : nullptr,
+  const void* vec16[] = {rre, rim, win, layout == 2 ? nullptr : out0,
+                         chroma == PBMM_CH_IQ ? i_plane : nullptr,
+                         chroma == PBMM_CH_IQ ? q_plane : nullptr,
+                         chroma == PBMM_CH_F32 ? src : nullptr,
+                         layout == 0 ? out1 : nullptr,
                          layout == 0 ? out2 : nullptr};
   for (const void* p : vec16)
-    if ((size_t)p % (layout == 2 && p == out0 ? 4 : 16) != 0)
-      return (int)cudaErrorMisalignedAddress;
-  if ((size_t)rgb_u8 % 4 != 0) return (int)cudaErrorMisalignedAddress;
+    if ((size_t)p % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if ((layout == 2 && (size_t)out0 % 4 != 0) ||
+      (chroma == PBMM_CH_U8 && (size_t)src % 4 != 0))
+    return (int)cudaErrorMisalignedAddress;
   PostParams prm;
   for (int i = 0; i <= 2 * radius; ++i) prm.tail.taps[i] = taps[i];
   for (int i = 0; i < 9; ++i) prm.tail.m[i] = yiq_to_rgb[i];
-  for (int i = 0; i < 6; ++i) prm.tail.iq[i] = iq_u8[i];
+  for (int i = 0; i < 6; ++i) prm.tail.iq[i] = from_src ? iq[i] : 0.0f;
+  prm.tail.pre = from_src ? pre : 0.0f;
   prm.tail.gains[0] = g_y;
   prm.tail.gains[1] = g_i;
   prm.tail.gains[2] = g_q;
@@ -290,13 +323,14 @@ extern "C" int pbmm_rowifft_post(
   prm.tail.gain = gain;
   prm.magnitude = magnitude;
   const PostIO io = {
-      {i_plane, q_plane, rgb_u8, win, out0, out1, out2, in_h, in_w},
+      {i_plane, q_plane, src, planar ? 1 : 3, planar ? in_h * in_w : 1, win,
+       out0, out1, out2, in_h, in_w},
       rre, rim, tw_re, tw_im, plan_src, plan_rev, radius, 0, hr, wk, yrow0,
       x0, scale};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
 #define PP_LAUNCH(N) \
-  err = post_variant<N>(io, prm, rows, t, layout, u8, s)
+  err = post_variant<N>(io, prm, rows, t, layout, chroma, s)
   PBMM_RP_SWITCH(w, PP_LAUNCH)
 #undef PP_LAUNCH
   return (int)err;

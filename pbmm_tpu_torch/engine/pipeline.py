@@ -21,9 +21,11 @@ where `fused_reconstruct_ok` holds, or kernel 8 (`ifft2_bitrev`) in
 
 For the chunk engine: `hermitian_active`, `blur_row_window` and
 `preprocess_cl` (interleaved or planar, f32 or u8 frames, y_only or rgb,
-stopping after the row FFT; kernel 4 takes planar uint8 y_only frames).
-The Y/I/Q FMAs, pads and the post tail are plain torch ops, as the JAX
-package leaves them to XLA.
+stopping after the row FFT): the front end forms the Y/I/Q planes, the
+pad and the window in its loads (kernel 4 for planar uint8 y_only
+frames), where the JAX package leaves them to XLA.  The scan engine's
+per-frame pre stage (`preprocess`) and the post tail keep them as plain
+torch ops.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from pbmm_tpu_torch.config import MagnifyConfig
 from pbmm_tpu_torch.core.color import (
     RGB_TO_YIQ,
     channel_mix,
+    is_planar,
     rgb_to_yiq,
     unit_float,
     yiq_to_rgb,
@@ -81,6 +84,7 @@ from pbmm_tpu_torch.spectral.fused import (
     phase_col_ifft,
     row_ifft_magnitude,
     windowed_row_fft,
+    windowed_row_fft_frames,
     windowed_row_fft_u8planar,
 )
 from pbmm_tpu_torch.spectral.hermitian import hermitian_saves
@@ -115,13 +119,6 @@ def _geometry(frame_shape, cfg: MagnifyConfig) -> Geometry:
     return geometry_for(frame_shape[-3], frame_shape[-2], cfg.pad_mode)
 
 
-def is_planar(frames) -> bool:
-    """(T, 3, H, W) channel-planar frames (the y4m / video-file layout),
-    as against the reference's interleaved (T, H, W, 3)."""
-    return (frames.ndim == 4 and frames.shape[1] == 3
-            and frames.shape[-1] != 3)
-
-
 def hermitian_active(cfg: MagnifyConfig, geom: Geometry) -> bool:
     """Whether the Hermitian-half kept-lane layout is in effect: the
     fully-fused path serves the config, the padded sizes tile cleanly and
@@ -144,31 +141,14 @@ def blur_row_window(geom: Geometry, cfg: MagnifyConfig):
     )
 
 
-def _luma_chroma(frames, cfg: MagnifyConfig, want_iq: bool):
-    """The FFT-bound planes and the original chroma of (T, H, W, 3) or
-    (T, 3, H, W) frames, as torch FMAs in the JAX package's order:
-    y_only -> (Y (T, H, W), I, Q) with I/Q None unless `want_iq`; rgb ->
-    (the (3T, H, W) Y/I/Q stack, plane-minor frame-major, None, None)."""
+def chroma_planes(frames) -> tuple:
+    """The original (T, H, W) I and Q planes of (T, H, W, 3) or
+    (T, 3, H, W) frames, as torch FMAs in the JAX package's order: what
+    the torch post tail reads where the post kernels do not serve."""
     f = unit_float(frames)
     rgb = (f[:, 0], f[:, 1], f[:, 2]) if is_planar(frames) else (
         f[..., 0], f[..., 1], f[..., 2])
-    if cfg.chroma == "rgb":
-        planes = [channel_mix(*rgb, RGB_TO_YIQ[d]) for d in range(3)]
-        return torch.stack(planes, dim=-3).reshape(
-            (-1,) + tuple(planes[0].shape[-2:])), None, None
-    return tuple(channel_mix(*rgb, RGB_TO_YIQ[d]) if d == 0 or want_iq
-                 else None for d in range(3))
-
-
-def _row_spectra(fft_in, geom: Geometry, cfg: MagnifyConfig):
-    """Centre-pad (N, H, W) planes to the content rows of the padded
-    frame and run kernel 1 on them."""
-    r0, r1 = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
-    slab = F.pad(fft_in, (geom.x0, geom.pad_w - geom.in_w - geom.x0,
-                          geom.y0 - r0, r1 - geom.y0 - geom.in_h))
-    with scope("pbmm.fft"):
-        return windowed_row_fft(slab, pad_h=geom.pad_h, row0=r0,
-                                keep_half=hermitian_active(cfg, geom))
+    return tuple(channel_mix(*rgb, RGB_TO_YIQ[d]) for d in (1, 2))
 
 
 def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
@@ -182,30 +162,37 @@ def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
     the column stages itself (the JAX function's `through_col=False`
     form).
 
-    `want_iq=False` builds no I/Q planes (they return None): the caller
-    takes the chroma from the uint8 planes inside kernel 3.  Planar
-    uint8 frames then go straight to kernel 4 (y_only), which forms the
-    luma, pad and window itself; every other input takes the torch FMAs
-    and kernel 1.  `fft_backend="pallas"` only."""
+    Every input form goes to the front end
+    (`fused.windowed_row_fft_frames`), which forms the planes, the pad
+    and the window in its loads, bit for bit the torch pre stage + kernel
+    1; planar uint8 y_only frames to kernel 4, its JAX package's route
+    (the same kernel, the same bits).  No YIQ plane or padded slab is
+    built.  `want_iq=False` builds no I/Q planes either (they return
+    None): the caller takes the chroma from the source frames inside the
+    post kernels.  `fft_backend="pallas"` only."""
     if cfg.fft_backend != "pallas":
         raise ValueError("preprocess_cl is the pallas backend's pre stage")
     planar = is_planar(frames)
     h_in, w_in = frames.shape[-2:] if planar else frames.shape[-3:-1]
     geom = geometry_for(h_in, w_in, cfg.pad_mode)
-    if (planar and frames.dtype == torch.uint8 and cfg.chroma != "rgb"
-            and not want_iq and geom.pad_w & (geom.pad_w - 1) == 0):
-        r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h,
-                                   geom.pad_h)
-        with scope("pbmm.fft"):
+    r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
+    args = (geom.pad_h, geom.pad_w, geom.y0, geom.x0, r0)
+    keep = hermitian_active(cfg, geom)
+    y_only = cfg.chroma != "rgb"
+    with scope("pbmm.fft"):
+        if planar and frames.dtype == torch.uint8 and y_only:
             re, im = windowed_row_fft_u8planar(
-                frames, tuple(float(c) for c in RGB_TO_YIQ[0]),
-                pad_h=geom.pad_h, pad_w=geom.pad_w, y0=geom.y0, x0=geom.x0,
-                row0=r0, keep_half=hermitian_active(cfg, geom))
-        return re, im, None, None
-    with scope("pbmm.preprocess"):
-        fft_in, i_plane, q_plane = _luma_chroma(frames, cfg, want_iq)
-        re, im = _row_spectra(fft_in, geom, cfg)
-    return re, im, i_plane, q_plane
+                frames, tuple(float(c) for c in RGB_TO_YIQ[0]), *args,
+                keep_half=keep)
+        else:
+            rows = RGB_TO_YIQ[:1] if y_only else RGB_TO_YIQ
+            re, im = windowed_row_fft_frames(
+                frames, tuple(tuple(float(c) for c in r) for r in rows),
+                *args, keep_half=keep)
+    if y_only and want_iq:
+        with scope("pbmm.preprocess"):
+            return (re, im) + chroma_planes(frames)
+    return re, im, None, None
 
 
 def _posttail(chans: torch.Tensor, geom: Geometry, cfg: MagnifyConfig,

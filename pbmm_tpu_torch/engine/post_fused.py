@@ -7,7 +7,9 @@ predicate, kept under its JAX name so the two packages route alike),
 `csrc/rowifft_post.cu`), `post_fused_rgb` (kernel 11, the chroma="rgb"
 tail after kernel 7; CUDA: `csrc/post_rgb.cu`) and `post_fused` (kernel
 10, the y_only tail after kernel 7; CUDA: `csrc/post_rgb.cu`), all in the
-three output layouts, at every blur radius `post_pallas_ok` admits.
+JAX kernels' three output layouts and the interleaved (T, H, W, 3) f32
+one the JAX engine stacks after them, at every blur radius
+`post_pallas_ok` admits.
 Like the JAX package's, the engines reach `post_fused` through
 `engine.video._post_block`, where kernel 3 serves first; on the card
 `rowifft_post_fused` also runs kernel 7 + kernel 10 in place of kernel 3
@@ -34,7 +36,13 @@ import functools
 import numpy as np
 import torch
 
-from pbmm_tpu_torch.core.color import RGB_TO_YIQ, YIQ_TO_RGB, channel_mix
+from pbmm_tpu_torch.core.color import (
+    RGB_TO_YIQ,
+    YIQ_TO_RGB,
+    channel_mix,
+    is_planar,
+    unit_float,
+)
 from pbmm_tpu_torch.core.window import Geometry, blur_taps, geometry_for
 from pbmm_tpu_torch.kernels import (
     c_floats,
@@ -95,8 +103,13 @@ def post_pallas_ok(geom: Geometry, cfg, rows0: int, region_h: int) -> bool:
     return last_need <= region_h
 
 
-_LAYOUTS = ("tuple3", "planar", "planar_u8")  # csrc/rowifft_post.cu order
-_CH_IQ, _CH_U8, _CH_RGB = 0, 1, 2  # the epilogue's chroma (post_tail.cuh)
+# csrc/post_tail.cuh's PBMM_OUT_* order; "interleaved" is (T, H, W, 3) f32,
+# the torch.stack of "tuple3" (the JAX engine's, pbmm_tpu/engine/video.py:
+# 168-169) written by the kernels themselves.
+_LAYOUTS = ("tuple3", "planar", "planar_u8", "interleaved")
+# The epilogue's chroma (post_tail.cuh's PBMM_CH_*): f32 I/Q planes, uint8
+# source frames, three blurred planes, f32 source frames.
+_CH_IQ, _CH_U8, _CH_RGB, _CH_F32 = 0, 1, 2, 3
 # Largest blur radius of the CUDA post kernels (PBMM_MAX_BLUR_R):
 # `post_pallas_ok` admits 2 r <= ob with the output block ob <= 192.
 _MAX_BLUR_R = 96
@@ -245,13 +258,36 @@ def _check_quads(geom, name: str) -> None:
                          f"{geom.x0}")
 
 
+def _folded_u8(src) -> bool:
+    """Whether the chroma of source frames `src` takes the I and Q rows
+    with the 1/255 folded in, as the JAX kernel forms them from planar
+    uint8 frames (`post_pallas.py:326-331`): planar uint8 frames do (the
+    route the JAX package has); f32 frames and interleaved uint8 frames
+    form the I/Q planes of the torch pre stage (`unit_float`, then the
+    rows), whose bits the f32 I/Q route gives."""
+    return src.dtype == torch.uint8 and is_planar(src)
+
+
 def _u8_chroma_coeffs():
     """The I and Q rows of RGB -> YIQ with the 1/255 scale folded in, as
-    the JAX kernel forms them (`post_pallas.py:326-331`): the u8 chroma
-    path multiplies the raw 0-255 values by these."""
+    the JAX kernel forms them (`post_pallas.py:326-331`): the planar u8
+    chroma path multiplies the raw 0-255 values by these."""
     s = 1.0 / 255.0
     my = RGB_TO_YIQ
     return tuple(float(my[d, c] * s) for d in (1, 2) for c in range(3))
+
+
+def _src_chroma(src):
+    """(chroma, planar, rows, pre) of the CUDA epilogue for source frames:
+    PBMM_CH_U8 or _F32, the layout, the six I and Q rows and the factor
+    on each value first (0: none)."""
+    if _folded_u8(src):
+        return _CH_U8, 1, _u8_chroma_coeffs(), 0.0
+    my = RGB_TO_YIQ
+    rows = tuple(float(my[d, c]) for d in (1, 2) for c in range(3))
+    if src.dtype == torch.uint8:
+        return _CH_U8, 0, rows, float(np.float32(1.0 / 255.0))
+    return _CH_F32, int(is_planar(src)), rows, 0.0
 
 
 def _halo_check(geom, r: int, rows0: int, hr: int, wp: int) -> None:
@@ -262,13 +298,25 @@ def _halo_check(geom, r: int, rows0: int, hr: int, wp: int) -> None:
                          f"(rows0={rows0}, region height {hr})")
 
 
-def _check_post(rre, i_plane, q_plane, rgb_u8, cfg, in_h, in_w, pad_mode,
+def _check_src(src, t: int, in_h: int, in_w: int) -> None:
+    """Source frames of the chroma: (T, 3, H, W) or (T, H, W, 3), uint8
+    or f32."""
+    want = (t, 3, in_h, in_w) if is_planar(src) else (t, in_h, in_w, 3)
+    if (tuple(src.shape) != want
+            or src.dtype not in (torch.uint8, torch.float32)):
+        raise ValueError(f"chroma source {tuple(src.shape)} {src.dtype} "
+                         f"for {t} frames of {in_h} x {in_w}")
+
+
+def _check_post(rre, i_plane, q_plane, src, cfg, in_h, in_w, pad_mode,
                 rows0, full_w, out_layout):
     """Validate a call; returns (geometry, full width)."""
     if out_layout not in _LAYOUTS:
         raise ValueError(f"unknown out_layout {out_layout!r}")
-    if (rgb_u8 is None) == (i_plane is None or q_plane is None):
-        raise ValueError("pass either the f32 I/Q planes or rgb_u8")
+    if (src is None) == (i_plane is None or q_plane is None):
+        raise ValueError("pass either the f32 I/Q planes or src")
+    if src is not None:
+        _check_src(src, rre.shape[0], in_h, in_w)
     t, hr, wk = rre.shape
     wp = full_w if full_w is not None else wk
     check_pow2(wp, "row IFFT length")
@@ -312,6 +360,8 @@ def _finish(y, iw, qw, win, cfg, out_layout: str):
                   for d in range(3))
     if out_layout == "tuple3":
         return chans
+    if out_layout == "interleaved":
+        return torch.stack(chans, dim=-1)
     planar = torch.stack(chans, dim=1)
     if out_layout == "planar":
         return planar
@@ -332,7 +382,8 @@ def _sm_count(dev) -> int:
 def _tile_regs(chroma: int, layout: int, dev) -> int:
     """Registers a thread of kernels 10 and 11's instantiation for a
     chroma source (`csrc/post_tail.cuh`: 0 f32 I/Q, 1 uint8 frames, 2
-    three blurred planes) and layout, as the card's runtime reports them."""
+    three blurred planes, 3 f32 frames) and layout, as the card's runtime
+    reports them."""
     from pbmm_tpu_torch.kernels.build import library
 
     with torch.cuda.device(dev):
@@ -340,6 +391,20 @@ def _tile_regs(chroma: int, layout: int, dev) -> int:
     if regs <= 0:
         raise RuntimeError(f"pbmm_post_tile_regs: cudaError {-regs}")
     return regs
+
+
+def _chroma_args(name, i_plane, q_plane, src, t, in_h, in_w):
+    """The chroma of a CUDA launch of kernel 3 or 10, checked: the
+    (i_plane, q_plane, src) pointers, the epilogue's chroma, whether the
+    source is planar, its six I and Q rows and the factor on each value
+    first."""
+    if src is None:
+        check_cuda(name, (t, in_h, in_w), i_plane, q_plane)
+        return ((i_plane.data_ptr(), q_plane.data_ptr(), None), _CH_IQ, 1,
+                (0.0,) * 6, 0.0)
+    _check_src(src, t, in_h, in_w)
+    check_cuda(name, tuple(src.shape), src, dtype=src.dtype)
+    return ((None, None, src.data_ptr()), *_src_chroma(src))
 
 
 def _tile_args(r, in_w, in_h, t, planes, chroma, layout, dev):
@@ -355,6 +420,9 @@ def _outputs(t, in_h, in_w, out_layout, dev):
     if out_layout == "tuple3":
         outs = [torch.empty((t, in_h, in_w), dtype=torch.float32,
                             device=dev) for _ in range(3)]
+    elif out_layout == "interleaved":
+        outs = [torch.empty((t, in_h, in_w, 3), dtype=torch.float32,
+                            device=dev)]
     else:
         dt = torch.uint8 if out_layout == "planar_u8" else torch.float32
         outs = [torch.empty((t, 3, in_h, in_w), dtype=dt, device=dev)]
@@ -364,33 +432,37 @@ def _outputs(t, in_h, in_w, out_layout, dev):
 
 def rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
                            in_h: int, in_w: int, pad_mode: str, full_w=None,
-                           rgb_u8=None, out_layout: str = "tuple3"):
+                           src=None, out_layout: str = "tuple3"):
     """Plain PyTorch version of `rowifft_post_fused`: the rebuild and row
     IFFT of `rebuilt_row_ifft`, `_blur_crop`, the windowed chroma and
     `_finish`, as f32 multiplies and adds in the JAX kernel's order."""
-    geom, wp = _check_post(rre, i_plane, q_plane, rgb_u8, cfg, in_h, in_w,
+    geom, wp = _check_post(rre, i_plane, q_plane, src, cfg, in_h, in_w,
                            pad_mode, rows0, full_w, out_layout)
     rec = rebuilt_row_ifft(rre, rim, wp, 1.0 / (geom.pad_h * wp),
                            cfg.reconstruct == "magnitude")
     y = _blur_crop(rec, cfg, geom, rows0)
-    iw, qw = _windowed_chroma(i_plane, q_plane, rgb_u8, win)
+    iw, qw = _windowed_chroma(i_plane, q_plane, src, win)
     return _finish(y, iw, qw, win, cfg, out_layout)
 
 
 @checked
 def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
                        in_h: int, in_w: int, pad_mode: str, full_w=None,
-                       rgb_u8=None, out_layout: str = "tuple3",
+                       src=None, out_layout: str = "tuple3",
                        route: bool = True):
     """(T, Hr, Wk) column-IFFT output rows (region rows from `rows0`,
     bit-reversed kept lanes) + the original chroma + (H, W) crop-region
     Hann -> RGB in [0, 1].
 
-    The chroma is either the (T, H, W) f32 I/Q planes or, with
-    `rgb_u8`, the (T, 3, H, W) uint8 source frames, from which the
-    kernel derives I/Q itself (i_plane/q_plane None).  `out_layout`:
-    "tuple3" (three (T, H, W) f32 planes), "planar" (one (T, 3, H, W)
-    f32 array) or "planar_u8" (the same as round(255 x) in uint8).
+    The chroma is either the (T, H, W) f32 I/Q planes or, with `src`,
+    the source frames ((T, 3, H, W) or (T, H, W, 3), uint8 or f32), from
+    which the kernel derives I/Q itself (i_plane/q_plane None; planar
+    uint8 as the JAX kernel does, with the 1/255 folded into the rows,
+    the others bit for bit as on the torch pre stage's I/Q planes).
+    `out_layout`: "tuple3" (three (T, H, W) f32 planes), "planar" (one
+    (T, 3, H, W) f32 array), "planar_u8" (the same as round(255 x) in
+    uint8) or "interleaved" (one (T, H, W, 3) f32 array: the stack of
+    "tuple3").
     `full_w`: the padded width when the lanes are the kept Hermitian
     half.  `cfg.reconstruct`, `compensate_window` and the YIQ gains are
     served as in the JAX kernel.
@@ -405,10 +477,10 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     if rre.device.type == "cpu":
         return rowifft_post_fused_ref(rre, rim, i_plane, q_plane, win, cfg,
                                       rows0, in_h, in_w, pad_mode, full_w,
-                                      rgb_u8, out_layout)
+                                      src, out_layout)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
-    geom, wp = _check_post(rre, i_plane, q_plane, rgb_u8, cfg, in_h, in_w,
+    geom, wp = _check_post(rre, i_plane, q_plane, src, cfg, in_h, in_w,
                            pad_mode, rows0, full_w, out_layout)
     t, hr, wk = rre.shape
     r = _radius(cfg)
@@ -419,27 +491,22 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
                                  magnitude=(cfg.reconstruct == "magnitude"),
                                  pad_h=geom.pad_h, full_w=wp)
         return post_fused(rec, i_plane, q_plane, win, cfg, rows0, in_h, in_w,
-                          pad_mode, out_layout, rgb_u8=rgb_u8)
+                          pad_mode, out_layout, src=src)
     _check_quads(geom, "rowifft_post_fused")
     check_cuda("rowifft_post_fused", (t, hr, wk), rre, rim)
     check_cuda("rowifft_post_fused", (in_h, in_w), win)
-    if rgb_u8 is None:
-        check_cuda("rowifft_post_fused", (t, in_h, in_w), i_plane, q_plane)
-        chroma = (i_plane.data_ptr(), q_plane.data_ptr(), None)
-    else:
-        check_cuda("rowifft_post_fused", (t, 3, in_h, in_w), rgb_u8,
-                   dtype=torch.uint8)
-        chroma = (None, None, rgb_u8.data_ptr())
+    ptrs_c, chroma, planar, rows_c, pre = _chroma_args(
+        "rowifft_post_fused", i_plane, q_plane, src, t, in_h, in_w)
     dev = rre.device
     outs, ptrs = _outputs(t, in_h, in_w, out_layout, dev)
     twr, twi = device_arrays(compact_twiddles, (wp, True), dev)
-    src, rev = device_ints(lane_plan_tables, (wk, wp), dev)
+    plan_src, plan_rev = device_ints(lane_plan_tables, (wk, wp), dev)
     err = library().pbmm_rowifft_post(
-        rre.data_ptr(), rim.data_ptr(), *chroma, win.data_ptr(),
-        twr.data_ptr(), twi.data_ptr(), *ptrs, src.data_ptr(),
-        rev.data_ptr(), wp // _LANE, c_floats(blur_taps(cfg.blur_size)), r,
-        kernel3_rows(r, wp, in_w), c_floats(YIQ_TO_RGB.reshape(-1)),
-        c_floats(_u8_chroma_coeffs()),
+        rre.data_ptr(), rim.data_ptr(), *ptrs_c, win.data_ptr(),
+        twr.data_ptr(), twi.data_ptr(), *ptrs, plan_src.data_ptr(),
+        plan_rev.data_ptr(), wp // _LANE, c_floats(blur_taps(cfg.blur_size)),
+        r, kernel3_rows(r, wp, in_w), c_floats(YIQ_TO_RGB.reshape(-1)),
+        c_floats(rows_c), pre, chroma, planar,
         _LAYOUTS.index(out_layout), t, hr, wk, wp, in_h, in_w,
         geom.y0 - rows0, geom.x0, float(1.0 / (geom.pad_h * wp)),
         int(cfg.reconstruct == "magnitude"), *_epilogue_args(cfg),
@@ -531,94 +598,95 @@ post_fused_rgb.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_post_yonly(chans, i_plane, q_plane, rgb_u8, cfg, rows0, in_h,
+def _check_post_yonly(chans, i_plane, q_plane, src, cfg, rows0, in_h,
                       in_w, pad_mode, out_layout):
     if out_layout not in _LAYOUTS:
         raise ValueError(f"unknown out_layout {out_layout!r}")
-    if (rgb_u8 is None) == (i_plane is None or q_plane is None):
-        raise ValueError("pass either the f32 I/Q planes or rgb_u8")
+    if (src is None) == (i_plane is None or q_plane is None):
+        raise ValueError("pass either the f32 I/Q planes or src")
     t, hr, wp = chans.shape
     geom = geometry_for(in_h, in_w, pad_mode)
     if wp != geom.pad_w:
         raise ValueError(f"region rows of {wp} lanes for a pad width of "
                          f"{geom.pad_w}")
-    shapes = ([(pl, (t, in_h, in_w)) for pl in (i_plane, q_plane)]
-              if rgb_u8 is None else [(rgb_u8, (t, 3, in_h, in_w))])
-    for pl, want in shapes:
-        if tuple(pl.shape) != want:
-            raise ValueError(f"chroma source {tuple(pl.shape)} for {t} "
-                             f"frames of {in_h} x {in_w}")
+    if src is not None:
+        _check_src(src, t, in_h, in_w)
+    else:
+        for pl in (i_plane, q_plane):
+            if tuple(pl.shape) != (t, in_h, in_w):
+                raise ValueError(f"chroma source {tuple(pl.shape)} for {t} "
+                                 f"frames of {in_h} x {in_w}")
     _halo_check(geom, _radius(cfg), rows0, hr, wp)
     return geom
 
 
-def _windowed_chroma(i_plane, q_plane, rgb_u8, win):
+def _windowed_chroma(i_plane, q_plane, src, win):
     """(I, Q) times the crop-region window: from the f32 planes, or formed
-    from the uint8 frames as the u8 chroma path of kernel 3 forms them."""
-    if rgb_u8 is None:
+    from the source frames as the kernels form them (`_folded_u8`)."""
+    if src is None:
         return i_plane * win, q_plane * win
-    c = _u8_chroma_coeffs()
-    rgb = [rgb_u8[:, k].to(torch.float32) for k in range(3)]
-    return channel_mix(*rgb, c[:3]) * win, channel_mix(*rgb, c[3:]) * win
+    if _folded_u8(src):
+        rows = _u8_chroma_coeffs()
+        rgb = [src[:, k].to(torch.float32) for k in range(3)]
+        return (channel_mix(*rgb, rows[:3]) * win,
+                channel_mix(*rgb, rows[3:]) * win)
+    f = unit_float(src)
+    rgb = ((f[:, 0], f[:, 1], f[:, 2]) if is_planar(src)
+           else (f[..., 0], f[..., 1], f[..., 2]))
+    return tuple(channel_mix(*rgb, RGB_TO_YIQ[d]) * win for d in (1, 2))
 
 
 def post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
                    in_w: int, pad_mode: str, out_layout: str = "tuple3",
-                   rgb_u8=None):
+                   src=None):
     """Plain PyTorch version of `post_fused`: `_blur_crop` of the Y rows,
     the windowed chroma, then `_finish`."""
-    geom = _check_post_yonly(chans, i_plane, q_plane, rgb_u8, cfg, rows0,
+    geom = _check_post_yonly(chans, i_plane, q_plane, src, cfg, rows0,
                              in_h, in_w, pad_mode, out_layout)
     y = _blur_crop(chans, cfg, geom, rows0)
-    iw, qw = _windowed_chroma(i_plane, q_plane, rgb_u8, win)
+    iw, qw = _windowed_chroma(i_plane, q_plane, src, win)
     return _finish(y, iw, qw, win, cfg, out_layout)
 
 
 @checked
 def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
                in_w: int, pad_mode: str, out_layout: str = "tuple3",
-               rgb_u8=None):
+               src=None):
     """(T, Hr, Wp) reconstruction rows of Y (region rows from `rows0`) +
     the original chroma + (H, W) crop-region Hann -> RGB in [0, 1]: the
     blur, the crop, the windowed chroma, the window compensation and YIQ
     gains, YIQ -> RGB and the clip (`posttail`'s math), written in
     `out_layout` as `post_fused_rgb` does.  The chroma is either the
-    (T, H, W) f32 I/Q planes or, with `rgb_u8`, the (T, 3, H, W) uint8
-    source frames (i_plane/q_plane None), as for `rowifft_post_fused`.
-    Callers have checked `post_pallas_ok`.
+    (T, H, W) f32 I/Q planes or, with `src`, the source frames
+    (i_plane/q_plane None), as for `rowifft_post_fused`.  Callers have
+    checked `post_pallas_ok`.
 
     CPU tensors take `post_fused_ref`; CUDA tensors launch
     `csrc/post_rgb.cu::pbmm_post_yonly`."""
     if chans.device.type == "cpu":
         return post_fused_ref(chans, i_plane, q_plane, win, cfg, rows0,
-                              in_h, in_w, pad_mode, out_layout, rgb_u8)
+                              in_h, in_w, pad_mode, out_layout, src)
     from pbmm_tpu_torch.kernels.build import check_launch, library
 
-    geom = _check_post_yonly(chans, i_plane, q_plane, rgb_u8, cfg, rows0,
+    geom = _check_post_yonly(chans, i_plane, q_plane, src, cfg, rows0,
                              in_h, in_w, pad_mode, out_layout)
     t, hr, wp = chans.shape
     r = _radius(cfg)
     _check_radius(r)
     _check_quads(geom, "post_fused")
     check_cuda("post_fused", (t, hr, wp), chans)
-    if rgb_u8 is None:
-        check_cuda("post_fused", (t, in_h, in_w), i_plane, q_plane)
-        chroma = (i_plane.data_ptr(), q_plane.data_ptr(), None, None)
-    else:
-        check_cuda("post_fused", (t, 3, in_h, in_w), rgb_u8,
-                   dtype=torch.uint8)
-        chroma = (None, None, rgb_u8.data_ptr(),
-                  c_floats(_u8_chroma_coeffs()))
+    ptrs_c, chroma, planar, rows_c, pre = _chroma_args(
+        "post_fused", i_plane, q_plane, src, t, in_h, in_w)
     check_cuda("post_fused", (in_h, in_w), win)
     dev = chans.device
     outs, ptrs = _outputs(t, in_h, in_w, out_layout, dev)
     err = library().pbmm_post_yonly(
-        chans.data_ptr(), *chroma, win.data_ptr(), *ptrs,
-        c_floats(blur_taps(cfg.blur_size)), r,
+        chans.data_ptr(), *ptrs_c, chroma, planar, c_floats(rows_c), pre,
+        win.data_ptr(), *ptrs, c_floats(blur_taps(cfg.blur_size)), r,
         c_floats(YIQ_TO_RGB.reshape(-1)), _LAYOUTS.index(out_layout), t, hr,
         wp, in_h, in_w, geom.y0 - rows0, geom.x0,
-        *_tile_args(r, in_w, in_h, t, 1, _CH_IQ if rgb_u8 is None else _CH_U8,
-                    _LAYOUTS.index(out_layout), dev),
+        *_tile_args(r, in_w, in_h, t, 1, chroma, _LAYOUTS.index(out_layout),
+                    dev),
         *_epilogue_args(cfg), stream_handle(dev))
     check_launch(err, "post_fused")
     post_fused.launches += 1

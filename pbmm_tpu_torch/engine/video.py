@@ -8,10 +8,12 @@ the JAX package does:
 - the batched engine `_chunk_colspec` where `cfg.engine == "batched"`
   and `_colspec_ok` holds (the pallas backend's fused spectral path with
   cached spectra and padded sizes that tile by 128): per chunk, the pre
-  stage and kernel 1 (kernel 4 from planar uint8 y_only frames), kernel 2
-  (column FFT + phase + column IFFT, the previous spectrum and the IIR
-  taps carried on chip) and the tail (kernel 3, or kernel 7 then kernel
-  11 or the torch `posttail`);
+  stage's front end (the planes, pad and window in the row FFT's loads;
+  kernel 4 from planar uint8 y_only frames), kernel 2 (column FFT + phase
+  + column IFFT, the previous spectrum and the IIR taps carried on chip)
+  and the tail (kernel 3 with the chroma from the source frames, or
+  kernel 7 then kernel 11 or the torch `posttail`), the post kernels
+  writing the output layout themselves;
 - else the scan engine `_chunk_scan`, a Python loop of `video_step` over
   the frames (the JAX package's `lax.scan`): `pipeline.preprocess` of the
   frame (and of the previous frame with `cache_prev_spectrum=False`), the
@@ -33,12 +35,13 @@ rendered frame (`MotionMagnificationProcessor.cs:111-117`).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from pbmm_tpu_torch.config import MagnifyConfig
-from pbmm_tpu_torch.core.color import RGB_TO_YIQ, channel_mix, unit_float
+from pbmm_tpu_torch.core.color import unit_float
 from pbmm_tpu_torch.core.complexop import combine, split
 from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
 from pbmm_tpu_torch.engine.pipeline import (
@@ -108,12 +111,11 @@ def _emit(chans_cf: torch.Tensor, cfg: MagnifyConfig) -> torch.Tensor:
     return torch.round(chans_cf * 255.0).to(torch.uint8)
 
 
-def _layout_out(res, cfg: MagnifyConfig):
-    """A post kernel's output in its layout ("tuple3" for interleaved)
-    -> the configured output layout."""
-    if cfg.output_layout == "interleaved":
-        return torch.stack(list(res), dim=-1)
-    return res
+@functools.lru_cache(maxsize=8)
+def _crop_window(geom, device) -> torch.Tensor:
+    """`hann2d_region` of a geometry on a device, built once: the post
+    kernels only read it, so a chunk launches nothing to make it."""
+    return hann2d_region(geom, device=device)
 
 
 def _post_block(rec, i_plane, q_plane, cfg, geom, rows):
@@ -121,51 +123,40 @@ def _post_block(rec, i_plane, q_plane, cfg, geom, rows):
     reconstruction rows, routed as the JAX package's `_post_block`:
     where `post_pallas_ok` holds, kernel 11 (chroma="rgb") or kernel 10
     (`post_fused`, y_only; never reached from the chunk engine, where
-    kernel 3 serves those geometries first); else `posttail` as torch
-    ops."""
+    kernel 3 serves those geometries first), each writing the configured
+    layout itself; else `posttail` as torch ops."""
     hr = rows[1] - rows[0]
     c = _planes(cfg)
     if post_pallas_ok(geom, cfg, rows[0], hr):
-        win = hann2d_region(geom, device=rec.device)
-        layout = _POST_LAYOUT[cfg.output_layout]
+        win = _crop_window(geom, rec.device)
         if c == 3:
-            res = post_fused_rgb(rec, win, cfg, rows[0], geom.in_h,
-                                 geom.in_w, cfg.pad_mode, out_layout=layout)
-        else:
-            res = post_fused(rec, i_plane, q_plane, win, cfg, rows[0],
-                             geom.in_h, geom.in_w, cfg.pad_mode,
-                             out_layout=layout)
-        return _layout_out(res, cfg)
+            return post_fused_rgb(rec, win, cfg, rows[0], geom.in_h,
+                                  geom.in_w, cfg.pad_mode,
+                                  out_layout=cfg.output_layout)
+        return post_fused(rec, i_plane, q_plane, win, cfg, rows[0],
+                          geom.in_h, geom.in_w, cfg.pad_mode,
+                          out_layout=cfg.output_layout)
     chans = rec.reshape((rec.shape[0] // c, c, hr, geom.pad_w))
     iq = None if c == 3 else (i_plane, q_plane)
     return _emit(_posttail(chans, geom, cfg, row0=rows[0], iq=iq), cfg)
 
 
-_POST_LAYOUT = {"interleaved": "tuple3", "planar": "planar",
-                "planar_u8": "planar_u8"}
-
-
-def _tail_block(rre, rim, i_plane, q_plane, cfg, geom, rows, rgb_u8=None):
+def _tail_block(rre, rim, i_plane, q_plane, cfg, geom, rows, src=None):
     """Column-IFFT output rows -> frames in the configured layout.
 
     For y_only where `post_pallas_ok` holds (as in the JAX package), the
-    merged kernel 3 writes the layout itself, taking the chroma from
-    `rgb_u8` ((T, 3, H, W) uint8 source frames) when given, else from
-    the I/Q planes.  Otherwise kernel 7 (row IFFT + |z| or Re z) and
-    `_post_block`; uint8 sources then give their I/Q planes here, once,
-    as torch ops."""
+    merged kernel 3 (or, where its blocks do not serve, kernels 7 + 10)
+    writes the layout itself, taking the chroma from `src` (the source
+    frames, any input form) when given, else from the I/Q planes.
+    Otherwise kernel 7 (row IFFT + |z| or Re z) and `_post_block`."""
     h, w = geom.in_h, geom.in_w
     if cfg.chroma != "rgb" and post_pallas_ok(geom, cfg, rows[0],
                                               rows[1] - rows[0]):
-        win = hann2d_region(geom, device=rre.device)
-        return _layout_out(rowifft_post_fused(
+        win = _crop_window(geom, rre.device)
+        return rowifft_post_fused(
             rre, rim, i_plane, q_plane, win, cfg, rows[0], h, w,
-            cfg.pad_mode, full_w=geom.pad_w, rgb_u8=rgb_u8,
-            out_layout=_POST_LAYOUT[cfg.output_layout]), cfg)
-    if rgb_u8 is not None:
-        f = unit_float(rgb_u8)
-        i_plane, q_plane = (channel_mix(f[:, 0], f[:, 1], f[:, 2],
-                                        RGB_TO_YIQ[d]) for d in (1, 2))
+            cfg.pad_mode, full_w=geom.pad_w, src=src,
+            out_layout=cfg.output_layout)
     rec = row_ifft_magnitude(rre, rim,
                              magnitude=(cfg.reconstruct == "magnitude"),
                              pad_h=geom.pad_h, full_w=geom.pad_w)
@@ -173,22 +164,21 @@ def _tail_block(rre, rim, i_plane, q_plane, cfg, geom, rows, rgb_u8=None):
 
 
 def _chunk_colspec(frames, state: VideoState, cfg: MagnifyConfig):
-    """One chunk: the pre stage and kernel 1 (or kernel 4) over every
-    frame, kernel 2 over the chunk with the previous spectrum (and the
-    IIR taps) carried on chip, then the tail."""
+    """One chunk: the front end (kernel 4 from planar uint8 y_only frames)
+    over every frame, kernel 2 over the chunk with the previous spectrum
+    (and the IIR taps) carried on chip, then the tail."""
     t, h, w, _ = _norm_shape(frames)
     geom = geometry_for(h, w, cfg.pad_mode)
     rows = blur_row_window(geom, cfg)
     r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h, geom.pad_h)
-    # Planar uint8 sources feed kernel 4 and kernel 3's u8 chroma path:
-    # no f32 plane of the source is ever built (the JAX package's gate).
-    rgb_u8 = None
-    if (is_planar(frames) and frames.dtype == torch.uint8
-            and cfg.chroma != "rgb"
-            and post_pallas_ok(geom, cfg, rows[0], rows[1] - rows[0])):
-        rgb_u8 = frames
+    # Where the post kernels serve a y_only chunk they take the chroma
+    # from the source frames: no plane of the source is ever built.
+    src = None
+    if cfg.chroma != "rgb" and post_pallas_ok(geom, cfg, rows[0],
+                                              rows[1] - rows[0]):
+        src = frames
     rre_rows, rim_rows, i_plane, q_plane = preprocess_cl(
-        frames, cfg, want_iq=rgb_u8 is None)
+        frames, cfg, want_iq=src is None)
     iir = cfg.temporal.mode == "iir_bandpass"
     taps = (state.temporal.lp_fast, state.temporal.lp_slow) if iir else ()
     with scope("pbmm.colspec_chunk"):
@@ -198,7 +188,7 @@ def _chunk_colspec(frames, state: VideoState, cfg: MagnifyConfig):
             planes=_planes(cfg))
     temporal = TemporalState(*res[4:]) if iir else state.temporal
     outs = _tail_block(res[0], res[1], i_plane, q_plane, cfg, geom, rows,
-                       rgb_u8=rgb_u8)
+                       src=src)
     new_state = VideoState(res[2], res[3], state.prev_frame, temporal,
                            state.frame_idx + t)
     return outs, new_state

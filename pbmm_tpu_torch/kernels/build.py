@@ -44,10 +44,10 @@ SIGNATURES = {
     # positions (device), n_kept, batch, hc, w, scratch re, im (above 8192
     # lanes), stream
     "pbmm_row_fft": [_P] * 9 + [_I] * 4 + [_P] * 3,
-    # frames_u8, wy, wx, tw_re, tw_im, out_re, out_im, kept_tiles(host),
-    # kept positions (device), n_kept, t, hc, h_in, w_in, w, off, x0,
-    # coeffs(host), scale, scratch re, im, stream
-    "pbmm_row_fft_u8": [_P] * 9 + [_I] * 8 + [_P, _F, _P, _P, _P],
+    # frames, coeffs(host), wy, wx, tw_re, tw_im, out_re, out_im,
+    # kept_tiles(host), kept positions (device), u8, planar, planes,
+    # n_kept, t, hc, h_in, w_in, w, off, x0, scale, scratch re, im, stream
+    "pbmm_row_fft_frames": [_P] * 10 + [_I] * 11 + [_F] + [_P] * 3,
     # rows_re, rows_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
     # fy, fx, fs_tw_re, fs_tw_im, comb_re(host), comb_im(host), comb_re,
     # comb_im (device, m > 32), tw_fwd_re, tw_fwd_im, tw_inv_re, tw_inv_im,
@@ -58,12 +58,13 @@ SIGNATURES = {
     "pbmm_colspec_chunk": [_P] * 32 + [_I] * 8 + [_P],
     # re, im, tw_re, tw_im, out_re, out_im, batch, hc, h, wk, row0, stream
     "pbmm_col_fft": [_P] * 6 + [_I] * 5 + [_P],
-    # rre, rim, i_plane, q_plane, rgb_u8, win, tw_re, tw_im, out0, out1,
+    # rre, rim, i_plane, q_plane, src, win, tw_re, tw_im, out0, out1,
     # out2, plan_src, plan_rev (device), n_tiles, taps(host), radius,
-    # rows, yiq_to_rgb(host), iq_u8(host), layout, t, hr, wk, w, in_h, in_w,
-    # yrow0, x0, scale, magnitude, comp, gain, g_y, g_i, g_q, stream
-    "pbmm_rowifft_post": [_P] * 13 + [_I, _P, _I, _I, _P, _P] + [_I] * 9
-    + [_F, _I, _I, _I, _F, _F, _F, _P],
+    # rows, yiq_to_rgb(host), iq(host), pre, chroma, planar, layout, t,
+    # hr, wk, w, in_h, in_w, yrow0, x0, scale, magnitude, comp, gain, g_y,
+    # g_i, g_q, stream
+    "pbmm_rowifft_post": [_P] * 13 + [_I, _P, _I, _I, _P, _P, _F]
+    + [_I] * 11 + [_F, _I, _I, _I, _F, _F, _F, _P],
     # re, im, tw_re, tw_im, out, plan_src, plan_rev (device), n_tiles,
     # batch, hb, wk, w, scale, magnitude, scratch re, im, stream
     "pbmm_row_ifft": [_P] * 7 + [_I] * 5 + [_F, _I, _P, _P, _P],
@@ -71,12 +72,14 @@ SIGNATURES = {
     # layout, t, hr, w, in_h, in_w, yrow0, x0, sw, rows, run, smem, comp,
     # gain, g_y, g_i, g_q, stream
     "pbmm_post_rgb": [_P] * 6 + [_I, _P] + [_I] * 14 + [_F] * 3 + [_P],
-    # chans, i_plane, q_plane, rgb_u8, iq_u8(host), win, out0, out1, out2,
-    # taps(host), radius, yiq_to_rgb(host), then as pbmm_post_rgb from
-    # layout on
-    "pbmm_post_yonly": [_P] * 10 + [_I, _P] + [_I] * 14 + [_F] * 3 + [_P],
-    # chroma (0 f32 I/Q, 1 uint8 frames, 2 three planes), layout -> the
-    # registers a thread of kernels 10 and 11's instantiation
+    # chans, i_plane, q_plane, src, chroma, planar, iq(host), pre, win,
+    # out0, out1, out2, taps(host), radius, yiq_to_rgb(host), then as
+    # pbmm_post_rgb from layout on
+    "pbmm_post_yonly": [_P] * 4 + [_I, _I, _P, _F] + [_P] * 5 + [_I, _P]
+    + [_I] * 14 + [_F] * 3 + [_P],
+    # chroma (0 f32 I/Q, 1 uint8 frames, 2 three planes, 3 f32 frames),
+    # layout -> the registers a thread of kernels 10 and 11's
+    # instantiation
     "pbmm_post_tile_regs": [_I, _I],
     # cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
     # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, scratch re,

@@ -1,4 +1,4 @@
-"""The fused spectral stages: kernels 1, 4, 2, 6, 5 and 7.
+"""The fused spectral stages: kernels 1, 4, the front end, 2, 6, 5 and 7.
 
 Counterpart of `pbmm_tpu/spectral/fused.py`:
 
@@ -7,6 +7,10 @@ Counterpart of `pbmm_tpu/spectral/fused.py`:
   `windowed_row_fft_u8planar`  the same from (T, 3, H, W) uint8 frames:
                                luma, pad and window inside the kernel
                                (CUDA: `csrc/row_fft.cu`, second entry);
+  `windowed_row_fft_frames`    the same from the frames in every input
+                               form of the batched chunk engine, one
+                               plane (Y) or three (Y, I, Q): the front
+                               end (the same kernel as kernel 4);
   `colspec_chunk`              column FFT + band/phase pass + column IFFT
                                for a whole chunk, previous spectrum and
                                IIR taps carried on chip, every branch of
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pbmm_tpu_torch.core.color import channel_mix, unit_float
+from pbmm_tpu_torch.core.color import channel_mix, is_planar, unit_float
 from pbmm_tpu_torch.kernels import (
     c_floats,
     c_ints,
@@ -398,19 +402,23 @@ windowed_row_fft.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel 4: windowed row FFT straight from planar uint8 frames
+# Kernel 4 and the front end: windowed row FFT straight from the frames
 # ---------------------------------------------------------------------------
 
 
-def _u8_args(frames, pad_h: int, pad_w: int, y0: int, x0: int, row0: int):
-    """Validate a u8 row-FFT call; returns (Hc, off): the content-row
-    window [row0, row0 + Hc) of the padded frame and the row offset
-    off = y0 - row0 of frame row 0 inside it (the JAX kernel's
-    geometry)."""
-    t, nch, h_in, w_in = frames.shape
-    if nch != 3 or frames.dtype != torch.uint8:
-        raise ValueError(f"expected (T, 3, H, W) uint8 frames, got "
-                         f"{tuple(frames.shape)} {frames.dtype}")
+def _frames_args(frames, pad_h: int, pad_w: int, y0: int, x0: int,
+                 row0: int):
+    """Validate a call on source frames; returns (planar, Hc, off): the
+    layout, the content-row window [row0, row0 + Hc) of the padded frame
+    and the row offset off = y0 - row0 of frame row 0 inside it (the JAX
+    kernel's geometry)."""
+    planar = is_planar(frames)
+    if (frames.ndim != 4 or not (planar or frames.shape[-1] == 3)
+            or frames.dtype not in (torch.uint8, torch.float32)):
+        raise ValueError(f"expected (T, 3, H, W) or (T, H, W, 3) uint8 or "
+                         f"f32 frames, got {tuple(frames.shape)} "
+                         f"{frames.dtype}")
+    h_in, w_in = frames.shape[-2:] if planar else frames.shape[1:3]
     r1 = min(pad_h, -(-(y0 + h_in) // _ROW_BLOCK) * _ROW_BLOCK)
     hc, off = r1 - row0, y0 - row0
     if not (0 <= off < _ROW_BLOCK and hc % _ROW_BLOCK == 0
@@ -418,7 +426,114 @@ def _u8_args(frames, pad_h: int, pad_w: int, y0: int, x0: int, row0: int):
         raise ValueError(f"frames of {h_in}x{w_in} do not sit at "
                          f"({y0}, {x0}) of the rows from {row0} of a "
                          f"{pad_h}x{pad_w} pad")
-    return hc, off
+    return planar, hc, off
+
+
+def frames_slab(frames, coeff_rows, pad_w: int, x0: int, off: int,
+                hc: int) -> torch.Tensor:
+    """The torch pre stage of the front end: `unit_float`, one
+    `channel_mix` a colour row, the planes stacked plane-minor
+    frame-major, and the centre pad into the Hc content rows of the
+    padded width: (T * len(coeff_rows), Hc, pad_w) f32."""
+    f = unit_float(frames)
+    rgb = ((f[:, 0], f[:, 1], f[:, 2]) if is_planar(frames)
+           else (f[..., 0], f[..., 1], f[..., 2]))
+    planes = [channel_mix(*rgb, row) for row in coeff_rows]
+    y = planes[0] if len(planes) == 1 else torch.stack(
+        planes, dim=-3).reshape((-1,) + tuple(planes[0].shape[-2:]))
+    h_in, w_in = y.shape[-2:]
+    return F.pad(y, (x0, pad_w - w_in - x0, off, hc - off - h_in))
+
+
+def windowed_row_fft_frames_ref(frames, coeff_rows, pad_h: int, pad_w: int,
+                                y0: int, x0: int, row0: int,
+                                keep_half: bool = False):
+    """Plain PyTorch version of `windowed_row_fft_frames`: `frames_slab`
+    (the torch pre stage), then `windowed_row_fft_ref`."""
+    _, hc, off = _frames_args(frames, pad_h, pad_w, y0, x0, row0)
+    return windowed_row_fft_ref(
+        frames_slab(frames, coeff_rows, pad_w, x0, off, hc), pad_h, row0,
+        keep_half)
+
+
+def _row_fft_frames(name, frames, coeff_rows, pad_h, pad_w, y0, x0, row0,
+                    keep_half):
+    """Launch `csrc/row_fft.cu::pbmm_row_fft_frames` (kernel 4 and the
+    front end) on CUDA frames; returns (re, im)."""
+    from pbmm_tpu_torch.kernels.build import check_launch, library
+
+    planar, hc, off = _frames_args(frames, pad_h, pad_w, y0, x0, row0)
+    t = frames.shape[0]
+    h_in, w_in = frames.shape[-2:] if planar else frames.shape[1:3]
+    check_pow2(pad_w, "row FFT length")
+    if pad_w % _LANE:
+        raise ValueError(f"the CUDA row kernel takes multiples of 128 "
+                         f"lanes, got {pad_w}")
+    if len(coeff_rows) not in (1, 3):
+        raise ValueError(f"{name} forms 1 or 3 planes, got "
+                         f"{len(coeff_rows)} colour rows")
+    check_cuda(name, tuple(frames.shape), frames, dtype=frames.dtype)
+    tiles = kept_tiles(pad_w) if keep_half else list(range(pad_w // _LANE))
+    wk = len(tiles) * _LANE
+    n = t * len(coeff_rows)
+    dev = frames.device
+    wy, wx = device_arrays(_hann_pair, (pad_h, pad_w), dev)
+    twr, twi = device_arrays(compact_twiddles, (pad_w, False), dev)
+    (pos,) = device_ints(kept_positions, (pad_w, tuple(tiles)), dev)
+    out_re = torch.empty((n, hc, wk), dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    sc = _scratch((n * hc, pad_w), pad_w > ROW_BLOCK_N, dev)
+    err = library().pbmm_row_fft_frames(
+        frames.data_ptr(), c_floats(np.ravel(coeff_rows)),
+        wy[row0:row0 + hc].data_ptr(), wx.data_ptr(), twr.data_ptr(),
+        twi.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), c_ints(tiles),
+        pos.data_ptr(), int(frames.dtype == torch.uint8), int(planar),
+        len(coeff_rows), len(tiles), t, hc, h_in, w_in, pad_w, off, x0,
+        float(np.float32(1.0 / 255.0)), *_ptrs(*sc), stream_handle(dev))
+    check_launch(err, name)
+    return out_re, out_im
+
+
+@checked
+def windowed_row_fft_frames(frames, coeff_rows, pad_h: int, pad_w: int,
+                            y0: int, x0: int, row0: int,
+                            keep_half: bool = False):
+    """(T, 3, H, W) or (T, H, W, 3) uint8 or f32 frames -> row FFT of the
+    windowed planes of the padded frame, the batched chunk engine's front
+    end: for each of the colour rows `coeff_rows` (one, Y; or three, Y,
+    I, Q) the plane coeffs . unit_float(rgb) in the pre stage's op order,
+    the centre pad at (y0, x0) of the pad_h x pad_w frame, the content
+    rows [row0, row0 + Hc) of `aligned_row_window`, the Hann window and
+    kernel 1's row FFT.  Returns (re, im) each (T * planes, Hc, Wk) f32,
+    plane-minor frame-major; equal bit for bit to the torch pre stage
+    (`frames_slab`) + `windowed_row_fft` on the same frames.  The JAX
+    package leaves this pre stage to XLA (`pbmm_tpu/engine/pipeline.py:
+    171 preprocess_cl`); here no YIQ plane or padded slab is built.
+
+    CPU tensors take `windowed_row_fft_frames_ref`; CUDA tensors launch
+    `csrc/row_fft.cu::pbmm_row_fft_frames` (kernel 4's kernel on the row
+    engine of `csrc/row_pass.cuh`, templated on the element type, runtime
+    strides for the layout; rows above 16384 lanes bracketed through a
+    scratch)."""
+    if frames.device.type == "cpu":
+        return windowed_row_fft_frames_ref(frames, coeff_rows, pad_h, pad_w,
+                                           y0, x0, row0, keep_half)
+    out = _row_fft_frames("windowed_row_fft_frames", frames, coeff_rows,
+                          pad_h, pad_w, y0, x0, row0, keep_half)
+    windowed_row_fft_frames.launches += 1
+    return out
+
+
+windowed_row_fft_frames.launches = 0
+
+
+def _u8_args(frames, pad_h: int, pad_w: int, y0: int, x0: int, row0: int):
+    """Validate a call of kernel 4; returns (Hc, off) as `_frames_args`."""
+    if (frames.ndim != 4 or frames.shape[1] != 3
+            or frames.dtype != torch.uint8):
+        raise ValueError(f"expected (T, 3, H, W) uint8 frames, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    return _frames_args(frames, pad_h, pad_w, y0, x0, row0)[1:]
 
 
 def windowed_row_fft_u8planar_ref(frames, coeffs, pad_h: int, pad_w: int,
@@ -428,12 +543,9 @@ def windowed_row_fft_u8planar_ref(frames, coeffs, pad_h: int, pad_w: int,
     stage's `unit_float` and luma FMA, the centre pad, then
     `windowed_row_fft_ref` (bit-identical to the f32 path by
     construction)."""
-    hc, off = _u8_args(frames, pad_h, pad_w, y0, x0, row0)
-    _, _, h_in, w_in = frames.shape
-    f = unit_float(frames)
-    y = channel_mix(f[:, 0], f[:, 1], f[:, 2], coeffs)
-    slab = F.pad(y, (x0, pad_w - w_in - x0, off, hc - off - h_in))
-    return windowed_row_fft_ref(slab, pad_h, row0, keep_half)
+    _u8_args(frames, pad_h, pad_w, y0, x0, row0)
+    return windowed_row_fft_frames_ref(frames, (coeffs,), pad_h, pad_w, y0,
+                                       x0, row0, keep_half)
 
 
 @checked
@@ -446,42 +558,21 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
     [row0, row0 + Hc) of `aligned_row_window`, the Hann window and
     kernel 1's row FFT.  Returns (re, im) each (T, Hc, Wk) f32; equal bit
     for bit to the pre stage + `windowed_row_fft` on the same frames.
+    The JAX package's u8 route; `windowed_row_fft_frames` on these
+    frames with the one row.
 
     CPU tensors take `windowed_row_fft_u8planar_ref`; CUDA tensors launch
-    `csrc/row_fft.cu::pbmm_row_fft_u8` (the row engine of
+    `csrc/row_fft.cu::pbmm_row_fft_frames` (the row engine of
     `csrc/row_pass.cuh`; rows above 16384 lanes bracketed through a
     scratch)."""
     if frames.device.type == "cpu":
         return windowed_row_fft_u8planar_ref(frames, coeffs, pad_h, pad_w,
                                              y0, x0, row0, keep_half)
-    from pbmm_tpu_torch.kernels.build import check_launch, library
-
-    hc, off = _u8_args(frames, pad_h, pad_w, y0, x0, row0)
-    t, _, h_in, w_in = frames.shape
-    check_pow2(pad_w, "row FFT length")
-    if pad_w % _LANE:
-        raise ValueError(f"the CUDA row kernel takes multiples of 128 "
-                         f"lanes, got {pad_w}")
-    check_cuda("windowed_row_fft_u8planar", (t, 3, h_in, w_in), frames,
-               dtype=torch.uint8)
-    tiles = kept_tiles(pad_w) if keep_half else list(range(pad_w // _LANE))
-    wk = len(tiles) * _LANE
-    dev = frames.device
-    wy, wx = device_arrays(_hann_pair, (pad_h, pad_w), dev)
-    twr, twi = device_arrays(compact_twiddles, (pad_w, False), dev)
-    (pos,) = device_ints(kept_positions, (pad_w, tuple(tiles)), dev)
-    out_re = torch.empty((t, hc, wk), dtype=torch.float32, device=dev)
-    out_im = torch.empty_like(out_re)
-    sc = _scratch((t * hc, pad_w), pad_w > ROW_BLOCK_N, dev)
-    err = library().pbmm_row_fft_u8(
-        frames.data_ptr(), wy[row0:row0 + hc].data_ptr(), wx.data_ptr(),
-        twr.data_ptr(), twi.data_ptr(), out_re.data_ptr(),
-        out_im.data_ptr(), c_ints(tiles), pos.data_ptr(), len(tiles), t, hc,
-        h_in, w_in, pad_w, off, x0, c_floats(coeffs),
-        float(np.float32(1.0 / 255.0)), *_ptrs(*sc), stream_handle(dev))
-    check_launch(err, "windowed_row_fft_u8planar")
+    _u8_args(frames, pad_h, pad_w, y0, x0, row0)
+    out = _row_fft_frames("windowed_row_fft_u8planar", frames, (coeffs,),
+                          pad_h, pad_w, y0, x0, row0, keep_half)
     windowed_row_fft_u8planar.launches += 1
-    return out_re, out_im
+    return out
 
 
 windowed_row_fft_u8planar.launches = 0

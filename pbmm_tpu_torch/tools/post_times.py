@@ -76,12 +76,12 @@ def route_calls(device, h: int = 1080, w: int = 1920, pad_mode: str = "tight",
                 lambda c=c, chroma=chroma, src=src, lay=lay:
                 post_fused.rowifft_post_fused(
                     rre, rim, *chroma, win, c, *post, full_w=geom.pad_w,
-                    rgb_u8=src, out_layout=lay, route=False),
+                    src=src, out_layout=lay, route=False),
                 lambda c=c, chroma=chroma, src=src, lay=lay:
                 post_fused.post_fused(
                     row_ifft_magnitude(rre, rim, pad_h=geom.pad_h,
                                        full_w=geom.pad_w),
-                    *chroma, win, c, *post, lay, rgb_u8=src))
+                    *chroma, win, c, *post, lay, src=src))
     return out
 
 

@@ -4,7 +4,9 @@
 
 Counterpart of `benchmarks/roofline.py`: the same analytic per-stage
 model of device-memory bytes and FLOPs per frame (`hot_path_stages`,
-`hot_path_stages_u8`, on the port's geometry helpers), against the H100
+`hot_path_stages_u8`, on the port's geometry helpers; the f32 path's pre
+stage and row FFT as one stage, the front end, and its tail reading the
+frames' chroma, as the port runs them), against the H100
 SXM's published peaks (3.35 TB/s; 67 TFLOP/s f32 outside the tensor
 cores: no stage uses the tensor cores, so the FLOP share is of the f32
 peak), and, on the card, each stage's time by CUDA events
@@ -52,26 +54,29 @@ def _geometry(h, w, cfg):
 
 def hot_path_stages(h: int = 1080, w: int = 1920, cfg=None):
     """[(name, bytes in, bytes out, flops)] for one frame through the
-    tuned fused path, the JAX model's arithmetic (`roofline.py:39-109`):
-    bytes exact (each stage reads its operands once and writes its
-    outputs once; constants ignored), FLOPs the classical 5 N log2 N per
-    complex FFT plus per-element counts."""
+    tuned fused path as the port runs it (f32 interleaved frames in and
+    out): the front end (the Y plane, the pad and the Hann window formed
+    in the row FFT's loads, `fused.windowed_row_fft_frames`), kernel 2,
+    and kernel 3 taking the chroma from the frames and writing the
+    interleaved output.  The JAX model's arithmetic (`roofline.py:39-109`)
+    for each stage, its pre stage and row FFT merged as the front end
+    merges them: bytes exact (each stage reads its operands once and
+    writes its outputs once; constants ignored), FLOPs the classical
+    5 N log2 N per complex FFT plus per-element counts."""
     from pbmm_tpu_torch.config import MagnifyConfig
 
     cfg = cfg or MagnifyConfig().tuned_for_tpu()
     hp, wp, wk, hc, hr, taps = _geometry(h, w, cfg)
     lg_w, lg_h = math.log2(wp), math.log2(hp)
     return [
-        ("pre: rgb->yiq + pad slab", h * w * 3 * _F,
-         (2 * h * w + hc * wp) * _F, (9 + 3) * h * w),
-        ("fwd row-FFT (Hann fused)", hc * wp * _F, 2 * hc * wk * _F,
-         int(hc * 5 * wp * lg_w + 2 * hc * wp)),
+        ("front end: rgb->Y + pad + Hann + row-FFT", h * w * 3 * _F,
+         2 * hc * wk * _F, int(hc * 5 * wp * lg_w + 2 * hc * wp) + 5 * h * w),
         ("colspec: col-FFT + phase + col-IFFT (r5)",
          2 * hc * wk * _F + (4 * hp * wk * _F) // _T_AMORT,
          2 * hr * wk * _F + (4 * hp * wk * _F) // _T_AMORT,
          int(2 * wk * 5 * hp * lg_h + hp * wk * 80)),
-        ("row-IFFT + post (merged)", (2 * hr * wk + 2 * h * w) * _F,
-         3 * h * w * _F,
+        ("row-IFFT + post (merged, frames' chroma)",
+         (2 * hr * wk + 3 * h * w) * _F, 3 * h * w * _F,
          int(hr * 5 * wp * lg_w + 4 * hr * wp) + (4 * taps + 9 + 10) * h * w),
     ]
 
@@ -102,16 +107,14 @@ def hot_path_stages_u8(h: int = 1080, w: int = 1920, cfg=None):
 def measure_stages(h: int = 1080, w: int = 1920, cfg=None, reps: int = 20,
                    device=None):
     """Each stage of `hot_path_stages` run on the card at its shapes and
-    timed by CUDA events (median of `reps`, warm): the pre stage (the
-    torch YIQ FMAs and the pad of `preprocess_cl`, before kernel 1) and
-    kernel 1 on one frame, kernel 2 on a 16-frame chunk divided by 16,
-    kernel 3 on one frame.  Returns [(name, seconds per frame)]."""
-    import torch.nn.functional as F
-
+    timed by CUDA events (median of `reps`, warm): the front end on one
+    f32 interleaved frame, kernel 2 on a 16-frame chunk divided by 16,
+    kernel 3 on one frame (chroma from the frame, interleaved out).
+    Returns [(name, seconds per frame)]."""
     from pbmm_tpu_torch.config import MagnifyConfig
+    from pbmm_tpu_torch.core.color import RGB_TO_YIQ
     from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
     from pbmm_tpu_torch.engine.pipeline import (
-        _luma_chroma,
         blur_row_window,
         hermitian_active,
     )
@@ -120,7 +123,7 @@ def measure_stages(h: int = 1080, w: int = 1920, cfg=None, reps: int = 20,
         aligned_row_window,
         col_fft_zero_padded,
         colspec_chunk,
-        windowed_row_fft,
+        windowed_row_fft_frames,
     )
     from pbmm_tpu_torch.tools.kexp import timed
 
@@ -129,19 +132,17 @@ def measure_stages(h: int = 1080, w: int = 1920, cfg=None, reps: int = 20,
     geom = geometry_for(h, w, cfg.pad_mode)
     hp, wp = geom.pad_h, geom.pad_w
     keep = hermitian_active(cfg, geom)
-    r0, r1 = aligned_row_window(geom.y0, geom.y0 + geom.in_h, hp)
+    r0, _ = aligned_row_window(geom.y0, geom.y0 + geom.in_h, hp)
     rows = blur_row_window(geom, cfg)
     frame = torch.from_numpy(np.random.default_rng(0).random(
         (1, h, w, 3)).astype(np.float32)).to(dev)
+    luma = (tuple(float(c) for c in RGB_TO_YIQ[0]),)
 
-    def pre(fr):
-        y, i_pl, q_pl = _luma_chroma(fr, cfg, True)
-        slab = F.pad(y, (geom.x0, wp - geom.in_w - geom.x0,
-                         geom.y0 - r0, r1 - geom.y0 - geom.in_h))
-        return slab, i_pl, q_pl
+    def front(fr):
+        return windowed_row_fft_frames(fr, luma, hp, wp, geom.y0, geom.x0,
+                                       r0, keep_half=keep)
 
-    slab, i_pl, q_pl = pre(frame)
-    re1, im1 = windowed_row_fft(slab, pad_h=hp, row0=r0, keep_half=keep)
+    re1, im1 = front(frame)
     t = _T_AMORT
     stream_re = torch.cat([re1 + 0.1 * k for k in range(t)])
     stream_im = torch.cat([im1 + 0.1 * k for k in range(t)])
@@ -154,15 +155,15 @@ def measure_stages(h: int = 1080, w: int = 1920, cfg=None, reps: int = 20,
                              hp, r0, out_rows=rows, full_w=wp)[:2]
     win = hann2d_region(geom, device=dev)
     stages = [
-        (pre, (frame,), 1),
-        (lambda x: windowed_row_fft(x, pad_h=hp, row0=r0, keep_half=keep),
-         (slab,), 1),
+        (front, (frame,), 1),
         (lambda a, b: colspec_chunk(a, b, pre_, pim, cfg, hp, r0,
                                     out_rows=rows, full_w=wp),
          (stream_re, stream_im), t),
-        (lambda a, b: rowifft_post_fused(a, b, i_pl, q_pl, win, cfg,
+        (lambda a, b: rowifft_post_fused(a, b, None, None, win, cfg,
                                          rows[0], h, w, cfg.pad_mode,
-                                         full_w=wp), (rre, rim), 1),
+                                         full_w=wp, src=frame,
+                                         out_layout="interleaved"),
+         (rre, rim), 1),
     ]
     names = [s[0] for s in hot_path_stages(h, w, cfg)]
     return [(name, timed(fn, args, reps=reps)[0] / 1e3 / n)

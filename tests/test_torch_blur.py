@@ -185,17 +185,17 @@ def test_post_fused_u8_chroma_ref_matches_kernel3_ref(layout):
     win = hann2d_region(g)
     want = post_fused.rowifft_post_fused(
         rre, rim, None, None, win, cfg, rows[0], in_h, in_w, "tight",
-        full_w=g.pad_w, rgb_u8=u8, out_layout=layout)
+        full_w=g.pad_w, src=u8, out_layout=layout)
     rec = fused.row_ifft_magnitude(rre, rim, pad_h=g.pad_h, full_w=g.pad_w)
     got = post_fused.post_fused(rec, None, None, win, cfg, rows[0], in_h,
-                                in_w, "tight", layout, rgb_u8=u8)
+                                in_w, "tight", layout, src=u8)
     if layout == "tuple3":
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) < 1e-6
     else:
         assert got.dtype == torch.uint8
         assert int((got.int() - want.int()).abs().max()) <= 1
-    with pytest.raises(ValueError, match="rgb_u8"):
+    with pytest.raises(ValueError, match="src"):
         post_fused.post_fused(rec, None, None, win, cfg, rows[0], in_h, in_w,
                               "tight", layout)
 

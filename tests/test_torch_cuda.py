@@ -102,7 +102,7 @@ from pbmm_tpu_torch import MagnifyConfig, magnify_video
 from pbmm_tpu_torch.core.window import geometry_for, hann2d_region
 from pbmm_tpu_torch.engine import post_fused
 from pbmm_tpu_torch.core.color import RGB_TO_YIQ
-from pbmm_tpu_torch.engine.pipeline import blur_row_window, preprocess_cl
+from pbmm_tpu_torch.engine.pipeline import blur_row_window, chroma_planes
 from pbmm_tpu_torch.spectral import fused
 from pbmm_tpu_torch.spectral.hermitian import hermitian_kept_width
 
@@ -189,7 +189,7 @@ def test_main_path_on_card_matches_cpu(dev):
     base = rng.random((320, 384, 3)).astype(np.float32)
     clip = np.stack([np.roll(base, i, axis=1) * (0.95 + 0.01 * i)
                      for i in range(5)]).astype(np.float32)
-    counts = {f: f.launches for f in (fused.windowed_row_fft,
+    counts = {f: f.launches for f in (fused.windowed_row_fft_frames,
                                       fused.colspec_chunk,
                                       post_fused.rowifft_post_fused)}
     out_d, st_d = magnify_video(torch.from_numpy(clip).to(dev), _cfg())
@@ -219,7 +219,10 @@ def test_u8_row_fft_kernel(dev, in_h, in_w):
     want = fused.windowed_row_fft_u8planar_ref(*args)
     assert _rel(got, want) < 1e-4
     # The torch pre stage + kernel 1 on the same frames, bit for bit.
-    re, im, _, _ = preprocess_cl(frames, _cfg(), want_iq=True)
+    hc, off = fused._u8_args(frames, g.pad_h, g.pad_w, g.y0, g.x0, r0)
+    re, im = fused.windowed_row_fft(
+        fused.frames_slab(frames, (luma,), g.pad_w, g.x0, off, hc), g.pad_h,
+        r0, True)
     assert torch.equal(got[0], re) and torch.equal(got[1], im)
 
 
@@ -293,7 +296,7 @@ def test_post_kernel_variants(dev, src, layout):
             0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev))
     args = (rre, rim, chroma[0], chroma[1], hann2d_region(g, device=dev),
             _cfg(), rows[0], in_h, in_w, "tight")
-    kw = dict(full_w=g.pad_w, rgb_u8=chroma[2])
+    kw = dict(full_w=g.pad_w, src=chroma[2])
     got = post_fused.rowifft_post_fused(*args, out_layout=layout, **kw)
     want = post_fused.rowifft_post_fused_ref(*args, out_layout=layout, **kw)
     if layout == "tuple3":
@@ -336,7 +339,7 @@ def test_u8_path_on_card_matches_cpu(dev, in_h, layout):
     cfg = _cfg().replace(output_layout=layout)
     kernels = ((fused.windowed_row_fft_u8planar, post_fused.rowifft_post_fused)
                if in_h == 320 else
-               (fused.windowed_row_fft, fused.row_ifft_magnitude))
+               (fused.windowed_row_fft_u8planar, fused.row_ifft_magnitude))
     counts = {f: f.launches for f in kernels}
     out_d, _ = magnify_video(torch.from_numpy(clip).to(dev), cfg)
     assert all(f.launches > n for f, n in counts.items())
@@ -1145,7 +1148,7 @@ def test_post_kernel_blur_radius(dev, blur_size, src, layout):
             0, 256, (2, 3, in_h, in_w), dtype=np.uint8)).to(dev))
     args = (rre, rim, chroma[0], chroma[1], hann2d_region(g, device=dev),
             cfg, rows[0], in_h, in_w, "tight")
-    kw = dict(full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout)
+    kw = dict(full_w=g.pad_w, src=chroma[2], out_layout=layout)
     counts = {f: f.launches for f in (post_fused.rowifft_post_fused,
                                       fused.row_ifft_magnitude,
                                       post_fused.post_fused)}
@@ -1193,7 +1196,7 @@ def test_post_rgb_and_yonly_kernels_blur_radius(dev, blur_size, layout):
                     dict(out_layout=layout)),
         "k10_u8": (post_fused.post_fused, post_fused.post_fused_ref,
                    (rec3[0::3].contiguous(), None, None, *common),
-                   dict(out_layout=layout, rgb_u8=u8)),
+                   dict(out_layout=layout, src=u8)),
     }
     for name, (kern, ref, args, kw) in calls.items():
         n = kern.launches
@@ -1253,7 +1256,7 @@ def _check_tile_kernels(cfg, rec3, u8, iq, common):
                                pad_mode), {}),
         "k10_u8": (post_fused.post_fused, post_fused.post_fused_ref,
                    lambda c: (y_rows, None, None, win, c, rows0, in_h, in_w,
-                              pad_mode), dict(rgb_u8=u8)),
+                              pad_mode), dict(src=u8)),
     }
     for name, (kern, ref, args, kw) in calls.items():
         for layout, c in (("tuple3", cfg), ("planar", cfg.replace(
@@ -1558,14 +1561,14 @@ def test_post_kernel_equals_row_ifft_and_post_fused(dev, geom_name, ri, src,
               fused.row_ifft_magnitude.launches)
     got = post_fused.rowifft_post_fused(
         rre, rim, chroma[0], chroma[1], win, cfg, rows[0], in_h, in_w,
-        "tight", full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout,
+        "tight", full_w=g.pad_w, src=chroma[2], out_layout=layout,
         route=False)
     assert post_fused.rowifft_post_fused.launches == n3 + 1
     assert fused.row_ifft_magnitude.launches == n7
     rec = fused.row_ifft_magnitude(rre, rim, pad_h=g.pad_h, full_w=g.pad_w)
     want = post_fused.post_fused(rec, chroma[0], chroma[1], win, cfg,
                                  rows[0], in_h, in_w, "tight", layout,
-                                 rgb_u8=chroma[2])
+                                 src=chroma[2])
     got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -2129,3 +2132,179 @@ def test_native_stream_equals_memmap(dev, tmp_path, dtype):
     np.testing.assert_array_equal(got, np.concatenate(want))
     whole, _ = magnify_video(torch.from_numpy(np.load(p)).to(dev), cfg)
     np.testing.assert_array_equal(got, whole.cpu().numpy())
+
+
+# -- the pre stage and the output stack folded into the kernels: the front
+#    end (kernel 4's kernel on every input form), the source chroma of
+#    kernels 3 and 10 and the interleaved layout of kernels 3, 10, 11 --------
+
+_FRONT_SIZES = {  # (H, W, pad_mode): 1080p's two paddings, a row of 16384
+    # lanes in one block, a bracketed row (32768 lanes), an odd width
+    # (element loads at every alignment)
+    "1080p tight": (1080, 1920, "tight"),
+    "1080p square_pow2": (1080, 1920, "square_pow2"),
+    "16384 lanes": (64, 15360, "tight"),
+    "32768 lanes": (8, 17000, "tight"),
+    "481 wide": (270, 481, "tight"),
+}
+
+
+def _source_frames(t, h, w, dtype, layout, dev, seed=21):
+    """Seeded source frames in one of the four input forms."""
+    u8 = np.random.default_rng(seed).integers(0, 256, (t, h, w, 3), np.uint8)
+    a = u8 if dtype == "u8" else (u8 * np.float32(1.0 / 255.0))
+    if layout == "planar":
+        a = np.moveaxis(a, -1, 1)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+@pytest.mark.parametrize("planes", ["y_only", "rgb"])
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("size", list(_FRONT_SIZES))
+def test_front_end_equals_pre_stage_and_kernel1(dev, size, dtype, layout,
+                                                planes):
+    """The front end, bit for bit the torch pre stage (`frames_slab`:
+    unit_float, the colour rows, the centre pad) + kernel 1 on the same
+    frames, in every input form, one plane and three."""
+    h, w, mode = _FRONT_SIZES[size]
+    g = geometry_for(h, w, mode)
+    frames = _source_frames(2, h, w, dtype, layout, dev)
+    r0, _ = fused.aligned_row_window(g.y0, g.y0 + h, g.pad_h)
+    rows = tuple(tuple(float(c) for c in r) for r in (
+        RGB_TO_YIQ[:1] if planes == "y_only" else RGB_TO_YIQ))
+    n = fused.windowed_row_fft_frames.launches
+    got = fused.windowed_row_fft_frames(frames, rows, g.pad_h, g.pad_w,
+                                        g.y0, g.x0, r0, True)
+    assert fused.windowed_row_fft_frames.launches == n + 1
+    _, hc, off = fused._frames_args(frames, g.pad_h, g.pad_w, g.y0, g.x0, r0)
+    want = fused.windowed_row_fft(
+        fused.frames_slab(frames, rows, g.pad_w, g.x0, off, hc), g.pad_h, r0,
+        True)
+    assert got[0].shape == (2 * len(rows), hc, hermitian_kept_width(g.pad_w))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _post_inputs(dev, t=4, in_h=1080, in_w=1920, seed=22):
+    g = geometry_for(in_h, in_w, "tight")
+    rows = blur_row_window(g, _cfg().replace(blur_size=4.0))
+    hr, wk = rows[1] - rows[0], hermitian_kept_width(g.pad_w)
+    rng = np.random.default_rng(seed)
+    scale = 0.3 * g.pad_h * np.sqrt(g.pad_w)
+    return dict(g=g, t=t, rows=rows, win=hann2d_region(g, device=dev),
+                rre=_rand(rng, (t, hr, wk), dev, scale),
+                rim=_rand(rng, (t, hr, wk), dev, scale),
+                rec=_rand(rng, (t, hr, g.pad_w), dev).abs(),
+                rec3=_rand(rng, (3 * t, hr, g.pad_w), dev, 0.3))
+
+
+def _quirk_cfg(blur, quirks):
+    cfg = _cfg().replace(blur_size=blur)
+    if quirks:
+        cfg = cfg.replace(compensate_window=True, apply_yiq_gains=True,
+                          yiq_gains=(1.0, 1.2, 0.8))
+    return cfg
+
+
+def _post_call(kernel, p, cfg, chroma, layout, src=None):
+    g, r0 = p["g"], p["rows"][0]
+    if kernel == 3:
+        return post_fused.rowifft_post_fused(
+            p["rre"], p["rim"], *chroma, p["win"], cfg, r0, g.in_h, g.in_w,
+            "tight", full_w=g.pad_w, src=src, out_layout=layout)
+    if kernel == 10:
+        return post_fused.post_fused(p["rec"], *chroma, p["win"], cfg, r0,
+                                     g.in_h, g.in_w, "tight", layout, src=src)
+    return post_fused.post_fused_rgb(p["rec3"], p["win"],
+                                     cfg.replace(chroma="rgb"), r0, g.in_h,
+                                     g.in_w, "tight", out_layout=layout)
+
+
+@pytest.mark.parametrize("quirks", [False, True], ids=["plain", "quirks"])
+@pytest.mark.parametrize("blur", [1.0, 4.0], ids=["r2", "r13"])
+@pytest.mark.parametrize("kernel", [3, 10, 11])
+def test_post_interleaved_equals_stack(dev, kernel, blur, quirks):
+    """The interleaved layout of kernels 3, 10 and 11 (kernel 3 at radius
+    13 through kernels 7 + 10) = torch.stack of "tuple3", bit for bit."""
+    p = _post_inputs(dev)
+    cfg = _quirk_cfg(blur, quirks)
+    chroma = chroma_planes(_source_frames(p["t"], 1080, 1920, "f32",
+                                          "interleaved", dev))
+    tup = _post_call(kernel, p, cfg, chroma, "tuple3")
+    got = _post_call(kernel, p, cfg, chroma, "interleaved")
+    assert got.shape == (p["t"], 1080, 1920, 3) and got.is_contiguous()
+    assert torch.equal(got, torch.stack(tup, dim=-1))
+
+
+@pytest.mark.parametrize("quirks", [False, True], ids=["plain", "quirks"])
+@pytest.mark.parametrize("blur", [1.0, 4.0], ids=["r2", "r13"])
+@pytest.mark.parametrize("form", ["f32 interleaved", "f32 planar",
+                                  "u8 interleaved"])
+@pytest.mark.parametrize("kernel", [3, 10])
+def test_post_source_chroma_equals_iq_planes(dev, kernel, form, blur,
+                                             quirks):
+    """Kernels 3 and 10 taking the chroma from f32 or interleaved source
+    frames = the same kernel on the I/Q planes the torch pre stage forms
+    from them (`chroma_planes`), bit for bit, in the four layouts; at
+    radius 13 kernel 3's route takes kernels 7 + 10."""
+    p = _post_inputs(dev)
+    cfg = _quirk_cfg(blur, quirks)
+    frames = _source_frames(p["t"], 1080, 1920, *form.split(), dev)
+    iq = chroma_planes(frames)
+    for layout in post_fused._LAYOUTS:
+        want = _post_call(kernel, p, cfg, iq, layout)
+        got = _post_call(kernel, p, cfg, (None, None), layout, src=frames)
+        want = want if layout != "tuple3" else torch.stack(want)
+        got = got if layout != "tuple3" else torch.stack(got)
+        assert torch.equal(got, want), layout
+
+
+_GLUE_FORMS = ["f32 interleaved", "f32 planar", "u8 interleaved",
+               "u8 planar"]
+
+
+@pytest.mark.parametrize("out_layout", ["interleaved", "planar",
+                                        "planar_u8"])
+@pytest.mark.parametrize("form", _GLUE_FORMS)
+def test_chunk_launches_only_the_kernels(dev, form, out_layout):
+    """A steady-state 1080p tight chunk in every input form launches the
+    front end (kernel 4 from planar uint8), kernel 2 and kernel 3 once
+    each and no torch kernel (no YIQ plane, padded slab or output stack:
+    the profiler's device kernels hold nothing of at::native), and gives
+    the CPU path's frames."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _cfg().replace(output_layout=out_layout)
+    frames = _source_frames(6, 1080, 1920, *form.split(), dev)
+    _, state = magnify_video(frames[:2], cfg)
+    wrappers = (fused.windowed_row_fft_frames, fused.windowed_row_fft_u8planar,
+                fused.windowed_row_fft, fused.colspec_chunk,
+                post_fused.rowifft_post_fused, fused.row_ifft_magnitude,
+                post_fused.post_fused, post_fused.post_fused_rgb)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no device event
+        for f in wrappers:
+            f.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, _ = magnify_video(frames[2:], cfg, state)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith("pbmm.")]
+        if names:
+            break
+    front = (fused.windowed_row_fft_u8planar if form == "u8 planar"
+             else fused.windowed_row_fft_frames)
+    got = {f.__name__: f.launches for f in wrappers}
+    assert got == {f.__name__: int(f in (front, fused.colspec_chunk,
+                                         post_fused.rowifft_post_fused))
+                   for f in wrappers}
+    assert names and not [n for n in names if "at::native" in n], names
+    cpu_frames = frames.cpu()
+    _, st = magnify_video(cpu_frames[:2], cfg)
+    want, _ = magnify_video(cpu_frames[2:], cfg, st)
+    if out_layout == "planar_u8":
+        assert int((out.cpu().int() - want.int()).abs().max()) <= 1
+    else:
+        assert float((out.cpu() - want).abs().max()) < 1e-4

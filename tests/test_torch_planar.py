@@ -88,10 +88,11 @@ def test_planar_u8_vs_jax_and_oracle(clip, layout):
 
 
 def test_kernel_routes(clip, monkeypatch):
-    """uint8 planar frames take kernel 4 and the u8 chroma of kernel 3
-    where the merged tail serves, else kernel 1 and kernel 7: the JAX
-    package's gates.  (On the CPU each wrapper runs its plain version;
-    the spies record which wrappers the engine called.)"""
+    """uint8 planar frames take kernel 4, and the u8 chroma of kernel 3
+    where the merged tail serves, else kernel 7 (the JAX package's gates
+    for the tail; kernel 4 serves both, the front end's route for these
+    frames).  (On the CPU each wrapper runs its plain version; the spies
+    record which wrappers the engine called.)"""
     import pbmm_tpu_torch.engine.pipeline as pipe
     import pbmm_tpu_torch.engine.video as video
 
@@ -99,7 +100,7 @@ def test_kernel_routes(clip, monkeypatch):
 
     def spy(mod, name, fn, tag):
         def wrapped(*a, **k):
-            calls.append((tag, k.get("rgb_u8") is not None))
+            calls.append((tag, k.get("src") is not None))
             return fn(*a, **k)
         monkeypatch.setattr(mod, name, wrapped)
 
@@ -110,7 +111,7 @@ def test_kernel_routes(clip, monkeypatch):
     spy(video, "rowifft_post_fused", post_fused.rowifft_post_fused, "k3")
     magnify_video(torch.from_numpy(clip["planar"][:2]), _tcfg())
     want = ([("k4", False), ("k3", True)] if clip["name"] == "320x384"
-            else [("k1", False), ("k7", False)])
+            else [("k4", False), ("k7", False)])
     assert calls == want
 
 

@@ -154,7 +154,7 @@ def _ref(rre, rim, i_pl, q_pl, u8, win, cfg, layout):
     chroma = (None, None) if u8 is not None else (i_pl, q_pl)
     return post_fused.rowifft_post_fused_ref(
         rre, rim, *chroma, win, cfg, 0, IN_H, IN_W, "tight", full_w=512,
-        rgb_u8=u8, out_layout=layout)
+        src=u8, out_layout=layout)
 
 
 @pytest.mark.parametrize("radius", range(0, 13))

@@ -394,7 +394,7 @@ def _check_model(kernel, cfg, layout, chroma, tile, seed):
     else:
         iq = (None, None) if u8 is not None else (i_pl, q_pl)
         want = post_fused.post_fused_ref(chans, *iq, win, cfg, 0, IN_H,
-                                         IN_W, "tight", layout, rgb_u8=u8)
+                                         IN_W, "tight", layout, src=u8)
     _same(got, want)
     if layout == "planar_u8":
         planar = _model_epilogue(v, i_pl, q_pl, u8, win, cfg, "planar")

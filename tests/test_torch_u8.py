@@ -162,7 +162,7 @@ def test_post_variants_ref_vs_jax(k3, src, layout):
     args = (torch.from_numpy(k3["rre"]), torch.from_numpy(k3["rim"]),
             chroma[0], chroma[1], hann2d_region(g), _tcfg(), k3["rows"][0],
             g.in_h, g.in_w, "tight")
-    kw = dict(full_w=g.pad_w, rgb_u8=chroma[2], out_layout=layout)
+    kw = dict(full_w=g.pad_w, src=chroma[2], out_layout=layout)
     got = rowifft_post_fused_ref(*args, **kw)
     want = k3[src, layout]
     if layout == "tuple3":
@@ -191,7 +191,7 @@ def test_post_layouts_agree(k3):
     base = (torch.from_numpy(k3["rre"]), torch.from_numpy(k3["rim"]), None,
             None, hann2d_region(g), _tcfg(), k3["rows"][0], g.in_h, g.in_w,
             "tight")
-    kw = dict(full_w=g.pad_w, rgb_u8=torch.from_numpy(k3["u8"]))
+    kw = dict(full_w=g.pad_w, src=torch.from_numpy(k3["u8"]))
     r, gr, b = rowifft_post_fused_ref(*base, out_layout="tuple3", **kw)
     planar = rowifft_post_fused_ref(*base, out_layout="planar", **kw)
     u8 = rowifft_post_fused_ref(*base, out_layout="planar_u8", **kw)
