@@ -44,7 +44,8 @@ non-zero without the final line:
      measurement path's: kernel 12 (kdecomp, all six piece sets at H =
      2048, its full variant bit for bit against kernel 6 on kdecomp's
      planes and on the bar's spectra), kernel 13 (the copy probe, rows of
-     1 and 64, strips of 4, 8 and 32 columns, bit for bit) and kernel 14
+     1 and 64, strips of 2, 4, 8, 16 and 32 columns, bit for bit) and
+     kernel 14
      (the trig probe: every op code against its plain version and fp64,
      with the JAX probe's tolerances, signed and exact zeros included);
      blur radii 5, 13 and 15 (kernels 3, 11, 10 with f32 and uint8
@@ -152,8 +153,11 @@ non-zero without the final line:
        equal to an uninterrupted run;
      - (i) the measurement path, through the tools: `roofline_table` at
        1080p (kernels 1, 2, 3 and the row-tile copy ceiling), kexp's
-       experiments (kernels 1, 5, 6, 7 and both copies at kexp's shape
-       and on a 16-frame stack), kdecomp's six variants, the trig probe,
+       experiments (kernels 1, 5, 6, 7), the copy probe's rows and strips
+       of 2-32 columns beside `Tensor.copy_` at kexp's shape and on a
+       16-frame stack (GB/s, warm and cold), kdecomp's six variants and
+       kernel 6 on the same planes at one frame and at 16 (each piece's
+       share, and the full variant against kernel 6), the trig probe,
        and the CLI's `--demo bar --fast --trace DIR --stats` (the trace
        must name kernel 1) and `--debug-view split`: kernels 12, 13, 14;
      each finite in [0, 1], two half chunks equal to one chunk bit for
@@ -225,6 +229,9 @@ H16, W16, T16 = 8640, 15360, 2  # 16K: 16384 x 16384; tight: 8704 rows
 M_TOP = 63  # the four-step's largest m (m = 64 is 8192 rows: radix-2)
 SPEC_TOL = 1e-4  # max error / max magnitude, spectra
 IMG_TOL = 1e-4  # max abs error, images in [0, 1]
+# Kernel 13's patterns: rows a block, and strips of columns.
+COPY_PATTERNS = (("rows", 1), ("rows", 64), ("lanes", 2), ("lanes", 4),
+                 ("lanes", 8), ("lanes", 16), ("lanes", 32))
 
 
 def log(*a):
@@ -945,9 +952,7 @@ def main():
             full_w=kd_fw) for name, pieces in kdecomp.VARIANTS[:-1]},
         **{f"copy_probe[{pat} {blk}{', 16 frames' if big else ''}]": both(
             kexp.copy_probe, *(cp16 if big else cp1), pat, blk)
-           for big in (False, True)
-           for pat, blk in (("rows", 1), ("rows", 64), ("lanes", 4),
-                            ("lanes", 8), ("lanes", 32))
+           for big in (False, True) for pat, blk in COPY_PATTERNS
            if big or (pat, blk) != ("rows", 1)},
     }
     # The post kernels' variants above: (kernel, config, uint8 chroma,
@@ -1246,6 +1251,14 @@ def main():
             fft_ops(g_sq.pad_w, T * hp_) + 3 * k7_[0].numel())
     variants.update(shard_variants)
     variant_work.update(shard_work)
+    # The measurement path's variants: kdecomp's other piece sets move
+    # kernel 12's bytes; the copies their planes, read once, written once.
+    variant_work.update({
+        f"kdecomp_variant[{name}]": work["kdecomp_variant"][:2]
+        for name, _ in kdecomp.VARIANTS[:-1]})
+    variant_work.update({
+        name: (2 * 2 * f4 * (cp16 if "16 frames" in name else cp1)[0].numel(),
+               0) for name in variants if name.startswith("copy_probe[")})
     assert set(variant_work) <= set(variants)
     irfft_in = torch.complex(rre[..., :geom.pad_w // 2 + 1].contiguous(),
                              rim[..., :geom.pad_w // 2 + 1].contiguous())
@@ -1263,7 +1276,9 @@ def main():
         torch.cuda.synchronize()
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
-        if name.startswith(("copy_probe", "kdecomp_variant[stream only]")):
+        if name.startswith(("copy_probe", "kdecomp_variant[stream only]",
+                            "kdecomp_variant[+gm matmul]",
+                            "kdecomp_variant[+rolls]")):
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             same = all(torch.equal(g, w) for g, w in zip(got, want))
             rel, tol, what = err, 0.0, "max abs (bit for bit)"
@@ -2316,17 +2331,26 @@ def main():
         res = {"copy_gbps": roofline.row_copy_ceiling(dev)}
         res["roofline"] = roofline.roofline_table(
             reps=10, copy_gbps=res["copy_gbps"])
-        res["ceilings"] = {
-            f"{pat} {blk}, {label}": (planes[0].numel(), kexp.timed(
-                kexp.copy_probe, (*planes, pat, blk)))
-            for label, planes in (("1 frame", cp1), ("16 frames", cp16))
-            for pat, blk in (("rows", 1), ("rows", 64), ("lanes", 4),
-                             ("lanes", 8), ("lanes", 32))}
+        res["ceilings"] = {}
+        for label, planes in (("1 frame", cp1), ("16 frames", cp16)):
+            pair = torch.stack(planes)
+            dst = torch.empty_like(pair)
+            res["ceilings"][f"Tensor.copy_, {label}"] = (
+                planes[0].numel(), kexp.timed(lambda: dst.copy_(pair),
+                                              device=dev))
+            del pair, dst
+            for pat, blk in COPY_PATTERNS:
+                res["ceilings"][f"{pat} {blk}, {label}"] = (
+                    planes[0].numel(), kexp.timed(
+                        kexp.copy_probe, (*planes, pat, blk)))
         res["kexp"] = {n: kexp.timed(fn, a) for n, (fn, a) in
                        kexp.experiments(dev, {
                            "rowfft_kept", "colfft_kept", "phase_kept",
                            "rowifft_kept"}).items()}
+        # Kernel 12's variants and kernel 6 at one frame and at 16 (kernel
+        # 2's launch-2 frame count on a chunk of 16).
         res["kdecomp"] = kdecomp.run_kdecomp(dev, reps=10)
+        res["kdecomp16"] = kdecomp.run_kdecomp(dev, reps=10, frames=16)
         res["trig"] = trig_probe.run_probe(dev)
         demo_out = os.path.join(meas_dir, "demo.npy")
         trace_dir = os.path.join(meas_dir, "trace")
@@ -2381,15 +2405,27 @@ def main():
             f"moved: warm {warm:.4f} ms {kexp.copy_gbps(nbytes, warm):.0f} "
             f"GB/s, cold {cold:.4f} ms {kexp.copy_gbps(nbytes, cold):.0f} "
             "GB/s")
+    for label in ("1 frame", "16 frames"):
+        cp_rows1 = meas["ceilings"][f"rows 1, {label}"][1]
+        cp_lib = meas["ceilings"][f"Tensor.copy_, {label}"][1]
+        log(f"[3] {card}: copy probe rows 1 against Tensor.copy_, {label}: "
+            f"warm {cp_rows1[0] / cp_lib[0]:.3f}x, cold "
+            f"{cp_rows1[1] / cp_lib[1]:.3f}x")
     for name, (warm, cold) in meas["kexp"].items():
         log(f"[3] {card}: kexp {name}: warm {warm:.4f} ms, cold {cold:.4f} "
             "ms")
-    for name, warm, cold in meas["kdecomp"]:
-        log(f"[3] {card}: kdecomp {name}: warm {warm:.4f} ms, cold "
-            f"{cold:.4f} ms")
-    for name, (warm, cold) in kdecomp.split(meas["kdecomp"]).items():
-        log(f"[3] {card}: kdecomp split, {name}: warm {warm:.4f} ms, cold "
-            f"{cold:.4f} ms")
+    for key, kd_b in (("kdecomp", 1), ("kdecomp16", 16)):
+        for name, warm, cold in meas[key]:
+            log(f"[3] {card}: kdecomp B = {kd_b}, {name}: warm {warm:.4f} "
+                f"ms, cold {cold:.4f} ms")
+        for name, (warm, cold) in kdecomp.split(meas[key]).items():
+            log(f"[3] {card}: kdecomp split B = {kd_b}, {name}: warm "
+                f"{warm:.4f} ms, cold {cold:.4f} ms")
+        kd_t = {name: warm for name, warm, _ in meas[key]}
+        kd_full, kd_6 = kd_t[kdecomp.VARIANTS[-1][0]], kd_t[kdecomp.KERNEL6]
+        log(f"[3] {card}: kdecomp B = {kd_b}: the full variant "
+            f"{kd_full:.4f} ms warm against kernel 6's {kd_6:.4f}: "
+            f"{kd_full / kd_6:.3f}x")
 
     # stream: a 1080p 420jpeg y4m through stream_magnify(ingest="u8")
     tmp = tempfile.mkdtemp(prefix="pbmm_smoke_")
@@ -2683,6 +2719,17 @@ def main():
                 f"library call (torch.fft.{what}) "
                 f"{records[name]['library_ms']:.4f} ms")
         del fft16, col16, irfft16
+        # The copy probe's rows on the 16-frame stack beside one
+        # Tensor.copy_ of the same pair.
+        cp_pair16 = torch.stack(cp16)
+        cp_dst16 = torch.empty_like(cp_pair16)
+        name = "copy_probe[rows 1, 16 frames]"
+        records[name]["library_ms"] = kexp.timed(
+            lambda: cp_dst16.copy_(cp_pair16), device=dev)[0]
+        log(f"[4] {card}: {name} {records[name]['ms']:.4f} ms warm, bound "
+            f"{records[name]['bound_ms']:.4f} ms, against its library call "
+            f"(Tensor.copy_) {records[name]['library_ms']:.4f} ms")
+        del cp_pair16, cp_dst16
         for name, num in (("row_ifft_magnitude", 7),
                           ("windowed_row_fft_u8planar", 4),
                           ("windowed_row_fft", 1)):
@@ -2912,7 +2959,12 @@ def main():
             path_i: {"seconds": meas["seconds"],
                      "row_copy_ceiling_gbps": meas["copy_gbps"],
                      "roofline": meas["roofline"][1],
-                     "kdecomp_split_ms": kdecomp.split(meas["kdecomp"])},
+                     "copy_ceilings_ms": {
+                         name: ms for name, (_, ms) in
+                         meas["ceilings"].items()},
+                     "kdecomp_split_ms": kdecomp.split(meas["kdecomp"]),
+                     "kdecomp_split_ms_16_frames": kdecomp.split(
+                         meas["kdecomp16"])},
         },
         "launches_by_path": path_launches}))
     dist.destroy_process_group()

@@ -380,25 +380,29 @@ static cudaError_t pbmm_bracket_cols(const PbmmColPass& a, int batch,
 // point q of a group lies at the group's word XOR a constant of the code,
 // and the 32 / S rows a warp reaches at once (bits 0 .. B - 1 of p where
 // st >= 2^B; bits K .. K + B - 1 where st = 1) fall on distinct banks.
-// The plans keep every other stride at 2^B or more.
+// The plans keep every other stride at 2^B or more; so do the range plans
+// of kernel 12 ([0, 7), [7, log2 n): their later passes start at stage 4
+// or more, strides of 16 and up, and B <= 4 on strips of 2 and more).
 // tests/test_torch_colpass.py checks the plans, the banks and a numpy
 // model of the passes bit for bit against the stage-by-stage radix-2.
 
 #define PBMM_CB_THREADS 512  // a block of the in-block kernels
 
-__host__ __device__ constexpr int pbmm_cb_passes(int nlog) {
-  return (nlog + PBMM_RP_KMAX - 1) / PBMM_RP_KMAX;
+// The passes of stages [sb, se) of a transform (the whole 2^nlog one: [0,
+// nlog)).
+__host__ __device__ constexpr int pbmm_cb_passes(int sb, int se) {
+  return (se - sb + PBMM_RP_KMAX - 1) / PBMM_RP_KMAX;
 }
 
-// Stages of pass i of a 2^nlog transform: an even split, the longer first
+// Stages of pass i of the range [sb, se): an even split, the longer first
 // (forward and inverse alike).
-__host__ __device__ constexpr int pbmm_cb_k(int nlog, int i) {
-  return nlog / pbmm_cb_passes(nlog) +
-         (i < nlog % pbmm_cb_passes(nlog) ? 1 : 0);
+__host__ __device__ constexpr int pbmm_cb_k(int sb, int se, int i) {
+  return (se - sb) / pbmm_cb_passes(sb, se) +
+         (i < (se - sb) % pbmm_cb_passes(sb, se) ? 1 : 0);
 }
 
-__host__ __device__ constexpr int pbmm_cb_s0(int nlog, int i) {
-  return i == 0 ? 0 : pbmm_cb_s0(nlog, i - 1) + pbmm_cb_k(nlog, i - 1);
+__host__ __device__ constexpr int pbmm_cb_s0(int sb, int se, int i) {
+  return i == 0 ? sb : pbmm_cb_s0(sb, se, i - 1) + pbmm_cb_k(sb, se, i - 1);
 }
 
 template <int S>
@@ -420,14 +424,14 @@ __device__ __forceinline__ int pbmm_cb_idx(int p, int c) {
   return (pbmm_cb_swz<S>(p) << pbmm_log2(S)) | c;
 }
 
-// Task e of pass PASS of a 2^NLOG transform on strips of S columns.  Reads
-// like row_pass.cuh's PbmmRpGroups with one group (J = 1), so
-// pbmm_rp_stages runs its butterflies.
-template <int NLOG, int S, bool INVERSE, int PASS>
+// Task e of pass PASS of the stages [SB, SE) of a 2^NLOG transform on
+// strips of S columns.  Reads like row_pass.cuh's PbmmRpGroups with one
+// group (J = 1), so pbmm_rp_stages runs its butterflies.
+template <int NLOG, int S, bool INVERSE, int PASS, int SB = 0, int SE = NLOG>
 struct PbmmCbGroup {
-  static constexpr int K = pbmm_cb_k(NLOG, PASS);
-  static constexpr int LST = INVERSE ? pbmm_cb_s0(NLOG, PASS)
-                                     : NLOG - pbmm_cb_s0(NLOG, PASS) - K;
+  static constexpr int K = pbmm_cb_k(SB, SE, PASS);
+  static constexpr int LST = INVERSE ? pbmm_cb_s0(SB, SE, PASS)
+                                     : NLOG - pbmm_cb_s0(SB, SE, PASS) - K;
   static constexpr int L = 1 << K;
   static constexpr int J = 1;
   static constexpr int ST = 1 << LST;
@@ -477,18 +481,22 @@ __device__ __forceinline__ void pbmm_cb_write(const G& gr,
   }
 }
 
-// Passes PASS .. of a 2^NLOG transform of nseq sequences on the block's
-// strip.  Pass 0 takes its points from first(gr, xr, xi) and the last
-// pass hands them to last(gr, xr, xi); the passes between read and write
-// the strip (sre, sim) in place, after a barrier.  Every thread of the
-// block calls it; it ends without a barrier.
-template <int NLOG, int S, bool INVERSE, int PASS = 0, class First,
-          class Last>
+// Passes PASS .. of the stages [SB, SE) of a 2^NLOG transform (all of
+// them by default) of nseq sequences on the block's strip.  Pass 0 takes
+// its points from first(gr, xr, xi) and the last pass hands them to
+// last(gr, xr, xi); the passes between read and write the strip (sre, sim)
+// in place, after a barrier.  Every thread of the block calls it; it ends
+// without a barrier.  A range is a partial transform: stage s is the
+// stage-by-stage transform's stage s, so kernel 12 runs pieces of the
+// inverse on the same passes.
+template <int NLOG, int S, bool INVERSE, int SB = 0, int SE = NLOG,
+          int PASS = 0, class First, class Last>
 __device__ __forceinline__ void pbmm_cb_transform(
     int nseq, float* sre, float* sim, const float* __restrict__ tw_re,
     const float* __restrict__ tw_im, First&& first, Last&& last) {
-  constexpr int NP = pbmm_cb_passes(NLOG);
-  using G = PbmmCbGroup<NLOG, S, INVERSE, PASS>;
+  static_assert(0 <= SB && SB < SE && SE <= NLOG, "a stage range");
+  constexpr int NP = pbmm_cb_passes(SB, SE);
+  using G = PbmmCbGroup<NLOG, S, INVERSE, PASS, SB, SE>;
   const int tasks = (nseq << (NLOG - G::K)) * S;
   for (int e = threadIdx.x; e < tasks; e += blockDim.x) {
     const G gr(e);
@@ -505,7 +513,7 @@ __device__ __forceinline__ void pbmm_cb_transform(
   }
   if constexpr (PASS + 1 < NP) {
     __syncthreads();
-    pbmm_cb_transform<NLOG, S, INVERSE, PASS + 1>(nseq, sre, sim, tw_re,
-                                                  tw_im, first, last);
+    pbmm_cb_transform<NLOG, S, INVERSE, SB, SE, PASS + 1>(
+        nseq, sre, sim, tw_re, tw_im, first, last);
   }
 }

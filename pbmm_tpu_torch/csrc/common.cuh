@@ -11,10 +11,9 @@
 #define PBMM_MAX_TILES 64
 #define PBMM_LANE 128
 
-// Columns a block of kernel 12 holds in shared memory (cur and prev, 4 H S
-// floats, at most 128 KB): 4 up to H = 2048, 2 up to 4096, 1 up to 8192
-// (spectral/fused.py::col_strip; taller columns are bracketed, each
-// 8192-row block on strips of 1); the narrowest strip of kernel 6.
+// The narrowest strip of kernels 6 and 12: 4 up to H = 2048, 2 up to
+// 4096, 1 up to 8192 (spectral/fused.py::col_strip; taller columns are
+// bracketed, each 8192-row block on strips of 1).
 __host__ __device__ constexpr int pbmm_col_strip(int h) {
   return h <= 2048 ? 4 : h <= 4096 ? 2 : 1;
 }

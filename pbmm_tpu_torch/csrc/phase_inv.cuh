@@ -32,8 +32,9 @@ __device__ __forceinline__ int cs_row(int p) {
 // pbmm_phase_bin an iteration: staging cur and prev through shared memory,
 // or loading a few elements ahead of their arithmetic, measured slower in
 // kernel 2, and the latter also changed how nvcc contracts the main
-// branch's products.  Ends synchronised.
-template <int S, bool POW2, bool GENERAL, bool IIR>
+// branch's products.  Without PHASE (kernel 12's probe) the strip takes
+// cur + prev instead, at the same words.  Ends synchronised.
+template <int S, bool POW2, bool GENERAL, bool IIR, bool PHASE = true>
 __device__ __forceinline__ void pbmm_phase_strip(
     const float* cur_re, const float* cur_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
@@ -52,11 +53,16 @@ __device__ __forceinline__ void pbmm_phase_strip(
       ls = __ldg(lps_in + g);
     }
     float o_r, o_i;
-    pbmm_phase_bin<GENERAL, IIR>(__ldg(cur_re + g), __ldg(cur_im + g),
-                                 __ldg(prev_re + g), __ldg(prev_im + g),
-                                 plane0, plane1, g, fy, P, fx, col0 + c,
-                                 IIR ? &lf : nullptr, IIR ? &ls : nullptr,
-                                 pa, o_r, o_i);
+    if constexpr (PHASE) {
+      pbmm_phase_bin<GENERAL, IIR>(__ldg(cur_re + g), __ldg(cur_im + g),
+                                   __ldg(prev_re + g), __ldg(prev_im + g),
+                                   plane0, plane1, g, fy, P, fx, col0 + c,
+                                   IIR ? &lf : nullptr, IIR ? &ls : nullptr,
+                                   pa, o_r, o_i);
+    } else {
+      o_r = __fadd_rn(__ldg(cur_re + g), __ldg(prev_re + g));
+      o_i = __fadd_rn(__ldg(cur_im + g), __ldg(prev_im + g));
+    }
     if (IIR) {
       lpf_out[g] = lf;
       lps_out[g] = ls;
@@ -72,8 +78,9 @@ __device__ __forceinline__ void pbmm_phase_strip(
 // (bit-reversed rows in, natural rows out, unnormalised; tw: the compact
 // table compact_twiddles(2^NLOG, inverse)), rows [r0, r0 + hr) of the
 // strip's columns to dre / dim (row stride wk, the strip's first column).
+// Stages [SB, SE) only, for kernel 12: the whole inverse by default.
 // Every thread of the block calls it.
-template <int NLOG, int S>
+template <int NLOG, int S, int SB = 0, int SE = NLOG>
 __device__ __forceinline__ void pbmm_inv_rows_pow2(
     float* sre, float* sim, const float* __restrict__ tw_re,
     const float* __restrict__ tw_im, float* __restrict__ dre,
@@ -95,5 +102,6 @@ __device__ __forceinline__ void pbmm_inv_rows_pow2(
       }
     }
   };
-  pbmm_cb_transform<NLOG, S, true>(1, sre, sim, tw_re, tw_im, read, last);
+  pbmm_cb_transform<NLOG, S, true, SB, SE>(1, sre, sim, tw_re, tw_im, read,
+                                          last);
 }

@@ -93,10 +93,10 @@ SIGNATURES = {
     # floats(host), planes, h, w, stream
     "pbmm_amplify_procedural": [_P] * 10 + [_I] * 3 + [_P],
     # cur_re, cur_im, prev_re, prev_im, plane0, plane1, fy, fx, tw_re,
-    # tw_im, bracket tw_re, tw_im, out_re, out_im, scratch re, im (above
-    # 8192 rows), phase ints(host), phase floats(host), pieces, batch, h,
-    # w, r0, r1, stream
-    "pbmm_kdecomp": [_P] * 18 + [_I] * 6 + [_P],
+    # tw_im, out_re, out_im, scratch re, im (above 8192 rows), phase
+    # ints(host), phase floats(host), pieces, batch, h, w, r0, r1, strip,
+    # stream
+    "pbmm_kdecomp": [_P] * 16 + [_I] * 7 + [_P],
     # a, b, out_a, out_b, pattern, block, batch, h, w, stream
     "pbmm_copy_probe": [_P] * 4 + [_I] * 5 + [_P],
     # in0..in4, fy, fx, out0, out1, phase ints(host), phase floats(host),
@@ -127,12 +127,14 @@ def _stale(lib: Path) -> bool:
 
 
 def _run(cmd):
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
-    return proc.stdout + proc.stderr
+    return (f"[{Path(cmd[-1]).name}: {time.perf_counter() - t0:.1f} s]\n"
+            + proc.stdout + proc.stderr)
 
 
 def build(verbose: bool = False) -> Path:

@@ -589,11 +589,11 @@ _MASK_KINDS = ("zero", "high", "low", "band")
 
 
 def col_strip(h: int) -> int:
-    """Columns a block of kernel 12 holds at column height h (cur and
-    prev, 4 h S floats, at most 128 KB), and the narrowest strip of kernel
-    6: 4 up to 2048 rows, 2 up to 4096, 1 above (taller pow-2 columns run
-    on their 8192-row blocks) (csrc/common.cuh::pbmm_col_strip); their
-    widths are multiples of it."""
+    """The narrowest strip of kernel 6 (and of kernel 12, which takes
+    kernel 6's strips) at column height h: 4 up to 2048 rows, 2 up to
+    4096, 1 above (taller pow-2 columns run on their 8192-row blocks)
+    (csrc/common.cuh::pbmm_col_strip); their widths are multiples of
+    it."""
     return 4 if h <= 2048 else 2 if h <= 4096 else 1
 
 

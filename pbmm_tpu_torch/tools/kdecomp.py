@@ -4,9 +4,10 @@
 
 Counterpart of `benchmarks/kdecomp.py`.  `kdecomp_variant` is kernel 6
 (`csrc/phase_col_ifft.cu`: one frame's phase pass + radix-2 column IFFT,
-rows [r0, r1) out) with its pieces toggled, the same blocks and strips
-throughout (`csrc/kdecomp.cu`), so that the difference between two
-variants is the cost of one piece:
+rows [r0, r1) out) with its pieces toggled, on kernel 6's own launch,
+strips and in-block passes throughout (`csrc/kdecomp.cu`; kernel 6's body
+is kernel 2's launch 2), so that the difference between two variants is
+the cost of one piece:
 
     "stream only"   the strip of cur + prev in and rows out, no work
     "gm"            the inverse stages of span 1 .. 64 (the seven the TPU
@@ -14,9 +15,11 @@ variants is the cost of one piece:
     "rolls"         the stages of span 128 and more
     "phase"         the band/phase pass
 
-`main()` times the six variants of `kdecomp.py:140-147` at H = 2048, 1152
-kept lanes and rows (384, 1600) with `tuned_for_tpu()` on the card, warm
-and cold (`tools.kexp.timed`), and prints each piece's share.
+`main()` times the six variants of `kdecomp.py:140-147` and kernel 6 at
+H = 2048, 1152 kept lanes and rows (384, 1600) with `tuned_for_tpu()` on
+the card, warm and cold (`tools.kexp.timed`), on one frame or a stack
+(`--frames 16`: kernel 2's launch-2 frame count on a chunk of 16), and
+prints each piece's share.
 """
 
 from __future__ import annotations
@@ -156,25 +159,19 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
                               dev) if host is not None else ())
     planes_d = planes_d + (None,) * (2 - len(planes_d))
     fy, fx = device_arrays(fused._freq_tables, (h, w, full_w), dev)
-    # The stage-by-stage table of the 8192-row blocks above 8192 rows, and
-    # the bracket's compact table.
-    twr, twi = device_arrays(_dif_twiddles, (min(h, fused.BLOCK_N), True),
-                             dev)
-    big = h > fused.BLOCK_N
-    tb = (device_arrays(compact_twiddles, (h, True), dev) if big
-          else (None, None))
+    twr, twi = device_arrays(compact_twiddles, (h, True), dev)
     r0, r1 = rows
     outs = [torch.empty((b, r1 - r0, w), dtype=torch.float32, device=dev)
             for _ in range(2)]
-    sc = fused._scratch((b, h, w), big, dev)
+    sc = fused._scratch((b, h, w), h > fused.BLOCK_N and "rolls" in pieces,
+                        dev)
     ints, floats = fused._phase_args(fused._phase_plan(cfg),
                                      host is not None)
-    ins = ((cur_re, cur_im, prev_re, prev_im) + planes_d
-           + (fy, fx, twr, twi) + tb)
+    ins = (cur_re, cur_im, prev_re, prev_im) + planes_d + (fy, fx, twr, twi)
     err = library().pbmm_kdecomp(
         *fused._ptrs(*(ins + tuple(outs) + sc)),
         c_ints(ints), c_floats(floats), bits, b, h, w, r0, r1,
-        stream_handle(dev))
+        fused.phase_col_strip(h, w), stream_handle(dev))
     check_launch(err, "kdecomp_variant")
     kdecomp_variant.launches += 1
     return tuple(outs)
@@ -183,27 +180,35 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
 kdecomp_variant.launches = 0
 
 
-def kdecomp_inputs(device, h: int = 2048, wk: int = 1152, seed: int = 0):
-    """kdecomp.py's four (1, h, wk) planes: uniform [0, 1) from numpy."""
+def kdecomp_inputs(device, h: int = 2048, wk: int = 1152, seed: int = 0,
+                   frames: int = 1):
+    """kdecomp.py's four (frames, h, wk) planes: uniform [0, 1) from
+    numpy."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.random((1, h, wk), np.float32)).to(device)
-            for _ in range(4)]
+    return [torch.from_numpy(rng.random((frames, h, wk), np.float32)).to(
+        device) for _ in range(4)]
+
+
+KERNEL6 = "kernel 6 (phase_col_ifft)"
 
 
 def run_kdecomp(device, h: int = 2048, wk: int = 1152, rows=(384, 1600),
-                cfg=None, reps: int = 20):
-    """Each variant of `VARIANTS` timed on the card: [(name, warm ms,
-    cold ms)], kdecomp.py's shapes by default."""
+                cfg=None, reps: int = 20, frames: int = 1):
+    """Each variant of `VARIANTS`, then kernel 6 (`KERNEL6`) on the same
+    planes and rows, timed on the card: [(name, warm ms, cold ms)],
+    kdecomp.py's shapes by default."""
     from pbmm_tpu_torch.config import MagnifyConfig
     from pbmm_tpu_torch.tools.kexp import timed
 
     cfg = cfg or MagnifyConfig().tuned_for_tpu()
-    arrs = kdecomp_inputs(device, h, wk)
+    arrs = kdecomp_inputs(device, h, wk, frames=frames)
     full_w = 2048 if wk != 2048 else None  # kdecomp.py's lanes: W = 2048
     fns = [(name, lambda *a, p=pieces: kdecomp_variant(
         *a, cfg, p, rows, full_w=full_w)) for name, pieces in VARIANTS]
+    fns.append((KERNEL6, lambda *a: fused.phase_col_ifft(
+        *a, cfg, out_rows=rows, full_w=full_w)))
     for _ in range(5):  # the card's clocks up before the first variant
         for _, fn in fns:
             fn(*arrs)
@@ -213,16 +218,20 @@ def run_kdecomp(device, h: int = 2048, wk: int = 1152, rows=(384, 1600),
 def split(times):
     """Each piece's share from `run_kdecomp`'s (name, warm, cold) rows:
     name -> (warm ms, cold ms) of the stream, the span < 128 stages, the
-    span >= 128 stages, the phase pass and the whole kernel."""
+    span >= 128 stages, the phase pass and the whole kernel (and kernel 6,
+    where timed)."""
     t = {name: (w, c) for name, w, c in times}
     base = t["stream only"]
 
     def minus(name):
         return tuple(a - b for a, b in zip(t[name], base))
 
-    return {"stream": base, "early stages (span < 128)": minus("+gm matmul"),
-            "late stages (span >= 128)": minus("+rolls"),
-            "phase": minus("+phase"), "full": t["+phase+gm+rolls (full)"]}
+    out = {"stream": base, "early stages (span < 128)": minus("+gm matmul"),
+           "late stages (span >= 128)": minus("+rolls"),
+           "phase": minus("+phase"), "full": t["+phase+gm+rolls (full)"]}
+    if KERNEL6 in t:
+        out["kernel 6"] = t[KERNEL6]
+    return out
 
 
 def main(argv=None) -> int:
@@ -232,10 +241,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--frames", type=int, default=1)
     args = ap.parse_args(argv)
     dev = require_card("kdecomp")
     print(f"device: {torch.cuda.get_device_name(dev)}", file=sys.stderr)
-    times = run_kdecomp(dev, reps=args.reps)
+    times = run_kdecomp(dev, reps=args.reps, frames=args.frames)
     for name, warm, cold in times:
         print(f"{name:24s} {warm:7.3f} ms warm {cold:7.3f} ms cold",
               flush=True)

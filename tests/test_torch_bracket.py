@@ -185,7 +185,7 @@ def test_bracket_plan_covers_each_point_once(n, inverse):
 def test_inner_blocks_read_the_block_tables(n, inverse):
     """The inner engines read n's tables as the tables of 8192: the
     compact words of spans below 8192, and the stage rows' first 8192
-    entries (kernel 12's stage-by-stage blocks)."""
+    entries."""
     cr, ci = radix2.compact_twiddles(n, inverse)
     br, bi = radix2.compact_twiddles(B, inverse)
     np.testing.assert_array_equal(cr[:B - 1], br)

@@ -21,6 +21,10 @@ on `csrc/col_pass.cuh`'s in-block passes), checked on the CPU.
   (`common.cuh::pbmm_radix2`) bit for bit at every height, forward and
   inverse, on one sequence (pow-2 heights) and on m stacked 128-point
   sequences (the four-step factor).
+- Kernel 12's stage ranges (`csrc/kdecomp.cu`: gm [0, 7), rolls [7,
+  log2 H), both, none) on the same passes at H = 256 to 8192: bit for
+  bit the stage-by-stage radix-2 restricted to those stages, every warp
+  access on 32 distinct banks at the strips of 2 to 16 kernel 6 takes.
 - The strip's shared-memory layout (`pbmm_cb_swz`): one-to-one, point q of
   a group at the group's word XOR a constant, and every access of a warp
   (the passes, the phase loop, the m-point loops) on 32 distinct banks.
@@ -69,12 +73,15 @@ def _drop_highest_traces():
 # -- the plans and the layout (col_pass.cuh's in-block form) ---------------
 
 
-def cb_plan(nlog, inverse):
-    """[(k, lst)] of each pass of a 2^nlog transform: `pbmm_cb_k` (an even
-    split, the longer first) and the pass's stride."""
-    np_ = -(-nlog // KMAX)
-    ks = [nlog // np_ + (1 if i < nlog % np_ else 0) for i in range(np_)]
-    out, s0 = [], 0
+def cb_plan(nlog, inverse, stages=None):
+    """[(k, lst)] of each pass of the stages [sb, se) of a 2^nlog transform
+    (`stages`; all of them by default): `pbmm_cb_k` (an even split, the
+    longer first) and the pass's stride."""
+    sb, se = stages or (0, nlog)
+    count = se - sb
+    np_ = -(-count // KMAX)
+    ks = [count // np_ + (1 if i < count % np_ else 0) for i in range(np_)]
+    out, s0 = [], sb
     for k in ks:
         out.append((k, s0 if inverse else nlog - s0 - k))
         s0 += k
@@ -115,15 +122,16 @@ def _butterfly(xr, xi, ur, ui, tr, ti, inverse):
     return xr + zr, xi + zi, xr - zr, xi - zi
 
 
-def stage_by_stage(re, im, nlog, inverse):
+def stage_by_stage(re, im, nlog, inverse, stages=None):
     """`pbmm_radix2` on (cols, nseq 2^nlog) f32, each 2^nlog sequence on
-    its own: every stage over the whole sequence, the twiddle of the
-    bottom element from row s of `_dif_twiddles`."""
+    its own: every stage (or those of the range `stages`) over the whole
+    sequence, the twiddle of the bottom element from row s of
+    `_dif_twiddles`."""
     n = 1 << nlog
     tw_re, tw_im = radix2._dif_twiddles(n, inverse)
     re, im = re.copy(), im.copy()
     k = np.arange(re.shape[-1] // 2)
-    for s in range(nlog):
+    for s in range(*(stages or (0, nlog))):
         d = 1 << s if inverse else n >> (s + 1)
         kk = k % (n // 2)
         j = kk & (d - 1)
@@ -135,14 +143,17 @@ def stage_by_stage(re, im, nlog, inverse):
     return re, im
 
 
-def cb_passes(re, im, nlog, inverse):
-    """The in-block schedule on (cols, nseq 2^nlog) f32: per pass, each
-    group's points gathered, the pass's stages run on them with the
-    compact twiddle words, scattered back."""
+def cb_passes(re, im, nlog, inverse, stages=None):
+    """The in-block schedule on (cols, nseq 2^nlog) f32: per pass (of the
+    stage range `stages`, all by default), each group's points gathered,
+    the pass's stages run on them with the compact twiddle words,
+    scattered back."""
     cre, cim = radix2.compact_twiddles(1 << nlog, inverse)
     re, im = re.copy(), im.copy()
     nseq = re.shape[-1] >> nlog
-    for k, lst in cb_plan(nlog, inverse):
+    if stages is not None and stages[0] == stages[1]:
+        return re, im  # no stage: kernel 12's strip rows out as they are
+    for k, lst in cb_plan(nlog, inverse, stages):
         st, L = 1 << lst, 1 << k
         c, base, lo = tasks(nlog, nseq, 1, k, lst)
         pos = base[:, None] + np.arange(L)[None, :] * st
@@ -241,6 +252,104 @@ def test_strip_layout_offsets_and_banks(nlog, nseq, s, inverse):
         for k1 in range(nseq):
             assert _warps_conflict_free(
                 idx(k1 * LANE + (e >> ls), e & (s - 1), s))
+
+
+# -- kernel 12's stage ranges (csrc/kdecomp.cu on the in-block passes) -------
+
+_KD_PIECES = {"none": (), "gm": ("gm",), "rolls": ("rolls",),
+              "both": ("gm", "rolls")}
+
+
+def kd_stages(nlog, pieces):
+    """Kernel 12's stage range of the pieces gm (span < 128) and rolls
+    (span >= 128) at H = 2^nlog (`kdecomp.cu::kd_stages`): both, or gm
+    where rolls has no stage, the whole inverse; no stage an empty
+    range."""
+    g = min(nlog, 7)
+    gm, rolls = "gm" in pieces, "rolls" in pieces
+    if gm and (rolls or g == nlog):
+        return 0, nlog
+    if gm:
+        return 0, g
+    if rolls and g < nlog:
+        return g, nlog
+    return g, g
+
+
+def _kd_strips(nlog):
+    """The strips of 2 to 16 columns kernel 12 takes at H = 2^nlog, as
+    kernel 6 (`phase_col_strip`'s candidates: kernel 2's strip, its half
+    and `col_strip`)."""
+    h = 1 << nlog
+    s2 = fused.colspec_strip(h)
+    return sorted({s for s in (s2, s2 // 2, fused.col_strip(h))
+                   if 2 <= s <= 16})
+
+
+_KD_NLOG = range(8, 14)
+
+
+@pytest.mark.parametrize("pieces", sorted(_KD_PIECES))
+@pytest.mark.parametrize("nlog", _KD_NLOG, ids=[f"n{1 << n}" for n in
+                                                _KD_NLOG])
+def test_stage_range_passes_match_stage_by_stage(nlog, pieces):
+    """Kernel 12's partial inverses: the in-block passes over the stage
+    range of a piece set equal the stage-by-stage radix-2 restricted to
+    the same stages (`kdecomp.py::_inverse_stages_ref`'s choice of them),
+    bit for bit; both pieces are kernel 6's whole plan."""
+    sb, se = kd_stages(nlog, _KD_PIECES[pieces])
+    want_stages = [s for s in range(nlog)
+                   if (s < 7 and "gm" in _KD_PIECES[pieces])
+                   or (s >= 7 and "rolls" in _KD_PIECES[pieces])]
+    assert list(range(sb, se)) == want_stages
+    if pieces == "both":
+        assert cb_plan(nlog, True, (sb, se)) == cb_plan(nlog, True)
+    plan = cb_plan(nlog, True, (sb, se)) if se > sb else []
+    assert sum(k for k, _ in plan) == se - sb
+    assert all(1 <= k <= KMAX for k, _ in plan)
+    rng = np.random.default_rng(nlog * 8 + len(pieces))
+    re, im = (rng.standard_normal((3, 1 << nlog)).astype(np.float32)
+              for _ in range(2))
+    want = stage_by_stage(re, im, nlog, True, (sb, se))
+    got = cb_passes(re, im, nlog, True, (sb, se))
+    for g, w in zip(_bits(*got), _bits(*want)):
+        np.testing.assert_array_equal(g, w)
+    if pieces == "none":
+        np.testing.assert_array_equal(got[0], re)
+
+
+@pytest.mark.parametrize("pieces", sorted(_KD_PIECES))
+@pytest.mark.parametrize("nlog,s", [(n, s) for n in _KD_NLOG
+                                    for s in _kd_strips(n)])
+def test_stage_range_plans_banks(nlog, s, pieces):
+    """Every warp access of kernel 12's range plans on 32 distinct banks:
+    each pass's strides stay 1 or at least the bank sweep 2^B, and point
+    q of a group lies at the group's word XOR a constant; with no stage,
+    the rows written out from the strip (from the aligned run of 32 / S
+    rows that holds r0, an odd r0 here)."""
+    sb, se = kd_stages(nlog, _KD_PIECES[pieces])
+    b = 5 - (s.bit_length() - 1)
+    ls = s.bit_length() - 1
+    if se == sb:
+        n = 1 << nlog
+        r0, r1 = n // 8 + 3, n - n // 8
+        ra = r0 & ~((32 >> ls) - 1)
+        e = np.arange((r1 - ra) * s)
+        p, c = ra + (e >> ls), e & (s - 1)
+        assert _warps_conflict_free(idx(p, c, s))
+        keep = p >= r0  # every row of [r0, r1) once
+        assert sorted(p[keep] * s + c[keep]) == list(range(r0 * s, r1 * s))
+        return
+    plan = cb_plan(nlog, True, (sb, se))
+    assert all(lst == 0 or lst >= b for _, lst in plan), plan
+    for k, lst in plan:
+        c, base, _ = tasks(nlog, 1, s, k, lst)
+        w0 = idx(base, c, s)
+        for q in range(1 << k):
+            at = w0 ^ (swz(np.array(q << lst), s) << ls)
+            np.testing.assert_array_equal(at, idx(base + q * (1 << lst), c,
+                                                  s))
+            assert _warps_conflict_free(at), (k, lst, q)
 
 
 # -- the frame-parallel form against the frame-serial plain version ---------
@@ -383,12 +492,12 @@ _TALL = [8192] + [m * LANE for m in range(33, 65)]
 
 @pytest.mark.parametrize("h", _TALL)
 def test_tall_strips_fit_and_divide(h):
-    """Kernel 2's strip (2 h S f32), kernel 6's (the same, or a half down
-    to `col_strip`) and kernel 12's (cur and prev, 4 h S f32) fit a
+    """Kernel 2's strip (2 h S f32) and kernel 6's and kernel 12's (the
+    same, or a half down to `col_strip`, where even 4 h S f32 fit) fit a
     block's shared memory at every padded height above 4096 up to 8192,
     pow-2 and tight m = 33-64; each divides 4320p's kept lanes (8192 padded
     lanes, 4224 kept); kernel 2's is 2 columns there (256-thread blocks at
-    m > 32), kernel 12's 1."""
+    m > 32), `col_strip` 1."""
     s = fused.colspec_strip(h)
     assert s == 2
     assert 2 * h * s * 4 <= _SMEM  # the strip's two planes, f32

@@ -28,9 +28,11 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   both layouts, kernel 10 in every layout, the scan engine's paths on the
   card against the CPU (numpy input landing on the card), and
   `load_state` defaulting to the card;
-- kernel 12 (kdecomp) in every piece set and phase branch, its full
-  variant bit for bit against kernel 6; kernel 13 (the copy probe) in
-  every pattern, bit for bit; kernel 14 (the trig probe) in every op
+- kernel 12 (kdecomp) in every piece set and phase branch at H = 256
+  to 8192 (strips of 16 to 2), bit for bit its plain version without
+  the phase piece, its full variant bit for bit against kernel 6;
+  kernel 13 (the copy probe) in every pattern, strips of 1 to 32, a
+  width and planes off the 16-byte grid, bit for bit; kernel 14 (the trig probe) in every op
   code; `debug_mode` catching a planted NaN; `stage_times` and `timeit`
   on the card;
 - 2160p's heights: kernels 2, 5 and 6 at H = 4096 (with and without the
@@ -992,37 +994,54 @@ _K12 = {"main": dict(), "standard": dict(mode="standard"),
         "non_integer": dict(phase_scale=2.5)}
 
 
+@pytest.mark.parametrize("h", [256, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("cfg_name", sorted(_K12))
 @pytest.mark.parametrize("name,pieces", kdecomp.VARIANTS,
                          ids=[n for n, _ in kdecomp.VARIANTS])
-def test_kdecomp_kernel(dev, cfg_name, name, pieces):
+def test_kdecomp_kernel(dev, cfg_name, name, pieces, h):
     """Kernel 12 against its plain version in every piece set and phase
-    branch (the main branch and the general pass), and its full variant
-    bit for bit against kernel 6."""
+    branch (the main branch and the general pass), at 1080p's kept lanes
+    (H = 256) and at a narrow width on the heights whose strips kernel 6
+    takes 16, 8, 4 and 2 columns (`phase_col_strip`).  Without the phase
+    piece it is bit for bit its plain version (the plain version's whole
+    inverse is `torch.fft`'s, so the whole inverse is held bit for bit
+    against `_inverse_stages_ref` over every stage instead, and to 1e-4
+    against the plain version); with it, to 1e-4; its full variant is
+    kernel 6 bit for bit."""
     cfg = _cfg().replace(pad_mode="square_pow2", **_K12[cfg_name])
-    h, fw = 256, 2048
-    w = hermitian_kept_width(fw)
+    w, fw = (hermitian_kept_width(2048), 2048) if h == 256 else (64, None)
     rng = np.random.default_rng(25)
     spec = [_spectra(rng, (2, h, w), dev, True) for _ in range(4)]
-    rows = (32, 224)
+    rows = (h // 8, h - h // 8)
     n = kdecomp.kdecomp_variant.launches
     got = kdecomp.kdecomp_variant(*spec, cfg, pieces, rows, full_w=fw)
     assert kdecomp.kdecomp_variant.launches == n + 1
-    want = kdecomp.kdecomp_variant_ref(*[x.cpu() for x in spec], cfg, pieces,
-                                       rows, full_w=fw)
-    if not pieces:
-        assert all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want))
+    cpu = [x.cpu() for x in spec]
+    want = kdecomp.kdecomp_variant_ref(*cpu, cfg, pieces, rows, full_w=fw)
+    got = [g.cpu() for g in got]
+    if "phase" in pieces or {"gm", "rolls"} <= set(pieces):
+        assert _rel(got, want) < 1e-4
     else:
-        assert _rel([g.cpu() for g in got], want) < 1e-4
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    if set(pieces) == {"gm", "rolls"}:
+        whole = kdecomp._inverse_stages_ref(cpu[0] + cpu[2], cpu[1] + cpu[3],
+                                            range(h.bit_length() - 1))
+        assert all(torch.equal(g, w_[:, rows[0]:rows[1]])
+                   for g, w_ in zip(got, whole))
     if len(pieces) == 3:
         k6 = fused.phase_col_ifft(*spec, cfg, out_rows=rows, full_w=fw)
-        assert all(torch.equal(g, k) for g, k in zip(got, k6))
+        assert all(torch.equal(g, k.cpu()) for g, k in zip(got, k6))
 
 
-@pytest.mark.parametrize("pattern,block", [("rows", 1), ("rows", 64),
-                                           ("lanes", 4), ("lanes", 8),
-                                           ("lanes", 32)])
-@pytest.mark.parametrize("shape", [(1, 1152, 2048), (3, 37, 256)])
+@pytest.mark.parametrize("pattern,block,shape", [
+    *((p, b, sh) for sh in ((1, 1152, 2048), (3, 37, 256))
+      for p, b in (("rows", 1), ("rows", 64), ("lanes", 1), ("lanes", 2),
+                   ("lanes", 4), ("lanes", 8), ("lanes", 16),
+                   ("lanes", 32))),
+    # A width whose rows are not 16-byte aligned: scalar heads and tails,
+    # and strips of 8-byte and 4-byte copies.
+    *((p, b, (2, 37, 2050)) for p, b in (("rows", 1), ("rows", 64),
+                                         ("lanes", 1), ("lanes", 2)))])
 def test_copy_probe_kernel(dev, pattern, block, shape):
     rng = np.random.default_rng(26)
     a, b = (_rand(rng, shape, dev) for _ in range(2))
@@ -1030,6 +1049,19 @@ def test_copy_probe_kernel(dev, pattern, block, shape):
     oa, ob = kexp.copy_probe(a, b, pattern, block)
     assert kexp.copy_probe.launches == n + 1
     assert torch.equal(oa, a) and torch.equal(ob, b)
+
+
+def test_copy_probe_kernel_on_offset_planes(dev):
+    """Planes that start 4 and 8 bytes past a 16-byte boundary: the rows'
+    scalar heads, the strips' narrower copies."""
+    rng = np.random.default_rng(27)
+    base = _rand(rng, (2 * 37 * 256 + 3,), dev)
+    a = base[1:1 + 37 * 256].view(1, 37, 256)
+    b = base[2 + 37 * 256:2 + 2 * 37 * 256].view(1, 37, 256)
+    for pattern, block in (("rows", 1), ("rows", 5), ("lanes", 4),
+                           ("lanes", 8)):
+        oa, ob = kexp.copy_probe(a, b, pattern, block)
+        assert torch.equal(oa, a) and torch.equal(ob, b)
 
 
 def test_copy_probe_kernel_refuses_a_strip_that_does_not_divide(dev):

@@ -13,7 +13,10 @@ without a card.
   variant equals `phase_col_ifft_ref` bit for bit;
 - kernel 13 (`tools/kexp.py`): `copy_probe_ref` returns its input in both
   patterns, odd heights included; a strip that does not divide the width
-  raises;
+  raises; a model of the kernel's indexing (the rows' 16-byte words and
+  scalar heads and tails, the strips' cp.async load and store tasks)
+  reads and writes each element of both planes once, in bounds, on
+  aligned and offset planes, a width of 2050 and strips of 1 to 32;
 - kernel 14 (`tools/trig_probe.py`): `trig_probe_ref` against
   `benchmarks.trig_probe.run_kernel` on `_atan2_poly`, `_cos_pi`,
   `_sin_pi`, `_sincos_any` and `_phase_block_standard`, each side against
@@ -151,6 +154,124 @@ def test_copy_probe_refusals(pattern, block, shape):
     a = torch.zeros(shape)
     with pytest.raises(ValueError):
         kexp.copy_probe(a, a, pattern, block)
+
+
+# A model of kernel 13's index arithmetic (csrc/copy_probe.cu): the row
+# blocks' 16-byte words with their scalar heads and tails, and the lane
+# blocks' cp.async load tasks and store tasks, on pointers whose offsets
+# (in floats from a 16-byte boundary) are `offs` = (a, out_a, b, out_b).
+
+_CP_UNROLL, _CP_ROW_THREADS, _CP_LANE_THREADS = 8, 256, 512
+
+
+def _copy_rows_model(shape, rb, offs):
+    """[(reads, writes)] of each plane: the flat element index of every
+    element the row kernel reads and writes, one entry per access."""
+    bsz, h, w = shape
+    span = min(rb, h) * w
+    want = (span // 4 + _CP_UNROLL - 1) // _CP_UNROLL
+    nt = (_CP_ROW_THREADS if want >= _CP_ROW_THREADS
+          else max(32, (want + 31) // 32 * 32))
+    t = np.arange(nt)
+    out = [([], []), ([], [])]
+    for by in range(bsz):
+        for bx in range(-(-h // rb)):
+            row0 = bx * rb
+            n = min(rb, h - row0) * w
+            base = (by * h + row0) * w
+            heads, words = [], []
+            for src, dst in ((offs[0], offs[1]), (offs[2], offs[3])):
+                sa, da = (src + base) % 4, (dst + base) % 4
+                hd = n if sa != da else min((4 - sa) % 4, n)
+                heads.append(hd)
+                words.append((n - hd) // 4)
+            nv = max(words)
+            k0 = (t[:, None] + np.arange(0, nv, _CP_UNROLL * nt)[None, :])
+            k0 = k0[k0 < nv]
+            k = (k0[:, None] + np.arange(_CP_UNROLL)[None, :] * nt).ravel()
+            for pl, (hd, v) in enumerate(zip(heads, words)):
+                kk = k[k < v]
+                el = base + hd + 4 * kk[:, None] + np.arange(4)[None, :]
+                # Each word is one aligned 16-byte access on both sides.
+                assert ((offs[2 * pl] + el[:, 0]) % 4 == 0).all()
+                assert ((offs[2 * pl + 1] + el[:, 0]) % 4 == 0).all()
+                e = np.arange(n - 4 * v)
+                sc = base + np.where(e < hd, e, e + 4 * v)
+                idx = np.concatenate([el.ravel(), sc])
+                out[pl][0].append(idx)
+                out[pl][1].append(idx)
+    return [(np.concatenate(r), np.concatenate(wr)) for r, wr in out]
+
+
+def _copy_lanes_model(shape, s, offs):
+    """[(reads, writes)] of each plane for the lane kernel, and the words
+    of every load and store task: each load's shared-memory word is the
+    word its store reads back."""
+    bsz, h, w = shape
+    v = 4
+    while v > 1 and (s % v or w % v or any(o % v for o in offs)):
+        v //= 2
+    vw = 1 if s not in (1, 2, 4, 8, 16, 32) else v  # cp_words / the default
+    plane = h * s * 4
+    assert plane <= kexp._SMEM_BYTES
+    planes = 2 if 2 * plane <= kexp._SMEM_BYTES else 1
+    wr = s // vw
+    n = h * wr
+    e = np.arange(n * planes)
+    pl, r = (e >= n).astype(int), e - (e >= n) * n
+    row, j = r // wr, r % wr
+    smem = e * vw
+    assert smem.max() + vw <= planes * plane // 4  # inside the allocation
+    assert len(np.unique(smem)) == len(smem)  # one word a task
+    out = [([], []), ([], [])]
+    for by in range(bsz):
+        for bx in range(w // s):
+            fo = by * h * w + bx * wr * vw
+            for p0 in range(0, 2, planes):
+                g = fo + row * w + j * vw  # the task's first element
+                for q in (0, 1):
+                    if planes == 1 and q != p0:
+                        continue
+                    m = (p0 + pl) == q
+                    assert ((offs[2 * q] + g[m]) % vw == 0).all()
+                    assert ((offs[2 * q + 1] + g[m]) % vw == 0).all()
+                    el = (g[m][:, None] + np.arange(vw)[None, :]).ravel()
+                    out[q][0].append(el)  # loaded by task e into smem e V
+                    out[q][1].append(el)  # stored by task e from smem e V
+    return [(np.concatenate(r_), np.concatenate(w_)) for r_, w_ in out]
+
+
+_CP_SHAPES = [(1, 1152, 2048), (3, 37, 256), (2, 37, 2050)]
+_CP_OFFS = [(0, 0, 0, 0), (1, 1, 2, 3)]
+
+
+def _each_once(model, shape):
+    size = int(np.prod(shape))
+    for reads, writes in model:
+        for acc in (reads, writes):
+            assert acc.min() >= 0 and acc.max() < size
+            np.testing.assert_array_equal(np.bincount(acc, minlength=size),
+                                          np.ones(size, np.int64))
+
+
+@pytest.mark.parametrize("offs", _CP_OFFS, ids=["aligned", "offset"])
+@pytest.mark.parametrize("rb", [1, 64])
+@pytest.mark.parametrize("shape", _CP_SHAPES, ids=["1080p", "37x256",
+                                                    "37x2050"])
+def test_copy_rows_model_reads_and_writes_each_element_once(shape, rb,
+                                                             offs):
+    _each_once(_copy_rows_model(shape, rb, offs), shape)
+
+
+@pytest.mark.parametrize("offs", _CP_OFFS, ids=["aligned", "offset"])
+@pytest.mark.parametrize("shape,s", [(sh, s) for sh in _CP_SHAPES
+                                     for s in (1, 2, 4, 8, 16, 32)
+                                     if sh[2] % s == 0],
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else f"s{v}")
+def test_copy_lanes_model_reads_and_writes_each_element_once(shape, s,
+                                                             offs):
+    _each_once(_copy_lanes_model(shape, s, offs), shape)
 
 
 def test_copy_shape_is_kexp_slab():
