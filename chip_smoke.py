@@ -2377,8 +2377,8 @@ def main():
             raise AssertionError(f"{path_i}: --demo bar gave {demo.shape}")
         traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
         text = open(traces[0]).read() if len(traces) == 1 else ""
-        named = [k for k in ("row_fft_f32_kernel", "pbmm.colspec_chunk",
-                             "pbmm.preprocess") if k in text]
+        named = [k for k in ("row_fft_f32_kernel", "pbmm.chunk",
+                             "pbmm.colspec", "pbmm.launch.") if k in text]
         log(f"[3] {path_i}: --demo bar --fast --trace: {len(traces)} trace "
             f"file(s), {len(text) / 1e6:.1f} MB, naming {named}")
         if "row_fft_f32_kernel" not in named:

@@ -179,19 +179,17 @@ def preprocess_cl(frames: torch.Tensor, cfg: MagnifyConfig,
     args = (geom.pad_h, geom.pad_w, geom.y0, geom.x0, r0)
     keep = hermitian_active(cfg, geom)
     y_only = cfg.chroma != "rgb"
-    with scope("pbmm.fft"):
-        if planar and frames.dtype == torch.uint8 and y_only:
-            re, im = windowed_row_fft_u8planar(
-                frames, tuple(float(c) for c in RGB_TO_YIQ[0]), *args,
-                keep_half=keep)
-        else:
-            rows = RGB_TO_YIQ[:1] if y_only else RGB_TO_YIQ
-            re, im = windowed_row_fft_frames(
-                frames, tuple(tuple(float(c) for c in r) for r in rows),
-                *args, keep_half=keep)
+    if planar and frames.dtype == torch.uint8 and y_only:
+        re, im = windowed_row_fft_u8planar(
+            frames, tuple(float(c) for c in RGB_TO_YIQ[0]), *args,
+            keep_half=keep)
+    else:
+        rows = RGB_TO_YIQ[:1] if y_only else RGB_TO_YIQ
+        re, im = windowed_row_fft_frames(
+            frames, tuple(tuple(float(c) for c in r) for r in rows),
+            *args, keep_half=keep)
     if y_only and want_iq:
-        with scope("pbmm.preprocess"):
-            return (re, im) + chroma_planes(frames)
+        return (re, im) + chroma_planes(frames)
     return re, im, None, None
 
 

@@ -59,6 +59,7 @@ from pbmm_tpu_torch.spectral.fused import (
     row_ifft_magnitude,
 )
 from pbmm_tpu_torch.spectral.radix2 import check_pow2, compact_twiddles
+from pbmm_tpu_torch.utils.profiling import counted
 
 _LANE = 128
 
@@ -516,7 +517,7 @@ def rowifft_post_fused(rre, rim, i_plane, q_plane, win, cfg, rows0: int,
     return tuple(outs) if out_layout == "tuple3" else outs[0]
 
 
-rowifft_post_fused.launches = 0
+counted(rowifft_post_fused)
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +591,7 @@ def post_fused_rgb(chans3, win, cfg, rows0: int, in_h: int, in_w: int,
     return tuple(outs) if out_layout == "tuple3" else outs[0]
 
 
-post_fused_rgb.launches = 0
+counted(post_fused_rgb)
 
 
 # ---------------------------------------------------------------------------
@@ -693,4 +694,4 @@ def post_fused(chans, i_plane, q_plane, win, cfg, rows0: int, in_h: int,
     return tuple(outs) if out_layout == "tuple3" else outs[0]
 
 
-post_fused.launches = 0
+counted(post_fused)

@@ -177,18 +177,23 @@ def _chunk_colspec(frames, state: VideoState, cfg: MagnifyConfig):
     if cfg.chroma != "rgb" and post_pallas_ok(geom, cfg, rows[0],
                                               rows[1] - rows[0]):
         src = frames
-    rre_rows, rim_rows, i_plane, q_plane = preprocess_cl(
-        frames, cfg, want_iq=src is None)
+    # The stage spans sit around the calls through this module's globals
+    # `preprocess_cl`, `colspec_chunk` and `_tail_block`, looked up at
+    # call time.
+    with scope("pbmm.frontend", timed=frames):
+        rre_rows, rim_rows, i_plane, q_plane = preprocess_cl(
+            frames, cfg, want_iq=src is None)
     iir = cfg.temporal.mode == "iir_bandpass"
     taps = (state.temporal.lp_fast, state.temporal.lp_slow) if iir else ()
-    with scope("pbmm.colspec_chunk"):
+    with scope("pbmm.colspec", timed=frames):
         res = colspec_chunk(
             rre_rows, rim_rows, state.prev_spec_re, state.prev_spec_im, cfg,
             geom.pad_h, r0, *taps, out_rows=rows, full_w=geom.pad_w,
             planes=_planes(cfg))
     temporal = TemporalState(*res[4:]) if iir else state.temporal
-    outs = _tail_block(res[0], res[1], i_plane, q_plane, cfg, geom, rows,
-                       src=src)
+    with scope("pbmm.tail", timed=frames):
+        outs = _tail_block(res[0], res[1], i_plane, q_plane, cfg, geom,
+                           rows, src=src)
     new_state = VideoState(res[2], res[3], state.prev_frame, temporal,
                            state.frame_idx + t)
     return outs, new_state
@@ -361,8 +366,17 @@ def magnify_video(frames, cfg: MagnifyConfig, state: VideoState = None,
     With `apply_motion_magnification=False` the frames pass through
     untouched while the state keeps tracking them
     (`MotionMagnificationProcessor.cs:126-139,142`).
+
+    Each call, from the frames on their device on, is the span
+    `pbmm.chunk` (`utils.profiling.scope`), the root of its chunk's
+    spans.
     """
     frames = on_device(frames, device)
+    with scope("pbmm.chunk", timed=frames, chunk=True):
+        return _magnify_video(frames, cfg, state)
+
+
+def _magnify_video(frames, cfg: MagnifyConfig, state):
     if frames.ndim != 4 or not (is_planar(frames) or frames.shape[-1] == 3):
         raise ValueError(f"expected (T, H, W, 3) or (T, 3, H, W) frames, "
                          f"got {tuple(frames.shape)}")

@@ -10,6 +10,8 @@ import functools
 import numpy as np
 import torch
 
+from pbmm_tpu_torch.utils.profiling import scope
+
 # Set by `utils.checks.debug_mode(nan_checks=True)`: while it is on, every
 # kernel wrapper checks its outputs (`checked`).
 CHECK_FINITE = False
@@ -42,19 +44,23 @@ def device_arrays(fn, args: tuple, device: torch.device):
     Memoised: the arrays are read-only constants derived from static
     arguments (twiddle tables, the per-bin phase planes), as the JAX
     package bakes them into its compiled kernels; copying them to the card
-    on every call would cost more than the kernels they feed."""
-    return tuple(
-        torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
-        for a in fn(*args))
+    on every call would cost more than the kernels they feed.  A build
+    (a cache miss) runs inside the span `pbmm.table`."""
+    with scope("pbmm.table"):
+        return tuple(
+            torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
+            for a in fn(*args))
 
 
 @functools.lru_cache(maxsize=32)
 def device_ints(fn, args: tuple, device: torch.device):
     """`fn(*args)`'s numpy arrays (a tuple) as int32 tensors on `device`
-    (memoised like `device_arrays`): the kernels' per-tile tables."""
-    return tuple(
-        torch.as_tensor(np.ascontiguousarray(a, np.int32)).to(device)
-        for a in fn(*args))
+    (memoised like `device_arrays`, a build inside the span `pbmm.table`):
+    the kernels' per-tile tables."""
+    with scope("pbmm.table"):
+        return tuple(
+            torch.as_tensor(np.ascontiguousarray(a, np.int32)).to(device)
+            for a in fn(*args))
 
 
 def c_ints(values) -> ctypes.Array:

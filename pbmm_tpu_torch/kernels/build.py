@@ -7,6 +7,9 @@ together, and links them into one shared library under
 and again whenever a source is newer than the library.  The library is
 loaded with `ctypes`; each kernel's wrapper passes `data_ptr()`s and the
 current stream and raises on the `cudaError_t` the C function returns.
+`library()` hands out every entry point inside the span
+`pbmm.launch.<entry>` (`utils.profiling.scope`: the host's time in the
+C call, where recording or a profiler is on).
 
 There is no fallback: a missing `nvcc` or a failed build raises with the
 compiler's output.  No `--use_fast_math` / `-ftz=true`: the phase pass's
@@ -23,6 +26,9 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable
+
+from pbmm_tpu_torch.utils.profiling import scope
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbmm_tpu_torch"
@@ -172,16 +178,38 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def launch_span(name: str, fn: Callable) -> Callable:
+    """`fn` (a C entry point) called inside the span
+    `pbmm.launch.<name>`; its return value unchanged."""
+    label = "pbmm.launch." + name
+
+    def entry(*args):
+        with scope(label):
+            return fn(*args)
+
+    return entry
+
+
+class Library:
+    """The library's entry points as attributes, each a `launch_span`
+    around the loaded C function."""
+
+    def __init__(self, lib, names):
+        for name in names:
+            setattr(self, name, launch_span(name, getattr(lib, name)))
+
+
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed), with argtypes
-    and restype set on every entry point."""
+def library() -> Library:
+    """The loaded kernel library (built first if needed): every entry
+    point with its argtypes and restype set, handed out as a
+    `launch_span`."""
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return Library(lib, SIGNATURES)
 
 
 def check_launch(err: int, name: str) -> None:

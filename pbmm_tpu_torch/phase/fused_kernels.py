@@ -25,6 +25,7 @@ from pbmm_tpu_torch.kernels import (
     checked,
     stream_handle,
 )
+from pbmm_tpu_torch.utils.profiling import counted
 
 _MAX_LEVELS = 16  # csrc/amplify_procedural.cu AP_MAXB
 _MAX_ORIENTATIONS = 16  # AP_MAXK
@@ -176,7 +177,7 @@ def amplify_procedural(cur_re, cur_im, prev_re, prev_im, fy, fx,
     return out_re, out_im
 
 
-amplify_procedural.launches = 0
+counted(amplify_procedural)
 
 
 def pyramid_phase_amplify_pallas_procedural(cur: torch.Tensor,

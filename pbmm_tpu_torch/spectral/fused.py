@@ -70,6 +70,7 @@ from pbmm_tpu_torch.spectral.radix2 import (
     check_pow2,
     compact_twiddles,
 )
+from pbmm_tpu_torch.utils.profiling import counted
 
 _ROW_BLOCK = 64  # row quantum of the content/output row windows
 _LANE = 128
@@ -398,7 +399,7 @@ def windowed_row_fft(y: torch.Tensor, pad_h: int = 0, row0: int = 0,
     return out_re, out_im
 
 
-windowed_row_fft.launches = 0
+counted(windowed_row_fft)
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +525,7 @@ def windowed_row_fft_frames(frames, coeff_rows, pad_h: int, pad_w: int,
     return out
 
 
-windowed_row_fft_frames.launches = 0
+counted(windowed_row_fft_frames)
 
 
 def _u8_args(frames, pad_h: int, pad_w: int, y0: int, x0: int, row0: int):
@@ -575,7 +576,7 @@ def windowed_row_fft_u8planar(frames, coeffs, pad_h: int, pad_w: int,
     return out
 
 
-windowed_row_fft_u8planar.launches = 0
+counted(windowed_row_fft_u8planar)
 
 
 # ---------------------------------------------------------------------------
@@ -1083,7 +1084,7 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     return tuple(outs)
 
 
-colspec_chunk.launches = 0
+counted(colspec_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -1213,7 +1214,7 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     return tuple(outs)
 
 
-phase_col_ifft.launches = 0
+counted(phase_col_ifft)
 
 
 # ---------------------------------------------------------------------------
@@ -1274,7 +1275,7 @@ def col_fft_zero_padded(re, im, pad_h: int, row0: int = 0):
     return out_re, out_im
 
 
-col_fft_zero_padded.launches = 0
+counted(col_fft_zero_padded)
 
 
 # ---------------------------------------------------------------------------
@@ -1399,4 +1400,4 @@ def row_ifft_magnitude(re, im, magnitude: bool = True, pad_h: int = 0,
     return out
 
 
-row_ifft_magnitude.launches = 0
+counted(row_ifft_magnitude)

@@ -33,6 +33,7 @@ from pbmm_tpu_torch.kernels import (
     device_arrays,
     stream_handle,
 )
+from pbmm_tpu_torch.utils.profiling import counted
 
 
 def check_pow2(n: int, what: str = "radix-2 length") -> None:
@@ -179,7 +180,7 @@ def _fft_axis(re, im, axis: int, inverse: bool, scale: float = 1.0):
     return out_re, out_im
 
 
-_fft_axis.launches = 0
+counted(_fft_axis)
 
 
 def fft2_bitrev(y: torch.Tensor):

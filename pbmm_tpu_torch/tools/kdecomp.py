@@ -42,6 +42,7 @@ from pbmm_tpu_torch.spectral.radix2 import (
     check_pow2,
     compact_twiddles,
 )
+from pbmm_tpu_torch.utils.profiling import counted
 
 VARIANTS = (
     ("stream only", frozenset()),
@@ -177,7 +178,7 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
     return tuple(outs)
 
 
-kdecomp_variant.launches = 0
+counted(kdecomp_variant)
 
 
 def kdecomp_inputs(device, h: int = 2048, wk: int = 1152, seed: int = 0,

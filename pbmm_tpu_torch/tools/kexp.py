@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from pbmm_tpu_torch.kernels import checked, check_cuda, stream_handle
-from pbmm_tpu_torch.utils.profiling import device_ms
+from pbmm_tpu_torch.utils.profiling import counted, device_ms
 
 _SCRATCH_FLOATS = (128 << 20) // 4
 _PATTERNS = {"rows": 0, "lanes": 1}
@@ -98,7 +98,7 @@ def copy_probe(a, b, pattern: str = "rows", block: int = 1):
     return oa, ob
 
 
-copy_probe.launches = 0
+counted(copy_probe)
 
 
 def timed(fn, args=(), reps: int = 10, warmup: int = 2, device=None):

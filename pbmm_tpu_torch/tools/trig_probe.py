@@ -31,6 +31,7 @@ from pbmm_tpu_torch.kernels import (
     stream_handle,
 )
 from pbmm_tpu_torch.spectral import fused
+from pbmm_tpu_torch.utils.profiling import counted
 
 # op name -> (op code of csrc/trig_probe.cu, inputs, outputs)
 OPS = {
@@ -143,7 +144,7 @@ def trig_probe(op: str, *ins, arg: int = 0, consts=(0.0, 0.0), cfg=None,
     return outs
 
 
-trig_probe.launches = 0
+counted(trig_probe)
 
 
 def probe_inputs(seed: int = 0):

@@ -14,6 +14,9 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   1 at 3840x2160 (W = 4096) and at an odd width, kept and full lanes;
 - the whole main path on the card against the CPU path, interleaved f32
   and planar uint8 in, on both tails;
+- the span recorder's recorded chunk (`utils/profiling.py`): its
+  stages' events in order inside the root's pair, the next chunk
+  unrecorded;
 - kernel 2's branches, kernels 5 and 11, the quirk switches of kernels 3
   and 7 and the config matrix's paths;
 - kernel 6 in every branch at three heights and 1, 3 and 16 frames a
@@ -203,6 +206,46 @@ def test_main_path_on_card_matches_cpu(dev):
     o1, s1 = magnify_video(torch.from_numpy(clip[:2]).to(dev), _cfg())
     o2, _ = magnify_video(torch.from_numpy(clip[2:]).to(dev), _cfg(), s1)
     assert torch.equal(torch.cat([o1, o2]), out_d)
+
+
+def test_device_timed_chunk_spans_on_card(dev):
+    """The first chunk after `record(True)` is recorded: its root's and
+    each stage's events exist, in order, inside the root's pair; the
+    launch spans are host-only; the next chunk records nothing; the root
+    counts the wrappers' calls inside it."""
+    from pbmm_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(19)
+    clip = torch.from_numpy(
+        rng.random((5, 320, 384, 3), dtype=np.float32)).to(dev)
+    _, st = magnify_video(clip[:1], _cfg())
+    before = sum(profiling.launch_counts().values())
+    profiling.record(True)
+    try:
+        _, st = magnify_video(clip[1:3], _cfg(), st)
+        mid = sum(profiling.launch_counts().values())
+        _, st = magnify_video(clip[3:], _cfg(), st)
+    finally:
+        profiling.record(False)
+    torch.cuda.synchronize()
+    spans, dropped = profiling.drain()
+    root = spans[0]
+    assert dropped == 0 and root.name == "pbmm.chunk"
+    assert all(s.chunk == root.id for s in spans)
+    stages = [s for s in spans if s.parent == root.id
+              and s.name in ("pbmm.frontend", "pbmm.colspec", "pbmm.tail")]
+    assert [s.name for s in stages] == ["pbmm.frontend", "pbmm.colspec",
+                                        "pbmm.tail"]
+    events = [root.start] + [e for s in stages
+                             for e in (s.start, s.end)] + [root.end]
+    assert all(e is not None for e in events)
+    steps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    assert all(ms >= 0 for ms in steps), steps
+    assert all(ms > 0 for ms in steps[1::2]), steps  # each stage's work
+    assert all(s.start is None for s in spans
+               if s.name.startswith("pbmm.launch."))
+    assert root.calls == mid - before >= 3
+    assert 0 < root.overhead_ns < root.t1 - root.t0
 
 
 @pytest.mark.parametrize("in_h,in_w", [(300, 384), (320, 384), (540, 960),
