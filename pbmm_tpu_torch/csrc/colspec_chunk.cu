@@ -66,14 +66,19 @@
 // (pow-2) or m = 14 (144 KB at 1080p's 1152 rows), 8 to 2048 or m = 28, 4
 // to 4096 or m = 32, 2 above (to 8192, 128 KB; row segments of 8 bytes).
 // Launch 1 brings the zero-embedded strip in by asynchronous copies of up
-// to 16 bytes, all in flight at once, then transforms it.  At tight
-// heights a thread holds its column's m points {n2 + 128 n1} for the
-// m-point DFT, applies the four-step twiddle, and the 128-point factor
-// runs as passes of 4 + 3 stages; the inverse mirrors it.  The combine
-// matrix is a kernel parameter up to m = 32 (CsCombine: with both loops
-// unrolled each weight is an FMA operand); above, its 2 m^2 floats pass
-// the 32 764-byte parameter limit, so the kernel reads it from device
-// memory (CsCombineDev: every thread of a warp reads the same word), runs
+// to 16 bytes, all in flight at once, then transforms it; launch 2's phase
+// pass brings cur and prev (and the main branch's host planes) in by
+// asynchronous 16-byte copies a few words ahead of its arithmetic on strips
+// of 4 and more (phase_inv.cuh), prev and the planes through a ring past
+// the strip where the block has room (pbmm_ps_smem), element by element on
+// strips of 2.  At tight heights a thread holds its column's m points
+// {n2 + 128 n1} for the m-point DFT, applies the four-step twiddle, and
+// the 128-point factor runs as passes of 4 + 3 stages; the inverse
+// mirrors it.  The combine matrix is a kernel parameter up to m = 32
+// (CsCombine: with both loops unrolled each weight is an FMA operand);
+// above, its 2 m^2 floats pass the 32 764-byte parameter limit, so the
+// kernel reads it from device memory (CsCombineDev: every thread of a warp
+// reads the same word), runs
 // the outer loop of the m-point DFT rolled and 256 threads a block, so a
 // thread may keep its 2 m points in up to 255 registers.  The pow-2
 // passes run kernel 5's butterflies (the forward, kernel 5 bit for bit),
@@ -387,8 +392,8 @@ __global__ void __launch_bounds__(cs_threads(MAXM), 1)
 enum CsPhase { CS_PH_MAIN = 0, CS_PH_GENERAL = 1, CS_PH_NONE = 2 };
 
 // One frame's rotated scratch spectrum (src, the state's row layout) into
-// the strip, element by element as pbmm_phase_strip reads it.  Ends
-// synchronised.
+// the strip, element by element (pbmm_phase_strip's loads on strips of 2).
+// Ends synchronised.
 template <int S, bool POW2>
 __device__ __forceinline__ void cs_copy_strip(const float* __restrict__ src_re,
                                               const float* __restrict__ src_im,
@@ -406,8 +411,8 @@ __device__ __forceinline__ void cs_copy_strip(const float* __restrict__ src_re,
 }
 
 // Launch 2: frame n's phase pass against frame n - C's scratch spectrum
-// (the carried state for the first frame of each plane), element by
-// element into the strip (or, CS_PH_NONE, its rotated spectrum as it is),
+// (the carried state for the first frame of each plane) into the strip
+// (phase_inv.cuh; or, CS_PH_NONE, its rotated spectrum as it is),
 // then the inverse: at pow-2 heights (MAXM = 0) the radix-2 DIT of 2^NLOG
 // rows (phase_inv.cuh, the body kernel 6 runs), at tight heights the
 // 128-point DIT of each block, the conjugate twiddle and the conjugate
@@ -722,12 +727,15 @@ static cudaError_t cs_run(K kernel, dim3 grid, dim3 threads, size_t smem,
   return cudaGetLastError();
 }
 
-// Launch 2 (after the tap scan with the IIR taps) on strips of S columns.
+// Launch 2 (after the tap scan with the IIR taps) on strips of S columns:
+// the strip's shared memory, and on the main branch the phase pass's ring.
 template <int NLOG, int S, int MAXM>
 static cudaError_t cs_second(const ColspecIO& io, const PhaseArgs& pa,
                              const CsCombineOf<MAXM>& cw, int ph, dim3 grid,
-                             size_t smem, cudaStream_t st) {
+                             cudaStream_t st) {
   const int nt = cs_threads(MAXM);
+  const size_t smem =
+      pbmm_ps_smem(io.h, S, nt, pbmm_ps_words(true, ph != CS_PH_MAIN));
   if (ph == CS_PH_MAIN)
     return cs_run(cs_inv_kernel<NLOG, S, MAXM, CS_PH_MAIN>, grid, nt, smem,
                   st, io, pa, cw);
@@ -752,7 +760,7 @@ static cudaError_t cs_pow2(const ColspecIO& io, const PhaseArgs& pa, int ph,
   const cudaError_t err = cs_run(cs_fwd_pow2_kernel<NLOG, S>, grid,
                                  PBMM_CB_THREADS, smem, st, io);
   if (err != cudaSuccess) return err;
-  return cs_second<NLOG, S, 0>(io, pa, CsCombine<1>{}, ph, grid, smem, st);
+  return cs_second<NLOG, S, 0>(io, pa, CsCombine<1>{}, ph, grid, st);
 }
 
 // Every launch at a tight height, m <= MAXM.
@@ -767,7 +775,7 @@ static cudaError_t cs_tight(const ColspecIO& io, const PhaseArgs& pa, int ph,
   const cudaError_t err = cs_run(cs_fwd_tight_kernel<S, MAXM>, grid,
                                  cs_threads(MAXM), smem, st, io, cw);
   if (err != cudaSuccess) return err;
-  return cs_second<7, S, MAXM>(io, pa, cw, ph, grid, smem, st);
+  return cs_second<7, S, MAXM>(io, pa, cw, ph, grid, st);
 }
 
 // Pow-2 heights above 8192 (col_pass.cuh): the forward bracket into the
@@ -899,7 +907,8 @@ static cudaError_t cs_tight_big(const ColspecIO& io, const PhaseArgs& pa,
     w.out_im = sp2_im + o;
     w.h = mc * PBMM_LANE;
     w.fs = w.os = hw;
-    const size_t smem = 2 * (size_t)w.h * S * sizeof(float);
+    const size_t smem = pbmm_ps_smem(w.h, S, PBMM_CB_THREADS,
+                                     pbmm_ps_words(true, ph != CS_PH_MAIN));
     err = ph == CS_PH_MAIN
               ? cs_run(cs_inv_blocks_kernel<S, CS_PH_MAIN>, grid,
                        PBMM_CB_THREADS, smem, st, w, pa)
@@ -955,6 +964,7 @@ extern "C" int pbmm_colspec_chunk(
       (size_t)rows_re % 16 || (size_t)rows_im % 16 ||
       (size_t)prev_re % 16 || (size_t)prev_im % 16 ||
       (size_t)spec_re % 16 || (size_t)spec_im % 16 ||
+      (!general && ((size_t)plane0 % 16 || (size_t)plane1 % 16)) ||
       (general && (fy == nullptr || fx == nullptr)) ||
       (!pow2 && (fs_re == nullptr || cw_re == nullptr)) ||
       (!pow2 && m > CS_MAXM_PARAM && (cwd_re == nullptr || cwd_im == nullptr)))
@@ -1001,4 +1011,14 @@ extern "C" int pbmm_colspec_chunk(
     err = cudaMemcpyAsync(np_im, spec_im + last, bytes,
                           cudaMemcpyDeviceToDevice, st);
   return (int)err;
+}
+
+// The dynamic shared memory the phase strip's launches take at height h on
+// strips of s columns, `threads` a block, `words` 16-byte words a thread a
+// ring slot (phase_inv.cuh::pbmm_ps_smem), for the host's mirror
+// (spectral/fused.py::phase_strip_smem).
+extern "C" int pbmm_phase_strip_smem(int h, int s, int threads, int words) {
+  if (h < 1 || s < 1 || threads < 32 || threads > 1024 || words < 0)
+    return -1;
+  return pbmm_ps_smem(h, s, threads, words);
 }

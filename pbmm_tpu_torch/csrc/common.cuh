@@ -32,6 +32,25 @@ static cudaError_t pbmm_smem_opt_in(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// One asynchronous copy of BYTES (4, 8 or 16) from device memory into
+// shared memory, both addresses aligned to BYTES: 16 bytes bypass L1
+// (cp.async.cg), narrower copies go through it (only .ca takes them).
+// Completes under cp.async.commit_group / wait_group (cuda_pipeline.h's
+// __pipeline_commit / __pipeline_wait_prior).
+template <int BYTES>
+__device__ __forceinline__ void pbmm_cp_async(float* smem,
+                                              const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES)
+                 : "memory");
+}
+
 // Bit reversal of a 7-bit index (position inside a 128-lane group).
 __device__ __forceinline__ int pbmm_rev7(int q) {
   return (int)(__brev((unsigned)q) >> 25);

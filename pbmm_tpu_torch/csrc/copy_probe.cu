@@ -106,19 +106,6 @@ __global__ void __launch_bounds__(CP_ROW_THREADS)
   }
 }
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(gmem), "n"(BYTES)
-                 : "memory");
-}
-
 template <int V>
 struct CpWord;
 template <>
@@ -155,7 +142,7 @@ __global__ void __launch_bounds__(CP_LANE_THREADS)
       const int pl = e >= n, r = e - pl * n;
       const int row = r / wr, j = r - row * wr;
       const float* src = (p0 + pl ? b : a) + fo + (size_t)row * w + j * V;
-      cp_async<4 * V>(strip + (size_t)e * V, src);
+      pbmm_cp_async<4 * V>(strip + (size_t)e * V, src);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();

@@ -4,8 +4,13 @@
 // launched at :113): one frame's phase pass + column IFFT with pieces
 // switched on and off, so that the difference between two variants is the
 // cost of one piece.  The pieces:
-//   phase  phase_pass.cuh's pbmm_phase_bin (off: the strip holds
-//          cur + prev, kdecomp.py:74-76);
+//   phase  phase_pass.cuh's phase bin (off: the strip holds cur + prev,
+//          kdecomp.py:74-76, so that with no other piece the variant
+//          times the stream: the phase strip's loads, on strips of 4 and
+//          more its asynchronous copies of cur and prev through the ring,
+//          and the rows out; the phase piece adds the host planes' copies
+//          and the arithmetic on the main branch, and on the general pass
+//          runs the element loads);
 //   gm     the inverse stages of span 1 .. 64, the seven the TPU runs as
 //          its 128 x 128 group matmul (_apply_intra_group, :77-78):
 //          stages [0, 7);
@@ -19,12 +24,14 @@
 // block of 512 threads owns a strip of S columns of one frame (grid: W / S
 // strips x B frames, S from spectral/fused.py::phase_col_strip, the strip
 // kernel 6 takes on the same planes: 16 up to H = 1024, 8 to 2048, 4 to
-// 4096, 2 to 8192).  phase_inv.cuh's pbmm_phase_strip reads cur and prev
-// from device memory into the swizzled strip (2 H S floats), through the
-// phase pass or as cur + prev; the inverse runs col_pass.cuh's in-block
-// register passes over the stage range of the pieces: gm [0, 7), rolls [7,
-// log2 H), both the whole transform in kernel 6's plan, and the last pass
-// writes the rows.  With neither, the strip's rows go out as they are.
+// 4096, 2 to 8192).  phase_inv.cuh's pbmm_phase_strip brings cur and prev
+// into the swizzled strip (2 H S floats; the ring of prev words, and of
+// the host planes with the phase piece on the main branch, past it:
+// pbmm_ps_smem; the general pass element by element), through the phase
+// pass or as cur + prev; the inverse runs
+// col_pass.cuh's in-block register passes over the stage range of the
+// pieces: gm [0, 7), rolls [7, log2 H), both the whole transform in kernel
+// 6's plan, and the last pass writes the rows.  With neither, the strip's rows go out as they are.
 // Every stage is pbmm_radix2's, bit for bit, so the full variant is
 // kernel 6 bit for bit (chip_smoke.py) and a partial one is the
 // stage-by-stage transform restricted to its stages.  IIR taps are not
@@ -116,10 +123,12 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
   }
 }
 
+// words: a thread's words a slot of the phase strip's ring
+// (pbmm_ps_words).
 template <class K>
 static cudaError_t kd_run(K kernel, const KdecompIO& io, const PhaseArgs& pa,
-                          int b, int s, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)io.h * s * sizeof(float);
+                          int b, int s, int words, cudaStream_t stream) {
+  const size_t smem = pbmm_ps_smem(io.h, s, PBMM_CB_THREADS, words);
   const cudaError_t err = pbmm_smem_opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(io.w / s, b), PBMM_CB_THREADS, smem, stream>>>(io, pa);
@@ -132,18 +141,20 @@ template <int NLOG, int S, bool PHASE, bool GENERAL>
 static cudaError_t kd_stages(const KdecompIO& io, const PhaseArgs& pa,
                              int b, bool gm, bool rolls, cudaStream_t st) {
   constexpr int G = NLOG < KD_GROUP_STAGES ? NLOG : KD_GROUP_STAGES;
+  constexpr int WORDS = pbmm_ps_words(PHASE, GENERAL);
   if (gm && (rolls || G == NLOG))
     return kd_run(kdecomp_kernel<NLOG, S, PHASE, GENERAL, 0, NLOG>, io, pa,
-                  b, S, st);
+                  b, S, WORDS, st);
   if constexpr (G < NLOG) {
     if (gm)
       return kd_run(kdecomp_kernel<NLOG, S, PHASE, GENERAL, 0, G>, io, pa, b,
-                    S, st);
+                    S, WORDS, st);
     if (rolls)
       return kd_run(kdecomp_kernel<NLOG, S, PHASE, GENERAL, G, NLOG>, io, pa,
-                    b, S, st);
+                    b, S, WORDS, st);
   }
-  return kd_run(kdecomp_rows_kernel<S, PHASE, GENERAL>, io, pa, b, S, st);
+  return kd_run(kdecomp_rows_kernel<S, PHASE, GENERAL>, io, pa, b, S, WORDS,
+                st);
 }
 
 template <int NLOG, int S>
@@ -193,7 +204,9 @@ static cudaError_t kd_height(const KdecompIO& io, const PhaseArgs& pa,
 // only with the phase piece); the IIR branch is refused.  tw_re / tw_im:
 // compact_twiddles(h, inverse=True); s: the strip (phase_col_strip, of the
 // 8192-row block above 8192 rows); above 8192 rows with the "rolls" piece,
-// sp_re / sp_im a (b, h, w) scratch (else unread).
+// sp_re / sp_im a (b, h, w) scratch (else unread).  Off the general pass,
+// on strips of 4 and more, cur and prev (and the host planes with the
+// phase piece) start on 16 bytes.
 extern "C" int pbmm_kdecomp(const float* cur_re, const float* cur_im,
                             const float* prev_re, const float* prev_im,
                             const float* plane0, const float* plane1,
@@ -219,6 +232,11 @@ extern "C" int pbmm_kdecomp(const float* cur_re, const float* cur_im,
   const bool bracket = h > PBMM_BK_N;
   if (pieces < 0 || pieces > 7 || b < 1 || b > 65535 || h < 2 ||
       (h & (h - 1)) != 0 || s < 1 || w < s || w % s != 0 || r0 < 0 ||
+      (s >= 4 && !general &&
+       ((size_t)cur_re | (size_t)cur_im | (size_t)prev_re |
+        (size_t)prev_im) % 16) ||
+      (s >= 4 && phase && !general &&
+       ((size_t)plane0 | (size_t)plane1) % 16) ||
       r1 <= r0 || r1 > h ||
       (bracket && rolls && (sp_re == nullptr || sp_im == nullptr)))
     return (int)cudaErrorInvalidValue;

@@ -18,15 +18,19 @@
 //
 // Design: kernel 2's launch 2 at pow-2 heights, frame-parallel.  A block
 // owns a strip of S columns of one frame (grid: W / S strips x B frames)
-// and runs phase_inv.cuh's pbmm_phase_strip (the phase pass element by
-// element from device memory into the swizzled strip; with IIR the bin's
+// and runs phase_inv.cuh's pbmm_phase_strip (the phase pass into the
+// swizzled strip, cur, prev and the main branch's host planes by
+// asynchronous 16-byte copies a few words ahead of the arithmetic on strips
+// of 4 and more, element by element on narrower ones; with IIR the bin's
 // taps read, updated in registers and written back) and
 // pbmm_inv_rows_pow2 (col_pass.cuh's in-block register passes, the last
 // one writing the output rows), the very body of kernel 2's launch 2: on
 // the spectra kernel 5 gives, the rows are kernel 2's bit for bit.  Nothing
 // recurs inside a launch, so there is no frame loop and no tap plane in
-// shared memory (2 H S floats a block).  The launch is kernel 2's too:
-// 512 threads, one block an SM, the strip of colspec_chunk.cu::cs_strip
+// shared memory (2 H S floats a block, and the phase pass's ring of prev
+// and host-plane words where the block has room,
+// phase_inv.cuh::pbmm_ps_smem).  The launch is kernel 2's too: 512
+// threads, one block an SM, the strip of colspec_chunk.cu::cs_strip
 // (16 columns to H = 1024, 8 to 2048, 4 to 4096, 2 to 8192), or the
 // widest half of it that divides the width, down to 4 (2 above H = 2048, 1
 // above 4096) (spectral/fused.py::phase_col_strip).  Narrower strips and smaller
@@ -98,7 +102,8 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
 template <int NLOG, int S, bool GENERAL, bool IIR>
 static cudaError_t pc_launch(const PhaseColIO& io, const PhaseArgs& pa,
                              int b, cudaStream_t stream) {
-  const size_t smem = 2 * ((size_t)S << NLOG) * sizeof(float);
+  const size_t smem = pbmm_ps_smem(1 << NLOG, S, PBMM_CB_THREADS,
+                                   pbmm_ps_words(true, GENERAL));
   cudaError_t err =
       pbmm_smem_opt_in(phase_col_ifft_kernel<NLOG, S, GENERAL, IIR>, smem);
   if (err != cudaSuccess) return err;
@@ -134,6 +139,8 @@ static cudaError_t pc_strip(const PhaseColIO& io, const PhaseArgs& pa,
 // tw_im: compact_twiddles(h, inverse=True); s: the strip
 // (spectral/fused.py::phase_col_strip; of the 8192-row block above 8192
 // rows); sp_re / sp_im: a (b, h, w) scratch above 8192 rows, else null.
+// On the main branch on strips of 4 and more, cur, prev and the host
+// planes start on 16 bytes (the phase pass's asynchronous copies).
 extern "C" int pbmm_phase_col_ifft(
     const float* cur_re, const float* cur_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
@@ -149,6 +156,9 @@ extern "C" int pbmm_phase_col_ifft(
   if (!args_ok || b < 1 || b > 65535 || h < 2 || (h & (h - 1)) != 0 ||
       (bracket && (sp_re == nullptr || sp_im == nullptr)) || s < 1 ||
       w < s || w % s != 0 || r0 < 0 ||
+      (s >= 4 && !general &&
+       ((size_t)cur_re | (size_t)cur_im | (size_t)prev_re |
+        (size_t)prev_im | (size_t)plane0 | (size_t)plane1) % 16) ||
       r1 <= r0 || r1 > h || (pa.host_planes && plane0 == nullptr) ||
       (pa.host_planes && !pa.standard && plane1 == nullptr) ||
       (!general && (plane0 == nullptr || plane1 == nullptr)) ||

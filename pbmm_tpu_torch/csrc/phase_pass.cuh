@@ -200,14 +200,38 @@ __device__ __forceinline__ void cs_phase_general(
   out_i = cr * gi + ci * gr;
 }
 
+// The main path's branch on one bin (host planes, integer power): cur
+// (cr, ci) against prev (pr, pi), the host planes' m_amp and total values
+// from mk_of() and tot_of(), called where the products need them (from
+// device memory in kernel 2's original order: loading them ahead of the
+// products cost kernel 2's four-step main branch 16 % on an H100, 3.22-3.25
+// against 2.78 ms a 1080p chunk; or from the phase strip's ring).
+template <class Mk, class Tot>
+__device__ __forceinline__ void cs_phase_main(float cr, float ci, float pr,
+                                              float pi, Mk&& mk_of,
+                                              Tot&& tot_of,
+                                              const PhaseArgs& pa,
+                                              float& o_r, float& o_i) {
+  const float rr = pr * cr + pi * ci;  // prev * conj(cur)
+  const float ri = pi * cr - pr * ci;
+  const float min_mag2 = fminf(cr * cr + ci * ci, pr * pr + pi * pi);
+  const float mk = mk_of();
+  const float tot = tot_of();
+  const float amped = (min_mag2 * (mk * mk) >= pa.tau2) ? mk : 0.0f;
+  float qr, qi;
+  cs_unit_pow(rr, ri, pa.power, qr, qi);
+  const float gr = (tot - amped) + amped * qr;
+  const float gi = amped * qi;
+  o_r = cr * gr - ci * gi;
+  o_i = cr * gi + ci * gr;
+}
+
 // One bin of the phase pass: cur (cr, ci) against prev (pr, pi); host
 // planes plane0/plane1 (total and m_amp, or the standard mode's w; null
 // where absent) at element g; frequency fy[row], fx[lane]; IIR taps
-// updated in place.  GENERAL false is the main path's branch (host
-// planes, integer power), compiled on its own.  Each branch keeps kernel
-// 2's original order of loads and arithmetic: loading the main branch's
-// planes ahead of its products cost kernel 2's four-step main branch
-// 16 % on an H100 (3.22-3.25 against 2.78 ms a 1080p chunk).
+// updated in place.  GENERAL false is the main path's branch
+// (cs_phase_main), compiled on its own.  Each branch keeps kernel 2's
+// original order of loads and arithmetic.
 template <bool GENERAL, bool IIR>
 __device__ __forceinline__ void pbmm_phase_bin(
     float cr, float ci, float pr, float pi, const float* plane0,
@@ -221,18 +245,9 @@ __device__ __forceinline__ void pbmm_phase_bin(
                           pl0, pl1, lpf, lps, pa, o_r, o_i);
     return;
   }
-  const float rr = pr * cr + pi * ci;  // prev * conj(cur)
-  const float ri = pi * cr - pr * ci;
-  const float min_mag2 = fminf(cr * cr + ci * ci, pr * pr + pi * pi);
-  const float mk = __ldg(plane1 + g);
-  const float tot = __ldg(plane0 + g);
-  const float amped = (min_mag2 * (mk * mk) >= pa.tau2) ? mk : 0.0f;
-  float qr, qi;
-  cs_unit_pow(rr, ri, pa.power, qr, qi);
-  const float gr = (tot - amped) + amped * qr;
-  const float gi = amped * qi;
-  o_r = cr * gr - ci * gi;
-  o_i = cr * gi + ci * gr;
+  cs_phase_main(
+      cr, ci, pr, pi, [&] { return __ldg(plane1 + g); },
+      [&] { return __ldg(plane0 + g); }, pa, o_r, o_i);
 }
 
 // Whether a PhaseArgs needs the general pass.

@@ -87,6 +87,9 @@ SIGNATURES = {
     # layout -> the registers a thread of kernels 10 and 11's
     # instantiation
     "pbmm_post_tile_regs": [_I, _I],
+    # h, strip, threads, planes -> the phase strip's dynamic shared memory
+    # (bytes)
+    "pbmm_phase_strip_smem": [_I] * 4,
     # cur_re, cur_im, prev_re, prev_im, lpf_in, lps_in, plane0, plane1,
     # fy, fx, tw_re, tw_im, out_re, out_im, new_lpf, new_lps, scratch re,
     # im (above 8192 rows), phase ints(host), phase floats(host), batch, h,

@@ -334,6 +334,13 @@ def _scratch(shape, big: bool, device):
                  for _ in range(2))
 
 
+def aligned16(*xs):
+    """The tensors, each copied where its data does not start on 16 bytes
+    (a view's offset): the phase strip's asynchronous copies read 16-byte
+    words (csrc/phase_inv.cuh)."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in xs)
+
+
 def _ptrs(*xs):
     """Device pointers of tensors (None stays a null)."""
     return tuple(None if x is None else x.data_ptr() for x in xs)
@@ -611,6 +618,41 @@ def colspec_strip(h: int) -> int:
         return 16 if h <= 1024 else 8 if h <= 2048 else 4 if h <= 4096 else 2
     return (16 if m <= 14 else 8 if m <= 28 else 4
             if m <= _COMBINE_MAX_PARAM else 2 if m < 64 else 4)
+
+
+# A block's and an SM's shared memory on the H100, the card's reserve a
+# block, and the words a thread's ring of the phase strip runs ahead
+# (csrc/phase_inv.cuh).
+_SMEM_BLOCK, _SMEM_SM, _SMEM_RESERVE = 232448, 233472, 1024
+PS_MAXD = 4
+
+
+def phase_strip_smem(h: int, s: int, threads: int = 512,
+                     words: int = 4) -> int:
+    """Dynamic shared memory (bytes) of a launch of the phase strip
+    (kernel 2's launch 2, kernels 6 and 12) at height h on strips of s
+    columns, `threads` a block (csrc/phase_inv.cuh::pbmm_ps_smem): the
+    strip, 2 h s f32, and on strips of 4 and more a ring of up to
+    `PS_MAXD` slots of a thread's `words` 16-byte words (4 on the main
+    branch: prev and the two host planes; 2 for kernel 12's stream; 0 on
+    the general pass, which keeps the element loads), in the room the strip
+    leaves one block without lowering the blocks an SM its shared memory
+    allows (at most 2048 threads an SM)."""
+    strip, slot = 8 * h * s, 16 * words * threads
+    if s < 4 or words < 1:
+        return strip
+    nb = min(2048 // threads, _SMEM_SM // (strip + _SMEM_RESERVE))
+    top = min(_SMEM_SM // max(nb, 1) - _SMEM_RESERVE, _SMEM_BLOCK)
+    return strip + min(max(top - strip, 0) // slot, PS_MAXD) * slot
+
+
+def colspec_staged(h: int, general: bool = False) -> bool:
+    """Whether kernel 2's launch 2 at column height h runs its phase pass
+    on asynchronous copies (csrc/phase_inv.cuh: the main branch on strips
+    of 4 columns and more, `colspec_strip`): what `colspec_chunk.staged`
+    counts.  Never on the general pass (`_phase_general`: the IIR taps
+    among others), which keeps the element loads."""
+    return not general and colspec_strip(h) >= 4
 
 
 def phase_col_strip(h: int, w: int) -> int:
@@ -971,6 +1013,15 @@ def colspec_chunk_ref(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     return (out_re, out_im) + tuple(torch.stack(s) for s in zip(*state))
 
 
+def _phase_general(ints) -> bool:
+    """csrc/phase_pass.cuh::pbmm_phase_general on `_phase_args`' ints:
+    whether the phase pass runs its general branch (the IIR taps, standard
+    mode, no host planes, steerable sectors or a non-integer scale) rather
+    than the main path's."""
+    iir, standard, host_planes, steer, power = ints[:5]
+    return bool(iir or standard or not host_planes or steer or power < 0)
+
+
 def _phase_args(plan: _PhasePlan, host_planes: bool):
     """(ints, floats) of csrc/phase_pass.cuh's PhaseArgs, in its field
     order; standard mode without host planes carries its weight's terms
@@ -1022,9 +1073,11 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     CPU tensors take `colspec_chunk_ref`; CUDA tensors launch
     `csrc/colspec_chunk.cu`: the forward spectra of all frames go to a
     scratch tensor first, and the frames' phase passes and inverses then
-    run in parallel (two launches, counted as one call); with the IIR
-    taps a scan between them walks each bin's frames in order (three
-    launches).  Above 8192 rows (pow-2) the two launches run on every
+    run in parallel (two launches, counted as one call; the call adds 1
+    to `colspec_chunk.staged` where the second brings its operands in by
+    asynchronous copies, `colspec_staged`); with the IIR taps a scan
+    between them walks each bin's frames in order (three launches).
+    Above 8192 rows (pow-2) the two launches run on every
     8192-row block between a forward and an inverse bracket pass, and
     above m = 64 (tight) the four-step's combine runs as a pass of its
     own; both through a second scratch (`colspec_big`).  Any padded
@@ -1081,10 +1134,14 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
         row0, r0, r1, stream_handle(dev))
     check_launch(err, "colspec_chunk")
     colspec_chunk.launches += 1
+    colspec_chunk.staged += colspec_staged(pad_h, _phase_general(ints))
     return tuple(outs)
 
 
 counted(colspec_chunk)
+# Calls whose launch 2 ran the phase pass on asynchronous copies
+# (`colspec_staged`); not a launch counter.
+colspec_chunk.staged = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1192,6 +1249,8 @@ def phase_col_ifft(cur_re, cur_im, prev_re, prev_im, cfg, out_rows=None,
     taps = (lp_fast, lp_slow) if lp_fast is not None else ()
     check_cuda("phase_col_ifft", (b, h, w), cur_re, cur_im, prev_re,
                prev_im, *taps)
+    cur_re, cur_im, prev_re, prev_im = aligned16(cur_re, cur_im, prev_re,
+                                                 prev_im)
     dev = cur_re.device
     host, fy, fx = _phase_col_tables(cfg, h, w, full_w, fx_values, dev)
     planes_d = (host or ()) + (None,) * (2 - len(host or ()))

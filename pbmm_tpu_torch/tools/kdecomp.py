@@ -9,7 +9,10 @@ strips and in-block passes throughout (`csrc/kdecomp.cu`; kernel 6's body
 is kernel 2's launch 2), so that the difference between two variants is
 the cost of one piece:
 
-    "stream only"   the strip of cur + prev in and rows out, no work
+    "stream only"   the strip of cur + prev in and rows out, no work:
+                    on strips of 4 and more the phase strip's
+                    asynchronous copies of cur and prev through its ring
+                    (`fused.phase_strip_smem`), element loads on 2 and 1
     "gm"            the inverse stages of span 1 .. 64 (the seven the TPU
                     runs as one 128 x 128 group matmul)
     "rolls"         the stages of span 128 and more
@@ -154,6 +157,8 @@ def kdecomp_variant(cur_re, cur_im, prev_re, prev_im, cfg, pieces, rows,
                          f"of {fused.col_strip(h)} at H = {h}, got {w}")
     check_cuda("kdecomp_variant", (b, h, w), cur_re, cur_im, prev_re,
                prev_im)
+    cur_re, cur_im, prev_re, prev_im = fused.aligned16(cur_re, cur_im,
+                                                       prev_re, prev_im)
     dev = cur_re.device
     host = fused._static_phase_planes(cfg, h, w, full_w)
     planes_d = (device_arrays(fused._static_phase_planes, (cfg, h, w, full_w),

@@ -28,11 +28,19 @@ on `csrc/col_pass.cuh`'s in-block passes), checked on the CPU.
 - The strip's shared-memory layout (`pbmm_cb_swz`): one-to-one, point q of
   a group at the group's word XOR a constant, and every access of a warp
   (the passes, the phase loop, the m-point loops) on 32 distinct banks.
+- The phase strip's asynchronous copies (`csrc/phase_inv.cuh`): the
+  host's mirror of the ring's rule (`fused.phase_strip_smem`,
+  `colspec_staged`) against the C rule's table at each height class and
+  its constants in the header, and every quarter warp's 16-byte strip
+  words on 32 distinct banks.
 - The model of the whole schedule (the m-point DFT with the combine
   matrix, the four-step twiddle, the passes, the phase pass, the inverse)
   against the JAX kernel in interpret mode at H = 256 (pow-2) and 384
   (m = 3), T = 4, Wk = 128 and 256, max error / max magnitude < 1e-4 (the
   bar of tests/test_torch_branches.py)."""
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -685,3 +693,149 @@ def test_schedule_model_matches_jax(pad_h, wk):
         g = got[k] + 1j * got[k + 1].astype(np.float64)
         assert g.shape == w.shape
         assert np.abs(g - w).max() < 1e-4 * np.abs(w).max()
+
+
+# -- the phase strip's asynchronous copies (csrc/phase_inv.cuh) -------------
+
+_PHASE_INV = (Path(fused.__file__).resolve().parent.parent / "csrc"
+              / "phase_inv.cuh")
+
+# The C rule (csrc/phase_inv.cuh::pbmm_ps_smem, 512 threads a block) at
+# each height class of kernel 2's launch 2: (rows a block holds, strip,
+# ring slots on the main branch (prev and the host planes, 64 bytes a
+# thread), slots for kernel 12's stream (prev, 32 bytes)); -1 the element
+# loads (strips of 2), 0 cur alone.  The general pass keeps the element
+# loads at every height.
+_RING_TABLE = [
+    # pow-2 heights: 16 columns to 1024 (H = 512 keeps its 3 blocks an SM),
+    # 8 to 2048, 4 to 4096, 2 at 8192 (and on the bracket's 8192-row blocks)
+    (32, 16, 1, 3), (128, 16, 1, 2), (256, 16, 0, 1), (512, 16, 0, 0),
+    (1024, 16, 3, 4), (2048, 8, 3, 4), (4096, 4, 3, 4), (8192, 2, -1, -1),
+    # tight m <= 14 on 16 columns: 1080p's m = 9 has room for 2 or 4
+    (1 * LANE, 16, 1, 2), (3 * LANE, 16, 0, 0), (5 * LANE, 16, 1, 2),
+    (7 * LANE, 16, 0, 0), (9 * LANE, 16, 2, 4), (11 * LANE, 16, 1, 3),
+    (12 * LANE, 16, 1, 2), (13 * LANE, 16, 0, 1), (14 * LANE, 16, 0, 0),
+    # m = 15-28 on 8 columns, 29-32 on 4, 33-63 on 2
+    (15 * LANE, 8, 3, 4), (17 * LANE, 8, 2, 4), (25 * LANE, 8, 0, 1),
+    (27 * LANE, 8, 0, 0), (28 * LANE, 8, 0, 0), (29 * LANE, 4, 3, 4),
+    (34 * LANE, 2, -1, -1), (63 * LANE, 2, -1, -1),
+    # m > 64: chunks of 32 blocks of 128 rows on 4 columns, and a last
+    # chunk of 1 (m = 65)
+    (32 * LANE, 4, 3, 4), (1 * LANE, 4, 1, 3),
+]
+
+
+def ring_depth(h, s, words):
+    """Slots of the phase strip's ring `fused.phase_strip_smem` gives: -1
+    where the element loads serve (strips of 2 and 1, the general pass),
+    0 where cur alone takes the asynchronous copies."""
+    if s < 4 or words == 0:
+        return -1
+    slot = 16 * words * 512
+    return (fused.phase_strip_smem(h, s, words=words) - 8 * h * s) // slot
+
+
+@pytest.mark.parametrize("h,s,main,stream", _RING_TABLE,
+                         ids=[f"h{h}_s{s}" for h, s, _, _ in _RING_TABLE])
+def test_phase_ring_rule_table(h, s, main, stream):
+    """The host's mirror of the phase strip's shared memory and ring depth
+    against the C rule's table, on the main branch (4 words a thread a
+    slot), kernel 12's stream (2) and the general pass (none: the strip
+    alone): the strip and that many slots, within a block's 227 KB; where
+    the strip alone let 2-4 blocks share an SM, strip and ring still do; no
+    room for a slot more below `PS_MAXD`."""
+    strip = 8 * h * s
+    blocks = min(4, fused._SMEM_SM // (strip + fused._SMEM_RESERVE))
+    room = min(fused._SMEM_SM // blocks - fused._SMEM_RESERVE,
+               fused._SMEM_BLOCK)
+    assert fused.phase_strip_smem(h, s, words=0) == strip
+    for words, depth in ((4, main), (2, stream)):
+        smem = fused.phase_strip_smem(h, s, words=words)
+        slot = 16 * words * 512
+        assert ring_depth(h, s, words) == depth
+        assert smem == strip + max(depth, 0) * slot
+        assert smem <= room
+        if 0 <= depth < fused.PS_MAXD:
+            assert room - smem < slot
+
+
+def test_phase_ring_constants_match_the_header():
+    """The mirror's constants are the header's."""
+    text = _PHASE_INV.read_text()
+    got = dict(re.findall(r"#define (PBMM_\w+) (\d+)", text))
+    assert int(got["PBMM_PS_MAXD"]) == fused.PS_MAXD
+    assert int(got["PBMM_SM_SMEM"]) == fused._SMEM_SM
+    assert int(got["PBMM_SMEM_BLOCK"]) == fused._SMEM_BLOCK
+    assert int(got["PBMM_SMEM_RESERVE"]) == fused._SMEM_RESERVE
+
+
+_CLASSES = ([(1 << n, True) for n in range(1, 13)]
+            + [(8192, False), (16384, False), (32768, False)]
+            + [(m * LANE, m <= 32 or m > 64) for m in range(1, 70)
+               if m & (m - 1)])
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["main", "general"])
+def test_colspec_staged_at_every_height_class(general):
+    """`colspec_staged` (what `colspec_chunk.staged` counts): launch 2
+    runs the asynchronous phase strip on the main branch wherever its
+    strip is 4 columns or more (pow-2 to 4096, tight m <= 32 and the chunk
+    kernels above m = 64), never on strips of 2, never on the general
+    pass; its ring holds prev and the planes where a block has room."""
+    for h, staged in _CLASSES:
+        assert fused.colspec_staged(h, general) == (staged and not general), h
+        held = (min(h, fused.BLOCK_N) if fused._is_pow2(h)
+                else h if h // LANE < 64 else 32 * LANE)
+        depth = ring_depth(held, fused.colspec_strip(h), 0 if general else 4)
+        assert (depth >= 0) == (staged and not general), h
+
+
+_GENERAL = {"main": (dict(), False), "standard": (dict(mode="standard"), True),
+            "steerable": (dict(orientations=4), True),
+            "scale_2_5": (dict(phase_scale=2.5), True),
+            "iir": (dict(temporal=TemporalConfig(mode="iir_bandpass")), True)}
+
+
+@pytest.mark.parametrize("name", sorted(_GENERAL))
+def test_phase_general_mirrors_the_pass(name):
+    """`fused._phase_general`, the host's copy of
+    `phase_pass.cuh::pbmm_phase_general`: the main path's config (host
+    planes, integer scale, two-frame) runs the main branch, each of
+    standard mode, steerable sectors, a non-integer scale and the IIR taps
+    the general pass."""
+    change, general = _GENERAL[name]
+    cfg = TCfg(phase_scale=10.0).tuned_for_tpu().replace(**change)
+    plan = fused._phase_plan(cfg)
+    host = fused._static_phase_planes(cfg, 384, 128, 256) is not None
+    ints, _ = fused._phase_args(plan, host)
+    assert fused._phase_general(ints) == general
+
+
+@pytest.mark.parametrize("s", [4, 8, 16])
+@pytest.mark.parametrize("h", [64, 1152, 2176, 4096])
+def test_phase_strip_words_banks(h, s):
+    """The asynchronous phase strip's accesses: thread t's word k is strip
+    word w = t + 512 k (row w / (S / 4), columns 4 (w mod S / 4) ..); each
+    quarter warp's 16-byte strip words (8 threads) cover 32 distinct banks,
+    cp.async stores and float4 loads alike, and the strip's words are each
+    one thread's (the ring's words lie at 4 t, consecutive)."""
+    v = s // 4
+    w = np.arange(h * v)
+    p, c = w // v, (w % v) * 4
+    word = idx(p, c, s)
+    assert len(np.unique(word)) == len(word) and (word % 4 == 0).all()
+    for q0 in range(0, len(w) - 7, 8):
+        banks = (word[q0:q0 + 8, None] + np.arange(4)) % 32
+        assert len(np.unique(banks)) == 32, (q0, banks)
+
+
+def test_aligned16_copies_only_offset_views():
+    """Kernels 6 and 12's wrappers hand the asynchronous copies 16-byte
+    aligned planes: an aligned tensor as it is, a view off the 16-byte grid
+    as an aligned copy with its values."""
+    base = torch.arange(40, dtype=torch.float32)
+    a = base[:36].view(3, 3, 4)
+    b = base[1:37].view(3, 3, 4)
+    got_a, got_b = fused.aligned16(a, b)
+    assert got_a is a
+    assert got_b.data_ptr() % 16 == 0 and torch.equal(got_b, b)

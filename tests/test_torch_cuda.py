@@ -25,7 +25,7 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   and bit for bit against one full-width call, and its launch refusing
   standard mode without a plane or the weight's terms; and bit for bit
   against kernel 2's rows (with kernel 12 = 6)
-  at H = 512, 2048 and 4096, 1, 3 and 16 frames a launch, in every
+  at H = 64, 512, 2048 and 4096, 1, 3 and 16 frames a launch, in every
   frame-parallel branch; kernel 8 on both axes from 8 to 8192 points,
   kernel 9 in
   both layouts, kernel 10 in every layout, the scan engine's paths on the
@@ -79,6 +79,14 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   than 2^31 elements;
 - kernel 9 (redesigned) in its four branches and both layouts on a width
   that is not a multiple of 4;
+- kernel 2's launch 2 on the phase strip's asynchronous copies at each
+  strip class (pow-2 H = 1024, 2048 and 4096, tight m = 9 and 14) and on
+  the element loads (H = 8192) against its plain version; two chunks
+  equal to one through the ring; `colspec_chunk.staged` rising by one a
+  call where launch 2 runs the asynchronous strip (a steady 1080p chunk
+  included) and staying put elsewhere (strips of 2, the IIR taps,
+  standard mode), and the C rule's shared memory equal to the host's
+  mirror;
 - kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
   1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
@@ -155,6 +163,16 @@ def test_row_fft_kernel(dev, hc, pad_h, row0, w, keep):
     (384, 512, 256, 64, (64, 320)),
     (768, 2048, 768, 0, (0, 768)),
     (384, 256, 384, 0, (128, 256)),
+    # the phase strip's asynchronous copies at each strip class: pow-2 on
+    # 16, 8 and 4 columns (a ring of 3 slots of prev and the host planes),
+    # tight m = 9 (1080p, 2 slots) and m = 14 (cur alone); H = 8192 keeps
+    # the element loads
+    (1024, 2048, 600, 200, (100, 900)),
+    (2048, 2048, 1080, 484, (400, 1600)),
+    (4096, 2048, 2160, 968, (900, 3200)),
+    (1152, 2048, 1080, 36, (36, 1116)),
+    (1792, 2048, 1720, 36, (36, 1756)),
+    (8192, 2048, 4320, 1936, (1900, 6300)),
 ])
 def test_colspec_kernel(dev, pad_h, w, hc, row0, rows):
     wk = hermitian_kept_width(w)
@@ -877,17 +895,20 @@ _K6_EQ = {"main": dict(), "standard": dict(mode="standard"),
 
 @pytest.mark.parametrize("name", sorted(_K6_EQ))
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("h", [512, 2048, 4096])
+@pytest.mark.parametrize("h", [64, 512, 2048, 4096])
 def test_phase_col_ifft_kernel_equals_colspec(dev, h, b, name):
     """On the spectra kernel 5 gives, kernel 6's rows equal kernel 2's bit
     for bit over 16 frames (the shared phase pass and inverse of
     csrc/phase_inv.cuh), launched b frames at a time (a grid of strips x
     b frames), in every branch kernel 2 runs frame-parallel, at the
-    1080p kept width; and kernel 12's full variant equals kernel 6."""
+    1080p kept width; and kernel 12's full variant equals kernel 6.  At
+    H = 64 a block's 256 strip words leave half its threads without one
+    (the ragged last round of the asynchronous copies)."""
     cfg = _cfg().replace(pad_mode="square_pow2", **_K6_EQ[name])
     fw, t = 2048, 16
     wk = hermitian_kept_width(fw)
-    hc, row0, rows = h // 2 + 40, h // 4 - 8, (h // 8, h - h // 8)
+    hc, row0 = (h // 2 + 40, h // 4 - 8) if h >= 512 else (h // 2, h // 8)
+    rows = (h // 8, h - h // 8)
     rng = np.random.default_rng(19 + h)
     rows_in = [_spectra(rng, (t, hc, wk), dev) for _ in range(2)]
     prev = [_spectra(rng, (1, h, wk), dev) for _ in range(2)]
@@ -1562,10 +1583,14 @@ def test_colspec_pow2_identities(dev, h):
 
 
 @pytest.mark.parametrize("planes", [1, 3])
-@pytest.mark.parametrize("h", [1152, 2048, 2176, 4096, 4352, 8192])
+@pytest.mark.parametrize("h", [1024, 1152, 1792, 2048, 2176, 4096, 4352,
+                               8192])
 def test_colspec_two_chunks_equal_one(dev, h, planes):
     """Two chunks of 8 frames, the state threaded, equal one chunk of 16
-    bit for bit (rows and state), at tight and pow-2 heights."""
+    bit for bit (rows and state), at tight and pow-2 heights: the phase
+    strip's asynchronous copies with a ring of prev words (1024, 1152,
+    2048, 2176 ragged, 4096), with cur alone (1792: m = 14), and the
+    element loads (4352, 8192)."""
     tight = h & (h - 1) != 0
     cfg = _cfg().replace(pad_mode="tight" if tight else "square_pow2")
     fw = 256
@@ -1584,6 +1609,60 @@ def test_colspec_two_chunks_equal_one(dev, h, planes):
     assert all(torch.equal(torch.cat([x, y]), z)
                for x, y, z in zip(a[:2], b[:2], one[:2]))
     assert all(torch.equal(x, z) for x, z in zip(b[2:], one[2:]))
+
+
+_STAGED = [(1152, "main"), (1792, "main"), (2048, "main"), (4352, "main"),
+           (8192, "main"), (1152, "iir"), (1152, "standard")]
+
+
+@pytest.mark.parametrize("h,branch", _STAGED,
+                         ids=[f"h{h}_{b}" for h, b in _STAGED])
+def test_colspec_staged_counts_the_asynchronous_strip(dev, h, branch):
+    """`colspec_chunk.staged` rises by one a call whose launch 2 runs the
+    asynchronous phase strip (`fused.colspec_staged`: the main branch on
+    strips of 4 and more) and stays put elsewhere (strips of 2, the
+    general pass: the IIR taps, standard mode), beside the one launch
+    counted; the C rule's shared memory is the host's mirror at the
+    heights, strips and ring words the launches take."""
+    from pbmm_tpu_torch.kernels.build import library
+
+    tight = h & (h - 1) != 0
+    cfg = _cfg().replace(pad_mode="tight" if tight else "square_pow2")
+    taps = ()
+    if branch == "iir":
+        cfg = cfg.replace(temporal=TemporalConfig(mode="iir_bandpass"))
+    elif branch == "standard":
+        cfg = cfg.replace(mode="standard")
+    wk = hermitian_kept_width(256)
+    rng = np.random.default_rng(h)
+    rows_in = [_spectra(rng, (4, h - 64, wk), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, wk), dev) for _ in range(2)]
+    if branch == "iir":
+        taps = tuple(torch.zeros((1, h, wk), device=dev) for _ in range(2))
+    n, staged = fused.colspec_chunk.launches, fused.colspec_chunk.staged
+    fused.colspec_chunk(*rows_in, *prev, cfg, h, 32, *taps, full_w=256)
+    assert fused.colspec_chunk.launches == n + 1
+    want = h in (1152, 1792, 2048) and branch == "main"
+    assert fused.colspec_chunk.staged == staged + want
+    for height in (64, 512, 1024, 1152, 1792, 2048, 2176, 4096, 8192):
+        for s in (2, 4, 8, 16):
+            for words in (0, 2, 4):
+                assert library().pbmm_phase_strip_smem(
+                    height, s, 512, words) == fused.phase_strip_smem(
+                        height, s, words=words), (height, s, words)
+
+
+def test_colspec_staged_on_steady_1080p_chunks(dev):
+    """Every steady 1080p tight chunk of the chunk engine (uint8 frames,
+    chunks of 16) adds one to `colspec_chunk.staged`, as to `.launches`."""
+    cfg = _cfg()
+    frames = _source_frames(34, 1080, 1920, "u8", "interleaved", dev)
+    _, state = magnify_video(frames[:2], cfg)
+    n, staged = fused.colspec_chunk.launches, fused.colspec_chunk.staged
+    for f0 in (2, 18):
+        _, state = magnify_video(frames[f0:f0 + 16], cfg, state)
+    assert fused.colspec_chunk.launches - n == 2
+    assert fused.colspec_chunk.staged - staged == 2
 
 
 def test_colspec_refuses_a_width_off_its_strip(dev):
