@@ -931,7 +931,10 @@ static cudaError_t cs_tight_big(const ColspecIO& io, const PhaseArgs& pa,
 // same on the device (read above m = 32); tw_*: compact_twiddles(n) with
 // n = 128 at tight heights, else H.  spec_re / spec_im: the scratch, (T
 // C, H, Wk) each; sp2_re / sp2_im a second one of that size, read only
-// above 8192 rows (pow-2) or m = 64 (tight), else null.  Any height.
+// above 8192 rows (pow-2) or m = 64 (tight), else null.  staged (a host
+// int, or null): set to 1 where launch 2 runs the phase pass on the
+// asynchronous strip (phase_inv.cuh::pbmm_ps_async on its strip and
+// branch), else 0, on the host and before any launch.  Any height.
 extern "C" int pbmm_colspec_chunk(
     const float* rows_re, const float* rows_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
@@ -943,7 +946,8 @@ extern "C" int pbmm_colspec_chunk(
     float* spec_im, float* out_re, float* out_im, float* np_re,
     float* np_im, float* lpf_out, float* lps_out, float* sp2_re,
     float* sp2_im, const int* iargs, const float* fargs, int t, int c,
-    int hc, int h, int wk, int row0, int r0, int r1, void* stream) {
+    int hc, int h, int wk, int row0, int r0, int r1, int* staged,
+    void* stream) {
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool pow2 = h >= 2 && (h & (h - 1)) == 0;
@@ -977,6 +981,12 @@ extern "C" int pbmm_colspec_chunk(
                         wk,      row0,    r0,      r1,
                         (size_t)h * wk,   (size_t)(r1 - r0) * wk};
   const int ph = pa.iir ? CS_PH_NONE : general ? CS_PH_GENERAL : CS_PH_MAIN;
+  // s = cs_strip(h) is launch 2's strip at every height (the dispatch
+  // below, the bracket's 8192-row blocks: 2, the combine pass's chunks:
+  // CS_CHUNK_S), and these its ring words (cs_second, cs_tight_big); the
+  // tap scan's launch 3 copies its strip element by element.
+  if (staged != nullptr)
+    *staged = pbmm_ps_async(s, pbmm_ps_words(true, ph != CS_PH_MAIN));
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (big) {

@@ -68,6 +68,14 @@ __device__ __forceinline__ int cs_row(int p) {
   return POW2 ? p : ((p & ~127) | pbmm_rev7(p & 127));
 }
 
+// Whether the phase strip on strips of s columns, `words` ring words a
+// thread (pbmm_ps_words), brings its operands in by asynchronous copies;
+// else it keeps the element loads.  Kernel 2's C entry reports it for
+// launch 2 (spectral/fused.py::colspec_staged mirrors it).
+__host__ __device__ constexpr bool pbmm_ps_async(int s, int words) {
+  return s >= 4 && words > 0;
+}
+
 // Dynamic shared memory of a launch of the phase strip at height h on
 // strips of s columns, `threads` a block: the strip (2 h s floats) and, on
 // strips of 4 and more, the ring: up to PBMM_PS_MAXD slots of a thread's
@@ -85,7 +93,7 @@ __host__ __device__ constexpr int pbmm_ps_smem(int h, int s, int threads,
   const int share = PBMM_SM_SMEM / (nb > 0 ? nb : 1) - PBMM_SMEM_RESERVE;
   const int top = share < PBMM_SMEM_BLOCK ? share : PBMM_SMEM_BLOCK;
   const int room = top > strip ? top - strip : 0;
-  if (s < 4 || words < 1) return strip;
+  if (!pbmm_ps_async(s, words)) return strip;
   const int d = room / slot < PBMM_PS_MAXD ? room / slot : PBMM_PS_MAXD;
   return strip + d * slot;
 }
@@ -147,7 +155,7 @@ __device__ __forceinline__ void pbmm_phase_strip(
     const float* fx, const PhaseArgs& pa, int h, size_t wk, int col0,
     float* sre, float* sim) {
   constexpr int NW = pbmm_ps_words(PHASE, GENERAL);
-  if constexpr (S >= 4 && NW > 0) {
+  if constexpr (pbmm_ps_async(S, NW)) {
     static_assert(!IIR, "the IIR taps run the general pass");
     constexpr int LV = pbmm_log2(S / 4);  // 16-byte words a row: 2^LV
     const int nt = blockDim.x, t = threadIdx.x;

@@ -39,6 +39,7 @@ card; there is no other switch and no fallback.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -648,10 +649,11 @@ def phase_strip_smem(h: int, s: int, threads: int = 512,
 
 def colspec_staged(h: int, general: bool = False) -> bool:
     """Whether kernel 2's launch 2 at column height h runs its phase pass
-    on asynchronous copies (csrc/phase_inv.cuh: the main branch on strips
-    of 4 columns and more, `colspec_strip`): what `colspec_chunk.staged`
-    counts.  Never on the general pass (`_phase_general`: the IIR taps
-    among others), which keeps the element loads."""
+    on asynchronous copies (csrc/phase_inv.cuh::pbmm_ps_async: the main
+    branch on strips of 4 columns and more, `colspec_strip`), the host's
+    mirror of what the C entry reports and `colspec_chunk.staged` counts.
+    Never on the general pass (`_phase_general`: the IIR taps among
+    others), which keeps the element loads."""
     return not general and colspec_strip(h) >= 4
 
 
@@ -1074,8 +1076,9 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     `csrc/colspec_chunk.cu`: the forward spectra of all frames go to a
     scratch tensor first, and the frames' phase passes and inverses then
     run in parallel (two launches, counted as one call; the call adds 1
-    to `colspec_chunk.staged` where the second brings its operands in by
-    asynchronous copies, `colspec_staged`); with the IIR taps a scan
+    to `colspec_chunk.staged` where the C entry reports that the second
+    brings its operands in by asynchronous copies, the rule
+    `colspec_staged` mirrors); with the IIR taps a scan
     between them walks each bin's frames in order (three launches).
     Above 8192 rows (pow-2) the two launches run on every
     8192-row block between a forward and an inverse bracket pass, and
@@ -1127,20 +1130,22 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     ints, floats = _phase_args(plan, host is not None)
     ins = ((rows_re, rows_im, prev_re, prev_im) + (taps or (None, None))
            + planes_d + (fy, fx) + fs + cw + cwd + tw + spec)
+    staged = ctypes.c_int(0)
     err = library().pbmm_colspec_chunk(
         *(x.data_ptr() if torch.is_tensor(x) else x
           for x in ins + tuple(outs) + (None,) * (6 - len(outs)) + spec2),
         c_ints(ints), c_floats(floats), n // planes, planes, hc, pad_h, w,
-        row0, r0, r1, stream_handle(dev))
+        row0, r0, r1, ctypes.byref(staged), stream_handle(dev))
     check_launch(err, "colspec_chunk")
     colspec_chunk.launches += 1
-    colspec_chunk.staged += colspec_staged(pad_h, _phase_general(ints))
+    colspec_chunk.staged += staged.value
     return tuple(outs)
 
 
 counted(colspec_chunk)
-# Calls whose launch 2 ran the phase pass on asynchronous copies
-# (`colspec_staged`); not a launch counter.
+# Calls whose launch 2 ran the phase pass on asynchronous copies, as the
+# C entry reports it (`colspec_staged` mirrors its rule); not a launch
+# counter.
 colspec_chunk.staged = 0
 
 

@@ -82,11 +82,12 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
 - kernel 2's launch 2 on the phase strip's asynchronous copies at each
   strip class (pow-2 H = 1024, 2048 and 4096, tight m = 9 and 14) and on
   the element loads (H = 8192) against its plain version; two chunks
-  equal to one through the ring; `colspec_chunk.staged` rising by one a
-  call where launch 2 runs the asynchronous strip (a steady 1080p chunk
+  equal to one through the ring; `colspec_chunk.staged`, as the C entry
+  reports it, rising by one a call where launch 2 runs the asynchronous
+  strip (m = 9, 14 and 17, H = 2048 and 4096, a steady 1080p chunk
   included) and staying put elsewhere (strips of 2, the IIR taps,
-  standard mode), and the C rule's shared memory equal to the host's
-  mirror;
+  standard mode), equal to the host's mirror `fused.colspec_staged`, and
+  the C rule's shared memory equal to the host's mirror;
 - kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
   1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
@@ -1611,19 +1612,22 @@ def test_colspec_two_chunks_equal_one(dev, h, planes):
     assert all(torch.equal(x, z) for x, z in zip(b[2:], one[2:]))
 
 
-_STAGED = [(1152, "main"), (1792, "main"), (2048, "main"), (4352, "main"),
-           (8192, "main"), (1152, "iir"), (1152, "standard")]
+_STAGED = [(1152, "main"), (1792, "main"), (2048, "main"), (2176, "main"),
+           (4096, "main"), (4352, "main"), (8192, "main"), (1152, "iir"),
+           (2176, "iir"), (1152, "standard"), (2176, "standard")]
 
 
 @pytest.mark.parametrize("h,branch", _STAGED,
                          ids=[f"h{h}_{b}" for h, b in _STAGED])
 def test_colspec_staged_counts_the_asynchronous_strip(dev, h, branch):
-    """`colspec_chunk.staged` rises by one a call whose launch 2 runs the
-    asynchronous phase strip (`fused.colspec_staged`: the main branch on
-    strips of 4 and more) and stays put elsewhere (strips of 2, the
-    general pass: the IIR taps, standard mode), beside the one launch
-    counted; the C rule's shared memory is the host's mirror at the
-    heights, strips and ring words the launches take."""
+    """`colspec_chunk.staged` rises by what the C entry reports: one a call
+    whose launch 2 runs the asynchronous phase strip (the main branch on
+    strips of 4 and more: 1080p's m = 9, 2160p's m = 17 and H = 4096,
+    m = 14 with cur alone), none elsewhere (strips of 2, the general
+    pass: the IIR taps, standard mode), equal to the host's mirror
+    `fused.colspec_staged` in every case, beside the one launch counted;
+    the C rule's shared memory is the host's mirror at the heights, strips
+    and ring words the launches take."""
     from pbmm_tpu_torch.kernels.build import library
 
     tight = h & (h - 1) != 0
@@ -1642,7 +1646,8 @@ def test_colspec_staged_counts_the_asynchronous_strip(dev, h, branch):
     n, staged = fused.colspec_chunk.launches, fused.colspec_chunk.staged
     fused.colspec_chunk(*rows_in, *prev, cfg, h, 32, *taps, full_w=256)
     assert fused.colspec_chunk.launches == n + 1
-    want = h in (1152, 1792, 2048) and branch == "main"
+    want = h in (1152, 1792, 2048, 2176, 4096) and branch == "main"
+    assert fused.colspec_staged(h, branch != "main") == want
     assert fused.colspec_chunk.staged == staged + want
     for height in (64, 512, 1024, 1152, 1792, 2048, 2176, 4096, 8192):
         for s in (2, 4, 8, 16):
