@@ -66,12 +66,14 @@
 // (pow-2) or m = 14 (144 KB at 1080p's 1152 rows), 8 to 2048 or m = 28, 4
 // to 4096 or m = 32, 2 above (to 8192, 128 KB; row segments of 8 bytes).
 // Launch 1 brings the zero-embedded strip in by asynchronous copies of up
-// to 16 bytes, all in flight at once, then transforms it; launch 2's phase
-// pass brings cur and prev (and the main branch's host planes) in by
-// asynchronous 16-byte copies a few words ahead of its arithmetic on strips
-// of 4 and more (phase_inv.cuh), prev and the planes through a ring past
-// the strip where the block has room (pbmm_ps_smem), element by element on
-// strips of 2.  At tight heights a thread holds its column's m points
+// to 16 bytes, all in flight at once, then transforms it; launch 3 brings
+// the rotated spectrum's strip in by the same loader (cs_load_strip, the
+// state's row map); launch 2's phase pass brings cur and prev (and the
+// main branch's host planes) in by asynchronous 16-byte copies a few words
+// ahead of its arithmetic on strips of 4 and more (phase_inv.cuh), prev
+// and the planes through a ring past the strip where the block has room
+// (pbmm_ps_smem), element by element on strips of 2 and on the general
+// pass.  At tight heights a thread holds its column's m points
 // {n2 + 128 n1} for the m-point DFT, applies the four-step twiddle, and
 // the 128-point factor runs as passes of 4 + 3 stages; the inverse
 // mirrors it.  The combine matrix is a kernel parameter up to m = 32
@@ -251,21 +253,26 @@ __device__ __forceinline__ void cs_mpoint_loop(int m, Step&& step) {
   }
 }
 
-// The zero-embedded content strip of one frame into the strip's shared
-// memory: rows [row0, row0 + hc) of the S columns by asynchronous copies
-// of min(S, 4) floats (16 bytes, 8 on strips of 2), every copy of the
-// block in flight at once, the other rows zero.  Ends synchronised.
-template <int S>
+// One frame's strip into the strip's shared memory: strip row p of the S
+// columns from the source row r that row(p, r) sets (a segment of S floats
+// at src + r wk), zero where row(p, r) is false, by asynchronous copies of
+// min(S, 4) floats (16 bytes, 8 on strips of 2), every copy of the block in
+// flight at once.  Launch 1 maps the content window [row0, row0 + hc)
+// (CsWindow), launch 3 the state's row layout (cs_row).  The map returns
+// whether the row is in, not a sentinel row: launch 1 then compiles to the
+// code of the window written inline (with a sentinel's select, launch 1 at
+// m = 17 ran 2 % slower on an NVIDIA H100).  Ends synchronised.
+template <int S, class RowOf>
 __device__ __forceinline__ void cs_load_strip(
     const float* __restrict__ src_re, const float* __restrict__ src_im,
-    size_t wk, int hc, int row0, int h, float* sre, float* sim) {
+    size_t wk, int h, float* sre, float* sim, RowOf row) {
   constexpr int R = S < 4 ? S : 4;  // floats a copy moves
   constexpr int Q = S / R;          // copies a row
   for (int i = threadIdx.x; i < h * Q; i += blockDim.x) {
     const int p = i / Q, j = i % Q;
     const int w = pbmm_cb_idx<S>(p, R * j);
-    const int r = p - row0;
-    if ((unsigned)r < (unsigned)hc) {
+    int r;
+    if (row(p, r)) {
       const size_t o = (size_t)r * wk + R * j;
       __pipeline_memcpy_async(sre + w, src_re + o, 4 * R);
       __pipeline_memcpy_async(sim + w, src_im + o, 4 * R);
@@ -282,6 +289,15 @@ __device__ __forceinline__ void cs_load_strip(
   __syncthreads();
 }
 
+// Launch 1's row map: the zero-embedded content rows [row0, row0 + hc).
+struct CsWindow {
+  int row0, hc;
+  __device__ __forceinline__ bool operator()(int p, int& r) const {
+    r = p - row0;
+    return (unsigned)r < (unsigned)hc;
+  }
+};
+
 // Launch 1 at a pow-2 height 2^NLOG: the zero-embedded strip, then the
 // radix-2 DIF passes (kernel 5's butterflies), bit-reversed rows out to
 // the scratch.
@@ -296,8 +312,8 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
   const int col0 = blockIdx.x * S;
   const size_t n = blockIdx.y;
   cs_load_strip<S>(io.rows_re + n * io.hc * wk + col0,
-                   io.rows_im + n * io.hc * wk + col0, wk, io.hc, io.row0, N,
-                   sre, sim);
+                   io.rows_im + n * io.hc * wk + col0, wk, N, sre, sim,
+                   CsWindow{io.row0, io.hc});
   float* dre = io.spec_re + n * N * wk + col0;
   float* dim = io.spec_im + n * N * wk + col0;
   auto first = [&](const auto& gr, float (&xr)[PBMM_RP_P],
@@ -335,8 +351,8 @@ __global__ void __launch_bounds__(cs_threads(MAXM), 1)
   const int col0 = blockIdx.x * S;
   const size_t n = blockIdx.y;
   cs_load_strip<S>(io.rows_re + n * io.hc * wk + col0,
-                   io.rows_im + n * io.hc * wk + col0, wk, io.hc, io.row0, h,
-                   sre, sim);
+                   io.rows_im + n * io.hc * wk + col0, wk, h, sre, sim,
+                   CsWindow{io.row0, io.hc});
   for (int e = threadIdx.x; e < PBMM_LANE * S; e += blockDim.x) {
     const int c = e & (S - 1), n2 = e >> pbmm_log2(S);
     float xr[MAXM], xi[MAXM];
@@ -392,22 +408,18 @@ __global__ void __launch_bounds__(cs_threads(MAXM), 1)
 enum CsPhase { CS_PH_MAIN = 0, CS_PH_GENERAL = 1, CS_PH_NONE = 2 };
 
 // One frame's rotated scratch spectrum (src, the state's row layout) into
-// the strip, element by element (pbmm_phase_strip's loads on strips of 2).
-// Ends synchronised.
+// the strip: strip row p from the state's row cs_row(p), by launch 1's
+// asynchronous copies (cs_load_strip).  Ends synchronised.
 template <int S, bool POW2>
 __device__ __forceinline__ void cs_copy_strip(const float* __restrict__ src_re,
                                               const float* __restrict__ src_im,
                                               int h, size_t wk, int col0,
                                               float* sre, float* sim) {
-  constexpr int LS = pbmm_log2(S);
-  for (int e = threadIdx.x; e < h * S; e += blockDim.x) {
-    const int p = e >> LS, c = e & (S - 1);
-    const size_t g = (size_t)cs_row<POW2>(p) * wk + col0 + c;
-    const int i = pbmm_cb_idx<S>(p, c);
-    sre[i] = __ldg(src_re + g);
-    sim[i] = __ldg(src_im + g);
-  }
-  __syncthreads();
+  cs_load_strip<S>(src_re + col0, src_im + col0, wk, h, sre, sim,
+                   [](int p, int& r) {
+                     r = cs_row<POW2>(p);
+                     return true;
+                   });
 }
 
 // Launch 2: frame n's phase pass against frame n - C's scratch spectrum
@@ -511,7 +523,7 @@ __global__ void __launch_bounds__(PBMM_CB_THREADS, 1)
   const int col0 = blockIdx.x * S;
   float* dre = io.spec_re + blockIdx.y * io.fs + col0;
   float* dim = io.spec_im + blockIdx.y * io.fs + col0;
-  cs_load_strip<S>(dre, dim, wk, h, 0, h, sre, sim);
+  cs_load_strip<S>(dre, dim, wk, h, sre, sim, CsWindow{0, h});
   auto first = [&](const auto& gr, float (&xr)[PBMM_RP_P],
                    float (&xi)[PBMM_RP_P]) {
     pbmm_cb_read(gr, xr, xi, sre, sim);
@@ -934,7 +946,10 @@ static cudaError_t cs_tight_big(const ColspecIO& io, const PhaseArgs& pa,
 // above 8192 rows (pow-2) or m = 64 (tight), else null.  staged (a host
 // int, or null): set to 1 where launch 2 runs the phase pass on the
 // asynchronous strip (phase_inv.cuh::pbmm_ps_async on its strip and
-// branch), else 0, on the host and before any launch.  Any height.
+// branch), else 0, on the host and before any launch; copied (a host int,
+// or null) likewise 1 where launch 3 brings the rotated spectra in by
+// asynchronous copies (cs_copy_strip: every call with the IIR taps), else
+// 0.  Any height.
 extern "C" int pbmm_colspec_chunk(
     const float* rows_re, const float* rows_im, const float* prev_re,
     const float* prev_im, const float* lpf_in, const float* lps_in,
@@ -947,7 +962,7 @@ extern "C" int pbmm_colspec_chunk(
     float* np_im, float* lpf_out, float* lps_out, float* sp2_re,
     float* sp2_im, const int* iargs, const float* fargs, int t, int c,
     int hc, int h, int wk, int row0, int r0, int r1, int* staged,
-    void* stream) {
+    int* copied, void* stream) {
   PhaseArgs pa;
   const bool args_ok = pbmm_phase_unpack(iargs, fargs, pa);
   const bool pow2 = h >= 2 && (h & (h - 1)) == 0;
@@ -983,10 +998,12 @@ extern "C" int pbmm_colspec_chunk(
   const int ph = pa.iir ? CS_PH_NONE : general ? CS_PH_GENERAL : CS_PH_MAIN;
   // s = cs_strip(h) is launch 2's strip at every height (the dispatch
   // below, the bracket's 8192-row blocks: 2, the combine pass's chunks:
-  // CS_CHUNK_S), and these its ring words (cs_second, cs_tight_big); the
-  // tap scan's launch 3 copies its strip element by element.
+  // CS_CHUNK_S), and these its ring words (cs_second, cs_tight_big); after
+  // the tap scan, launch 3 brings its strip in by asynchronous copies at
+  // every height (cs_copy_strip).
   if (staged != nullptr)
     *staged = pbmm_ps_async(s, pbmm_ps_words(true, ph != CS_PH_MAIN));
+  if (copied != nullptr) *copied = ph == CS_PH_NONE;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (big) {

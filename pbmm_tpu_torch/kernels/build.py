@@ -60,8 +60,8 @@ SIGNATURES = {
     # spec_re, spec_im (scratch), out_re, out_im, new_prev_re, new_prev_im,
     # new_lpf, new_lps, spec2_re, spec2_im (a second scratch above 8192
     # rows or m = 64), phase ints(host), phase floats(host), t, planes, hc,
-    # h, wk, row0, r0, r1, staged (host int, out), stream
-    "pbmm_colspec_chunk": [_P] * 32 + [_I] * 8 + [_P] * 2,
+    # h, wk, row0, r0, r1, staged, copied (host ints, out), stream
+    "pbmm_colspec_chunk": [_P] * 32 + [_I] * 8 + [_P] * 3,
     # re, im, tw_re, tw_im, out_re, out_im, batch, hc, h, wk, row0, stream
     "pbmm_col_fft": [_P] * 6 + [_I] * 5 + [_P],
     # rre, rim, i_plane, q_plane, src, win, tw_re, tw_im, out0, out1,

@@ -1079,7 +1079,9 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     to `colspec_chunk.staged` where the C entry reports that the second
     brings its operands in by asynchronous copies, the rule
     `colspec_staged` mirrors); with the IIR taps a scan
-    between them walks each bin's frames in order (three launches).
+    between them walks each bin's frames in order (three launches; the
+    third brings the rotated spectra in by asynchronous copies, and the
+    call adds 1 to `colspec_chunk.copied` where the C entry reports it).
     Above 8192 rows (pow-2) the two launches run on every
     8192-row block between a forward and an inverse bracket pass, and
     above m = 64 (tight) the four-step's combine runs as a pass of its
@@ -1130,23 +1132,27 @@ def colspec_chunk(rows_re, rows_im, prev_re, prev_im, cfg, pad_h: int,
     ints, floats = _phase_args(plan, host is not None)
     ins = ((rows_re, rows_im, prev_re, prev_im) + (taps or (None, None))
            + planes_d + (fy, fx) + fs + cw + cwd + tw + spec)
-    staged = ctypes.c_int(0)
+    staged, copied = ctypes.c_int(0), ctypes.c_int(0)
     err = library().pbmm_colspec_chunk(
         *(x.data_ptr() if torch.is_tensor(x) else x
           for x in ins + tuple(outs) + (None,) * (6 - len(outs)) + spec2),
         c_ints(ints), c_floats(floats), n // planes, planes, hc, pad_h, w,
-        row0, r0, r1, ctypes.byref(staged), stream_handle(dev))
+        row0, r0, r1, ctypes.byref(staged), ctypes.byref(copied),
+        stream_handle(dev))
     check_launch(err, "colspec_chunk")
     colspec_chunk.launches += 1
     colspec_chunk.staged += staged.value
+    colspec_chunk.copied += copied.value
     return tuple(outs)
 
 
 counted(colspec_chunk)
-# Calls whose launch 2 ran the phase pass on asynchronous copies, as the
-# C entry reports it (`colspec_staged` mirrors its rule); not a launch
-# counter.
+# Calls whose launch 2 ran the phase pass on asynchronous copies, and calls
+# whose launch 3 (after the IIR tap scan) brought the rotated spectra in by
+# asynchronous copies, as the C entry reports them (`colspec_staged`
+# mirrors the first rule); not launch counters.
 colspec_chunk.staged = 0
+colspec_chunk.copied = 0
 
 
 # ---------------------------------------------------------------------------

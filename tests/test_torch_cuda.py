@@ -88,6 +88,13 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   included) and staying put elsewhere (strips of 2, the IIR taps,
   standard mode), equal to the host's mirror `fused.colspec_staged`, and
   the C rule's shared memory equal to the host's mirror;
+- kernel 2's launch 3 (the IIR branch's inverse) on asynchronous copies
+  of its rotated strip at every strip width (tight m = 9 and 17, pow-2
+  H = 2048 and 4096; strips of 2 at H = 8192 and m = 34), the 128-point
+  chunks above m = 64 and the bracket at 16384, one plane and three,
+  against its plain version, two chunks equal to one at each;
+  `colspec_chunk.copied` rising by one a call with the IIR taps and by
+  none on the main, standard and steerable branches;
 - kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
   1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
@@ -1657,6 +1664,38 @@ def test_colspec_staged_counts_the_asynchronous_strip(dev, h, branch):
                         height, s, words=words), (height, s, words)
 
 
+_COPIED = [(1152, "iir"), (2176, "iir"), (4096, "iir"), (8192, "iir"),
+           (68 * 128, "iir"), (16384, "iir"), (1152, "main"),
+           (8192, "main"), (1152, "standard"), (1152, "steerable")]
+
+
+@pytest.mark.parametrize("h,branch", _COPIED,
+                         ids=[f"h{h}_{b}" for h, b in _COPIED])
+def test_colspec_copied_counts_the_iir_strip(dev, h, branch):
+    """`colspec_chunk.copied` rises by one a call with the IIR taps, whose
+    launch 3 brings the rotated spectra in by asynchronous copies (every
+    strip width, the 128-point chunks above m = 64, the bracket's
+    8192-row blocks), and by none on the main, standard and steerable
+    branches; one launch counted either way."""
+    tight = h & (h - 1) != 0
+    cfg = _cfg().replace(pad_mode="tight" if tight else "square_pow2")
+    taps = ()
+    if branch == "iir":
+        cfg = cfg.replace(temporal=TemporalConfig(mode="iir_bandpass"))
+    else:
+        cfg = cfg.replace(**_K2[branch])
+    wk = hermitian_kept_width(256)
+    rng = np.random.default_rng(h + len(branch))
+    rows_in = [_spectra(rng, (2, h - 64, wk), dev) for _ in range(2)]
+    prev = [_spectra(rng, (1, h, wk), dev) for _ in range(2)]
+    if branch == "iir":
+        taps = tuple(torch.zeros((1, h, wk), device=dev) for _ in range(2))
+    n, copied = fused.colspec_chunk.launches, fused.colspec_chunk.copied
+    fused.colspec_chunk(*rows_in, *prev, cfg, h, 32, *taps, full_w=256)
+    assert fused.colspec_chunk.launches == n + 1
+    assert fused.colspec_chunk.copied == copied + (branch == "iir")
+
+
 def test_colspec_staged_on_steady_1080p_chunks(dev):
     """Every steady 1080p tight chunk of the chunk engine (uint8 frames,
     chunks of 16) adds one to `colspec_chunk.staged`, as to `.launches`."""
@@ -1776,21 +1815,32 @@ def _taps_rel(got, want, mag):
             / float((want.abs() * mag).max()))
 
 
-@pytest.mark.parametrize("h", [4352, 6144, 8064, 8192])
-@pytest.mark.parametrize("name", sorted(_TALL_BRANCHES))
+# 4320p's heights on every branch; the IIR branch also on every strip
+# width below them (launch 3's asynchronous copies of 16 bytes at 1152 on
+# strips of 16, 2048 and 2176 on 8, 4096 on 4).
+_TALL = ([(name, h) for h in (4352, 6144, 8064, 8192)
+          for name in sorted(_TALL_BRANCHES)]
+         + [("iir", h) for h in (1152, 2048, 2176, 4096)])
+
+
+@pytest.mark.parametrize("name,h", _TALL, ids=[f"{n}-{h}" for n, h in _TALL])
 def test_colspec_tall_heights(dev, name, h):
     """Kernel 2 at 4320p's heights, every branch, against its plain
     version: H = 8192 (radix-2, strips of 2), tight m = 34, 48 and 63
     (four-step, the combine matrix in device memory, strips of 2,
     256-thread blocks), one plane and three, on rows that turn smoothly
     from frame to frame (clear of atan2's branch cut); with the IIR taps
-    on its three launches, the taps weighted by magnitude."""
-    cfg = _cfg().replace(pad_mode="square_pow2" if h == 8192 else "tight",
+    on its three launches, the taps weighted by magnitude, also at tight
+    1152 and 2176 and pow-2 2048 and 4096 (launch 3's strips of 16, 8 and
+    4; 8-byte copies on the strips of 2 above)."""
+    pow2 = h & (h - 1) == 0
+    cfg = _cfg().replace(pad_mode="square_pow2" if pow2 else "tight",
                          **_TALL_BRANCHES[name])
     iir = cfg.temporal.mode == "iir_bandpass"
     fw = 512
     wk = hermitian_kept_width(fw)
-    hc, row0 = (4320, 1936) if h == 8192 else (h - 32, 16)
+    hc, row0 = ((4320, 1936) if h == 8192 else (h // 2 + 40, h // 4)
+                if pow2 else (h - 32, 16))
     rows = (h // 8, h - h // 8)
     rng = np.random.default_rng(h + len(name))
     order = torch.as_tensor(fused._col_order(h), device=dev)
@@ -1854,12 +1904,15 @@ def test_square_pow2_8k_identities(dev, iir):
     assert all(torch.equal(a, b) for a, b in zip(k12, k6))
 
 
-@pytest.mark.parametrize("h", [1152, 2048, 4352, 8192])
+@pytest.mark.parametrize("h", [1152, 2048, 2176, 4096, 4352, 8192,
+                               68 * 128, 16384])
 def test_colspec_iir_two_chunks_equal_one(dev, h):
     """The IIR branch's three launches: two chunks of 4 frames, the state
     and taps threaded, equal one chunk of 8 bit for bit (rows, state,
     taps): the tap scan walks a chunk's frames in the order the state
-    threads them."""
+    threads them.  Launch 3 on every strip width and route: 16, 8 and 4
+    columns, 2 (8-byte copies), the 128-point chunks above m = 64 and the
+    8192-row blocks of the bracket (16384)."""
     tight = h & (h - 1) != 0
     cfg = _cfg().replace(pad_mode="tight" if tight else "square_pow2",
                          temporal=TemporalConfig(mode="iir_bandpass"))

@@ -16,7 +16,11 @@
 - a library entry (`kernels/build.py::Library`, here on a stub) gets a
   `pbmm.launch.<entry>` span and returns its value unchanged;
 - `pbmm.table` spans a device table's build, once a cache miss;
-- `launch_counts` lists every `.launches` counter that is imported.
+- `launch_counts` lists every `.launches` counter that is imported;
+- the benchmark's reader `colspec_copied_pct.clip` gives the share of
+  kernel 2's calls that `colspec_chunk.copied` counted since it loaded
+  (moved by hand here, where kernel 2 makes no call), and None without
+  a call or without the counter.
 
 CUDA events (the device-timed spans) exist only on a card:
 `tests/test_torch_cuda.py` checks them there."""
@@ -319,3 +323,36 @@ def test_launch_counts_lists_every_counter():
         assert profiling.launch_counts()["colspec_chunk"] == n + 2
     finally:
         fn.launches = n
+
+
+@pytest.mark.parametrize("calls,copied,want", [
+    (0, 0, None), (4, 4, 100.0), (3, 0, 0.0)])
+def test_copied_reader_counts_from_loading(calls, copied, want):
+    from pbmm_tpu_torch.spectral import fused
+    from portbench.harness import spec
+
+    fn = fused.colspec_chunk
+    before = fn.launches, fn.copied
+    reader = spec.metric_reader("colspec_copied_pct.clip")
+    try:
+        fn.launches += calls
+        fn.copied += copied
+        assert reader.read(None) == want
+    finally:
+        fn.launches, fn.copied = before
+
+
+def test_copied_reader_without_the_counter(monkeypatch):
+    """A program whose kernel 2 counts no copies: the reader gives None,
+    which leaves the metric out of the line."""
+    from pbmm_tpu_torch.spectral import fused
+    from portbench.harness import spec
+
+    fn = fused.colspec_chunk
+    monkeypatch.delattr(fn, "copied")
+    reader = spec.metric_reader("colspec_copied_pct.clip")
+    fn.launches += 2
+    try:
+        assert reader.read(None) is None
+    finally:
+        fn.launches -= 2
