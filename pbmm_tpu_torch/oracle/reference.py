@@ -1,9 +1,10 @@
 """Pure-numpy transcription of the reference pipeline — the executable spec.
 
 A copy of `pbmm_tpu/oracle/reference.py`, line for line below this
-paragraph, so the port and `chip_smoke.py` hold their results against the
-oracle without importing the JAX package (whose `__init__` imports jax);
-a CPU test requires both copies to give equal arrays.
+paragraph, so the port and its card suite (`tests/test_torch_cuda.py`)
+hold their results against the oracle without importing the JAX package
+(whose `__init__` imports jax); a CPU test requires both copies to give
+equal arrays.
 
 This module re-states, in double precision numpy, exactly the math the Unity
 reference performs per frame (every formula cited to its HLSL/C# source).  It

@@ -1395,8 +1395,7 @@ def rebuild_lanes(re, im, fw: int):
     """(..., Wk) bit-reversed kept lanes -> the (re, im) (..., fw) rows
     they stand for, still bit-reversed: each missing tile conj(lane
     reversal) of its kept partner, by torch gathers.  Kernel 7's input
-    as kernel 8's row pass takes it (`tests/test_torch_cuda.py`,
-    `chip_smoke.py`)."""
+    as kernel 8's row pass takes it (`tests/test_torch_cuda.py`)."""
     src, flip = _rebuild_index(re.shape[-1], fw)
     src = torch.as_tensor(src, device=re.device)
     flip = torch.as_tensor(flip, device=re.device)

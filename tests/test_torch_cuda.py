@@ -1,5 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
+"""The port's card suite, its only correctness suite on the card: each CUDA
+kernel against its plain PyTorch version and in its bit-for-bit
+identities, and each path end to end against the CPU path and the fp64
+oracle (`chip_smoke.py` times them, each kernel case held against its
+plain version first).  Covered here:
 - the 320x384 clip geometry (four-step m = 3, 3 of 4 lane tiles kept);
 - 720p's column height (m = 6);
 - the full-width lane layout (keep_half=False, no Hermitian rebuild);
@@ -96,24 +99,44 @@ at the shapes and branches `chip_smoke.py` does not reach.  Covered here:
   `colspec_chunk.copied` rising by one a call with the IIR taps and by
   none on the main, standard and steerable branches;
 - kernel 2's frame-parallel schedule on every non-IIR branch at H = 512,
-  1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
+  1024, 1152, 2048, 2176 and 4096 (strips of 16, 8 and 4 columns), one plane
   and three, T = 1, 3 and 16, on row spectra that turn smoothly from
   frame to frame (clear of atan2's branch cut); kernel 5 = its forward
   half, kernel 6 = its rows and kernel 12 = kernel 6 at H = 512 to 4096;
   two chunks equal to one at tight and pow-2 heights;
 - the mxu backend (`spectral/mxu_fft.py`): its refusal with TF32 or bf16
   allowed, its transforms at (1, 2048, 2048) and (3, 1024, 2048) against
-  torch.fft, `magnify_video` on the card against the CPU; and a .npy
-  streamed through the native loader equal to the memmap route and to
-  `magnify_video` on the whole clip, uint8 and f32.
+  torch.fft and numpy's float64, `magnify_video` on the card against the
+  CPU; and a .npy streamed through the native loader equal to the memmap
+  route and to `magnify_video` on the whole clip, uint8 and f32;
+- each path at its deployed size (`_E2E`: f32, u8 and 540p at 1080p
+  tight, (a)-(g) and (o) of the config matrix, (k) at blur radii 15 and
+  5, (j) 2160p, (l) 4320p, (m) 16K), run as two chunks with the state
+  threaded: the kernels it launches and those it must not, its frames
+  (f32 finite in [0, 1]), two half chunks equal to one bit for bit,
+  planar_u8 = round(255 planar), the state's shape, the IIR taps, and
+  > 100 dB against the fp64 oracle (`oracle/reference.py`, run on host
+  threads while the card works); (a)'s kernel-5 start equal to kernel
+  2's zero-prev start, (o) > 70 dB against torch.fft's path;
+  `magnify_frame_pair` equal to the scan chunk's frames; the
+  multi-device engines on a world of one over NCCL; the measurement
+  tools and the CLI's `--trace` and `--debug-view split`; a 1080p y4m
+  stream equal to `magnify_video` on the device-decoded chunks; a 1080p
+  .npy and its f32 twin through the native loader, a resumed run equal
+  to an uninterrupted one.  The 4320p and 16K paths are marked `slow`
+  (their oracles take ~50 GB of host memory and minutes).
 
 Marked `cuda`; every test skips without a CUDA card.  This file imports
 neither jax nor the JAX package, so it runs on the card's machine:
 
-    python -m pytest --noconftest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m "not slow"
+
+and without `-m` for every case, the slow ones included.
 
 Tolerances: spectra to max error / max magnitude < 1e-4, images to max
-abs < 1e-4 (the bars of chip_smoke.py and tests/test_tight.py)."""
+abs < 1e-4, uint8 images to 1 code (the bars of tests/test_tight.py).
+One kernel or path alone: `-k NAME` (e.g. `-k colspec`, `-k
+"path_end_to_end and 16k"`)."""
 
 import numpy as np
 import pytest
@@ -634,13 +657,15 @@ def test_column_kernels_past_8192_match_their_plain_versions(dev, h):
 def test_col_fft_kernel_equals_colspec_forward(dev, h, where):
     """Kernel 5 (the column engine's passes) equals kernel 2's forward
     half (the strip in shared memory) bit for bit: the spectrum kernel 2
-    carries out of a zero-prev start of each frame."""
+    carries out of a zero-prev start of each frame; and it holds its plain
+    version to 1e-4."""
     hc = h // 2 + 40
     row0 = 0 if where == "row0_zero" else (h - hc) // 2 + 5
     w = hermitian_kept_width(512)
     rng = np.random.default_rng(h)
     re, im = (_spectra(rng, (2, hc, w), dev) for _ in range(2))
     got = fused.col_fft_zero_padded(re, im, h, row0)
+    assert _rel(got, fused.col_fft_zero_padded_ref(re, im, h, row0)) < 1e-4
     z = torch.zeros((1, h, w), device=dev)
     for b in range(2):
         res = fused.colspec_chunk(re[b:b + 1], im[b:b + 1], z, z,
@@ -1171,8 +1196,13 @@ def test_trig_probe_kernel(dev, op, shape):
 
 
 def test_trig_probe_kernel_every_case(dev):
+    """Every op code of kernel 14 against fp64 with the JAX probe's
+    tolerances, and against its plain version to the same tolerance,
+    signed and exact zeros included."""
     rows = trig_probe.run_probe(dev)
     assert all(r["ok"] for r in rows), [r for r in rows if not r["ok"]]
+    bad = [r for r in rows if not r["max_abs_vs_plain"] <= r["tol"]]
+    assert not bad, bad
 
 
 def test_debug_mode_catches_a_planted_nan_on_the_card(dev):
@@ -1526,18 +1556,19 @@ _K2 = {"main": dict(), "standard": dict(mode="standard"),
        "non_integer": dict(phase_scale=2.5)}
 
 
-@pytest.mark.parametrize("h", [512, 1152, 2048, 2176, 4096])
+@pytest.mark.parametrize("h", [512, 1024, 1152, 2048, 2176, 4096])
 @pytest.mark.parametrize("name", sorted(_K2))
 def test_colspec_frame_parallel_branches(dev, name, h):
     """Kernel 2's frame-parallel schedule on every non-IIR branch at pow-2
-    and four-step heights (strips of 8 to 2048 rows, 4 above), one plane
-    and three, T = 1, 3 and 16, against its plain version; the state it
-    carries out is the last frame's spectrum."""
-    cfg = _cfg().replace(pad_mode="square_pow2" if h in (512, 2048, 4096)
-                         else "tight", **_K2[name])
+    and four-step heights (strips of 8 to 2048 rows, 4 above; 1024 is
+    720p at rect_pow2), one plane and three, T = 1, 3 and 16, against its
+    plain version; the state it carries out is the last frame's
+    spectrum."""
+    pow2 = h & (h - 1) == 0
+    cfg = _cfg().replace(pad_mode="square_pow2" if pow2 else "tight",
+                         **_K2[name])
     fw = 512
     wk = hermitian_kept_width(fw)
-    pow2 = h & (h - 1) == 0
     hc, row0 = (h // 2 + 40, h // 4) if pow2 else (h - 64, 32)
     rows = (h // 8, h - h // 8)
     rng = np.random.default_rng(h)
@@ -1808,9 +1839,8 @@ _TALL_BRANCHES = {
 
 def _taps_rel(got, want, mag):
     """An IIR tap's error weighted by the magnitude of the bin it rotates
-    (chip_smoke.py's measure: at bins at the FFTs' rounding floor the
-    phase delta is noise in both versions, and there the taps rotate
-    nothing)."""
+    (at bins at the FFTs' rounding floor the phase delta is noise in both
+    versions, and there the taps rotate nothing)."""
     return (float(((got - want).abs() * mag).max())
             / float((want.abs() * mag).max()))
 
@@ -1871,8 +1901,9 @@ def test_colspec_tall_heights(dev, name, h):
 def test_square_pow2_8k_identities(dev, iir):
     """4320p at square_pow2 pads to H = 8192: kernel 5 (three passes) =
     kernel 2's forward half, kernel 6 on kernel 5's spectra = kernel 2's
-    rows (two-frame), kernel 12's full variant = kernel 6, bit for bit;
-    kernel 6 with the IIR taps against its plain version."""
+    rows (two-frame; both frames in one launch and one frame a launch),
+    kernel 12's full variant = kernel 6, bit for bit; kernel 6 with the IIR
+    taps against its plain version."""
     cfg = _tall_cfg("square_pow2", iir)
     h, fw, hc, row0, rows = 8192, 512, 4320, 1936, (1932, 6260)
     w = hermitian_kept_width(fw)
@@ -1899,6 +1930,11 @@ def test_square_pow2_8k_identities(dev, iir):
     assert torch.equal(k2[2][0], k5[0][-1]) and torch.equal(k2[3][0],
                                                             k5[1][-1])
     assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    for i in range(2):  # one frame a launch: the same rows
+        one = fused.phase_col_ifft(*(x[i:i + 1] for x in (*k5, *prv)), cfg,
+                                   **kw)
+        assert torch.equal(one[0][0], k2[0][i])
+        assert torch.equal(one[1][0], k2[1][i])
     k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg, kdecomp.VARIANTS[-1][1],
                                   rows, full_w=fw)
     assert all(torch.equal(a, b) for a, b in zip(k12, k6))
@@ -2025,9 +2061,10 @@ def test_colspec_above_8192_two_chunks_equal_one(dev, h):
 def test_square_pow2_16k_identities(dev, iir):
     """16K at square_pow2 pads to H = 16384: kernel 5 (three passes of the
     column engine) = kernel 2's forward half (the bracket, then its launch
-    1 on the blocks), kernel 6 on kernel 5's spectra = kernel 2's rows,
-    kernel 12's full variant = kernel 6, bit for bit; kernel 6 with the
-    IIR taps against its plain version."""
+    1 on the blocks), kernel 6 on kernel 5's spectra = kernel 2's rows
+    (both frames in one launch and one frame a launch), kernel 12's full
+    variant = kernel 6, bit for bit; kernel 6 with the IIR taps against
+    its plain version."""
     cfg = _tall_cfg("square_pow2", iir)
     h, fw, hc, row0, rows = 16384, 256, 8640, 3872, (3868, 12516)
     w = hermitian_kept_width(fw)
@@ -2053,6 +2090,11 @@ def test_square_pow2_16k_identities(dev, iir):
     assert torch.equal(k2[2][0], k5[0][-1]) and torch.equal(k2[3][0],
                                                             k5[1][-1])
     assert torch.equal(k6[0], k2[0]) and torch.equal(k6[1], k2[1])
+    for i in range(2):  # one frame a launch: the same rows
+        one = fused.phase_col_ifft(*(x[i:i + 1] for x in (*k5, *prv)), cfg,
+                                   **kw)
+        assert torch.equal(one[0][0], k2[0][i])
+        assert torch.equal(one[1][0], k2[1][i])
     k12 = kdecomp.kdecomp_variant(*k5, *prv, cfg, kdecomp.VARIANTS[-1][1],
                                   rows, full_w=fw)
     assert all(torch.equal(a, b) for a, b in zip(k12, k6))
@@ -2282,22 +2324,30 @@ def test_mxu_refuses_tf32(dev, setting):
 @pytest.mark.parametrize("shape", [(1, 2048, 2048), (3, 1024, 2048)])
 def test_mxu_transforms_match_torch_fft(dev, kind, shape):
     """The four-step transforms in IEEE f32 on the card against torch.fft
-    on the same tensors: max error / max magnitude < 2e-5 (the JAX
-    tests' bar)."""
+    on the same tensors and against numpy's float64 transforms of the
+    same inputs: max error / max magnitude < 2e-5 (the JAX tests' bar)."""
     from pbmm_tpu_torch.spectral import mxu_fft
 
     y = _rand(np.random.default_rng(21), shape, dev)
+    y64 = y.cpu().numpy().astype(np.float64)
     if kind == "rfft2":
         got, want = mxu_fft.rfft2_mxu(y), torch.fft.rfft2(y)
+        want64 = np.fft.rfft2(y64)
     elif kind == "fft2":
         got, want = mxu_fft.fft2_mxu(y), torch.fft.fft2(y)
+        want64 = np.fft.fft2(y64)
     else:
         spec = torch.fft.rfft2(y)
         got = mxu_fft.irfft2_mxu(spec, shape[-1])
         want = torch.fft.irfft2(spec, s=shape[-2:])
-    assert got.shape == want.shape and got.dtype == want.dtype
+        want64 = np.fft.irfft2(spec.cpu().numpy().astype(np.complex128),
+                               s=shape[-2:])
+    assert got.shape == want.shape == want64.shape
+    assert got.dtype == want.dtype
     err = float((got - want).abs().max() / want.abs().max())
     assert err < 2e-5
+    g = got.cpu().numpy()
+    assert float(np.abs(g - want64).max() / np.abs(want64).max()) < 2e-5
 
 
 def test_mxu_magnify_video_against_cpu(dev):
@@ -2317,33 +2367,85 @@ def test_mxu_magnify_video_against_cpu(dev):
     assert psnr(outs["cuda"], outs["cpu"]) > 100
 
 
-@pytest.mark.parametrize("dtype", ["u8", "f32"])
-def test_native_stream_equals_memmap(dev, tmp_path, dtype):
+def _npy_clip(size):
+    """(uint8 frames, chunk length) of the .npy streams: 12 seeded 480x270
+    frames in chunks of 5 (a short last chunk), or the 1080p noise clip
+    and its reverse (32 frames) in chunks of 16."""
+    if size == "1080p":
+        f = _clip("noise")
+        return np.round(np.concatenate([f, f[::-1]]) * 255.0).astype(
+            np.uint8), 16
+    base = np.random.default_rng(8).integers(0, 256, (270, 480, 3),
+                                             np.uint8)
+    return np.stack([np.roll(base, i, axis=1) for i in range(12)]), 5
+
+
+def _npy(tmp_path, u8, dtype):
+    """The clip saved as a uint8 .npy, or its f32 twin (u8 * float32(1 /
+    255)); its path."""
+    p = str(tmp_path / f"clip_{dtype}.npy")
+    np.save(p, u8 if dtype == "u8" else u8 * np.float32(1.0 / 255.0))
+    return p
+
+
+@pytest.mark.parametrize("dtype, size", [
+    ("u8", "270p"), ("f32", "270p"), ("u8", "1080p"), ("f32", "1080p")],
+    ids=["u8", "f32", "1080p-u8", "1080p-f32"])
+def test_native_stream_equals_memmap(dev, tmp_path, dtype, size):
     """A .npy streamed on the card through the native loader (built with
-    g++ on this machine; raw mode, pinned host buffer) equals the memmap
-    route (`frame_chunks`, uint8 scaled on the card) and `magnify_video`
-    on the whole clip, bit for bit, on the batched engine's kernels."""
+    g++ on this machine; raw mode, pinned host buffer), which serves every
+    chunk, equals the memmap route (`frame_chunks`, uint8 scaled on the
+    card) and `magnify_video` on the whole clip, bit for bit, on the
+    batched engine's kernels (`tuned_for_tpu()`)."""
     from pbmm_tpu_torch.io import stream
     from pbmm_tpu_torch.native import NativeFrameLoader, native_available
 
     assert native_available()
-    base = np.random.default_rng(8).integers(0, 256, (270, 480, 3),
-                                             np.uint8)
-    u8 = np.stack([np.roll(base, i, axis=1) for i in range(12)])
-    p = str(tmp_path / "clip.npy")
-    np.save(p, u8 if dtype == "u8" else u8 * np.float32(1.0 / 255.0))
+    u8, chunk = _npy_clip(size)
+    p = _npy(tmp_path, u8, dtype)
     cfg = MagnifyConfig().tuned_for_tpu()
     NativeFrameLoader.served = 0
-    got = np.concatenate(list(stream.stream_magnify(p, cfg, chunk_frames=5,
+    got = np.concatenate(list(stream.stream_magnify(p, cfg,
+                                                    chunk_frames=chunk,
                                                     device=dev)))
-    assert NativeFrameLoader.served == 3
+    assert NativeFrameLoader.served == -(-u8.shape[0] // chunk)
     want, st = [], None
-    for c in stream.frame_chunks(p, 5, device=dev):
+    for c in stream.frame_chunks(p, chunk, device=dev):
         o, st = magnify_video(c, cfg, st)
         want.append(o.cpu().numpy())
     np.testing.assert_array_equal(got, np.concatenate(want))
     whole, _ = magnify_video(torch.from_numpy(np.load(p)).to(dev), cfg)
     np.testing.assert_array_equal(got, whole.cpu().numpy())
+
+
+def test_native_stream_twins_and_resume(dev, tmp_path):
+    """The 1080p .npy and its f32 twin through the native loader with
+    `tuned_for_tpu()` (kernels 5, 1, the front end, 2, 3; no kernel 4):
+    the twins' outputs equal; `stream_magnify_resumable` stopped after one
+    chunk and resumed equals an uninterrupted run and the stream."""
+    from pbmm_tpu_torch.io import stream
+
+    u8, chunk = _npy_clip("1080p")
+    npy = {fmt: _npy(tmp_path, u8, fmt) for fmt in ("u8", "f32")}
+    cfg = MagnifyConfig().tuned_for_tpu()
+    kw = dict(chunk_frames=chunk, device=dev)
+    outs = {}
+    for fmt, p in npy.items():
+        got, moved = _launched(lambda: list(stream.stream_magnify(p, cfg,
+                                                                  **kw)))
+        _assert_launches(moved, "k5 k1 fe k2 k3", "k4")
+        outs[fmt] = np.concatenate(got)
+    assert np.array_equal(outs["u8"], outs["f32"])
+    out_a, out_b = str(tmp_path / "ra.npy"), str(tmp_path / "rb.npy")
+    ck = str(tmp_path / "ck.npz")
+    n_a = stream.stream_magnify_resumable(npy["u8"], out_a, cfg,
+                                          checkpoint=ck, max_chunks=1, **kw)
+    n_b = stream.stream_magnify_resumable(npy["u8"], out_a, cfg,
+                                          checkpoint=ck, **kw)
+    n_c = stream.stream_magnify_resumable(npy["u8"], out_b, cfg, **kw)
+    assert (n_a, n_b, n_c) == (16, 32, 32)
+    assert np.array_equal(np.load(out_a), np.load(out_b))
+    assert np.array_equal(np.load(out_a), outs["u8"])
 
 
 # -- the pre stage and the output stack folded into the kernels: the front
@@ -2378,7 +2480,8 @@ def test_front_end_equals_pre_stage_and_kernel1(dev, size, dtype, layout,
                                                 planes):
     """The front end, bit for bit the torch pre stage (`frames_slab`:
     unit_float, the colour rows, the centre pad) + kernel 1 on the same
-    frames, in every input form, one plane and three."""
+    frames, in every input form, one plane and three; and against its
+    plain version (the pre stage + torch.fft)."""
     h, w, mode = _FRONT_SIZES[size]
     g = geometry_for(h, w, mode)
     frames = _source_frames(2, h, w, dtype, layout, dev)
@@ -2395,6 +2498,8 @@ def test_front_end_equals_pre_stage_and_kernel1(dev, size, dtype, layout,
         True)
     assert got[0].shape == (2 * len(rows), hc, hermitian_kept_width(g.pad_w))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _rel(got, fused.windowed_row_fft_frames_ref(
+        frames, rows, g.pad_h, g.pad_w, g.y0, g.x0, r0, True)) < 1e-4
 
 
 def _post_inputs(dev, t=4, in_h=1080, in_w=1920, seed=22):
@@ -2418,18 +2523,30 @@ def _quirk_cfg(blur, quirks):
     return cfg
 
 
-def _post_call(kernel, p, cfg, chroma, layout, src=None):
+def _post_call(kernel, p, cfg, chroma, layout, src=None, ref=False):
+    """Kernel 3, 10 or 11 on `_post_inputs`' planes (its plain version
+    with `ref`)."""
     g, r0 = p["g"], p["rows"][0]
+    fn = {3: post_fused.rowifft_post_fused, 10: post_fused.post_fused,
+          11: post_fused.post_fused_rgb}[kernel]
+    if ref:
+        fn = getattr(post_fused, fn.__name__ + "_ref")
     if kernel == 3:
-        return post_fused.rowifft_post_fused(
-            p["rre"], p["rim"], *chroma, p["win"], cfg, r0, g.in_h, g.in_w,
-            "tight", full_w=g.pad_w, src=src, out_layout=layout)
+        return fn(p["rre"], p["rim"], *chroma, p["win"], cfg, r0, g.in_h,
+                  g.in_w, "tight", full_w=g.pad_w, src=src, out_layout=layout)
     if kernel == 10:
-        return post_fused.post_fused(p["rec"], *chroma, p["win"], cfg, r0,
-                                     g.in_h, g.in_w, "tight", layout, src=src)
-    return post_fused.post_fused_rgb(p["rec3"], p["win"],
-                                     cfg.replace(chroma="rgb"), r0, g.in_h,
-                                     g.in_w, "tight", out_layout=layout)
+        return fn(p["rec"], *chroma, p["win"], cfg, r0, g.in_h, g.in_w,
+                  "tight", layout, src=src)
+    return fn(p["rec3"], p["win"], cfg.replace(chroma="rgb"), r0, g.in_h,
+              g.in_w, "tight", out_layout=layout)
+
+
+def _near_plain(got, want):
+    """The post kernels' bar against their plain versions: uint8 to 1
+    code, f32 to max abs < 1e-4."""
+    if got.dtype == torch.uint8:
+        return int((got.int() - want.int()).abs().max()) <= 1
+    return float((got - want).abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("quirks", [False, True], ids=["plain", "quirks"])
@@ -2437,7 +2554,8 @@ def _post_call(kernel, p, cfg, chroma, layout, src=None):
 @pytest.mark.parametrize("kernel", [3, 10, 11])
 def test_post_interleaved_equals_stack(dev, kernel, blur, quirks):
     """The interleaved layout of kernels 3, 10 and 11 (kernel 3 at radius
-    13 through kernels 7 + 10) = torch.stack of "tuple3", bit for bit."""
+    13 through kernels 7 + 10) = torch.stack of "tuple3", bit for bit, and
+    its plain version's interleaved frames to max abs < 1e-4."""
     p = _post_inputs(dev)
     cfg = _quirk_cfg(blur, quirks)
     chroma = chroma_planes(_source_frames(p["t"], 1080, 1920, "f32",
@@ -2446,6 +2564,8 @@ def test_post_interleaved_equals_stack(dev, kernel, blur, quirks):
     got = _post_call(kernel, p, cfg, chroma, "interleaved")
     assert got.shape == (p["t"], 1080, 1920, 3) and got.is_contiguous()
     assert torch.equal(got, torch.stack(tup, dim=-1))
+    assert _near_plain(got, _post_call(kernel, p, cfg, chroma, "interleaved",
+                                       ref=True))
 
 
 @pytest.mark.parametrize("quirks", [False, True], ids=["plain", "quirks"])
@@ -2457,7 +2577,8 @@ def test_post_source_chroma_equals_iq_planes(dev, kernel, form, blur,
                                              quirks):
     """Kernels 3 and 10 taking the chroma from f32 or interleaved source
     frames = the same kernel on the I/Q planes the torch pre stage forms
-    from them (`chroma_planes`), bit for bit, in the four layouts; at
+    from them (`chroma_planes`), bit for bit, in the four layouts, and
+    their plain versions on the same frames (1e-4, uint8 1 code); at
     radius 13 kernel 3's route takes kernels 7 + 10."""
     p = _post_inputs(dev)
     cfg = _quirk_cfg(blur, quirks)
@@ -2466,9 +2587,12 @@ def test_post_source_chroma_equals_iq_planes(dev, kernel, form, blur,
     for layout in post_fused._LAYOUTS:
         want = _post_call(kernel, p, cfg, iq, layout)
         got = _post_call(kernel, p, cfg, (None, None), layout, src=frames)
-        want = want if layout != "tuple3" else torch.stack(want)
-        got = got if layout != "tuple3" else torch.stack(got)
+        plain = _post_call(kernel, p, cfg, (None, None), layout, src=frames,
+                           ref=True)
+        want, got, plain = (x if layout != "tuple3" else torch.stack(x)
+                            for x in (want, got, plain))
         assert torch.equal(got, want), layout
+        assert _near_plain(got, plain), layout
 
 
 _GLUE_FORMS = ["f32 interleaved", "f32 planar", "u8 interleaved",
@@ -2520,3 +2644,471 @@ def test_chunk_launches_only_the_kernels(dev, form, out_layout):
         assert int((out.cpu().int() - want.int()).abs().max()) <= 1
     else:
         assert float((out.cpu() - want).abs().max()) < 1e-4
+
+
+# -- each path end to end at its deployed size: the kernels it launches, its
+#    frames, two half chunks against one, the fp64 oracle ---------------------
+
+import os  # noqa: E402
+import threading  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
+
+from pbmm_tpu_torch.oracle import reference as oracle_ref  # noqa: E402
+from pbmm_tpu_torch.oracle import synthetic  # noqa: E402
+from pbmm_tpu_torch.utils.metrics import psnr  # noqa: E402
+from pbmm_tpu_torch.utils.profiling import launch_counts  # noqa: E402
+
+from card_clips import clip as _clip  # noqa: E402
+
+# The launch counters by kernel number ("fe": the front end, kernel 4's
+# kernel on the other input forms).
+_K = {"k1": "windowed_row_fft", "fe": "windowed_row_fft_frames",
+      "k2": "colspec_chunk", "k3": "rowifft_post_fused",
+      "k4": "windowed_row_fft_u8planar", "k5": "col_fft_zero_padded",
+      "k6": "phase_col_ifft", "k7": "row_ifft_magnitude", "k8": "_fft_axis",
+      "k9": "amplify_procedural", "k10": "post_fused",
+      "k11": "post_fused_rgb", "k12": "kdecomp_variant", "k13": "copy_probe",
+      "k14": "trig_probe"}
+_IIR = TemporalConfig(mode="iir_bandpass")
+_TIGHT = _cfg()
+_SQ = _TIGHT.replace(pad_mode="square_pow2")
+_TUNED = MagnifyConfig().tuned_for_tpu()
+_PALLAS = MagnifyConfig(fft_backend="pallas", use_rfft=False,
+                        use_pallas=True)
+_RGB_IIR = _TIGHT.replace(chroma="rgb", output_layout="planar_u8",
+                          temporal=_IIR)
+_STD_720 = _TIGHT.replace(pad_mode="rect_pow2", mode="standard",
+                          phase_scale=2.5)
+_SCAN_K = "k1 k5 k6 k7", "k2 k3 k8 k9 k10 k11 k4"
+_SQ_K = "k5 k1 fe k2 k3", "k4 k7 k11"
+
+
+def _clip01(name):
+    """The clip as the oracle takes it: interleaved, in [0, 1]."""
+    c = _clip(name)
+    return np.moveaxis(c, 1, -1) / 255.0 if c.dtype == np.uint8 else c
+
+
+# key -> (clip, config, frames): the fp64 oracles the paths are held to.
+_ORACLES = {
+    "m16": ("noise16k", _TUNED, 2), "mt16": ("noise16k", _TIGHT, 2),
+    "l": ("noise8k", _TUNED, 2), "lt": ("noise8k", _TIGHT, 2),
+    "j": ("noise4k", _TUNED, 2), "f32": ("noise", _TIGHT, 4),
+    "u8": ("noise_u8", _TIGHT, 4), "540p": ("540p", _TIGHT, 4),
+    "a": ("noise", _SQ, 4), "b": ("bar", _RGB_IIR, 4),
+    "c": ("bar720", _STD_720, 4), "bar": ("bar", MagnifyConfig(), 4),
+    "f_iir": ("bar720", _TIGHT.replace(
+        pad_mode="rect_pow2", cache_prev_spectrum=False, temporal=_IIR), 4),
+    "k": ("noise", _TIGHT.replace(blur_size=4.5), 4)}
+
+
+def _run_oracle(key):
+    name, cfg, n = _ORACLES[key]
+    fn = (oracle_ref.oracle_magnify_video_iir
+          if cfg.temporal.mode == "iir_bandpass"
+          else oracle_ref.oracle_magnify_video)
+    return fn(_clip01(name)[:n], cfg)
+
+
+def _bootstrap_start(frames, cfg, outs, state):
+    """Square paddings start interleaved frames through kernels 5 and 1,
+    planar frames through kernel 2 against a zero spectrum: the same bits
+    after frame 0 and after the chunk, and the same frames."""
+    planar = frames.permute(0, 3, 1, 2).contiguous()
+    k5 = magnify_video(frames[:1], cfg)[1]
+    k2 = magnify_video(planar[:1], cfg)[1]
+    pout, pstate = magnify_video(planar, cfg.replace(output_layout="planar"))
+    assert all(torch.equal(a, b) for a, b in zip(k5[:2], k2[:2]))
+    assert all(torch.equal(a, b) for a, b in zip(pstate[:2], state[:2]))
+    assert torch.equal(pout.permute(0, 2, 3, 1), outs[0])
+
+
+def _mxu_against_xla_and_pair(frames, cfg, outs, state):
+    """The mxu transforms against torch.fft's on the same clip (path (e))
+    > 70 dB; `magnify_frame_pair` on mxu (no kernel) > 100 dB against the
+    chunk's frame."""
+    xla = magnify_video(frames, MagnifyConfig())[0]
+    assert psnr(outs[0].double().cpu().numpy(),
+                xla.double().cpu().numpy()) > 70
+    pair, moved = _launched(lambda: magnify_frame_pair(frames[0], frames[1],
+                                                       cfg))
+    _assert_launches(moved, "", "rest")
+    _check_frames(pair, tuple(frames.shape[1:]), torch.float32)
+    assert psnr(pair.double().cpu().numpy(),
+                outs[0][1].double().cpu().numpy()) > 100
+
+
+def _path(cfg, clip, launch, oracle=None, state=None, calls=2, frames=None,
+          extra=None):
+    """One end-to-end case: `launch` = (kernels each launched, kernels
+    never launched: "rest" for every other); `state` "spec" (the chunk
+    engine's kept-lane state) or "frame" (the scan engine's previous
+    frame); `calls` 2 runs the clip twice, the state threaded; `extra` a
+    check of its own, given (frames, config, outputs, first state)."""
+    return dict(cfg=cfg, clip=clip, launch=launch, oracle=oracle,
+                state=state, calls=calls, frames=frames, extra=extra)
+
+
+def _tail_4320p(cfg):
+    """Kernel 3, or kernels 7 + 10 where `kernel3_serves` routes them."""
+    g = geometry_for(4320, 7680, cfg.pad_mode)
+    return " k3" if post_fused.kernel3_serves(post_fused._radius(cfg),
+                                              g.pad_w, 7680) else " k7 k10"
+
+
+_E2E = {
+    "f32_1080p": _path(_TIGHT, "noise", ("fe k2 k3", "rest"), "f32", "spec"),
+    "u8_1080p_planar": _path(_TIGHT.replace(output_layout="planar"),
+                             "noise_u8", ("k4 k2 k3", "k1 fe"), "u8"),
+    "u8_1080p_planar_u8": _path(_TIGHT.replace(output_layout="planar_u8"),
+                                "noise_u8", ("k4 k2 k3", "k1 fe")),
+    "540p_f32": _path(_TIGHT, "540p", ("fe k2 k7", "k3 k1"), "540p"),
+    "540p_u8": _path(_TIGHT, "540p_u8", ("k4 k2 k7", "k3 k1"), "540p"),
+    "a_1080p_square_pow2": _path(_SQ, "noise", _SQ_K, "a",
+                                 extra=_bootstrap_start),
+    "b_1080p_rgb_iir_u8": _path(_RGB_IIR, "bar_u8",
+                                ("fe k2 k7 k11", "k4 k3 k5"), "b", "spec"),
+    "c_720p_rect_pow2_standard": _path(_STD_720, "bar720", _SQ_K, "c"),
+    "d_1080p_steerable_quirks": _path(
+        _TIGHT.replace(orientations=4, pyramid_levels=6, reconstruct="real",
+                       compensate_window=True, apply_yiq_gains=True,
+                       yiq_gains=(1.0, 1.2, 0.8)),
+        "noise", ("fe k2 k3", "k5 k7 k11 k4 k1")),
+    "e_1080p_default": _path(MagnifyConfig(), "bar", ("", "rest"), "bar"),
+    "f_1080p_scan": _path(_SQ.replace(engine="scan"), "bar", _SCAN_K,
+                           "bar"),
+    "f_720p_scan_iir_no_cache": _path(_ORACLES["f_iir"][1], "bar720", _SCAN_K,
+                                      "f_iir", "frame"),
+    "g_1080p_pallas": _path(_PALLAS, "bar",
+                            ("k1 k5 k9 k8", "k6 k2 k7 k3 k10 k11"), "bar"),
+    "o_1080p_mxu": _path(MagnifyConfig(fft_backend="mxu"), "bar",
+                         ("", "rest"), "bar",
+                         extra=_mxu_against_xla_and_pair),
+    "k_1080p_blur_4_5": _path(_TIGHT.replace(blur_size=4.5), "noise",
+                              ("fe k2 k7 k10", "k3 k11 k5 k1"), "k"),
+    "k_1080p_blur_4_5_u8": _path(
+        _TIGHT.replace(blur_size=4.5, output_layout="planar_u8"), "noise_u8",
+        ("k4 k2 k7 k10", "k3 k1 fe")),
+    "k_1080p_blur_1_5": _path(_TIGHT.replace(blur_size=1.5), "noise",
+                              ("fe k2 k3", "k7 k10 k1")),
+    "j_2160p_square_pow2": _path(_TUNED, "noise4k", ("k5 k1 fe k2 k3",
+                                                     "k4 k7 k11 k10"),
+                                 "j", "spec"),
+    "j_2160p_tight": _path(_TIGHT, "noise4k", ("fe k2 k3", "k5 k7 k10 k1"),
+                           state="spec"),
+    "j_2160p_scan": _path(_TUNED.replace(engine="scan"), "noise4k", _SCAN_K,
+                          "j", calls=1, frames=3),
+    "l_4320p_square_pow2": _path(_TUNED, "noise8k",
+                                 ("k5 k1 fe k2 tail", "k4 k11"), "l", "spec"),
+    "l_4320p_tight": _path(_TIGHT, "noise8k", ("fe k2 tail", "k5 k4 k11 k1"),
+                           "lt", "spec"),
+    "l_4320p_scan": _path(_TUNED.replace(engine="scan"), "noise8k", _SCAN_K,
+                          "l", calls=1),
+    "m_16k_square_pow2": _path(_TUNED, "noise16k",
+                               ("k5 k1 fe k2 k7 k10", "k4 k11 k3"), "m16",
+                               "spec"),
+    "m_16k_tight": _path(_TIGHT, "noise16k",
+                         ("fe k2 k7 k10", "k5 k4 k11 k3 k1"), "mt16", "spec"),
+    "m_16k_scan": _path(_TUNED.replace(engine="scan"), "noise16k", _SCAN_K,
+                        "m16", calls=1),
+    "m_16k_pallas": _path(_PALLAS, "noise16k",
+                          ("k1 k5 k9 k8", "k6 k2 k7 k3 k10 k11"), "m16",
+                          calls=1),
+}
+# The other tests that read an oracle.
+_ORACLE_TESTS = {"test_frame_pair_equals_scan_chunk": ("bar",),
+                 "test_parallel_engines_on_a_world_of_one": ("a",)}
+
+
+def _least_priority():
+    """Give the calling thread the least CPU priority (nice 19)."""
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _oracles(request):
+    """{key: future} of the fp64 oracles (`oracle/reference.py`) the
+    selected tests of this module read, started on two host threads at
+    its first test so they run while the card works: one takes the 16K
+    ones (~50 GB of host memory at square_pow2) in turn, the other the
+    rest, longest first.  The threads run at the lowest CPU priority
+    (nice 19, this thread only), so they take the cores the other tests
+    leave idle and do not slow those tests' CPU work."""
+    jobs = {}
+    if not torch.cuda.is_available():
+        yield jobs
+        return
+    keys = set()
+    for item in request.session.items:
+        name = getattr(item, "originalname", "")
+        if item.module is not request.module:
+            continue
+        if name == "test_path_end_to_end":
+            keys.add(_E2E[item.callspec.params["path"]]["oracle"])
+        keys.update(_ORACLE_TESTS.get(name, ()))
+    pools = [ThreadPoolExecutor(1, initializer=_least_priority)
+             for _ in range(2)]
+    for key in (k for k in _ORACLES if k in keys):
+        jobs[key] = pools[key in ("m16", "mt16")].submit(_run_oracle, key)
+    yield jobs
+    for p in pools:
+        p.shutdown(wait=False, cancel_futures=True)
+    _clip.cache_clear()
+
+
+def _oracle_db(oracles, key, frames):
+    """PSNR of the first frames of `frames` (interleaved f32) against the
+    oracle `key` (as many frames as it holds)."""
+    job = oracles.get(key)
+    want = job.result() if job is not None else _run_oracle(key)
+    return psnr(frames[:want.shape[0]].double().cpu().numpy(), want)
+
+
+def _launched(fn):
+    """(fn(), {kernel: launches during the call})."""
+    before = launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def _assert_launches(moved, must, never):
+    must = [_K[k] for k in must.split()]
+    never = ([k for k in _K.values() if k not in must] if never == "rest"
+             else [_K[k] for k in never.split()])
+    assert all(moved[k] >= 1 for k in must), moved
+    assert not any(moved[k] for k in never), moved
+
+
+def _check_frames(out, shape, dtype):
+    assert tuple(out.shape) == shape and out.dtype == dtype
+    if dtype == torch.float32:
+        assert torch.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
+
+
+def _chunks(frames, cfg, calls):
+    """[outputs], state after the first call, state after the last."""
+    o1, s1 = magnify_video(frames, cfg)
+    if calls == 1:
+        return [o1], s1, s1
+    o2, s2 = magnify_video(frames, cfg, s1)
+    return [o1, o2], s1, s2
+
+
+def _check_split(frames, cfg, out, state):
+    """Two half chunks, the state threaded, equal one chunk bit for bit:
+    frames and state, the IIR taps included."""
+    n = frames.shape[0]
+    oa, sa = magnify_video(frames[:n // 2], cfg)
+    ob, sb = magnify_video(frames[n // 2:], cfg, sa)
+    assert torch.equal(torch.cat([oa, ob]), out)
+    assert all(torch.equal(a, b) for a, b in zip(
+        sb[:2] + tuple(sb.temporal), state[:2] + tuple(state.temporal)))
+
+
+# The 4320p and 16K paths take ~50 GB of host memory and minutes for their
+# oracles: `-m slow` runs them, `-m "not slow"` leaves them out.
+@pytest.mark.parametrize("path", [
+    pytest.param(k, marks=pytest.mark.slow) if k.startswith(("l_", "m_"))
+    else k for k in _E2E])
+def test_path_end_to_end(dev, _oracles, path):
+    """Each path of the config matrix at its deployed size, run as two
+    chunks with the state threaded (one call where `calls` is 1): each
+    kernel it names launched and none it rules out, frames of the right
+    shape and type (f32 finite in [0, 1]), two half chunks equal to one
+    bit for bit, planar_u8 = round(255 planar) bit for bit, the state's
+    shape, the IIR taps finite and not all zero, and frames 0-3 (0-1 at
+    2160p and above) > 100 dB against the fp64 oracle."""
+    p = _E2E[path]
+    cfg, clip = p["cfg"], _clip(p["clip"])
+    clip = clip if p["frames"] is None else clip[:p["frames"]]
+    fd = torch.from_numpy(clip).to(dev)
+    (outs, s1, s2), moved = _launched(lambda: _chunks(fd, cfg, p["calls"]))
+    must, never = p["launch"]
+    if "tail" in must:
+        must = must.replace(" tail", _tail_4320p(cfg))
+    _assert_launches(moved, must, never)
+    t, (h, w) = clip.shape[0], (clip.shape[2:] if clip.dtype == np.uint8
+                                else clip.shape[1:3])
+    interleaved = cfg.output_layout == "interleaved"
+    for o in outs:
+        _check_frames(o, (t, h, w, 3) if interleaved else (t, 3, h, w),
+                      torch.uint8 if cfg.output_layout == "planar_u8"
+                      else torch.float32)
+    _check_split(fd, cfg, outs[0], s1)
+    if p["state"] == "spec":
+        g = geometry_for(h, w, cfg.pad_mode)
+        want = (3 if cfg.chroma == "rgb" else 1, g.pad_h,
+                hermitian_kept_width(g.pad_w))
+        assert tuple(s2.prev_spec_re.shape) == want
+        if cfg.temporal.mode == "iir_bandpass":
+            assert tuple(s2.temporal.lp_fast.shape) == want
+    elif p["state"] == "frame":
+        assert tuple(s2.prev_frame.shape) == (h, w, 3)
+    if cfg.temporal.mode == "iir_bandpass":
+        assert all(torch.isfinite(x).all() for x in s2.temporal)
+        assert s2.temporal.lp_fast.any()
+    out = outs[0]
+    if cfg.output_layout == "planar_u8":
+        planar, _, _ = _chunks(fd, cfg.replace(output_layout="planar"),
+                               p["calls"])
+        assert all(torch.equal(q, torch.round(f * 255.0).to(torch.uint8))
+                   for q, f in zip(outs, planar))
+        out = planar[0]
+    if not interleaved:
+        out = out.movedim(1, -1)
+    if p["extra"]:
+        p["extra"](fd, cfg, outs, s1)
+    if p["oracle"]:
+        db = _oracle_db(_oracles, p["oracle"], out)
+        print(f"{path}: {db:.2f} dB against the fp64 oracle")
+        assert db > 100
+    del fd, outs, s1, s2, out
+    torch.cuda.empty_cache()
+
+
+def test_frame_pair_equals_scan_chunk(dev, _oracles):
+    """`magnify_frame_pair` on the tuned scan engine's config at 1080p
+    (kernels 1, 5, 6, 7 and the torch tail): the pairs (0, 1), (1, 2),
+    (2, 3) equal the chunk's frames 1-3 bit for bit, > 100 dB against the
+    fp64 oracle."""
+    cfg = _E2E["f_1080p_scan"]["cfg"]
+    fd = torch.from_numpy(_clip("bar")).to(dev)
+    chunk = magnify_video(fd, cfg)[0]
+    pairs, moved = _launched(lambda: [
+        magnify_frame_pair(fd[i - 1], fd[i], cfg) for i in range(1, 4)])
+    _assert_launches(moved, *_SCAN_K)
+    for i, pair in enumerate(pairs, 1):
+        _check_frames(pair, (1080, 1920, 3), torch.float32)
+        assert torch.equal(pair, chunk[i])
+    assert _oracle_db(_oracles, "bar", torch.stack([fd[0], *pairs])) > 100
+
+
+@pytest.fixture(scope="module")
+def _world_of_one(dev):
+    """A process group of one over NCCL (NCCL refuses two ranks on one
+    card)."""
+    import torch.distributed as dist
+    from pbmm_tpu_torch.parallel.launcher import (free_port, init_world,
+                                                  rank_device)
+
+    init_world(f"tcp://127.0.0.1:{free_port()}", 1, 0, rank_device())
+    yield
+    dist.destroy_process_group()
+
+
+_SPATIAL = {"spatial_1080p": ("noise", _SQ),
+            "spatial_720p_standard": ("bar720", _STD_720),
+            "spatial_720p_iir": ("bar720", _SQ.replace(pad_mode="rect_pow2",
+                                                       temporal=_IIR))}
+
+
+@pytest.mark.parametrize("case", ["batched", "sharded", *_SPATIAL])
+def test_parallel_engines_on_a_world_of_one(dev, _world_of_one, _oracles,
+                                            case):
+    """The multi-device engines (`pbmm_tpu_torch.parallel`) on a world of
+    one: `magnify_clip_batched` at 1080p square_pow2 (kernels 1, 8, 6, 7)
+    > 100 dB against the fp64 oracle; `magnify_batch_sharded` on a (1, 1)
+    mesh bit for bit the batched clip; `magnify_video_spatial` on a
+    ("rows",) mesh of one (kernels 8, 6 with fx_values, 7) at 1080p
+    square_pow2 and at 720p rect_pow2 in standard mode at 2.5 and with the
+    IIR taps, each > 70 dB against `magnify_video` on the same config."""
+    from pbmm_tpu_torch.parallel import (magnify_batch_sharded,
+                                         magnify_clip_batched,
+                                         magnify_video_spatial, make_mesh)
+
+    clip_k = "k1 k8 k6 k7", "k2 k3 k5 k9 k10 k11 k4"
+    if case in _SPATIAL:
+        name, cfg = _SPATIAL[case]
+        fd = torch.from_numpy(_clip(name)).to(dev)
+        rows1 = make_mesh((1,), ("rows",))
+        got, moved = _launched(lambda: magnify_video_spatial(fd, cfg, rows1))
+        _assert_launches(moved, "k8 k6 k7", "k1 k2 k5 k3")
+        _check_frames(got, tuple(fd.shape), torch.float32)
+        single = magnify_video(fd, cfg)[0]
+        assert psnr(got.double().cpu().numpy(),
+                    single.double().cpu().numpy()) > 70
+        return
+    fd = torch.from_numpy(_clip("noise")).to(dev)
+    if case == "batched":
+        got, moved = _launched(lambda: magnify_clip_batched(fd, _SQ))
+        _check_frames(got, tuple(fd.shape), torch.float32)
+        assert _oracle_db(_oracles, "a", got) > 100
+    else:
+        mesh = make_mesh((1, 1))
+        got, moved = _launched(lambda: magnify_batch_sharded(fd[None], _SQ,
+                                                             mesh))
+        assert torch.equal(got[0], magnify_clip_batched(fd, _SQ))
+    _assert_launches(moved, *clip_k)
+
+
+def test_measurement_tools_and_cli(dev, tmp_path):
+    """The measurement path on the card, through the tools and the CLI:
+    the row-tile copy ceiling and the roofline table at 1080p (kernels 13,
+    1, 2, 3), kexp's experiments, kdecomp's variants and kernel 6 (kernel
+    12), the trig probe (kernel 14: every case ok); the CLI's `--demo bar
+    --fast --trace DIR --stats` (64 finite frames, one trace naming kernel
+    1) and `--debug-view split` (the magnitude half of frame 1 the CPU's
+    view to 1e-4)."""
+    from pbmm_tpu_torch import cli
+    from pbmm_tpu_torch.tools import roofline
+    from pbmm_tpu_torch.utils.debug import debug_frame_view
+
+    def tools():
+        gbps = roofline.row_copy_ceiling(dev, reps=1)
+        roofline.roofline_table(reps=1, copy_gbps=gbps)
+        for fn, args in kexp.experiments(dev, {
+                "rowfft_kept", "colfft_kept", "phase_kept",
+                "rowifft_kept"}).values():
+            kexp.timed(fn, args, reps=1)
+        kdecomp.run_kdecomp(dev, reps=1)
+        return trig_probe.run_probe(dev)
+
+    trig, moved = _launched(tools)
+    _assert_launches(moved, "k12 k13 k14 k1 k2 k3", "")
+    assert all(r["ok"] for r in trig), [r for r in trig if not r["ok"]]
+    demo, trace = str(tmp_path / "demo.npy"), str(tmp_path / "trace")
+    assert cli.main(["--demo", "bar", "--fast", "--trace", trace, "--stats",
+                     "--output", demo]) == 0
+    out = np.load(demo)
+    assert out.shape == (64, 128, 128, 3) and np.isfinite(out).all()
+    traces = list((tmp_path / "trace").iterdir())
+    assert len(traces) == 1 and "row_fft_f32_kernel" in traces[0].read_text()
+    view_out = str(tmp_path / "view.npy")
+    assert cli.main(["--demo", "bar", "--debug-view", "split", "--output",
+                     view_out]) == 0
+    view = np.load(view_out)
+    bar = synthetic.oscillating_bar(bar_width=2)
+    want = debug_frame_view(torch.from_numpy(bar[1]), MagnifyConfig(),
+                            show_magnitude=True, show_phase=True)
+    assert view.shape == (64, 128, 128, 3)
+    assert float(np.abs(view[1, :, :64] - want[:, :64].numpy()).max()) < 1e-4
+
+
+def test_y4m_stream_equals_magnify_video(dev, tmp_path):
+    """A 32-frame 1080p 420jpeg y4m through `stream_magnify(ingest="u8")`
+    (kernels 4, 2, 3): two chunks of (16, 3, 1080, 1920) uint8, equal to
+    `magnify_video` on the device-decoded chunks."""
+    from pbmm_tpu_torch.io import stream, y4m
+    from pbmm_tpu_torch.io.device_decode import ycbcr_planes_to_rgb_planar_u8
+
+    clip = str(tmp_path / "clip.y4m")
+    frames = _clip("noise")
+    y4m.save_y4m(clip, np.concatenate([frames, frames[::-1]]),
+                 colorspace="420jpeg")
+    cfg = _TIGHT.replace(output_layout="planar_u8")
+    got, moved = _launched(lambda: list(stream.stream_magnify(
+        clip, cfg, chunk_frames=16, ingest="u8", device=dev)))
+    _assert_launches(moved, "k4 k2 k3", "k1 fe")
+    with open(clip, "rb") as f:
+        planes = list(y4m.read_y4m_planes(f, clip))
+    want, st = [], None
+    for i in range(0, len(planes), 16):
+        yy, cb, cr = (torch.from_numpy(np.stack(
+            [p[k] for p in planes[i:i + 16]])).to(dev) for k in range(3))
+        o, st = magnify_video(
+            ycbcr_planes_to_rgb_planar_u8(yy, cb, cr, 1080, 1920), cfg, st)
+        want.append(o.cpu().numpy())
+    assert len(got) == len(want) == 2
+    assert all(a.shape == (16, 3, 1080, 1920) and np.array_equal(a, b)
+               for a, b in zip(got, want))

@@ -3,7 +3,8 @@ interpret mode), at the 320x384 clip geometry (H = 384 = 3*128, W = 512,
 3 of 4 lane tiles kept) and at the 1080p column length
 (H = 1152 = 9*128) on W = 512.  On the CPU every public wrapper takes its
 plain version, so these hold the port's CPU path and fix the layout the
-CUDA kernels must reproduce (checked on the card by chip_smoke.py).
+CUDA kernels must reproduce (checked on the card by
+tests/test_torch_cuda.py).
 
 Tolerances: spectra to max error / max magnitude < 1e-4 and images to
 max abs < 1e-4, the bars of tests/test_tight.py."""

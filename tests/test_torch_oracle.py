@@ -1,7 +1,8 @@
 """The port's copies of the fp64 numpy oracle and the synthetic clips
 (`pbmm_tpu_torch/oracle/`) against the JAX package's modules: the same
-inputs give equal arrays, bit for bit.  `chip_smoke.py` and the port hold
-their results against these copies, so they must stay the JAX oracle."""
+inputs give equal arrays, bit for bit.  The card suite
+(`tests/test_torch_cuda.py`) and the port hold their results against these
+copies, so they must stay the JAX oracle."""
 
 import numpy as np
 import pytest

@@ -329,8 +329,8 @@ def test_engine_model_of_kernel1_matches_jax(w, keep_half):
     # rounded in f32 in the pre stage's order, the register passes with
     # the unkept tiles' last 7 stages skipped, the kept lanes): bit for bit
     # the stage-by-stage DIF on the same windowed rows (kernel 8's row pass,
-    # the identity chip_smoke.py holds on the card), and against the JAX
-    # kernel in interpret mode.
+    # the identity tests/test_torch_cuda.py holds on the card), and against
+    # the JAX kernel in interpret mode.
     pad_h, hc, row0 = 384, 192, 64
     rng = np.random.default_rng(w + keep_half)
     y = rng.random((2, hc, w)).astype(np.float32)

@@ -313,7 +313,8 @@ def test_phase_col_ifft_ref_vs_jax(branch):
 def test_phase_col_ifft_equals_colspec_inverse_half():
     """Kernel 6's plain version on the spectra kernel 5's gives equals
     kernel 2's plain version frame by frame, bit for bit (the CUDA
-    kernels share the same two halves; chip_smoke.py checks them)."""
+    kernels share the same two halves; tests/test_torch_cuda.py checks
+    them on the card)."""
     tcfg, _ = _cfgs(dict(base=_TUNED))
     rng = np.random.default_rng(32)
     wk = hermitian_kept_width(512)

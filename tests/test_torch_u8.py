@@ -10,7 +10,7 @@ the JAX Pallas kernels in interpret mode:
 
 On the CPU every public wrapper takes its plain version, so these hold
 the port's CPU path and fix the layouts the CUDA kernels must reproduce
-(checked on the card by chip_smoke.py and tests/test_torch_cuda.py).
+(checked on the card by tests/test_torch_cuda.py).
 Tolerances: spectra to max error / max magnitude < 1e-4, images to max
 abs < 1e-4, uint8 images to 1 code."""
 
